@@ -94,7 +94,7 @@ def test_ray_trace_matches_jax_on_icosphere():
 
     mesh = icosphere(3)
     o_j, d_j = jrays(3000)
-    o_t, d_t = get_rays(3000)
+    o_t, d_t = get_rays(3000, device="cpu")
     np.testing.assert_array_equal(d_t.numpy(), d_j)
     # off-centre origins exercise misses and grazing hits too
     o = np.random.default_rng(0).uniform(-1.5, 1.5, (3000, 3)).astype(np.float32)
@@ -126,8 +126,8 @@ def test_evaluate_against_grid_gt_matches_jax(monkeypatch, tmp_path):
     jget, tget = jchamfer.get_rays, tchamfer.get_rays
     monkeypatch.setattr(jchamfer, "get_rays", lambda n, rng=None: jget(N_RAYS))
     monkeypatch.setattr(tchamfer, "get_rays",
-                        lambda n, rng=None, device="cpu": tget(N_RAYS,
-                                                               device=device))
+                        lambda n, rng=None, *, device: tget(N_RAYS,
+                                                            device=device))
     outs = []
     for mod, net, sub in ((jtrain, jnet, "jax"), (ttrain, tnet, "torch")):
         os.makedirs(tmp_path / sub)

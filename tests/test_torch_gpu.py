@@ -44,6 +44,62 @@ def test_min_dist_kernel_matches_plain_bitwise():
     assert float(d2[:50].max()) == 0.0
 
 
+def _case(name):
+    """(x, y) float32 for one bitwise case of the kernel."""
+    rng = np.random.default_rng(11)
+    if name == "offset":  # |y|^2 - 2 x.y cancels: the filter lets much through
+        p = 100.0 + rng.uniform(0.0, 0.02, size=(7000, 3))
+        return p[:3000], p[3000:]
+    if name == "duplicates":
+        p = rng.normal(size=(5000, 3))
+        return p[::3], np.concatenate([p[:1500], p, p[:700]])
+    if name in ("mirror_ties", "mirror_near_ties"):
+        c = 0.0 if name == "mirror_ties" else 0.3
+        q = rng.uniform(-0.5, 0.5, size=(4000, 3)).astype(np.float32)
+        q[:, 2] = c + np.abs(q[:, 2])
+        m = q.copy()
+        m[:, 2] = np.float32(2 * c) - q[:, 2]
+        x = rng.uniform(-0.5, 0.5, size=(3000, 3)).astype(np.float32)
+        x[:, 2] = c
+        return x, np.concatenate([q, m])
+    shape = {"n0": (0, 5000), "n1": (1, 5000), "m1": (3000, 1),
+             "n1_m1": (1, 1),
+             # fewer rows than one block's, y not a multiple of the panel
+             "ragged": (300, 2500),
+             # few x blocks over a long y: the y range is split
+             "split": (2000, 50_000)}[name]
+    return rng.normal(size=(shape[0], 3)), rng.normal(size=(shape[1], 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["offset", "duplicates", "mirror_ties",
+                                  "mirror_near_ties", "n0", "n1", "m1",
+                                  "n1_m1",
+                                  "ragged", "split"])
+def test_min_dist_kernel_bitwise_on_hard_cases(name):
+    _need_cuda()
+    from tropical_torch.ops import cuda_build
+
+    x, y = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+            for a in _case(name))
+    cfg = tch.kernel_config(cuda_build.load("min_dist"))
+    splits, _ = tch.split_plan(
+        x.shape[0], y.shape[0],
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        cfg["resident"], cfg["rows_per_block"], cfg["panel"])
+    if name == "split":
+        assert splits > 1
+    if name == "ragged":
+        assert x.shape[0] < cfg["rows_per_block"] and y.shape[0] % cfg["panel"]
+    before = tch.LAUNCHES["min_dist"]
+    d2, idx = tch.min_nn_distance(x, y)
+    torch.cuda.synchronize()
+    assert tch.LAUNCHES["min_dist"] == before + 1
+    p2, pidx = tch.min_dist_plain(x, y)
+    torch.testing.assert_close(d2, p2, rtol=0, atol=0)
+    torch.testing.assert_close(idx, pidx, rtol=0, atol=0)
+
+
 @pytest.mark.gpu
 def test_min_dist_kernel_rejects_what_it_does_not_take():
     _need_cuda()

@@ -25,8 +25,8 @@ AXIS_SLICES = (((slice(1, None), slice(None), slice(None)),
                 (slice(None), slice(None), slice(None, -1))))
 
 
-def get_hypercube(d: int, size: float, device: torch.device | str = "cpu"):
-    """Fallback start: hypercube vertices/edges/faces."""
+def get_hypercube(d: int, size: float, device: torch.device | str):
+    """Fallback start: hypercube vertices/edges/faces, on ``device``."""
     x = np.array([-size, size], np.float32)
     grids = np.stack(np.meshgrid(x, x, x, indexing="ij"), axis=-1)
     vertices = grids.reshape(-1, 3)

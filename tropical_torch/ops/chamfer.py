@@ -4,7 +4,10 @@ Counterpart of ``tropical/ops/chamfer_tpu.py``.  For each point of ``x`` it
 finds the nearest point of ``y`` and the exact squared distance to it:
 
 - ``min_dist_cuda``: the hand-written kernel ``csrc/min_dist.cu`` (replaces
-  the Pallas kernel ``min_dist_pallas``), bound with ctypes;
+  the Pallas kernel ``min_dist_pallas``), bound with ctypes.  It scans with
+  the FMA expansion |y|^2 - 2 x.y and recomputes the exact distance only for
+  pairs within ``expansion_margin`` of the running best, so its result is
+  still the plain version's, bit for bit;
 - ``min_dist_plain``: the same function in plain PyTorch, a chunked direct
   difference with a running min/argmin, the reference the tests and the
   GPU smoke run hold the kernel against;
@@ -15,7 +18,8 @@ finds the nearest point of ``y`` and the exact squared distance to it:
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -23,6 +27,14 @@ from tropical_torch.ops import cuda_build
 
 # kernel launches since the last reset, counted where the kernel launches
 LAUNCHES = {"min_dist": 0}
+# the largest (n, m) searched by the kernel since the last reset
+LARGEST: Dict[str, Optional[Tuple[int, int]]] = {"min_dist": None}
+
+# the y range is cut into at most this many splits, each at least
+# MIN_SPLIT_PANELS panels long (each split starts its rows' thresholds
+# afresh, so many short splits spend more on the exact path than they gain)
+MAX_SPLITS = 64
+MIN_SPLIT_PANELS = 8
 
 PLAIN_BLOCK = 4096
 
@@ -51,6 +63,51 @@ def min_dist_plain(x: torch.Tensor, y: torch.Tensor, block: int = PLAIN_BLOCK
     return best, best_j.to(torch.int32)
 
 
+def expansion_margin(xx: torch.Tensor, ymax_sq: torch.Tensor,
+                     best: torch.Tensor) -> torch.Tensor:
+    """How far the kernel's filter value d' = fl(|y|^2 - 2 x.y) (three FMAs)
+    may lie from d2 - |x|^2, for a pair whose f32 distance d2 is at most
+    ``best``: 2^-20 ((|x| + |y|max)^2 + best) + 2^-126, with ``xx`` = f32
+    |x|^2 and ``ymax_sq`` = the largest f32 |y|^2.  The derivation is in
+    ``csrc/min_dist.cu``, which computes the same formula on the card."""
+    s = torch.sqrt(xx) + torch.sqrt(ymax_sq)
+    return (s * s + best) * 2.0 ** -20 + 2.0 ** -126
+
+
+def split_plan(n: int, m: int, sms: int, resident: int, rows_per_block: int,
+               panel: int) -> Tuple[int, int]:
+    """(splits, panels per split) of the y range for an n x m search on a
+    card with ``sms`` SMs that each hold ``resident`` scan blocks at once.
+    The grid stays within one wave (a block that waits for a second wave
+    runs alone on its SM at the end); within it, the split count that gives
+    the busiest SM the least work wins, and on a tie the larger one, whose
+    extra warps hide more latency."""
+    x_blocks = max(1, -(-n // rows_per_block))
+    panels = -(-m // panel)
+    most = max(1, min(MAX_SPLITS, panels // MIN_SPLIT_PANELS,
+                      sms * resident // x_blocks))
+
+    def busiest(s):  # blocks on the busiest SM, per unit of work
+        return -(-x_blocks * s // sms) / s
+
+    splits = min(range(1, most + 1), key=lambda s: (busiest(s), -s))
+    per_split = -(-panels // splits)
+    return -(-panels // per_split), per_split
+
+
+def kernel_config(lib: ctypes.CDLL) -> Dict[str, int]:
+    """The kernel's compiled shape (threads, rows per block, panel, group)
+    and how many scan blocks one SM of the current device holds at once."""
+    out = (ctypes.c_int * 5)()
+    lib.min_dist_config.argtypes = [ctypes.c_void_p]
+    lib.min_dist_config.restype = ctypes.c_int
+    rc = lib.min_dist_config(out)
+    if rc != 0:
+        raise RuntimeError(f"min_dist occupancy query failed: CUDA error {rc}")
+    return dict(zip(("threads", "rows_per_block", "panel", "group",
+                     "resident"), out))
+
+
 def _check(t: torch.Tensor, name: str) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -64,32 +121,54 @@ def _check(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} has too many rows for int32 indices")
 
 
+def run_kernel(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One search by the kernel in ``lib`` on checked inputs: the split
+    plan, the scratch and the launch, which raises on a non-zero CUDA error.
+    Counts nothing (``min_dist_cuda`` does)."""
+    ptr = ctypes.c_void_p
+    fn = lib.min_dist_launch
+    fn.argtypes = [ptr, ptr] + [ctypes.c_int] * 4 + [ptr] * 4
+    fn.restype = ctypes.c_int
+    lib.min_dist_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.min_dist_scratch_bytes.restype = ctypes.c_size_t
+    n, m = x.shape[0], y.shape[0]
+    dev = x.device
+    with torch.cuda.device(dev):
+        cfg = kernel_config(lib)
+        splits, per_split = split_plan(
+            n, m, torch.cuda.get_device_properties(dev).multi_processor_count,
+            cfg["resident"], cfg["rows_per_block"], cfg["panel"])
+        scratch = torch.empty(lib.min_dist_scratch_bytes(n, m),
+                              dtype=torch.uint8, device=dev)
+        d2 = torch.empty(n, dtype=torch.float32, device=dev)
+        idx = torch.empty(n, dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), y.data_ptr(), n, m, splits, per_split,
+                scratch.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"min_dist kernel launch failed: CUDA error {rc}")
+    return d2, idx
+
+
 def min_dist_cuda(x: torch.Tensor, y: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``min_dist_plain`` as one launch of the CUDA kernel, on the current
-    stream of ``x``'s device."""
+    """``min_dist_plain`` by the CUDA kernel, on the current stream of
+    ``x``'s device."""
     _check(x, "x")
     _check(y, "y")
     if x.device != y.device:
         raise ValueError(f"x on {x.device} but y on {y.device}")
     if y.shape[0] == 0:
         raise ValueError("y is empty: no nearest neighbour")
-    lib = cuda_build.load("min_dist")
-    fn = lib.min_dist_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    n = x.shape[0]
-    d2 = torch.empty(n, dtype=torch.float32, device=x.device)
-    idx = torch.empty(n, dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), y.data_ptr(), n, y.shape[0], d2.data_ptr(),
-                idx.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"min_dist kernel launch failed: CUDA error {rc}")
+    if x.shape[0] + y.shape[0] >= 2 ** 31:
+        raise ValueError("x and y have too many rows together for int32 "
+                         "indices")
+    d2, idx = run_kernel(cuda_build.load("min_dist"), x, y)
     LAUNCHES["min_dist"] += 1
+    n, m = x.shape[0], y.shape[0]
+    if n * m > math.prod(LARGEST["min_dist"] or (0, 0)):
+        LARGEST["min_dist"] = (n, m)
     return d2, idx
 
 

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` exposes ``extern "C"`` launch functions that take
 device pointers and a stream and return ``cudaGetLastError()``.  They are
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
 in ``.gitignore``) and loaded with ``ctypes``; a library is named by a hash
-of its source and flags, so an edited source is rebuilt.
+of its source and flags, so an edited source is rebuilt.  A variant built
+with extra ``-D`` macros (an instrumented build for a measurement) is a
+library of its own.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple, Union
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -22,7 +24,10 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+
+# a source name, or (name, macros to define) for an instrumented variant
+Target = Union[str, Tuple[str, Tuple[str, ...]]]
 
 
 def _nvcc() -> str:
@@ -34,32 +39,50 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def library_path(name: str) -> Path:
+def _split(target: Target) -> Tuple[str, Tuple[str, ...]]:
+    return (target, ()) if isinstance(target, str) else target
+
+
+def label(target: Target) -> str:
+    """``name`` or ``name[MACRO,...]`` for a variant."""
+    name, defines = _split(target)
+    return f"{name}[{','.join(defines)}]" if defines else name
+
+
+def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(target: Target) -> Path:
+    name, defines = _split(target)
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns each compile's output (with the
-    ``-Xptxas -v`` register and shared-memory summary); "" if already built.
-    Raises if any compile fails, after every compile has ended."""
+def build(targets: Iterable[Target]) -> Dict[str, str]:
+    """Compile every target that is not built yet, one ``nvcc`` per target,
+    all started together.  Returns each compile's output by ``label`` (with
+    the ``-Xptxas -v`` register, spill and shared-memory summary); "" if
+    already built.  Raises if any compile fails, after every compile has
+    ended."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = [_split(t) for t in targets]
     nvcc = None
     running = {}
-    for name in names:
-        so = library_path(name)
+    for target in targets:
+        so = library_path(target)
         if so.exists():
             continue
         nvcc = nvcc or _nvcc()
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        running[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT, text=True),
-                         tmp, so)
-    logs = {name: "" for name in names}
+        cmd = [nvcc, *_flags(target[1]), "-o", str(tmp),
+               str(CSRC_DIR / f"{target[0]}.cu")]
+        running[label(target)] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, so)
+    logs = {label(t): "" for t in targets}
     failed = []
     for name, (proc, tmp, so) in running.items():
         logs[name], _ = proc.communicate()
@@ -67,16 +90,18 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             os.replace(tmp, so)
         else:
             tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed for {name}.cu:\n{logs[name]}")
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, built on first use."""
-    lib = _LIBS.get(name)
+def load(target: Target) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` (or of its variant), built on
+    first use."""
+    key = _split(target)
+    lib = _LIBS.get(key)
     if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+        build([key])
+        lib = _LIBS[key] = ctypes.CDLL(str(library_path(key)))
     return lib

@@ -26,10 +26,12 @@ def chamfer_distance(x: torch.Tensor, y: torch.Tensor) -> float:
     return float((d2_yx.sqrt().mean() + d2_xy.sqrt().mean()) / 2.0)
 
 
-def get_rays(n: int = 100000, rng: np.random.Generator | None = None,
-             device: torch.device | str = "cpu"):
-    """Random unit directions from the origin.  The directions come from
-    numpy's ``default_rng(0)``, so they are the JAX package's own rays."""
+def get_rays(n: int = 100000, rng: np.random.Generator | None = None, *,
+             device: torch.device | str):
+    """Random unit directions from the origin, on ``device`` (no default:
+    a caller that forgets it must not trace on the host).  The directions
+    come from numpy's ``default_rng(0)``, so they are the JAX package's own
+    rays."""
     rng = rng or np.random.default_rng(0)
     theta = rng.random(n) * 2 * np.pi
     phi = rng.random(n) * 2 * np.pi

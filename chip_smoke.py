@@ -52,7 +52,8 @@ MAIN_ARGV = ["-e", "-m", "small", "-d", "sphere", "-s", "1", "--gt_res", "128"]
 # "Ours" plus the seven MC rows 16..64 below the 128 pseudo-GT, two
 # nearest-neighbour searches each
 MAIN_LAUNCHES = {"min_dist": 16}
-# the kernel's time before its redesign (H100 80GB HBM3, 700 W, 100k x 100k)
+# the kernel's time before its redesign, for the printed comparison only
+# (PR 1's chip run: H100 80GB HBM3, 700 W, 100k x 100k)
 PREV_MS = {"min_dist": 4.486}
 EXACT_COUNT = ("min_dist", ("MIN_DIST_COUNT_EXACT",))
 
@@ -195,14 +196,13 @@ def kernel_phase():
 
     n, m = x.shape[0], y.shape[0]
     lib = cuda_build.load("min_dist")
-    cfg = ch.kernel_config(lib)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits, per_split = ch.split_plan(n, m, sms, cfg["resident"],
+    cfg = ch.kernel_config(lib, 0)
+    splits, per_split = ch.split_plan(n, m, cfg["sms"], cfg["resident"],
                                       cfg["rows_per_block"], cfg["panel"])
     plan = {"R": cfg["rows_per_block"] // cfg["threads"], "S": splits,
             "panel": cfg["panel"], "threads": cfg["threads"],
-            "group": cfg["group"], "panels_per_split": per_split, "sms": sms,
-            "blocks_per_sm": cfg["resident"]}
+            "group": cfg["group"], "panels_per_split": per_split,
+            "sms": cfg["sms"], "blocks_per_sm": cfg["resident"]}
     print(f"min_dist {n}x{m} launch plan: {json.dumps(plan)}")
 
     # the exact path's share, from the instrumented build (not the main path's)
@@ -243,8 +243,8 @@ def kernel_phase():
             "replaces": "tropical/ops/chamfer_tpu.py:83",
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "prev_ms": PREV_MS["min_dist"],
-            "shape": [n, m], "plan": plan, "exact_share": exact_share}
+            "library_ms": library_ms, "shape": [n, m], "plan": plan,
+            "exact_share": exact_share}
 
 
 def main_shape_phase(record):

@@ -4,8 +4,8 @@
     python3 scripts/min_dist_variants.py [--n 100000] [--m 100000]
 
 Each variant is ``tropical_torch/csrc/min_dist.cu`` with one design step
-taken out or one constant changed, built with the package's ``nvcc`` flags
-into ``tropical_torch/_build/variants/``.  On random sphere samples (the
+taken out or one constant changed, written to
+``tropical_torch/_build/variants/`` and built by ``ops/cuda_build``.  On random sphere samples (the
 chamfer stage's inputs, radius 0.6) it prints each variant's time (CUDA
 events, mean of 20 searches), whether it still returns the plain version's
 (d2, idx) bit for bit, and the share of warp and row groups that took the
@@ -60,8 +60,7 @@ FAST_ONLY = [
 ]
 ROWS8 = [("constexpr int kRows = 4;", "constexpr int kRows = 8;")]
 GROUP8 = [("constexpr int kGroup = 16;", "constexpr int kGroup = 8;")]
-COUNT = [("#include <cuda_runtime.h>",
-          "#define MIN_DIST_COUNT_EXACT\n#include <cuda_runtime.h>")]
+COUNT = ("MIN_DIST_COUNT_EXACT",)
 
 VARIANTS = {"kernel": [], "no_warm": NO_WARM, "no_sort": NO_SORT,
             "no_sort_no_warm": NO_SORT + NO_WARM, "fast_only": FAST_ONLY,
@@ -76,30 +75,25 @@ def write_source(name, subs):
         src = src.replace(old, new)
     path = OUT_DIR / f"{name}.cu"
     path.write_text(src)
-    return path
+    return str(path)
 
 
 def build_all():
-    """Every variant and its counting build, one nvcc each, all at once."""
+    """Every variant and its counting build, by the package's own build
+    (one nvcc each, all at once)."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = cuda_build._nvcc()
-    procs = {}
+    targets = {}
     for name, subs in VARIANTS.items():
-        for tag, extra in (("", []), ("_count", COUNT)):
-            src = write_source(name + tag, subs + extra)
-            so = OUT_DIR / f"lib{name}{tag}.so"
-            procs[name + tag] = (subprocess.Popen(
-                [nvcc, *cuda_build.NVCC_FLAGS, "-o", str(so), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                so)
+        src = write_source(name, subs)
+        targets[name] = (src, ())
+        targets[name + "_count"] = (src, COUNT)
+    logs = cuda_build.build(targets.values())
     libs, regs = {}, {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed for {name}:\n{log}")
+    for name, target in targets.items():
+        log = logs[cuda_build.label(target)]
         if any(int(v) for v in re.findall(r"(\d+) bytes spill", log)):
             raise SystemExit(f"{name}: register spills\n{log}")
-        libs[name] = ctypes.CDLL(str(so))
+        libs[name] = cuda_build.load(target)
         # the scan kernel is the one with the shared panels
         regs[name] = [int(r) for r, _ in re.findall(
             r"Used (\d+) registers, used 1 barriers, (\d{5}) bytes smem", log)]

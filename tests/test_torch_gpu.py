@@ -82,11 +82,10 @@ def test_min_dist_kernel_bitwise_on_hard_cases(name):
 
     x, y = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
             for a in _case(name))
-    cfg = tch.kernel_config(cuda_build.load("min_dist"))
-    splits, _ = tch.split_plan(
-        x.shape[0], y.shape[0],
-        torch.cuda.get_device_properties(0).multi_processor_count,
-        cfg["resident"], cfg["rows_per_block"], cfg["panel"])
+    cfg = tch.kernel_config(cuda_build.load("min_dist"), 0)
+    splits, _ = tch.split_plan(x.shape[0], y.shape[0], cfg["sms"],
+                               cfg["resident"], cfg["rows_per_block"],
+                               cfg["panel"])
     if name == "split":
         assert splits > 1
     if name == "ragged":
@@ -94,7 +93,9 @@ def test_min_dist_kernel_bitwise_on_hard_cases(name):
     before = tch.LAUNCHES["min_dist"]
     d2, idx = tch.min_nn_distance(x, y)
     torch.cuda.synchronize()
-    assert tch.LAUNCHES["min_dist"] == before + 1
+    # one launch per search; with no x rows there is nothing to launch
+    assert tch.LAUNCHES["min_dist"] == before + (x.shape[0] > 0)
+    assert d2.is_cuda and d2.shape == idx.shape == (x.shape[0],)
     p2, pidx = tch.min_dist_plain(x, y)
     torch.testing.assert_close(d2, p2, rtol=0, atol=0)
     torch.testing.assert_close(idx, pidx, rtol=0, atol=0)

@@ -38,6 +38,9 @@ MIN_SPLIT_PANELS = 8
 
 PLAIN_BLOCK = 4096
 
+# (library, CUDA device index) -> its kernel_config
+_CONFIGS: Dict[Tuple[ctypes.CDLL, int], Dict[str, int]] = {}
+
 
 def min_dist_plain(x: torch.Tensor, y: torch.Tensor, block: int = PLAIN_BLOCK
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,17 +98,33 @@ def split_plan(n: int, m: int, sms: int, resident: int, rows_per_block: int,
     return -(-panels // per_split), per_split
 
 
-def kernel_config(lib: ctypes.CDLL) -> Dict[str, int]:
-    """The kernel's compiled shape (threads, rows per block, panel, group)
-    and how many scan blocks one SM of the current device holds at once."""
-    out = (ctypes.c_int * 5)()
-    lib.min_dist_config.argtypes = [ctypes.c_void_p]
-    lib.min_dist_config.restype = ctypes.c_int
-    rc = lib.min_dist_config(out)
-    if rc != 0:
-        raise RuntimeError(f"min_dist occupancy query failed: CUDA error {rc}")
-    return dict(zip(("threads", "rows_per_block", "panel", "group",
-                     "resident"), out))
+def kernel_config(lib: ctypes.CDLL, index: int) -> Dict[str, int]:
+    """The kernel's compiled shape (threads, rows per block, panel, group),
+    how many scan blocks one SM of CUDA device ``index`` holds at once, and
+    that device's SM count.  Queried once per library and device; the first
+    query also declares the library's C signatures."""
+    cfg = _CONFIGS.get((lib, index))
+    if cfg is None:
+        ptr = ctypes.c_void_p
+        lib.min_dist_config.argtypes = [ptr]
+        lib.min_dist_config.restype = ctypes.c_int
+        lib.min_dist_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.min_dist_scratch_bytes.restype = ctypes.c_size_t
+        lib.min_dist_launch.argtypes = ([ptr, ptr] + [ctypes.c_int] * 4
+                                        + [ptr] * 4)
+        lib.min_dist_launch.restype = ctypes.c_int
+        out = (ctypes.c_int * 5)()
+        with torch.cuda.device(index):
+            rc = lib.min_dist_config(out)
+        if rc != 0:
+            raise RuntimeError(
+                f"min_dist occupancy query failed: CUDA error {rc}")
+        cfg = dict(zip(("threads", "rows_per_block", "panel", "group",
+                        "resident"), out))
+        props = torch.cuda.get_device_properties(index)
+        cfg["sms"] = props.multi_processor_count
+        _CONFIGS[(lib, index)] = cfg
+    return cfg
 
 
 def _check(t: torch.Tensor, name: str) -> None:
@@ -123,29 +142,23 @@ def _check(t: torch.Tensor, name: str) -> None:
 
 def run_kernel(lib: ctypes.CDLL, x: torch.Tensor, y: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One search by the kernel in ``lib`` on checked inputs: the split
-    plan, the scratch and the launch, which raises on a non-zero CUDA error.
-    Counts nothing (``min_dist_cuda`` does)."""
-    ptr = ctypes.c_void_p
-    fn = lib.min_dist_launch
-    fn.argtypes = [ptr, ptr] + [ctypes.c_int] * 4 + [ptr] * 4
-    fn.restype = ctypes.c_int
-    lib.min_dist_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.min_dist_scratch_bytes.restype = ctypes.c_size_t
+    """One search by the kernel in ``lib`` on checked inputs with at least
+    one x row: the split plan, the scratch and the launch, which raises on a
+    non-zero CUDA error.  Counts nothing (``min_dist_cuda`` does)."""
     n, m = x.shape[0], y.shape[0]
     dev = x.device
+    cfg = kernel_config(lib, dev.index)
+    splits, per_split = split_plan(n, m, cfg["sms"], cfg["resident"],
+                                   cfg["rows_per_block"], cfg["panel"])
     with torch.cuda.device(dev):
-        cfg = kernel_config(lib)
-        splits, per_split = split_plan(
-            n, m, torch.cuda.get_device_properties(dev).multi_processor_count,
-            cfg["resident"], cfg["rows_per_block"], cfg["panel"])
         scratch = torch.empty(lib.min_dist_scratch_bytes(n, m),
                               dtype=torch.uint8, device=dev)
         d2 = torch.empty(n, dtype=torch.float32, device=dev)
         idx = torch.empty(n, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), y.data_ptr(), n, m, splits, per_split,
-                scratch.data_ptr(), d2.data_ptr(), idx.data_ptr(), stream)
+        rc = lib.min_dist_launch(x.data_ptr(), y.data_ptr(), n, m, splits,
+                                 per_split, scratch.data_ptr(), d2.data_ptr(),
+                                 idx.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"min_dist kernel launch failed: CUDA error {rc}")
     return d2, idx
@@ -164,9 +177,12 @@ def min_dist_cuda(x: torch.Tensor, y: torch.Tensor
     if x.shape[0] + y.shape[0] >= 2 ** 31:
         raise ValueError("x and y have too many rows together for int32 "
                          "indices")
+    n, m = x.shape[0], y.shape[0]
+    if n == 0:  # nothing to search, nothing launched
+        return (torch.empty(0, dtype=torch.float32, device=x.device),
+                torch.empty(0, dtype=torch.int32, device=x.device))
     d2, idx = run_kernel(cuda_build.load("min_dist"), x, y)
     LAUNCHES["min_dist"] += 1
-    n, m = x.shape[0], y.shape[0]
     if n * m > math.prod(LARGEST["min_dist"] or (0, 0)):
         LARGEST["min_dist"] = (n, m)
     return d2, idx

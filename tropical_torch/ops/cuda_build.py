@@ -5,8 +5,9 @@ device pointers and a stream and return ``cudaGetLastError()``.  They are
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
 in ``.gitignore``) and loaded with ``ctypes``; a library is named by a hash
 of its source and flags, so an edited source is rebuilt.  A variant built
-with extra ``-D`` macros (an instrumented build for a measurement) is a
-library of its own.
+with extra ``-D`` macros (an instrumented build for a measurement), or from
+another ``.cu`` file (a patched copy, for an ablation), is a library of its
+own.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
-# a source name, or (name, macros to define) for an instrumented variant
+# a source: the name of csrc/<name>.cu or the path of another .cu file; or
+# (source, macros to define) for an instrumented variant
 Target = Union[str, Tuple[str, Tuple[str, ...]]]
 
 
@@ -43,10 +45,15 @@ def _split(target: Target) -> Tuple[str, Tuple[str, ...]]:
     return (target, ()) if isinstance(target, str) else target
 
 
+def _source(name: str) -> Path:
+    return Path(name) if name.endswith(".cu") else CSRC_DIR / f"{name}.cu"
+
+
 def label(target: Target) -> str:
-    """``name`` or ``name[MACRO,...]`` for a variant."""
+    """The source's stem, with ``[MACRO,...]`` for a variant."""
     name, defines = _split(target)
-    return f"{name}[{','.join(defines)}]" if defines else name
+    stem = _source(name).stem
+    return f"{stem}[{','.join(defines)}]" if defines else stem
 
 
 def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
@@ -55,10 +62,10 @@ def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
 
 def library_path(target: Target) -> Path:
     name, defines = _split(target)
-    src = CSRC_DIR / f"{name}.cu"
+    src = _source(name)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(_flags(defines)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def build(targets: Iterable[Target]) -> Dict[str, str]:
@@ -78,7 +85,7 @@ def build(targets: Iterable[Target]) -> Dict[str, str]:
         nvcc = nvcc or _nvcc()
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *_flags(target[1]), "-o", str(tmp),
-               str(CSRC_DIR / f"{target[0]}.cu")]
+               str(_source(target[0]))]
         running[label(target)] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, so)
@@ -97,8 +104,7 @@ def build(targets: Iterable[Target]) -> Dict[str, str]:
 
 
 def load(target: Target) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu`` (or of its variant), built on
-    first use."""
+    """The built library of ``target``, built on first use."""
     key = _split(target)
     lib = _LIBS.get(key)
     if lib is None:

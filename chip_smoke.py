@@ -6,18 +6,30 @@
 Run from the root of a checkout.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
-2. build: every kernel of the main path from ``tropical_torch/csrc/`` (one
+2. build: every kernel of the main paths from ``tropical_torch/csrc/`` (one
    ``nvcc`` per source, all started together), with the ``-Xptxas -v``
-   register and shared-memory summary;
+   register and shared-memory summary; no spills;
 3. kernels vs plain: each kernel against its plain PyTorch version, bit for
-   bit, at the main path's shapes and on inputs hard for its filter; its
+   bit, on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
    launch plan and the share of its work that took the exact path (from an
-   instrumented build); then kernel, plain and library times (CUDA events);
-4. main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
+   instrumented build), then kernel, plain and library times (CUDA
+   events); ``trilinear_roots`` on the hard cases of
+   ``tests/trilinear_cases.py`` and 100,000 seeded rows, with its device
+   time on the latter (a CUDA graph of calls, ``graph_ms``);
+4. flat main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
    ``cuda``, held to the golden funnel, the committed mesh and the kernel
    launch counts;
-5. the kernel's time at the largest shape the main path gave it;
-6. one JSON line of kernel records, the card's line, and the result line.
+5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
+   128`` on ``cuda``, held to the golden funnel (or, where only eps-boundary
+   flips move it, to the committed JAX vertex set), |sdf| < 2e-4 on every
+   vertex, the launch counts (one ``trilinear_roots`` launch per insertion
+   step with curved rows) and finite CD/AD;
+6. each kernel at the largest shape its main path gave it: ``min_dist``
+   timed; ``trilinear_roots`` on the curved path's own largest input, held
+   bitwise to its plain version, its device time and one wrapper call
+   timed, with the plain version and ``torch.linalg.eigvals`` on the
+   companion matrices;
+7. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
 package is missing.
@@ -49,9 +61,16 @@ PEAK_BYTES = 3.35e12
 GOLDEN = {"pre_v": 51455, "pre_e": 69581, "post_v": 10138, "post_e": 20396,
           "n_faces": 20336}
 MAIN_ARGV = ["-e", "-m", "small", "-d", "sphere", "-s", "1", "--gt_res", "128"]
+# tests/golden/self_golden.json "sphere_medium_curved"
+CURVED_GOLDEN = {"pre_v": 154654, "pre_e": 231531, "post_v": 43493,
+                 "post_e": 87795, "n_faces": 87142}
+CURVED_ARGV = ["-e", "-m", "medium", "-d", "sphere", "-s", "1", "-f",
+               "--gt_res", "128"]
+# the JAX host engine's vertices of that extraction (scripts/curved_golden.py)
+CURVED_VERTICES = "tests/golden/sphere_medium_curved_vertices.npy"
 # "Ours" plus the seven MC rows 16..64 below the 128 pseudo-GT, two
 # nearest-neighbour searches each
-MAIN_LAUNCHES = {"min_dist": 16}
+MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0}
 # the kernel's time before its redesign, for the printed comparison only
 # (PR 1's chip run: H100 80GB HBM3, 700 W, 100k x 100k)
 PREV_MS = {"min_dist": 4.486}
@@ -98,6 +117,18 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, reps: int = 100) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and replayed, so the host's work per call is not timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, iters=10) / reps
+
+
 def device_phase():
     phase("1. device")
     name = torch.cuda.get_device_name(0)
@@ -116,7 +147,7 @@ def build_phase():
     from tropical_torch.ops import cuda_build
 
     t = time.time()
-    targets = ["min_dist", EXACT_COUNT]
+    targets = ["min_dist", EXACT_COUNT, "trilinear_roots"]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -146,6 +177,11 @@ def sphere_points(n, rng, dev):
 
 def kernel_phase():
     phase("3. kernels vs plain")
+    return [min_dist_phase(), trilinear_roots_phase()]
+
+
+def min_dist_phase():
+    print("--- min_dist")
     from tropical_torch.ops import chamfer as ch
     from tropical_torch.ops import cuda_build
 
@@ -247,48 +283,202 @@ def kernel_phase():
             "exact_share": exact_share}
 
 
-def main_shape_phase(record):
-    """The kernel's time at the largest (n, m) the main path gave it."""
-    phase("5. kernel at the main path's largest shape")
+def trilinear_roots_phase():
+    print("--- trilinear_roots")
+    from tropical_torch.core import trilinear as tl
+
+    sys.path.insert(0, "tests")
+    import trilinear_cases as cases
+
+    p, q, _ = cases.hard_pq(n_random=0)
+    rng = np.random.default_rng(7)
+    sets = {f"hard cases ({p.shape[0]} rows)": (p, q),
+            "100000 seeded rows": (rng.normal(size=(100_000, 8)),
+                                   rng.normal(size=(100_000, 8)))}
+    max_err = 0.0
+    for label, (a, b) in sets.items():
+        pa, qb = (torch.from_numpy(np.asarray(v, np.float32)).cuda()
+                  for v in (a, b))
+        max_err = max(max_err, roots_vs_plain(label, pa, qb))
+    # device time on the seeded rows, a size the path does not reach
+    ms = graph_ms(lambda: tl.intersection_of_two_planes(pa, qb))
+    bound_ms, bound_by = trilinear_roots_bound_ms(pa, qb)
+    print(f"trilinear_roots {label}: kernel {ms:.4f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by})")
+    return {"name": "trilinear_roots", "route": "cuda",
+            "source": "tropical_torch/csrc/trilinear_roots.cu",
+            "replaces": "tropical/core/trilinear.py:91",
+            "max_abs_err": max_err}
+
+
+def roots_vs_plain(label, p, q) -> float:
+    """The kernel against its plain version on (p, q), to the bit; returns
+    the largest absolute difference."""
+    from tropical_torch.core import trilinear as tl
+
+    out = tl.intersection_of_two_planes(p, q)  # CUDA -> kernel
+    torch.cuda.synchronize()
+    plain = tl.intersection_of_two_planes_plain(p, q)
+    rows = int((out.view(torch.int32) != plain.view(torch.int32))
+               .any(1).sum())
+    err = float((out - plain).abs().max())
+    sentinels = int((out[:, 0] == -1).sum())
+    print(f"trilinear_roots {label}: max |out - plain| = {err:.3e}, rows "
+          f"with a bit mismatch {rows}, x sentinels {sentinels}")
+    check(rows == 0, f"{label}: kernel differs from plain in {rows} rows")
+    return err
+
+
+def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
+                             ) -> tuple[float, str]:
+    """Least time for the root solve of these rows: the operations each row
+    needs, counted as in csrc/trilinear_roots.cu's note (134 for the
+    coefficients and 20 for y; on a non-constant row 16 for the first
+    samples, 19 a cell scanned, 483 for the last bracket's bisection, 413 a
+    probe and 482 more where it bisects a hidden pair), against 76 bytes a
+    row read and written once."""
+    from tropical_torch.core import roots as rt
+    from tropical_torch.core import trilinear as tl
+
+    c = tl.quartic_coeffs(p, q)
+    c = torch.where(c.abs() < 1e-9, 0.0, c)
+    ts = torch.arange(65, dtype=c.dtype, device=c.device) / 64
+    vals, dco = rt._poly_eval(c, ts), rt._deriv(c)
+    dvals = rt._poly_eval(dco, ts)
+    nonconst = rt._abs_sum(c, 4) > 1e-9
+    br, dbr = rt._brackets(vals, nonconst), rt._brackets(dvals, nonconst)
+    has = br.any(-1)
+    # the scan stops at the lower of the last bracket and the third-highest
+    # derivative bracket, once it has both
+    above = dbr.flip(1).cumsum(1).flip(1)   # derivative brackets >= a cell
+    nd = above[:, 0].clamp(max=3)
+    third = (above >= 3).sum(-1) - 1
+    stop = torch.minimum(rt._last_true(br), third)
+    cells = torch.where(has & (nd == 3), 64 - stop, 64)
+    cross = torch.zeros_like(nd)
+    cell_ids = torch.arange(64, device=c.device)
+    for _ in range(3):  # probes with a hidden pair: one more bisection of p
+        dhas = dbr.any(-1)
+        didx = rt._last_true(dbr)
+        dbr = dbr & (cell_ids[None, :] != didx[:, None])
+        m = rt._bisect(dco, ts[didx], ts[didx + 1],
+                       dvals.gather(1, didx[:, None])[:, 0])
+        pm = rt._poly_eval(c, m[:, None])[:, 0]
+        pr = vals.gather(1, didx[:, None] + 1)[:, 0]
+        cross += (dhas & (pm * pr < 0)).long()
+    per_row = 154 + nonconst.long() * (16 + 19 * cells + 483 * has.long()
+                                       + 413 * nd + 482 * cross)
+    ops = float(per_row.sum())
+    nbytes = 76.0 * p.shape[0]
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def shapes_phase(records, largest, curved_input):
+    """Each kernel at the largest shape its main path gave it."""
+    phase("6. kernels at the main paths' largest shapes")
     from tropical_torch.ops import chamfer as ch
 
-    shape = ch.LARGEST["min_dist"]
-    check(shape is not None, "the main path recorded no min_dist shape")
+    rec = records["min_dist"]
+    shape = largest["min_dist"]
+    check(shape is not None, "the flat path recorded no min_dist shape")
     rng = np.random.default_rng(1)
     x = sphere_points(shape[0], rng, torch.device("cuda"))
     y = sphere_points(shape[1], rng, torch.device("cuda"))
     ms = cuda_ms(lambda: ch.min_nn_distance(x, y), iters=20, warmup=2)
     bound_ms, _ = min_dist_bound_ms(*shape)
-    print(f"min_dist {shape[0]}x{shape[1]} (largest on the main path): "
+    print(f"min_dist {shape[0]}x{shape[1]} (largest on the flat path): "
           f"kernel {ms:.3f} ms, bound {bound_ms:.3f} ms, at "
           f"{bound_ms / ms:.1%} of the bound")
-    record.update(main_shape=list(shape), main_ms=ms, main_bound_ms=bound_ms)
+    rec.update(main_shape=list(shape), main_ms=ms, main_bound_ms=bound_ms)
+    trilinear_roots_timing(records["trilinear_roots"], *curved_input)
 
 
-def main_path_phase():
-    phase("4. main path: " + " ".join(MAIN_ARGV))
-    from tropical_torch.extract import stats
-    from tropical_torch.ops import chamfer as ch
-    from tropical_torch.ops.chamfer import min_dist_plain
+def trilinear_roots_timing(rec, p, q):
+    """``trilinear_roots`` on the curved path's largest input: bitwise
+    against its plain version, then kernel, plain and ``eigvals`` times.
+    The kernel's time is its device time (``graph_ms``); ``call_ms`` is one
+    call of the wrapper as the path makes it, host work included."""
+    from tropical_torch.core import trilinear as tl
+
+    n = p.shape[0]
+    label = f"curved path's largest input ({n} rows)"
+    rec["max_abs_err"] = max(rec["max_abs_err"], roots_vs_plain(label, p, q))
+    ms = graph_ms(lambda: tl.intersection_of_two_planes(p, q))
+    call_ms = cuda_ms(lambda: tl.intersection_of_two_planes(p, q), iters=50,
+                      warmup=3)
+    plain_ms = cuda_ms(lambda: tl.intersection_of_two_planes_plain(p, q),
+                       iters=3)
+    # the upstream solver: eigenvalues of the monic companion matrices
+    # [B, 4, 4] (the yardstick, not used by the port)
+    c = tl.quartic_coeffs(p, q)
+    lead = torch.where(c[:, 0] == 0, 1.0, c[:, 0])
+    comp = torch.zeros((n, 4, 4), dtype=torch.float32, device=p.device)
+    comp[:, 0, :] = torch.nan_to_num(-c[:, 1:] / lead[:, None])
+    comp[:, 1, 0] = comp[:, 2, 1] = comp[:, 3, 2] = 1.0
+    library_ms = cuda_ms(lambda: torch.linalg.eigvals(comp), iters=3)
+    bound_ms, bound_by = trilinear_roots_bound_ms(p, q)
+    print(f"trilinear_roots B={n}: kernel {ms:.4f} ms (a wrapper call "
+          f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, eigvals "
+          f"{library_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); kernel "
+          f"at {bound_ms / ms:.1%} of the bound")
+    rec.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=library_ms, shape=[n])
+
+
+def run_cli(argv):
+    """The CLI once, with every kernel's count and largest shape and the
+    stage timers zeroed just before it.  Returns (stdout, launches, largest
+    shapes, wall seconds)."""
+    from tropical_torch.extract import subdivide as sp
+    from tropical_torch.ops import launches
     from tropical_torch.stanford import train
-    from tropical_torch.utils.ply import read_ply
 
-    # every kernel's launch count (and largest shape), zeroed just before
-    # the main path
-    for k in ch.LAUNCHES:
-        ch.LAUNCHES[k] = 0
-        ch.LARGEST[k] = None
+    for phases in (sp.PHASES, train.PHASES):
+        phases.totals.clear()
+        phases.counts.clear()
+    launches.reset()
     tee = Tee(sys.stdout)
     t = time.time()
     with contextlib.redirect_stdout(tee):
-        rc = train.main(MAIN_ARGV)
+        rc = train.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
-    launches = dict(ch.LAUNCHES)
-    text = tee.buf.getvalue()
-
+    counts, largest = dict(launches.LAUNCHES), dict(launches.LARGEST)
     check(rc == 0, f"CLI returned {rc}")
-    print(f"main path wall {wall:.2f} s; kernel launches {launches}")
+    print(f"main path wall {wall:.2f} s; kernel launches {counts}")
+    return tee.buf.getvalue(), counts, largest, wall
+
+
+def summary(text, wall):
+    """Check the 'Ours' CD/AD row; print the funnel and the stage times."""
+    from tropical_torch.extract import subdivide as sp
+    from tropical_torch.stanford import train
+
+    ours_row = re.search(r"^Ours, +\d+, ([-\d.naif]+), +([-\d.naif]+), ",
+                         text, re.M)
+    check(ours_row, "no 'Ours' row in the evaluation table")
+    cd, ad = float(ours_row.group(1)), float(ours_row.group(2))
+    print(f"Ours: CD {cd}, AD {ad}")
+    check(math.isfinite(cd) and math.isfinite(ad) and cd > 0,
+          f"Ours CD {cd} / AD {ad}")
+    extract_s = float(re.search(r" take ([\d.]+)", text).group(1))
+    funnel = re.search(r"# of vertices and edges = .*faces", text).group(0)
+    print(json.dumps({
+        "funnel": funnel, "extract_s": extract_s,
+        "extract_stage_s": {k: round(v, 4) for k, v in sp.PHASES.totals.items()},
+        "eval_stage_s": {k: round(v, 4) for k, v in train.PHASES.totals.items()},
+        "wall_s": round(wall, 4), "ours_cd": cd, "ours_ad": ad}))
+
+
+def main_path_phase():
+    phase("4. flat main path: " + " ".join(MAIN_ARGV))
+    from tropical_torch.extract import stats
+    from tropical_torch.ops.chamfer import min_dist_plain
+    from tropical_torch.utils.ply import read_ply
+
+    text, launches, largest, wall = run_cli(MAIN_ARGV)
     check(stats.LAST == GOLDEN, f"funnel {stats.LAST} != golden {GOLDEN}")
     for k, want in MAIN_LAUNCHES.items():
         check(launches[k] == want, f"{k}: {launches[k]} launches, want {want}")
@@ -310,21 +500,74 @@ def main_path_phase():
     print(f"exported vs committed mesh: max vertex distance {vmax:.3e}, "
           f"one to one: {one_to_one}")
     check(vmax <= 1e-4 and one_to_one, "exported mesh differs from committed")
+    summary(text, wall)
+    return launches, largest
 
-    ours_row = re.search(r"^Ours, +\d+, ([-\d.naif]+), +([-\d.naif]+), ",
-                         text, re.M)
-    check(ours_row, "no 'Ours' row in the evaluation table")
-    cd, ad = float(ours_row.group(1)), float(ours_row.group(2))
-    print(f"Ours: CD {cd}, AD {ad}")
-    check(math.isfinite(cd) and math.isfinite(ad) and cd > 0,
-          f"Ours CD {cd} / AD {ad}")
 
-    extract_s = float(re.search(r" take ([\d.]+)", text).group(1))
-    stages = {k: round(v, 4) for k, v in train.PHASES.totals.items()}
-    funnel = re.search(r"# of vertices and edges = .*faces", text).group(0)
-    print(json.dumps({"funnel": funnel, "extract_s": extract_s,
-                      "eval_stage_s": stages, "wall_s": round(wall, 4)}))
-    return launches
+def curved_path_phase():
+    """The curved CLI run.  Returns (launches, the largest (p, q) the root
+    solve was given)."""
+    phase("5. curved main path: " + " ".join(CURVED_ARGV))
+    from tropical_torch.core import trilinear as tl
+    from tropical_torch.extract import failover as fo
+    from tropical_torch.extract import stats
+    from tropical_torch.ops.chamfer import min_dist_plain
+    from tropical_torch.stanford import train
+
+    # keep the extracted vertices and the root solve's largest input
+    kept = {"rows": -1}
+    solve, extract = tl.intersection_of_two_planes, train.extract_mesh
+
+    def keep_largest(p, q):
+        if p.shape[0] > kept["rows"]:
+            kept.update(rows=p.shape[0], input=(p.clone(), q.clone()))
+        return solve(p, q)
+
+    def keep_mesh(net, force):
+        out = extract(net, force)
+        kept.update(net=net, vertices=out[1])
+        return out
+
+    tl.intersection_of_two_planes, train.extract_mesh = keep_largest, keep_mesh
+    try:
+        text, launches, _, wall = run_cli(CURVED_ARGV)
+    finally:
+        tl.intersection_of_two_planes, train.extract_mesh = solve, extract
+    print(f"failover counters {fo.COUNTERS}")
+
+    # the funnel against the golden; the vertices against the JAX set
+    V = kept["vertices"]
+    ref = torch.from_numpy(np.load(CURVED_VERTICES)).cuda()
+    d_ours, _ = min_dist_plain(V, ref)
+    d_ref, _ = min_dist_plain(ref, V)
+    far_ours = int((d_ours.sqrt() > 1e-5).sum())
+    far_ref = int((d_ref.sqrt() > 1e-5).sum())
+    exact = stats.LAST == CURVED_GOLDEN
+    diff = {k: stats.LAST[k] - v for k, v in CURVED_GOLDEN.items()}
+    print(json.dumps({"funnel_exact": exact, "funnel_minus_golden": diff,
+                      "vertices": V.shape[0], "jax_vertices": ref.shape[0],
+                      "ours_beyond_1e-5_of_jax": far_ours,
+                      "jax_beyond_1e-5_of_ours": far_ref,
+                      "max_nn_distance": math.sqrt(float(torch.maximum(
+                          d_ours.max(), d_ref.max())))}))
+    if not exact:
+        allowed = 0.005 * ref.shape[0]
+        check(abs(V.shape[0] - ref.shape[0]) <= allowed
+              and far_ours <= allowed and far_ref <= allowed,
+              f"funnel {stats.LAST} != golden {CURVED_GOLDEN}, and outside "
+              "the eps-boundary contract against the JAX vertex set")
+
+    sdf = float(kept["net"].sdf(V).abs().max())
+    print(f"max |sdf| on the curved vertices: {sdf:.3e}")
+    check(sdf < 2e-4, f"curved vertices off the surface: |sdf| {sdf}")
+    steps = fo.COUNTERS["curved_steps"]
+    check(launches["min_dist"] == 16,
+          f"min_dist: {launches['min_dist']} launches, want 16")
+    check(steps > 0 and launches["trilinear_roots"] == steps,
+          f"trilinear_roots: {launches['trilinear_roots']} launches, want "
+          f"one per curved insertion step ({steps})")
+    summary(text, wall)
+    return launches, kept["input"]
 
 
 def main() -> int:
@@ -337,13 +580,16 @@ def main() -> int:
 
     name, smi = device_phase()
     build_phase()
-    record = kernel_phase()
-    launches = main_path_phase()
-    record["launches"] = launches[record["name"]]
-    main_shape_phase(record)
+    records = {r["name"]: r for r in kernel_phase()}
+    flat_launches, flat_largest = main_path_phase()
+    curved_launches, curved_input = curved_path_phase()
+    records["min_dist"]["launches"] = flat_launches["min_dist"]
+    records["min_dist"]["launches_curved"] = curved_launches["min_dist"]
+    records["trilinear_roots"]["launches"] = curved_launches["trilinear_roots"]
+    shapes_phase(records, flat_largest, curved_input)
 
-    phase("6. result")
-    print(json.dumps({"kernels": [record]}))
+    phase("7. result")
+    print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

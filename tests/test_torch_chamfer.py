@@ -24,6 +24,7 @@ from tropical.ops.chamfer_tpu import min_dist_xla
 from tropical.utils.chamfer import PT_CHUNK, _min_dist_scan, _pad_pts
 from tropical.utils.chamfer import chamfer_distance as jax_chamfer
 from tropical_torch.ops import chamfer as tch
+from tropical_torch.ops.launches import LAUNCHES
 from tropical_torch.utils.chamfer import chamfer_distance
 
 
@@ -243,7 +244,7 @@ def test_cuda_tensors_never_take_the_plain_path():
         tch.min_nn_distance(meta, meta)
     with pytest.raises(ValueError, match="CUDA tensor"):
         tch.min_dist_cuda(torch.zeros(8, 3), torch.zeros(8, 3))
-    before = tch.LAUNCHES["min_dist"]
+    before = LAUNCHES["min_dist"]
     tch.min_nn_distance(torch.zeros(8, 3), torch.ones(4, 3))
-    assert tch.LAUNCHES["min_dist"] == before
+    assert LAUNCHES["min_dist"] == before
 

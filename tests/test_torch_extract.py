@@ -9,6 +9,7 @@
   tests/test_device_faces.py: only rows of polygons whose angular order
   flips on rounding may differ, with the same vertex set and area.
 - sphere-small through the port alone against the golden funnel.
+- The curved path (``force=False``) is held in ``test_torch_curved.py``.
 - The bookkeeping units against their JAX counterparts on seeded inputs.
 """
 
@@ -95,13 +96,6 @@ def test_sphere_small_golden_funnel():
                                     verbose=False)
     _assert_golden(stats.LAST, tris, g)
     assert tris.min() >= 0 and tris.max() < vertices.shape[0]
-
-
-def test_curved_path_is_not_ported_yet():
-    from tropical_torch.extract.subdivide import subpoly
-
-    with pytest.raises(NotImplementedError, match="curved path"):
-        subpoly(_torch_net(GOLDEN["sphere"]), 3, 1.2, force=False)
 
 
 def _random_signs(seed, n=300, cols=12, D=3):

@@ -13,7 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+import trilinear_cases as cases
+from tropical_torch.core import trilinear as ttri
 from tropical_torch.ops import chamfer as tch
+from tropical_torch.ops.launches import LAUNCHES
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -34,10 +37,10 @@ def test_min_dist_kernel_matches_plain_bitwise():
     y[5000:5100] = y[:100]
     x[:50] = y[:50]
     xc, yc = torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
-    before = tch.LAUNCHES["min_dist"]
+    before = LAUNCHES["min_dist"]
     d2, idx = tch.min_nn_distance(xc, yc)
     torch.cuda.synchronize()
-    assert tch.LAUNCHES["min_dist"] == before + 1
+    assert LAUNCHES["min_dist"] == before + 1
     p2, pidx = tch.min_dist_plain(xc, yc)
     torch.testing.assert_close(d2, p2, rtol=0, atol=0)
     torch.testing.assert_close(idx, pidx, rtol=0, atol=0)
@@ -90,11 +93,11 @@ def test_min_dist_kernel_bitwise_on_hard_cases(name):
         assert splits > 1
     if name == "ragged":
         assert x.shape[0] < cfg["rows_per_block"] and y.shape[0] % cfg["panel"]
-    before = tch.LAUNCHES["min_dist"]
+    before = LAUNCHES["min_dist"]
     d2, idx = tch.min_nn_distance(x, y)
     torch.cuda.synchronize()
     # one launch per search; with no x rows there is nothing to launch
-    assert tch.LAUNCHES["min_dist"] == before + (x.shape[0] > 0)
+    assert LAUNCHES["min_dist"] == before + (x.shape[0] > 0)
     assert d2.is_cuda and d2.shape == idx.shape == (x.shape[0],)
     p2, pidx = tch.min_dist_plain(x, y)
     torch.testing.assert_close(d2, p2, rtol=0, atol=0)
@@ -134,3 +137,63 @@ def test_sphere_small_golden_funnel_on_cuda():
                           "post_v": g["post_v"], "post_e": g["post_e"],
                           "n_faces": g["n_tris"]}
     assert vertices.is_cuda and tris.shape == (g["n_tris"], 3)
+
+
+def _rows(name):
+    """(p, q) float32 [B, 8] for one bitwise case of trilinear_roots."""
+    if name == "hard":
+        p, q, _ = cases.hard_pq(n_random=0)
+        return p, q
+    if name == "one_row":  # a pair of roots inside one sample cell
+        p, q, labels = cases.hard_pq(n_random=0)
+        i = int(np.nonzero(labels == "pair_in_cell")[0][0])
+        return p[i:i + 1], q[i:i + 1]
+    n = {"ragged": 128 * 3 + 17, "seeded": 100_000}[name]
+    rng = np.random.default_rng(7)
+    return (rng.normal(size=(n, 8)).astype(np.float32),
+            rng.normal(size=(n, 8)).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hard", "one_row", "ragged", "seeded"])
+def test_trilinear_roots_kernel_bitwise(name):
+    """All three outputs to the bit, sentinels included, and one launch
+    counted per call."""
+    _need_cuda()
+    p, q = (torch.from_numpy(a).cuda() for a in _rows(name))
+    before = LAUNCHES["trilinear_roots"]
+    out = ttri.intersection_of_two_planes(p, q)
+    torch.cuda.synchronize()
+    assert LAUNCHES["trilinear_roots"] == before + 1
+    plain = ttri.intersection_of_two_planes_plain(p, q)
+    assert out.is_cuda and out.shape == plain.shape == (p.shape[0], 3)
+    mismatched = (out.view(torch.int32) != plain.view(torch.int32)).any(1)
+    assert int(mismatched.sum()) == 0, out[mismatched][:5]
+    if name == "hard":
+        assert bool((out == -1).any()) and bool((out[:, 0] >= 0).any())
+
+
+@pytest.mark.gpu
+def test_trilinear_roots_kernel_launch_rules():
+    _need_cuda()
+    before = LAUNCHES["trilinear_roots"]
+    empty = torch.zeros(0, 8, device="cuda")
+    assert ttri.intersection_of_two_planes(empty, empty).shape == (0, 3)
+    assert LAUNCHES["trilinear_roots"] == before   # B = 0 launches nothing
+    good = torch.zeros(16, 8, device="cuda")
+    with pytest.raises(TypeError):
+        ttri.intersection_of_two_planes(good.double(), good)
+    with pytest.raises(ValueError, match="shape"):
+        ttri.intersection_of_two_planes(torch.zeros(16, 4, device="cuda"),
+                                        good)
+    with pytest.raises(ValueError, match="contiguous"):
+        ttri.intersection_of_two_planes(torch.zeros(8, 16, device="cuda").T,
+                                        good)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(16 * 8 + 1, device="cuda")[1:].view(16, 8)
+        ttri.intersection_of_two_planes(shifted, good)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ttri.intersection_of_two_planes(good, torch.zeros(16, 8))
+    with pytest.raises(ValueError, match="do not match"):
+        ttri.intersection_of_two_planes(good, good[:8])
+    assert LAUNCHES["trilinear_roots"] == before

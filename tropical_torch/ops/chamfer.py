@@ -18,17 +18,11 @@ finds the nearest point of ``y`` and the exact squared distance to it:
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
-from tropical_torch.ops import cuda_build
-
-# kernel launches since the last reset, counted where the kernel launches
-LAUNCHES = {"min_dist": 0}
-# the largest (n, m) searched by the kernel since the last reset
-LARGEST: Dict[str, Optional[Tuple[int, int]]] = {"min_dist": None}
+from tropical_torch.ops import cuda_build, launches
 
 # the y range is cut into at most this many splits, each at least
 # MIN_SPLIT_PANELS panels long (each split starts its rows' thresholds
@@ -182,9 +176,7 @@ def min_dist_cuda(x: torch.Tensor, y: torch.Tensor
         return (torch.empty(0, dtype=torch.float32, device=x.device),
                 torch.empty(0, dtype=torch.int32, device=x.device))
     d2, idx = run_kernel(cuda_build.load("min_dist"), x, y)
-    LAUNCHES["min_dist"] += 1
-    if n * m > math.prod(LARGEST["min_dist"] or (0, 0)):
-        LARGEST["min_dist"] = (n, m)
+    launches.record("min_dist", (n, m))
     return d2, idx
 
 

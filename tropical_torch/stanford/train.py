@@ -6,11 +6,14 @@ the same flags (including the inverted ``store_false`` semantics of -c/-f:
 plus ``--device`` (default ``cuda``):
 
     python -m tropical_torch.stanford.train -e -m small -d sphere -s 1
+    python -m tropical_torch.stanford.train -e -m medium -d sphere -s 1 -f
 
 It loads the committed checkpoint under ``tropical/stanford/models/``,
-extracts with the flat path, writes ``meshes_torch/<dataset>/our_mesh_*.ply``
-and, with ``-e``, scores the mesh against a marching-cubes pseudo-GT.
-Training is not ported yet.
+extracts with the flat path (or, with ``-f``, the curved path: exact
+trilinear intersections, the gradient-descent rescue and the strict
+filter), writes ``meshes_torch/<dataset>/our_mesh_*.ply`` and, with ``-e``,
+scores the mesh against a marching-cubes pseudo-GT.  Training is not ported
+yet.
 """
 
 from __future__ import annotations

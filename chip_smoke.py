@@ -56,6 +56,9 @@ import torch  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_F32_OPS = 67e12
+# an unfused f32 product or sum issues as one instruction, at half the rate
+# the FMA-counting peak gives
+PEAK_F32_UNFUSED_OPS = PEAK_F32_OPS / 2
 PEAK_BYTES = 3.35e12
 
 GOLDEN = {"pre_v": 51455, "pre_e": 69581, "post_v": 10138, "post_e": 20396,
@@ -336,7 +339,8 @@ def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
     coefficients and 20 for y; on a non-constant row 16 for the first
     samples, 19 a cell scanned, 483 for the last bracket's bisection, 413 a
     probe and 482 more where it bisects a hidden pair), against 76 bytes a
-    row read and written once."""
+    row read and written once.  The operations are unfused (one rounded
+    product, sum or quotient each), so they run at PEAK_F32_UNFUSED_OPS."""
     from tropical_torch.core import roots as rt
     from tropical_torch.core import trilinear as tl
 
@@ -370,7 +374,7 @@ def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
                                        + 413 * nd + 482 * cross)
     ops = float(per_row.sum())
     nbytes = 76.0 * p.shape[0]
-    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = ops / PEAK_F32_UNFUSED_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 

@@ -153,6 +153,17 @@ def _check(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} has too many rows for an int32 count")
 
 
+def _launcher(lib: ctypes.CDLL):
+    """``lib``'s launch function, its C signature declared once per
+    library."""
+    fn = lib.trilinear_roots_launch
+    if fn.argtypes is None:
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ptr, ptr, ctypes.c_int, ptr, ptr]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def intersection_of_two_planes_cuda(p: torch.Tensor, q: torch.Tensor
                                     ) -> torch.Tensor:
     """``intersection_of_two_planes_plain`` by the CUDA kernel, on the
@@ -166,10 +177,7 @@ def intersection_of_two_planes_cuda(p: torch.Tensor, q: torch.Tensor
     out = torch.empty((n, 3), dtype=torch.float32, device=p.device)
     if n == 0:
         return out
-    fn = cuda_build.load("trilinear_roots").trilinear_roots_launch
-    ptr = ctypes.c_void_p
-    fn.argtypes = [ptr, ptr, ctypes.c_int, ptr, ptr]
-    fn.restype = ctypes.c_int
+    fn = _launcher(cuda_build.load("trilinear_roots"))
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = fn(p.data_ptr(), q.data_ptr(), n, out.data_ptr(), stream)

@@ -34,17 +34,19 @@
 //   4. y = AX / (AX - BX) at that root, and the -1 sentinels: for cubes
 //      constant along x, y or z, and for each non-finite coordinate.
 //
-// Bound: operations, barely.  A row reads p and q (64 bytes, two 16-byte
-// loads each) and writes 12 bytes: 76 bytes, 0.023 us per 1,000 rows at
+// Bound: operations.  A row reads p and q (64 bytes, two 16-byte loads
+// each) and writes 12 bytes: 76 bytes, 0.023 us per 1,000 rows at
 // 3.35 TB/s.  Counted from this code (f32 products, sums and quotients), a
 // row costs 134 operations for its coefficients, 16 for the scan's first
 // samples and 19 a cell scanned (1,216 for all 64), 482 a bisection of p
 // (40 steps of 12, and the midpoint; 1 more for the last bracket's right
 // end) and 402 one of p', 11 more a probe (its right end, p(m) and the sign
-// test), and 20 for y: 2,000 to 3,000 for a typical row, 0.03-0.045 us per
-// 1,000 rows at the H100's 67 TFLOP/s f32.  chip_smoke.py counts the cells
-// and bisections that the run's rows need and takes the larger of the two
-// times.
+// test), and 20 for y.  None is fused, so each issues as one instruction
+// at 33.5 Tops/s, half the H100's 67 TFLOP/s f32 peak, which counts an FMA
+// as two: 2,000 to 3,000 for a typical row, 0.06-0.09 us per 1,000 rows; a
+// row that scans all 64 cells and finds no root, 1,386, 0.041 us.
+// chip_smoke.py counts the cells and bisections that the run's rows need
+// and takes the larger of the two times.
 //
 // Why one thread per row: the rows are independent, the work per row is a
 // few thousand scalar operations with data-dependent branches (how far the

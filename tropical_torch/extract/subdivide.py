@@ -64,7 +64,6 @@ def _curved_intersections(net, e_c: torch.Tensor, r_edges: torch.Tensor,
 
     # intersection of the two surfaces on the x = z diagonal plane
     ints = tl.intersection_of_two_planes(p, q)
-    fo.COUNTERS["curved_steps"] += 1
 
     cand = e_c[:, 0] * (1 - ints) + e_c[:, 1] * ints
     outs = net.outputs(cand)
@@ -85,10 +84,9 @@ def _curved_intersections(net, e_c: torch.Tensor, r_edges: torch.Tensor,
 
 def subpoly_(vertices: torch.Tensor, edges: torch.Tensor, net, l: int, h: int,
              eps: float, outputs_: torch.Tensor | None = None,
-             pruning: bool = True, strict: bool = True, force: bool = False):
+             force: bool = False):
     """One hyperplane insertion: plane ``idx = l * H + h``.  ``force`` takes
-    the flat path; ``strict`` drops curved-path vertices off the surface;
-    ``pruning`` removes edges whose endpoints share their future signs."""
+    the flat path; the curved one drops its vertices off the surface."""
     if outputs_ is None:
         outputs_ = net.outputs(vertices)
     elif outputs_.shape[0] != vertices.shape[0]:
@@ -119,6 +117,7 @@ def subpoly_(vertices: torch.Tensor, edges: torch.Tensor, net, l: int, h: int,
         c = ((e[:, 1] - e[:, 0]).abs() > eps).sum(-1) > 1
         has_curved = bool(c.any())
     if has_curved:
+        fo.COUNTERS["curved_steps"] += 1
         regions_pair = _regions[edges_m[c]][:, :, 3:]      # [Nc, 2, R]
         r_edges = (regions_pair[:, 0] == 0) & (regions_pair[:, 1] == 0)
         with PHASES("curved"):
@@ -145,7 +144,7 @@ def subpoly_(vertices: torch.Tensor, edges: torch.Tensor, net, l: int, h: int,
 
     m_rgn, m_rgn_ = m_rgn[:, :m_idx], m_rgn[:, m_idx:]
 
-    if not force and strict:
+    if not force:
         m, v_new, m_rgn, m_rgn_, offset, outputs_new = fo.strict_check(
             c, d_new, eps, idx, ints, m, m_rgn, m_rgn_, offset, outputs_new,
             has_curved, v_new, l, h)
@@ -176,7 +175,7 @@ def subpoly_(vertices: torch.Tensor, edges: torch.Tensor, net, l: int, h: int,
     outputs_ = torch.cat([outputs_, outputs_new], dim=0)
 
     # 4. prune edges whose endpoints share identical future sign vectors
-    if h < net.num_hidden and pruning:
+    if h < net.num_hidden:
         m_prn = torch.cat([_regions[:, m_idx:], m_rgn_], dim=0)
         with PHASES("prune_unique"):
             inv = rg.row_unique_inverse(m_prn)

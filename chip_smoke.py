@@ -13,9 +13,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    bit, on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
    launch plan and the share of its work that took the exact path (from an
    instrumented build), then kernel, plain and library times (CUDA
-   events); ``trilinear_roots`` on the hard cases of
-   ``tests/trilinear_cases.py`` and 100,000 seeded rows, with its device
-   time on the latter (a CUDA graph of calls, ``graph_ms``);
+   events); ``trilinear_roots`` on the rows of
+   ``tests/trilinear_cases.py:kernel_pq`` and 100,000 seeded rows;
 4. flat main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
    ``cuda``, held to the golden funnel, the committed mesh and the kernel
    launch counts;
@@ -25,10 +24,12 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    vertex, the launch counts (one ``trilinear_roots`` launch per insertion
    step with curved rows) and finite CD/AD;
 6. each kernel at the largest shape its main path gave it: ``min_dist``
-   timed; ``trilinear_roots`` on the curved path's own largest input, held
-   bitwise to its plain version, its device time and one wrapper call
-   timed, with the plain version and ``torch.linalg.eigvals`` on the
-   companion matrices;
+   timed; ``trilinear_roots`` held bitwise to its plain version on every
+   input the curved path gave it, their device times summed beside the
+   extraction's ``take``, and on the largest of them and on the 100,000
+   seeded rows its device time (a CUDA graph of calls, ``graph_ms``), one
+   wrapper call, the plain version and ``torch.linalg.eigvals`` on the
+   companion matrices timed;
 7. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
@@ -74,9 +75,10 @@ CURVED_VERTICES = "tests/golden/sphere_medium_curved_vertices.npy"
 # "Ours" plus the seven MC rows 16..64 below the 128 pseudo-GT, two
 # nearest-neighbour searches each
 MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0}
-# the kernel's time before its redesign, for the printed comparison only
-# (PR 1's chip run: H100 80GB HBM3, 700 W, 100k x 100k)
-PREV_MS = {"min_dist": 4.486}
+# each kernel's time before its redesign, for the printed comparison only
+# (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
+# time at the curved run's largest input, B = 8,460)
+PREV_MS = {"min_dist": 4.486, "trilinear_roots": 0.0563}
 EXACT_COUNT = ("min_dist", ("MIN_DIST_COUNT_EXACT",))
 
 
@@ -286,28 +288,25 @@ def min_dist_phase():
             "exact_share": exact_share}
 
 
+def seeded_rows():
+    """100,000 seeded rows (p, q) on the card, a size the path does not
+    reach."""
+    rng = np.random.default_rng(7)
+    return tuple(torch.from_numpy(rng.normal(size=(100_000, 8))
+                                  .astype(np.float32)).cuda()
+                 for _ in range(2))
+
+
 def trilinear_roots_phase():
     print("--- trilinear_roots")
-    from tropical_torch.core import trilinear as tl
-
     sys.path.insert(0, "tests")
     import trilinear_cases as cases
 
-    p, q, _ = cases.hard_pq(n_random=0)
-    rng = np.random.default_rng(7)
-    sets = {f"hard cases ({p.shape[0]} rows)": (p, q),
-            "100000 seeded rows": (rng.normal(size=(100_000, 8)),
-                                   rng.normal(size=(100_000, 8)))}
-    max_err = 0.0
-    for label, (a, b) in sets.items():
-        pa, qb = (torch.from_numpy(np.asarray(v, np.float32)).cuda()
-                  for v in (a, b))
-        max_err = max(max_err, roots_vs_plain(label, pa, qb))
-    # device time on the seeded rows, a size the path does not reach
-    ms = graph_ms(lambda: tl.intersection_of_two_planes(pa, qb))
-    bound_ms, bound_by = trilinear_roots_bound_ms(pa, qb)
-    print(f"trilinear_roots {label}: kernel {ms:.4f} ms, bound "
-          f"{bound_ms:.5f} ms ({bound_by})")
+    p, q, _ = cases.kernel_pq(n_random=0)
+    sets = {f"hard cases ({p.shape[0]} rows)":
+            tuple(torch.from_numpy(a).cuda() for a in (p, q)),
+            "100000 seeded rows": seeded_rows()}
+    max_err = max(roots_vs_plain(label, *pq) for label, pq in sets.items())
     return {"name": "trilinear_roots", "route": "cuda",
             "source": "tropical_torch/csrc/trilinear_roots.cu",
             "replaces": "tropical/core/trilinear.py:91",
@@ -379,7 +378,7 @@ def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def shapes_phase(records, largest, curved_input):
+def shapes_phase(records, largest, curved_inputs, curved_take):
     """Each kernel at the largest shape its main path gave it."""
     phase("6. kernels at the main paths' largest shapes")
     from tropical_torch.ops import chamfer as ch
@@ -396,19 +395,44 @@ def shapes_phase(records, largest, curved_input):
           f"kernel {ms:.3f} ms, bound {bound_ms:.3f} ms, at "
           f"{bound_ms / ms:.1%} of the bound")
     rec.update(main_shape=list(shape), main_ms=ms, main_bound_ms=bound_ms)
-    trilinear_roots_timing(records["trilinear_roots"], *curved_input)
+    trilinear_roots_timing(records["trilinear_roots"], curved_inputs,
+                           curved_take)
 
 
-def trilinear_roots_timing(rec, p, q):
-    """``trilinear_roots`` on the curved path's largest input: bitwise
-    against its plain version, then kernel, plain and ``eigvals`` times.
-    The kernel's time is its device time (``graph_ms``); ``call_ms`` is one
-    call of the wrapper as the path makes it, host work included."""
+def trilinear_roots_timing(rec, inputs, extract_s):
+    """``trilinear_roots`` on every input of the curved path: bitwise
+    against its plain version, the summed device time beside the
+    extraction's ``take``; then the largest input and the seeded rows
+    timed (``solve_times``)."""
+    from tropical_torch.core import trilinear as tl
+
+    rows = [p.shape[0] for p, _ in inputs]
+    for i, (p, q) in enumerate(inputs):
+        label = f"curved input {i + 1}/{len(inputs)} ({rows[i]} rows)"
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 roots_vs_plain(label, p, q))
+    total_ms = sum(graph_ms(lambda p=p, q=q: tl.intersection_of_two_planes(
+        p, q)) for p, q in inputs)
+    print(f"trilinear_roots on the curved run's {len(inputs)} inputs "
+          f"({sum(rows)} rows): {total_ms:.4f} ms of device time summed, "
+          f"against the extraction's take {extract_s} s "
+          f"({total_ms / 1e3 / extract_s:.4%} of it)")
+    largest = inputs[rows.index(max(rows))]
+    rec.update(solve_times(*largest, prev_ms=PREV_MS["trilinear_roots"]),
+               shape=[max(rows)], curved_rows=rows, curved_sum_ms=total_ms,
+               extract_s=extract_s)
+    # eigvals takes seconds a call here, and is warm
+    rec["seeded_100000"] = solve_times(*seeded_rows(), library_iters=1,
+                                       library_warmup=0)
+
+
+def solve_times(p, q, prev_ms=None, library_iters=3, library_warmup=1):
+    """Device time (``graph_ms``), one wrapper call as the path makes it
+    (host work included), the plain version, ``eigvals`` and the bound of
+    ``trilinear_roots`` on (p, q)."""
     from tropical_torch.core import trilinear as tl
 
     n = p.shape[0]
-    label = f"curved path's largest input ({n} rows)"
-    rec["max_abs_err"] = max(rec["max_abs_err"], roots_vs_plain(label, p, q))
     ms = graph_ms(lambda: tl.intersection_of_two_planes(p, q))
     call_ms = cuda_ms(lambda: tl.intersection_of_two_planes(p, q), iters=50,
                       warmup=3)
@@ -421,14 +445,17 @@ def trilinear_roots_timing(rec, p, q):
     comp = torch.zeros((n, 4, 4), dtype=torch.float32, device=p.device)
     comp[:, 0, :] = torch.nan_to_num(-c[:, 1:] / lead[:, None])
     comp[:, 1, 0] = comp[:, 2, 1] = comp[:, 3, 2] = 1.0
-    library_ms = cuda_ms(lambda: torch.linalg.eigvals(comp), iters=3)
+    library_ms = cuda_ms(lambda: torch.linalg.eigvals(comp),
+                         iters=library_iters, warmup=library_warmup)
     bound_ms, bound_by = trilinear_roots_bound_ms(p, q)
-    print(f"trilinear_roots B={n}: kernel {ms:.4f} ms (a wrapper call "
-          f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, eigvals "
+    before = "" if prev_ms is None else f" (before the redesign {prev_ms} ms)"
+    print(f"trilinear_roots B={n}: kernel {ms:.4f} ms{before} (a wrapper "
+          f"call {call_ms:.4f} ms), plain {plain_ms:.3f} ms, eigvals "
           f"{library_ms:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); kernel "
           f"at {bound_ms / ms:.1%} of the bound")
-    rec.update(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-               bound_by=bound_by, library_ms=library_ms, shape=[n])
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def run_cli(argv):
@@ -455,8 +482,9 @@ def run_cli(argv):
     return tee.buf.getvalue(), counts, largest, wall
 
 
-def summary(text, wall):
-    """Check the 'Ours' CD/AD row; print the funnel and the stage times."""
+def summary(text, wall) -> float:
+    """Check the 'Ours' CD/AD row; print the funnel and the stage times.
+    Returns the extraction's ``take`` (s)."""
     from tropical_torch.extract import subdivide as sp
     from tropical_torch.stanford import train
 
@@ -474,6 +502,7 @@ def summary(text, wall):
         "extract_stage_s": {k: round(v, 4) for k, v in sp.PHASES.totals.items()},
         "eval_stage_s": {k: round(v, 4) for k, v in train.PHASES.totals.items()},
         "wall_s": round(wall, 4), "ours_cd": cd, "ours_ad": ad}))
+    return extract_s
 
 
 def main_path_phase():
@@ -509,8 +538,8 @@ def main_path_phase():
 
 
 def curved_path_phase():
-    """The curved CLI run.  Returns (launches, the largest (p, q) the root
-    solve was given)."""
+    """The curved CLI run.  Returns (launches, every (p, q) the root
+    solve was given, the extraction's ``take``)."""
     phase("5. curved main path: " + " ".join(CURVED_ARGV))
     from tropical_torch.core import trilinear as tl
     from tropical_torch.extract import failover as fo
@@ -518,13 +547,13 @@ def curved_path_phase():
     from tropical_torch.ops.chamfer import min_dist_plain
     from tropical_torch.stanford import train
 
-    # keep the extracted vertices and the root solve's largest input
-    kept = {"rows": -1}
+    # keep the extracted vertices and the root solve's inputs
+    kept = {"inputs": []}
     solve, extract = tl.intersection_of_two_planes, train.extract_mesh
 
-    def keep_largest(p, q):
-        if p.shape[0] > kept["rows"]:
-            kept.update(rows=p.shape[0], input=(p.clone(), q.clone()))
+    def keep_inputs(p, q):
+        if p.shape[0]:
+            kept["inputs"].append((p.clone(), q.clone()))
         return solve(p, q)
 
     def keep_mesh(net, force):
@@ -532,7 +561,7 @@ def curved_path_phase():
         kept.update(net=net, vertices=out[1])
         return out
 
-    tl.intersection_of_two_planes, train.extract_mesh = keep_largest, keep_mesh
+    tl.intersection_of_two_planes, train.extract_mesh = keep_inputs, keep_mesh
     try:
         text, launches, _, wall = run_cli(CURVED_ARGV)
     finally:
@@ -567,11 +596,12 @@ def curved_path_phase():
     steps = fo.COUNTERS["curved_steps"]
     check(launches["min_dist"] == 16,
           f"min_dist: {launches['min_dist']} launches, want 16")
-    check(steps > 0 and launches["trilinear_roots"] == steps,
-          f"trilinear_roots: {launches['trilinear_roots']} launches, want "
-          f"one per curved insertion step ({steps})")
-    summary(text, wall)
-    return launches, kept["input"]
+    check(steps > 0 and launches["trilinear_roots"] == steps
+          == len(kept["inputs"]),
+          f"trilinear_roots: {launches['trilinear_roots']} launches and "
+          f"{len(kept['inputs'])} inputs, want one per curved insertion step "
+          f"({steps})")
+    return launches, kept["inputs"], summary(text, wall)
 
 
 def main() -> int:
@@ -586,11 +616,11 @@ def main() -> int:
     build_phase()
     records = {r["name"]: r for r in kernel_phase()}
     flat_launches, flat_largest = main_path_phase()
-    curved_launches, curved_input = curved_path_phase()
+    curved_launches, curved_inputs, curved_take = curved_path_phase()
     records["min_dist"]["launches"] = flat_launches["min_dist"]
     records["min_dist"]["launches_curved"] = curved_launches["min_dist"]
     records["trilinear_roots"]["launches"] = curved_launches["trilinear_roots"]
-    shapes_phase(records, flat_largest, curved_input)
+    shapes_phase(records, flat_largest, curved_inputs, curved_take)
 
     phase("7. result")
     print(json.dumps({"kernels": list(records.values())}))

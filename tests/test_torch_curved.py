@@ -192,10 +192,16 @@ def _f(v):
     return np.float32(v)
 
 
+LANES = 4  # csrc/trilinear_roots.cu's threads a row
+
+
 def _kernel_row(P, Q):
     """One row of csrc/trilinear_roots.cu in float32 scalar arithmetic, in
-    the kernel's own order: the scan from the last cell down, each
-    derivative bracket probed where it is met, the early stop.  Returns
+    the kernel's own order, its lanes replayed one after another: each
+    lane's share of the scan, the OR of their bracket masks, phase A (lane
+    0 bisects p in its last bracket, lanes 1-3 the padded p' in the three
+    highest derivative brackets), phase B (lanes 1-3 probe their extremum)
+    and the max over the lanes in the order of the shuffle tree.  Returns
     (out [3], branches taken)."""
     taken = set()
 
@@ -204,6 +210,12 @@ def _kernel_row(P, Q):
         for ci in c[1:]:
             acc = acc * t + ci
         return acc
+
+    def nan_max(a, b):
+        return a if (a != a or a > b) else b
+
+    def sample(i):
+        return _f(i) * _f(1 / 64)
 
     def bracket(lv, rv):
         return lv * rv <= 0 and not (lv == 0 and rv == 0)
@@ -236,35 +248,62 @@ def _kernel_row(P, Q):
     lead = ((abs(c[0]) + abs(c[1])) + abs(c[2])) + abs(c[3])
     tau = _f(1e-7) * (lead + abs(c[4]))
     dc = [c[0] * _f(4), c[1] * _f(3), c[2] * _f(2), c[3] * _f(1)]
+    dpad = [_f(0)] + dc
 
-    root = probe = _f(-1)
-    if lead > _f(1e-9):
-        has, found = False, 0
-        vr, dvr = horner(c, _f(1)), horner(dc, _f(1))
-        for i in range(63, -1, -1):
-            if has and found == 3:
-                taken.add("early_stop")
-                break
-            t, hi = _f(i) * _f(1 / 64), _f(i + 1) * _f(1 / 64)
-            vl, dvl = horner(c, t), horner(dc, t)
-            if not has and bracket(vl, vr):
-                has = True
-                root = bisect(c, t, hi, vl)
-                taken.add("bracket")
-            if found < 3 and bracket(dvl, dvr):
-                found += 1
-                m = bisect(dc, t, hi, dvl)
-                pm = horner(c, m)
+    # the scan: each lane's cells, OR-ed into the row's masks
+    per_lane = 64 // LANES
+    bm = dm = 0
+    for lane in range(LANES):
+        first = lane * per_lane
+        vl, dvl = horner(c, sample(first)), horner(dc, sample(first))
+        for i in range(first, first + per_lane):
+            vr, dvr = horner(c, sample(i + 1)), horner(dc, sample(i + 1))
+            bm |= int(bracket(vl, vr)) << i
+            dm |= int(bracket(dvl, dvr)) << i
+            vl, dvl = vr, dvr
+    if not lead > _f(1e-9):
+        bm = dm = 0
+    cells = [(bm != 0, bm.bit_length() - 1 if bm else 63)]
+    for _ in range(3):
+        d = dm.bit_length() - 1 if dm else 63
+        cells.append((dm != 0, d))
+        dm &= ~(1 << d)
+    taken.add(f"derivative_brackets_{sum(f for f, _ in cells[1:])}")
+    if dm:
+        taken.add("fourth_derivative_bracket_left")
+
+    # phases A and B, one task a lane
+    cands = []
+    for lane in range(LANES):
+        found, cell = cells[lane]
+        k = dpad if lane else c
+        lo, hi = sample(cell), sample(cell + 1)
+        a = bisect(k, lo, hi, horner(k, lo))
+        cand = a if found else _f(-1)
+        if lane:
+            pm = horner(c, a)
+            cross = pm * horner(c, hi) < 0
+            pair = bisect(c, a, hi, pm)
+            if not found:
                 cand = _f(-1)
-                if pm * vr < 0:
-                    cand = bisect(c, m, hi, pm)
-                    taken.add("hidden_pair")
-                elif abs(pm) <= tau:
-                    cand = m
-                    taken.add("tangent")
-                probe = max(probe, cand)
-            vr, dvr = vl, dvl
-    x = max(root, probe)
+            elif cross:
+                cand = pair
+                taken.add("hidden_pair")
+            elif abs(pm) <= tau:
+                cand = a
+                taken.add("tangent")
+            else:
+                cand = _f(-1)
+        elif found:
+            taken.add("bracket")
+        if not found and lead > _f(1e-9):
+            taken.add("lane_without_bracket")
+        cands.append(nan_max(_f(-1), cand))
+    off = 1
+    while off < LANES:  # the shuffle tree
+        cands = [nan_max(cands[i], cands[i ^ off]) for i in range(LANES)]
+        off *= 2
+    x = cands[0]
     u = _f(1) - x
     X0, X1, X3 = u * u, x * u, x * x
     AX = ((Q[0] * X0 + Q[1] * X1) + Q[4] * X1) + Q[5] * X3
@@ -279,10 +318,11 @@ def _kernel_row(P, Q):
 
 
 def test_kernel_order_matches_plain_bitwise():
-    """The kernel's scan order (from the last cell down, probing on the way,
-    stopping early) gives the plain version's bits on every hard case, and
-    the cases take every branch."""
-    p, q, _ = cases.hard_pq(n_random=64)
+    """The kernel's order (the scan split over lanes, the three highest
+    derivative brackets taken from the merged mask, four bisections side by
+    side, then the probes) gives the plain version's bits on every hard
+    case, and the cases take every branch."""
+    p, q, _ = cases.kernel_pq(n_random=64)
     plain = ttri.intersection_of_two_planes_plain(T(p), T(q)).numpy()
     taken = set()
     with np.errstate(over="ignore", invalid="ignore"):
@@ -290,8 +330,82 @@ def test_kernel_order_matches_plain_bitwise():
             out, branches = _kernel_row(p[r], q[r])
             taken |= branches
             assert out.tobytes() == plain[r].tobytes(), (r, out, plain[r])
-    assert taken >= {"bracket", "hidden_pair", "tangent", "early_stop",
-                     "degenerate", "y_sentinel"}, taken
+    assert taken >= {"bracket", "hidden_pair", "tangent",
+                     "derivative_brackets_3", "lane_without_bracket",
+                     "fourth_derivative_bracket_left", "degenerate",
+                     "y_sentinel"}, taken
+
+
+def _coeffs(p, q):
+    c = ttri.quartic_coeffs(T(p), T(q))
+    return torch.where(c.abs() < 1e-9, 0.0, c)
+
+
+def test_padded_derivative_horner_is_bitwise():
+    """The kernel bisects p' as the 5-term [0, 4c0, 3c1, 2c2, c3]: for t in
+    [0, 1], 0 + 0 = +0 and +0 * t = +0, then +0 + d0 = 0 + d0, so it gives
+    the 4-term Horner's bits (inf and NaN coefficients included)."""
+    p, q, _ = cases.kernel_pq(n_random=64)
+    dco = troots._deriv(_coeffs(p, q))
+    padded = torch.cat([torch.zeros_like(dco[:, :1]), dco], dim=1)
+    rng = np.random.default_rng(3)
+    ts = torch.from_numpy(np.concatenate([
+        np.arange(65) / 64, [np.float32(1) - np.float32(2 ** -24), 2 ** -149],
+        rng.uniform(0, 1, 4096)]).astype(np.float32))
+    with np.errstate(over="ignore", invalid="ignore"):
+        four = troots._poly_eval(dco, ts)
+        five = troots._poly_eval(padded, ts)
+    assert torch.equal(four.view(torch.int32), five.view(torch.int32))
+    assert not torch.isfinite(dco).all()  # the overflow rows are in
+
+
+@pytest.mark.parametrize("label", cases.LANE_LABELS)
+def test_lane_cases_have_their_brackets(label):
+    """Each row of ``cases.lane_pq`` has, in float32, the brackets it is
+    named for."""
+    p, q, labels = cases.lane_pq()
+    r = int(np.nonzero(labels == label)[0][0])
+    c = _coeffs(p[r:r + 1], q[r:r + 1])
+    ts = torch.arange(65, dtype=torch.float32) / 64
+    nonconst = troots._abs_sum(c, 4) > 1e-9
+    vals, dco = troots._poly_eval(c, ts), troots._deriv(c)
+    dvals = troots._poly_eval(dco, ts)
+    br = troots._brackets(vals, nonconst)[0].nonzero()[:, 0].tolist()
+    dbr = troots._brackets(dvals, nonconst)[0].nonzero()[:, 0].tolist()
+    if label == "first_and_last_lane":
+        assert br == [6] and dbr == [54]
+        return
+    assert len(dbr) == int(label[-1]), dbr
+    if label == "derivative_brackets_4":
+        # an exact zero of p' at t = 1/2, and the row's root hidden in the
+        # highest bracket
+        assert br == [] and dbr == [12, 31, 32, 51] and dvals[0, 32] == 0
+        x = ttri.intersection_of_two_planes_plain(T(p[r:r + 1]),
+                                                  T(q[r:r + 1]))[0, 0]
+        assert 51 / 64 < float(x) < 52 / 64
+    if label == "derivative_brackets_3":
+        # no root above the lowest extremum's cell, and a pair hidden in it
+        d = dbr[0]
+        assert br == [] and d == 19
+        m = troots._bisect(dco, ts[d:d + 1], ts[d + 1:d + 2], dvals[:, d])
+        pm = troots._poly_eval(c, m[:, None])[0, 0]
+        assert float(pm * vals[0, d + 1]) < 0
+        x = ttri.intersection_of_two_planes_plain(T(p[r:r + 1]),
+                                                  T(q[r:r + 1]))[0, 0]
+        assert 0.3 < float(x) < 0.31
+
+
+def test_overflow_rows_are_sentinels():
+    """|p|, |q| = 1e20 overflow the coefficients to +-inf alone, and to
+    NaN: no bracket, x = -1, y computed at x = -1."""
+    p, q, labels = cases.lane_pq()
+    rows = np.isin(labels, ["overflow_inf", "overflow_nan"])
+    with np.errstate(over="ignore", invalid="ignore"):
+        c = _coeffs(p[rows], q[rows])
+        out = ttri.intersection_of_two_planes_plain(T(p[rows]), T(q[rows]))
+    assert torch.isinf(c[0]).all() and torch.isnan(c[1]).all()
+    assert (out[:, 0] == -1).all() and (out[:, 2] == -1).all()
+    assert torch.isfinite(out[:, 1]).all()
 
 
 def test_wrapper_takes_the_kernel_for_non_cpu_tensors():

@@ -142,20 +142,24 @@ def test_sphere_small_golden_funnel_on_cuda():
 def _rows(name):
     """(p, q) float32 [B, 8] for one bitwise case of trilinear_roots."""
     if name == "hard":
-        p, q, _ = cases.hard_pq(n_random=0)
+        p, q, _ = cases.kernel_pq(n_random=0)
         return p, q
     if name == "one_row":  # a pair of roots inside one sample cell
         p, q, labels = cases.hard_pq(n_random=0)
         i = int(np.nonzero(labels == "pair_in_cell")[0][0])
         return p[i:i + 1], q[i:i + 1]
-    n = {"ragged": 128 * 3 + 17, "seeded": 100_000}[name]
+    # 32 rows a block at 4 lanes a row, 8 a warp: a ragged last block, a
+    # ragged last warp, and fewer rows than one block
+    n = {"ragged": 128 * 3 + 17, "ragged_block": 32 * 5 + 12,
+         "ragged_warp": 8 * 3 + 5, "seeded": 100_000}[name]
     rng = np.random.default_rng(7)
     return (rng.normal(size=(n, 8)).astype(np.float32),
             rng.normal(size=(n, 8)).astype(np.float32))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["hard", "one_row", "ragged", "seeded"])
+@pytest.mark.parametrize("name", ["hard", "one_row", "ragged",
+                                  "ragged_block", "ragged_warp", "seeded"])
 def test_trilinear_roots_kernel_bitwise(name):
     """All three outputs to the bit, sentinels included, and one launch
     counted per call."""
@@ -196,4 +200,10 @@ def test_trilinear_roots_kernel_launch_rules():
         ttri.intersection_of_two_planes(good, torch.zeros(16, 8))
     with pytest.raises(ValueError, match="do not match"):
         ttri.intersection_of_two_planes(good, good[:8])
+    # a thread count past int32 is refused before anything is allocated
+    from tropical_torch.ops import cuda_build
+
+    huge = torch.empty((2 ** 29, 8), device="meta")
+    with pytest.raises(ValueError, match="int32"):
+        ttri.run_kernel(cuda_build.load("trilinear_roots"), huge, huge)
     assert LAUNCHES["trilinear_roots"] == before

@@ -1,5 +1,5 @@
 """The port stands alone: nothing under tropical_torch/, nor chip_smoke.py,
-the test inputs it loads or the port's measurement script, imports jax or
+the test inputs it loads or the port's measurement scripts, imports jax or
 the JAX package ``tropical``.
 
 An AST scan, not a ``sys.modules`` check: the test process itself imports
@@ -17,6 +17,7 @@ ROOT = os.path.normpath(os.path.join(os.path.dirname(__file__), ".."))
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "min_dist_variants.py"),
+             os.path.join(ROOT, "scripts", "trilinear_roots_variants.py"),
              os.path.join(ROOT, "tests", "trilinear_cases.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "tropical_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
@@ -50,6 +51,7 @@ def test_scan_sees_every_module():
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in rel
     assert os.path.join("scripts", "min_dist_variants.py") in rel
+    assert os.path.join("scripts", "trilinear_roots_variants.py") in rel
     assert os.path.join("tropical_torch", "ops", "chamfer.py") in rel
     assert os.path.join("tests", "trilinear_cases.py") in rel
     for name in ("roots.py", "trilinear.py"):

@@ -11,7 +11,12 @@ Shared by the CPU parity tests (``test_torch_curved.py``), the GPU tests
   (float32 rounding moves them slightly: a double root may split into a
   close pair or lift off), plus cubes constant along x, y or z, cubes whose
   q is constant along y alone (a zero y denominator), all-zero cubes, and
-  seeded random cubes.
+  seeded random cubes;
+- ``lane_pq``: rows aimed at the kernel's split of a row over lanes:
+  exactly 0, 1, 2, 3 and 4 derivative brackets (a hidden pair in the
+  third, and in the highest of four), brackets at both ends of the cell
+  range, and coefficients that overflow;
+- ``kernel_pq``: both, the rows the kernel is held to bit for bit.
 """
 
 from __future__ import annotations
@@ -123,3 +128,62 @@ def hard_pq(seed: int = 0, n_random: int = 256):
     labels += ["random"] * n_random
     return (np.asarray(ps, np.float32), np.asarray(qs, np.float32),
             np.asarray(labels))
+
+
+# quartics (descending, float64) with exactly k derivative brackets on the
+# 1/64 grid, checked on their float32 rows by test_torch_curved.py
+LANE_QUARTICS = {
+    "derivative_brackets_0": np.polymul([1.0, -0.3], [1.0, 0.0, 1.0]),
+    "derivative_brackets_1": np.polymul(np.poly([0.3, 0.8]), [1.0, 0.0, 4.0]),
+    "derivative_brackets_2": np.polymul(np.poly([0.2, 0.5, 0.9]), [1.0, 3.0]),
+    # roots 0.3 and 0.305 in cell 19 under the lowest of three extrema, and
+    # no root above them: the row's root is the later of that hidden pair
+    "derivative_brackets_3": np.polymul(np.poly([0.3, 0.305]),
+                                        [1.0, -1.5, 0.5645]),
+    # -(t - 0.1)(t - 1.6): p's bracket in cell 6, p''s in cell 54
+    "first_and_last_lane": np.array([-1.0, 1.7, -0.16]),
+}
+# integer corners whose float32 quartic is exact: 245760 t^4 - 493056 t^3
+# + 326016 t^2 - 79104 t + 6416, with p' = 0 exactly at t = 1/2 (so cells
+# 31 and 32 both bracket) and extrema in cells 12 and 51: four derivative
+# brackets, and the row's root is the later of a pair hidden in cell 51,
+# the highest, which only the three highest brackets reach
+FOUR_BRACKETS = ([0.0, 52672.0, 6416.0, -53440.0,
+                  0.0, -6032.0, 0.0, 127200.0],
+                 [1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0])
+LANE_LABELS = tuple(LANE_QUARTICS) + ("derivative_brackets_4",)
+
+
+def lane_pq(seed: int = 5):
+    """(p [K, 8], q [K, 8], labels [K]) float32: the rows of
+    ``LANE_QUARTICS`` (seeded as ``hard_pq`` seeds its rows), the row of
+    ``FOUR_BRACKETS``, and two rows with |p|, |q| = 1e20 whose
+    coefficients overflow, one to +-inf alone and one to NaN."""
+    rng = np.random.default_rng(seed)
+    ps, qs, labels = [], [], []
+    for label, c in LANE_QUARTICS.items():
+        c = np.concatenate([np.zeros(5 - len(c)), c])
+        q = rng.normal(size=8)
+        ps.append(np.linalg.lstsq(_quartic_map(q), c, rcond=None)[0])
+        qs.append(q)
+        labels.append(label)
+    ps.append(np.asarray(FOUR_BRACKETS[0]))
+    qs.append(np.asarray(FOUR_BRACKETS[1]))
+    labels.append("derivative_brackets_4")
+    # q only at corner 0 and p's x = z diagonal of the y = 1 face only at
+    # corner 2: A has one entry, 1e40 = inf, and T^T A T no inf - inf
+    p, q = 1e20 * rng.normal(size=8), np.zeros(8)
+    p[[3, 6, 7]] = 0.0
+    q[0] = 1e20
+    ps += [p, 1e20 * rng.normal(size=8)]
+    qs += [q, 1e20 * rng.normal(size=8)]
+    labels += ["overflow_inf", "overflow_nan"]
+    return (np.asarray(ps, np.float32), np.asarray(qs, np.float32),
+            np.asarray(labels))
+
+
+def kernel_pq(seed: int = 0, n_random: int = 256):
+    """``hard_pq`` and ``lane_pq`` together: every row the root-solve
+    kernel is held to bit for bit."""
+    parts = [hard_pq(seed, n_random), lane_pq()]
+    return tuple(np.concatenate(a) for a in zip(*parts))

@@ -23,6 +23,7 @@ the kernel for CUDA tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -153,15 +154,38 @@ def _check(t: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name} has too many rows for an int32 count")
 
 
+@functools.lru_cache(maxsize=None)
 def _launcher(lib: ctypes.CDLL):
-    """``lib``'s launch function, its C signature declared once per
-    library."""
-    fn = lib.trilinear_roots_launch
-    if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ctypes.c_int, ptr, ptr]
-        fn.restype = ctypes.c_int
-    return fn
+    """(``lib``'s launch function, the threads it gives each row), its C
+    signatures declared once per library."""
+    fn, lanes = lib.trilinear_roots_launch, lib.trilinear_roots_lanes
+    ptr = ctypes.c_void_p
+    fn.argtypes = [ptr, ptr, ctypes.c_int, ptr, ptr]
+    fn.restype = ctypes.c_int
+    lanes.argtypes = []
+    lanes.restype = ctypes.c_int
+    return fn, lanes()
+
+
+def run_kernel(lib: ctypes.CDLL, p: torch.Tensor, q: torch.Tensor
+               ) -> torch.Tensor:
+    """One solve by the kernel in ``lib`` on checked inputs with at least
+    one row; raises if the thread count overflows an int32 or the launch
+    returns a CUDA error.  Counts nothing
+    (``intersection_of_two_planes_cuda`` does)."""
+    fn, lanes = _launcher(lib)
+    n = p.shape[0]
+    if n * lanes >= 2 ** 31:
+        raise ValueError(f"{n} rows at {lanes} threads a row overflow the "
+                         "kernel's int32 thread count")
+    out = torch.empty((n, 3), dtype=torch.float32, device=p.device)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        rc = fn(p.data_ptr(), q.data_ptr(), n, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"trilinear_roots kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def intersection_of_two_planes_cuda(p: torch.Tensor, q: torch.Tensor
@@ -174,16 +198,9 @@ def intersection_of_two_planes_cuda(p: torch.Tensor, q: torch.Tensor
         raise ValueError(f"p {tuple(p.shape)} on {p.device} and q "
                          f"{tuple(q.shape)} on {q.device} do not match")
     n = p.shape[0]
-    out = torch.empty((n, 3), dtype=torch.float32, device=p.device)
     if n == 0:
-        return out
-    fn = _launcher(cuda_build.load("trilinear_roots"))
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
-        rc = fn(p.data_ptr(), q.data_ptr(), n, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"trilinear_roots kernel launch failed: CUDA error {rc}")
+        return torch.empty((0, 3), dtype=torch.float32, device=p.device)
+    out = run_kernel(cuda_build.load("trilinear_roots"), p, q)
     launches.record("trilinear_roots", (n,))
     return out
 

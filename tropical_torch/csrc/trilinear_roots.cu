@@ -15,56 +15,84 @@
 // (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, which nvcc never contracts to
 // an FMA), in the plain version's order: T^T A T written out term by term,
 // Horner one rounded product and one rounded sum a step, each reduction left
-// to right.  The samples t_i = i/64 are exact.  Inputs are finite.
+// to right.  The samples t_i = i/64 are exact, so any lane that evaluates a
+// sample gets the plain version's bits.  Inputs are finite.
 //
-// Per row (all in registers):
-//   1. the quartic's coefficients from p, q; |c| < 1e-9 zeroed;
-//   2. the scan: the 64 cells of [0, 1], from the last one down, with p and
-//      p' evaluated at each sample on the fly.  The first sign-change cell of
-//      p met is the last bracket; the first three of p' are the three
-//      highest-index derivative brackets, the same ones the plain version
-//      takes.  The scan stops once it has all four;
-//   3. each derivative bracket is probed where it is met: its extremum m by
-//      40 bisections of p'; a sign change of p between m and the cell's end
-//      is the later root of a hidden pair (40 bisections of p), and
-//      |p(m)| <= 1e-7 sum|c| a tangent root at m.  The root is the
-//      NaN-propagating max over the last bracket's bisection and the probes'
-//      candidates (max is order-free here: every candidate is -1 or a
-//      midpoint of two finite samples, so none is NaN);
-//   4. y = AX / (AX - BX) at that root, and the -1 sentinels: for cubes
-//      constant along x, y or z, and for each non-finite coordinate.
+// A group of kLanes threads (4; 1, 2 or 8 with -DTRILINEAR_ROOTS_LANES, for
+// scripts/trilinear_roots_variants.py) solves one row, and no branch depends
+// on the data:
+//   1. load: each lane reads one of the row's four float4 (p, then q) and
+//      shuffles gather the row into every lane; each lane computes the
+//      quartic's coefficients itself (|c| < 1e-9 zeroed);
+//   2. scan: lane k evaluates p and p' at samples 16k .. 16k+16 and marks
+//      its 16 cells; an OR of the lanes' masks by shuffle gives every lane
+//      the row's 64-bit bracket masks of p and p'.  The highest set bit of
+//      p's is the last bracket, the three highest of p''s the derivative
+//      brackets the plain version's _last_true loop picks;
+//   3. phase A, four bisections side by side, one a lane: lane 0 bisects p
+//      in the last bracket, lanes 1-3 bisect p' in the 1st, 2nd and 3rd
+//      highest derivative bracket, all on one 5-term Horner (p' padded as
+//      [0, 4c0, 3c1, 2c2, c3], whose leading 0*t + 0 = +0 gives the 4-term
+//      Horner's bits for t in [0, 1]).  A lane without a bracket bisects a
+//      dummy cell and drops the result;
+//   4. phase B: lanes 1-3 evaluate p at the extremum m and at the cell's
+//      end; where they differ in sign, the lane bisects p on [m, cell end]
+//      (the later root of a hidden pair), and |p(m)| <= 1e-7 sum|c| makes m
+//      a tangent root.  Lanes 1-3 run the bisection, pair or not;
+//   5. the NaN-propagating max of the lanes' candidates by shuffle (max is
+//      order-free here: every candidate is -1 or a midpoint of two finite
+//      samples, so none is NaN), y = AX / (AX - BX) at that root, the -1
+//      sentinels (cubes constant along x, y or z, each non-finite
+//      coordinate), and lanes 0-2 write x, y, x.
 //
-// Bound: operations.  A row reads p and q (64 bytes, two 16-byte loads
-// each) and writes 12 bytes: 76 bytes, 0.023 us per 1,000 rows at
-// 3.35 TB/s.  Counted from this code (f32 products, sums and quotients), a
-// row costs 134 operations for its coefficients, 16 for the scan's first
-// samples and 19 a cell scanned (1,216 for all 64), 482 a bisection of p
-// (40 steps of 12, and the midpoint; 1 more for the last bracket's right
-// end) and 402 one of p', 11 more a probe (its right end, p(m) and the sign
-// test), and 20 for y.  None is fused, so each issues as one instruction
-// at 33.5 Tops/s, half the H100's 67 TFLOP/s f32 peak, which counts an FMA
-// as two: 2,000 to 3,000 for a typical row, 0.06-0.09 us per 1,000 rows; a
-// row that scans all 64 cells and finds no root, 1,386, 0.041 us.
-// chip_smoke.py counts the cells and bisections that the run's rows need
-// and takes the larger of the two times.
+// Bound: operations.  A row reads p and q (64 bytes) and writes 12 bytes:
+// 76 bytes, 0.023 us per 1,000 rows at 3.35 TB/s.  The plain algorithm
+// needs 134 operations for the coefficients, 16 for the first samples and
+// 19 a cell scanned, 483 for the last bracket's bisection, 413 a derivative
+// probe and 482 more where it bisects a hidden pair, and 20 for y: 2,000 to
+// 3,000 for a typical row.  None is fused, so each issues as one
+// instruction at 33.5 Tops/s, half the H100's 67 TFLOP/s f32 peak, which
+// counts an FMA as two.  chip_smoke.py counts what the run's rows need.
+// This design does more: each of its four lanes computes the coefficients
+// (134), a quarter of the scan (321), one bisection (493) and y (20), and
+// lanes 1-3 a second bisection with its probe (501): 5,375 operations a
+// row, the price of running a row's chains side by side and the same way
+// in every lane.
 //
-// Why one thread per row: the rows are independent, the work per row is a
-// few thousand scalar operations with data-dependent branches (how far the
-// scan goes, how many brackets are probed), and nothing is shared between
-// rows, so there is nothing to stage in shared memory or to split across
-// threads.  At the path's row counts (thousands to a hundred thousand per
-// insertion step) the launch itself dominates.
+// Why four lanes a row (scripts/trilinear_roots_variants.py, device time
+// on an H100 80GB HBM3 at 700 W, the curved run's largest input of 8,460
+// rows): one thread a row, scanning from the last cell down with an early
+// stop and each probe where its bracket is met, took 56 us, and 10 us
+// when every warp's rows were made copies of one row: 46 us went to
+// threads of a warp waiting on each other's branches, and 8,460 rows were
+// 67 blocks for 132 SMs.  With no branch on the data, 1, 2, 4 and 8 lanes
+// a row take 12.9, 8.6, 5.8 and 8.5 us, each the same with uniform warps.
+// At 100,000 rows, which the path does not reach, one lane is fastest
+// (29 us against 34), the card being full already.
 
 #include <cuda_runtime.h>
 
+#include <climits>
+
+#ifndef TRILINEAR_ROOTS_LANES
+#define TRILINEAR_ROOTS_LANES 4
+#endif
+
 namespace {
 
+constexpr int kLanes = TRILINEAR_ROOTS_LANES;  // threads a row
+static_assert(kLanes == 1 || kLanes == 2 || kLanes == 4 || kLanes == 8,
+              "TRILINEAR_ROOTS_LANES must be 1, 2, 4 or 8");
 constexpr int kThreads = 128;
-constexpr int kCells = 64;          // samples t_i = i/64, i = 0..64
+constexpr int kCells = 64;                    // samples t_i = i/64, i = 0..64
+constexpr int kLaneCells = kCells / kLanes;   // cells one lane scans
 constexpr int kBisect = 40;
-constexpr int kExtrema = 3;         // a quartic has at most 3 extrema
+constexpr int kTasks = 4;         // the last bracket of p, three of p'
+constexpr int kLaneTasks = kLanes < kTasks ? kTasks / kLanes : 1;
+constexpr int kLoads = kLanes < 4 ? 4 / kLanes : 1;  // float4 a lane reads
 constexpr float kZero = 1e-9f;      // coefficients below this are zeroed
 constexpr float kTangent = 1e-7f;   // |p(m)| <= this * sum|c| is a touch
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -94,32 +122,66 @@ __device__ __forceinline__ bool bracket(float l, float r) {
   return mul(l, r) <= 0.0f && !(l == 0.0f && r == 0.0f);
 }
 
-template <int K>
-__device__ float bisect(const float (&c)[K], float lo, float hi, float flo) {
+__device__ __forceinline__ float bisect(const float (&c)[5], float lo,
+                                        float hi, float flo) {
 #pragma unroll 1
   for (int i = 0; i < kBisect; ++i) {
     const float mid = mul(0.5f, add(lo, hi));
     const float fmid = horner(c, mid);
-    if (mul(flo, fmid) <= 0.0f) {
-      hi = mid;
-    } else {
-      lo = mid;
-      flo = fmid;
-    }
+    const bool left = mul(flo, fmid) <= 0.0f;
+    hi = left ? mid : hi;
+    lo = left ? lo : mid;
+    flo = left ? flo : fmid;
   }
   return mul(0.5f, add(lo, hi));
+}
+
+// the index of the highest set bit of a non-zero mask
+__device__ __forceinline__ int top(unsigned long long m) {
+  return 63 - __clzll(static_cast<long long>(m));
+}
+
+__device__ __forceinline__ float4 shfl4(float4 v, int lane) {
+  return make_float4(__shfl_sync(kFull, v.x, lane, kLanes),
+                     __shfl_sync(kFull, v.y, lane, kLanes),
+                     __shfl_sync(kFull, v.z, lane, kLanes),
+                     __shfl_sync(kFull, v.w, lane, kLanes));
 }
 
 __global__ void __launch_bounds__(kThreads)
 trilinear_roots_kernel(const float4* __restrict__ p4,
                        const float4* __restrict__ q4, int n,
                        float* __restrict__ out) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  if (row >= n) return;
-  const float4 pa = p4[2 * row], pb = p4[2 * row + 1];
-  const float4 qa = q4[2 * row], qb = q4[2 * row + 1];
-  const float P[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-  const float Q[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  // a warp past the last row leaves whole; the rest run every shuffle, the
+  // ragged groups on a copy of the last row
+  if ((tid & ~31ll) / kLanes >= n) return;
+  const int lane = static_cast<int>(tid % kLanes);
+  const int row = static_cast<int>(tid / kLanes);
+  const int src = row < n ? row : n - 1;
+
+  // 1. the row's four float4 (p, then q), each read by one lane
+  float4 mine[kLoads];
+#pragma unroll
+  for (int s = 0; s < kLoads; ++s) {
+    const int k = s * kLanes + lane;
+    mine[s] = k < 4 ? (k < 2 ? p4[2 * src + k] : q4[2 * src + k - 2])
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float4 v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (kLanes == 1) {
+      v[k] = mine[k];
+    } else {
+      v[k] = shfl4(mine[k / kLanes], k % kLanes);
+    }
+  }
+  const float P[8] = {v[0].x, v[0].y, v[0].z, v[0].w,
+                      v[1].x, v[1].y, v[1].z, v[1].w};
+  const float Q[8] = {v[2].x, v[2].y, v[2].z, v[2].w,
+                      v[3].x, v[3].y, v[3].z, v[3].w};
 
   // cubes constant along y, z or x (corner idx = 4i + 2j + k)
   constexpr int kPairs[3][2][4] = {{{0, 1, 4, 5}, {2, 3, 6, 7}},
@@ -137,8 +199,8 @@ trilinear_roots_kernel(const float4* __restrict__ p4,
     deg = deg || all;
   }
 
-  // 1. quartic coefficients: Bernstein quadratics of the x = z diagonal of
-  //    the y = 0 face (corners 0,1,4,5) and the y = 1 face (2,3,6,7)
+  // quartic coefficients: Bernstein quadratics of the x = z diagonal of the
+  // y = 0 face (corners 0,1,4,5) and the y = 1 face (2,3,6,7)
   const float qr[3] = {Q[0], add(Q[1], Q[4]), Q[5]};
   const float ps[3] = {P[2], add(P[3], P[6]), P[7]};
   const float qs[3] = {Q[2], add(Q[3], Q[6]), Q[7]};
@@ -174,43 +236,83 @@ trilinear_roots_kernel(const float4* __restrict__ p4,
   const float tau = mul(kTangent, add(lead_sum, fabsf(c[4])));
   const float dc[4] = {mul(c[0], 4.0f), mul(c[1], 3.0f), mul(c[2], 2.0f),
                        mul(c[3], 1.0f)};
+  const float dpad[5] = {0.0f, dc[0], dc[1], dc[2], dc[3]};
 
-  // 2-3. scan the cells from the last one down, probing each derivative
-  //      bracket where it is met
-  float root = -1.0f;
-  float probe = -1.0f;
-  if (nonconst) {
-    bool has = false;
-    int found = 0;
-    float vr = horner(c, 1.0f), dvr = horner(dc, 1.0f);
-#pragma unroll 1
-    for (int i = kCells - 1; i >= 0 && !(has && found == kExtrema); --i) {
-      const float t = sample(i);
-      const float vl = horner(c, t), dvl = horner(dc, t);
-      if (!has && bracket(vl, vr)) {
-        has = true;
-        root = bisect(c, t, sample(i + 1), vl);
-      }
-      if (found < kExtrema && bracket(dvl, dvr)) {
-        ++found;
-        const float hi = sample(i + 1);
-        const float m = bisect(dc, t, hi, dvl);  // the extremum
-        const float pm = horner(c, m);
-        float cand = -1.0f;
-        if (mul(pm, vr) < 0.0f) {
-          cand = bisect(c, m, hi, pm);           // the later of a hidden pair
-        } else if (fabsf(pm) <= tau) {
-          cand = m;                              // a tangent root
-        }
-        probe = nan_max(probe, cand);
-      }
-      vr = vl;
-      dvr = dvl;
+  // 2. this lane's cells, then every lane's by an OR over the group
+  const int first = lane * kLaneCells;
+  unsigned long long bm = 0, dm = 0;
+  {
+    float vl = horner(c, sample(first)), dvl = horner(dc, sample(first));
+#pragma unroll
+    for (int i = 0; i < kLaneCells; ++i) {
+      const float t = sample(first + i + 1);
+      const float vr = horner(c, t), dvr = horner(dc, t);
+      bm |= static_cast<unsigned long long>(bracket(vl, vr)) << i;
+      dm |= static_cast<unsigned long long>(bracket(dvl, dvr)) << i;
+      vl = vr;
+      dvl = dvr;
     }
   }
-  const float x = nan_max(root, probe);
+  bm <<= first;
+  dm <<= first;
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1) {
+    bm |= __shfl_xor_sync(kFull, bm, off, kLanes);
+    dm |= __shfl_xor_sync(kFull, dm, off, kLanes);
+  }
+  if (!nonconst) bm = dm = 0;
 
-  // 4. y from the root, and the sentinels
+  // the cells: p's last bracket, and p''s three highest brackets (a missing
+  // one takes the last cell, as the plain version's _last_true does)
+  const bool has = bm != 0;
+  const int idx = has ? top(bm) : kCells - 1;
+  bool dhas[3];
+  int didx[3];
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    dhas[e] = dm != 0;
+    didx[e] = dhas[e] ? top(dm) : kCells - 1;
+    dm &= ~(1ull << didx[e]);
+  }
+
+  // 3-4. this lane's tasks (task 0: p in its last bracket; task e: p' in
+  //      its e-th highest bracket, then the probe), and its best candidate
+  float x = -1.0f;
+#pragma unroll
+  for (int s = 0; s < kLaneTasks; ++s) {
+    const int task = (s * kLanes + lane) % kTasks;
+    const bool deriv = task != 0;
+    const int cell = task == 0   ? idx
+                     : task == 1 ? didx[0]
+                     : task == 2 ? didx[1]
+                                 : didx[2];
+    const bool found = task == 0   ? has
+                       : task == 1 ? dhas[0]
+                       : task == 2 ? dhas[1]
+                                   : dhas[2];
+    float k[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) k[i] = deriv ? dpad[i] : c[i];
+    const float lo = sample(cell), hi = sample(cell + 1);
+    const float a = bisect(k, lo, hi, horner(k, lo));  // phase A
+    float cand = found ? a : -1.0f;
+    if (deriv) {  // phase B: a is the extremum m
+      const float pm = horner(c, a);
+      const bool cross = mul(pm, horner(c, hi)) < 0.0f;
+      const float pair = bisect(c, a, hi, pm);  // the later of a hidden pair
+      cand = !found               ? -1.0f
+             : cross              ? pair
+             : fabsf(pm) <= tau   ? a  // a tangent root
+                                  : -1.0f;
+    }
+    x = nan_max(x, cand);
+  }
+#pragma unroll
+  for (int off = 1; off < kLanes; off <<= 1)
+    x = nan_max(x, __shfl_xor_sync(kFull, x, off, kLanes));
+  x = __shfl_sync(kFull, x, 0, kLanes);  // lane 0's, in every lane
+
+  // 5. y from the root, the sentinels, and x, y, x written by lanes 0-2
   const float u = sub(1.0f, x);
   const float X0 = mul(u, u), X1 = mul(x, u), X3 = mul(x, x);
   const float AX = add(add(add(mul(Q[0], X0), mul(Q[1], X1)), mul(Q[4], X1)),
@@ -219,19 +321,28 @@ trilinear_roots_kernel(const float4* __restrict__ p4,
                        mul(Q[7], X3));
   const float y = __fdiv_rn(AX, sub(AX, BX));
   const float xo = (deg || !isfinite(x)) ? -1.0f : x;
-  out[3 * row + 0] = xo;
-  out[3 * row + 1] = (deg || !isfinite(y)) ? -1.0f : y;
-  out[3 * row + 2] = xo;
+  const float yo = (deg || !isfinite(y)) ? -1.0f : y;
+  if (row < n) {
+#pragma unroll
+    for (int j = lane; j < 3; j += kLanes) out[3 * row + j] = j == 1 ? yo : xo;
+  }
 }
 
 }  // namespace
 
+// threads given to each row
+extern "C" int trilinear_roots_lanes() { return kLanes; }
+
 // p, q [n, 8] row-major f32 on the device, 16-byte aligned; writes out [n, 3]
-// f32.  Launches on `stream` and returns the CUDA error of the launch, or 0.
+// f32.  Launches on `stream` and returns the CUDA error of the launch, or 0
+// (cudaErrorInvalidValue, without a launch, when n * kLanes overflows an
+// int).
 extern "C" int trilinear_roots_launch(const float* p, const float* q, int n,
                                       float* out, cudaStream_t stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = (n + kThreads - 1) / kThreads;
+  if (n > INT_MAX / kLanes) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(n) * kLanes + kThreads - 1) / kThreads);
   trilinear_roots_kernel<<<blocks, kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(p), reinterpret_cast<const float4*>(q),
       n, out);

@@ -10,14 +10,19 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    ``nvcc`` per source, all started together), with the ``-Xptxas -v``
    register and shared-memory summary; no spills;
 3. kernels vs plain: each kernel against its plain PyTorch version, bit for
-   bit, on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
+   bit (the encode's table gradients, scattered by atomicAdd, to a stated
+   tolerance), on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
    launch plan and the share of its work that took the exact path (from an
    instrumented build), then kernel, plain and library times (CUDA
    events); ``trilinear_roots`` on the rows of
-   ``tests/trilinear_cases.py:kernel_pq`` and 100,000 seeded rows;
+   ``tests/trilinear_cases.py:kernel_pq`` and 100,000 seeded rows; the
+   encode's forward, backward and double backward on the small, medium and
+   large grids (the large one hashes a level) at B = 0, 1 and 1,000, and
+   timed at B = 1,000;
 4. flat main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
    ``cuda``, held to the golden funnel, the committed mesh and the kernel
-   launch counts;
+   launch counts (the encode's forward on every net evaluation, its
+   backward for the faces' normals);
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
    128`` on ``cuda``, held to the golden funnel (or, where only eps-boundary
    flips move it, to the committed JAX vertex set), |sdf| < 2e-4 on every
@@ -29,8 +34,25 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    extraction's ``take``, and on the largest of them and on the 100,000
    seeded rows its device time (a CUDA graph of calls, ``graph_ms``), one
    wrapper call, the plain version and ``torch.linalg.eigvals`` on the
-   companion matrices timed;
-7. one JSON line of kernel records, the card's line, and the result line.
+   companion matrices timed; the three hash-grid encode kernels held to
+   their plain versions and timed at the flat run's largest forward;
+7. training path: ``train()`` on the sphere dataset at sphere-small's full
+   width (10 epochs of 50 steps of 1,000 points) from the JAX initial
+   params in ``tests/golden/sphere_small_train_1.npz``
+   (``scripts/train_golden.py``): one forward, two backwards and one double
+   backward of the encode a step; every 10-step window of the losses held
+   to the golden's JAX runs (``golden_verdict``) and the sdf at its probes
+   to twice the one-ulp JAX witness's spread, and the same check shown to
+   fail a run with the double backward's table gradient zeroed;
+   the trained net extracted on the flat path and evaluated at ``--gt_res
+   128``, its "Ours" CD at most twice the committed checkpoint's (phase 4);
+   a training step timed with the kernels and with the plain encode, the
+   labels' time per epoch, each epoch and the whole run, and the device's
+   busy share over ten steps (torch.profiler);
+8. training CLI: ``python -m tropical_torch.stanford.train -c -m small -d
+   sphere -s 1 --epochs 1`` in a process of its own: it trains, extracts,
+   and writes nothing under ``tropical/`` nor a checkpoint;
+9. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
 package is missing.
@@ -80,6 +102,45 @@ MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0}
 # time at the curved run's largest input, B = 8,460)
 PREV_MS = {"min_dist": 4.486, "trilinear_roots": 0.0563}
 EXACT_COUNT = ("min_dist", ("MIN_DIST_COUNT_EXACT",))
+ENCODE = ("hashgrid_encode_fwd", "hashgrid_encode_bwd",
+          "hashgrid_encode_bwd_bwd")
+ENCODE_REPLACES = {"hashgrid_encode_fwd": "tropical/core/hashgrid.py:163",
+                   "hashgrid_encode_bwd": "tropical/stanford/training.py:42",
+                   "hashgrid_encode_bwd_bwd": "tropical/stanford/training.py:65"}
+# float operations a (point, level) of each encode kernel, unfused (counted
+# in csrc/hashgrid_encode.cu: the cell, then per corner the weight, the
+# gather's products and sums, the gradients' products and sums)
+ENCODE_OPS = {"hashgrid_encode_fwd": 61, "hashgrid_encode_bwd": 150,
+              "hashgrid_encode_bwd_bwd": 250}
+# the table gradients are atomicAdd scatters in a free order (and so is
+# index_add_, the plain version's, on the card): a row that sums n terms in
+# another order moves by about 2^-24 sqrt(n) of its size, and a row takes
+# at most one term a point and corner.  Held: within SCATTER_ULPS 2^-24
+# sqrt(B) of the plain version's largest row (measured 0.3 to 1.0 of
+# 2^-24 sqrt(B) at B = 1,000 and 278,528)
+SCATTER_ULPS = 4.0
+# encode launches of the flat and curved CLI runs, one a net evaluation
+# with rows and one backward a normal() call (counted on the CPU with the
+# plain versions): flat, 17 forwards in the extraction (the largest
+# 117,649 rows) and 27 in the MC ladder (the largest, 278,528 rows, a
+# slab at 128), the faces' normals once; curved, 46 forwards in the
+# extraction and 27 in the ladder, the faces' normals once, and one forward
+# and one backward a step of the GD rescue (``failover.COUNTERS``; 3 steps
+# on the CPU)
+FLAT_ENCODE = {"hashgrid_encode_fwd": 44, "hashgrid_encode_bwd": 1,
+               "hashgrid_encode_bwd_bwd": 0}
+CURVED_ENCODE = {"hashgrid_encode_fwd": 73, "hashgrid_encode_bwd": 1,
+                 "hashgrid_encode_bwd_bwd": 0}
+TRAIN_GOLDEN = "tests/golden/sphere_small_train_1.npz"
+TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_SEED = 10, 1000, 1
+# a step: the forward, the backward for J and for the loss, and the double
+# backward the eikonal term's create_graph adds
+STEP_LAUNCHES = {"hashgrid_encode_fwd": 1, "hashgrid_encode_bwd": 2,
+                 "hashgrid_encode_bwd_bwd": 1}
+# the port's losses are held per window of this many steps
+WINDOW = 10
+CLI_TRAIN_ARGV = ["-c", "-m", "small", "-d", "sphere", "-s", "1",
+                  "--epochs", "1"]
 
 
 class Tee(io.TextIOBase):
@@ -152,7 +213,7 @@ def build_phase():
     from tropical_torch.ops import cuda_build
 
     t = time.time()
-    targets = ["min_dist", EXACT_COUNT, "trilinear_roots"]
+    targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode"]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -182,7 +243,7 @@ def sphere_points(n, rng, dev):
 
 def kernel_phase():
     phase("3. kernels vs plain")
-    return [min_dist_phase(), trilinear_roots_phase()]
+    return [min_dist_phase(), trilinear_roots_phase(), *encode_phase()]
 
 
 def min_dist_phase():
@@ -397,6 +458,7 @@ def shapes_phase(records, largest, curved_inputs, curved_take):
     rec.update(main_shape=list(shape), main_ms=ms, main_bound_ms=bound_ms)
     trilinear_roots_timing(records["trilinear_roots"], curved_inputs,
                            curved_take)
+    encode_at_largest(records, largest["hashgrid_encode_fwd"])
 
 
 def trilinear_roots_timing(rec, inputs, extract_s):
@@ -458,6 +520,480 @@ def solve_times(p, q, prev_ms=None, library_iters=3, library_warmup=1):
             "library_ms": library_ms}
 
 
+def encode_spec(size):
+    from tropical_torch.stanford.model import net_for_size
+
+    return net_for_size(size, device="cpu").spec.grid
+
+
+def encode_inputs(spec, n, seed):
+    """Seeded (table, x, dfeat, ddx) on the card: points over the unit cube
+    and its margin (the extraction canvas reaches past it), a quarter on
+    grid planes and faces."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    x[: n // 4] = np.round(x[: n // 4] * 4) / 4
+    table = (0.1 * rng.normal(size=(spec.n_entries, 2))).astype(np.float32)
+    dfeat = rng.normal(size=(n, spec.levels * 2)).astype(np.float32)
+    ddx = rng.normal(size=(n, 3)).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (table, x, dfeat, ddx))
+
+
+def encode_vs_plain(recs, label, spec, table, x, dfeat, ddx):
+    """The three kernels against their plain versions: features, dx,
+    d_dfeat and dx2 to the bit, dtable and dtable2 within SCATTER_ULPS
+    2^-24 sqrt(B) of the plain version's largest row.  Updates each record's
+    max_abs_err."""
+    from tropical_torch.core import hashgrid as hg
+
+    feat = hg.hashgrid_encode_fwd(spec, table, x)
+    dx, dt = hg.hashgrid_encode_bwd(spec, table, x, dfeat)
+    dd, dt2, dx2 = hg.hashgrid_encode_bwd_bwd(spec, table, x, dfeat, ddx)
+    torch.cuda.synchronize()
+    pdx, pdt = hg.encode_backward_plain(spec, table, x, dfeat)
+    pdd, pdt2, pdx2 = hg.encode_double_backward_plain(spec, table, x, dfeat,
+                                                      ddx)
+    pairs = {"feat": (feat, hg.encode_plain(spec, table, x)), "dx": (dx, pdx),
+             "d_dfeat": (dd, pdd), "dx2": (dx2, pdx2)}
+    bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for k, (a, b) in pairs.items()}
+
+    def err(a, b):
+        return float((a - b).abs().max()) if a.numel() else 0.0
+
+    def rel(a, b):
+        return err(a, b) / max(float(b.abs().max()), 1e-30)
+
+    scatter = {"dtable": rel(dt, pdt), "dtable2": rel(dt2, pdt2)}
+    tol = SCATTER_ULPS * 2.0 ** -24 * math.sqrt(max(x.shape[0], 1))
+    print(f"encode {label}: bit mismatches {bits}; table gradients against "
+          f"the plain version's largest row {scatter} (held to {tol:.3e})")
+    check(not any(bits.values()), f"encode {label}: kernel differs from "
+          f"plain: {bits}")
+    check(all(v <= tol for v in scatter.values()),
+          f"encode {label}: table gradients beyond {tol}: {scatter}")
+    errs = {"hashgrid_encode_fwd": [err(*pairs["feat"])],
+            "hashgrid_encode_bwd": [err(dx, pdx), err(dt, pdt)],
+            "hashgrid_encode_bwd_bwd": [err(dd, pdd), err(dt2, pdt2),
+                                        err(dx2, pdx2)]}
+    for k, v in errs.items():
+        recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], *v)
+
+
+def encode_phase():
+    print("--- hashgrid encode: forward, backward, double backward")
+    recs = {k: {"name": k, "route": "cuda",
+                "source": "tropical_torch/csrc/hashgrid_encode.cu",
+                "replaces": ENCODE_REPLACES[k], "max_abs_err": 0.0}
+            for k in ENCODE}
+    for size in ("small", "medium", "large"):
+        spec = encode_spec(size)
+        hashed = [l for l in range(spec.levels) if spec.level_uses_hash(l)]
+        for n in (0, 1, 1000):
+            encode_vs_plain(recs, f"{size} (hashed levels {hashed}) B={n}",
+                            spec, *encode_inputs(spec, n, seed=n + 7))
+    spec = encode_spec("small")
+    for k, v in encode_times(spec, *encode_inputs(spec, 1000, seed=3)).items():
+        recs[k].update(v)
+    return list(recs.values())
+
+
+def encode_rows_touched(spec, x) -> int:
+    """The distinct table rows that the corners of the points x reach, over
+    every level."""
+    from tropical_torch.core import hashgrid as hg
+
+    rows = []
+    for l in range(spec.levels):
+        pos_grid, frac = hg._level_grid(spec, x, l)
+        rows += [idx for _, idx, _ in hg._corners(spec, l, pos_grid, frac,
+                                                  spec.n_entries)]
+    return int(torch.unique(torch.cat(rows)).numel()) if rows else 0
+
+
+def encode_bound_ms(name, spec, x):
+    """Least time of one encode kernel on the points x: the bytes it must
+    move at 3.35 TB/s against its unfused float operations at
+    PEAK_F32_UNFUSED_OPS.  Bytes: the points and the gradients read, each
+    table row the corners reach read once (the corners' later reads of a
+    row are not counted: the table, 281 KB for sphere-small, stays in the
+    50 MB L2), the outputs written, a table gradient written once whole."""
+    n, L, rows = x.shape[0], spec.levels, spec.n_entries
+    points, feats, table = 12 * n, 8 * L * n, 8 * encode_rows_touched(spec, x)
+    nbytes = {"hashgrid_encode_fwd": points + table + feats,
+              "hashgrid_encode_bwd": points + feats + table + points + 8 * rows,
+              "hashgrid_encode_bwd_bwd": (2 * points + feats + table + feats
+                                          + 8 * rows + points)}
+    t_bytes = nbytes[name] / PEAK_BYTES
+    t_ops = ENCODE_OPS[name] * L * n / PEAK_F32_UNFUSED_OPS
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def encode_times(spec, table, x, dfeat, ddx):
+    """Each kernel's device time (graph_ms), one wrapper call, its plain
+    version (CUDA events) and its bound on these inputs."""
+    from tropical_torch.core import hashgrid as hg
+
+    calls = {
+        "hashgrid_encode_fwd": (
+            lambda: hg.hashgrid_encode_fwd(spec, table, x),
+            lambda: hg.encode_plain(spec, table, x)),
+        "hashgrid_encode_bwd": (
+            lambda: hg.hashgrid_encode_bwd(spec, table, x, dfeat),
+            lambda: hg.encode_backward_plain(spec, table, x, dfeat)),
+        "hashgrid_encode_bwd_bwd": (
+            lambda: hg.hashgrid_encode_bwd_bwd(spec, table, x, dfeat, ddx),
+            lambda: hg.encode_double_backward_plain(spec, table, x, dfeat,
+                                                    ddx))}
+    n = x.shape[0]
+    out = {}
+    for name, (kernel, plain) in calls.items():
+        ms = graph_ms(kernel)
+        call_ms = cuda_ms(kernel, iters=50, warmup=3)
+        plain_ms = cuda_ms(plain, iters=10, warmup=2)
+        bound_ms, bound_by = encode_bound_ms(name, spec, x)
+        print(f"{name} B={n}: kernel {ms:.4f} ms (a wrapper call "
+              f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.5f} ms ({bound_by}); kernel at "
+              f"{bound_ms / ms:.1%} of the bound")
+        out[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None, "shape": [n, spec.levels]}
+    return out
+
+
+def encode_at_largest(records, shape):
+    """The encode kernels at the flat run's largest forward: held to their
+    plain versions and timed (``main_*`` keys of each record)."""
+    check(shape is not None, "the flat path recorded no encode forward")
+    spec = encode_spec("small")
+    check(shape[1] == spec.levels, f"flat encode shape {shape}")
+    inputs = encode_inputs(spec, shape[0], seed=11)
+    recs = {k: records[k] for k in ENCODE}
+    encode_vs_plain(recs, f"small B={shape[0]} (largest on the flat path)",
+                    spec, *inputs)
+    for k, v in encode_times(spec, *inputs).items():
+        records[k].update({f"main_{key}": val for key, val in v.items()})
+
+
+def golden_params(g):
+    return {"table": g["table"],
+            "mlp": {"w": [g[f"w{i}"] for i in range(3)],
+                    "b": [g[f"b{i}"] for i in range(3)]}}
+
+
+def window_max(a, width=WINDOW):
+    """The largest |a| in each window of ``width`` steps; where ``a``
+    stacks several runs ([runs, steps]), the largest over them too."""
+    w = np.abs(a).reshape(*a.shape[:-1], -1, width).max(axis=-1)
+    return w.max(axis=0) if w.ndim > 1 else w
+
+
+def golden_verdict(g, totals, l1s, sdf):
+    """A training run against the JAX golden: (report, failures).
+
+    The port's Adam rounds as torch.optim.Adam does; the golden's ``adam``
+    run is the JAX package with that arithmetic.  Each 10-step window of
+    both losses is held:
+
+    - until the first window where twice the one-ulp witness's spread
+      covers the adam run's own gap to the golden: to the adam run, within
+      twice the summation noise of a loss read out in another order (the
+      order witnesses' largest gap to the golden over those windows);
+    - from that window on: to the golden, within twice the one-ulp
+      witness's spread.
+
+    The sdf at the probes: to the golden, within twice the one-ulp
+    witness's spread."""
+    report, failures = {}, []
+    for key, port in (("totals", totals), ("l1s", l1s)):
+        gold = g[f"golden_{key}"]
+        spread = window_max(g[f"witness_{key}"] - gold)
+        covered = np.nonzero(2 * spread >= window_max(g[f"adam_{key}"] - gold))
+        switch = int(covered[0][0]) if len(covered[0]) else len(spread)
+        noise = float(window_max(g[f"order_{key}"] - gold)[:switch].max(
+            initial=0.0))
+        early = window_max(port - g[f"adam_{key}"])[:switch]
+        gap = window_max(port - gold)
+        over = np.nonzero(early > 2 * noise)[0].tolist()
+        over += (switch + np.nonzero(gap[switch:] > 2 * spread[switch:])[0]
+                 ).tolist()
+        opened = np.nonzero(np.maximum.accumulate(gap) > 1e-6)[0]
+        report[key] = {
+            "held_to_golden_from_window": switch,
+            "gap_to_adam_run": early.tolist(), "early_limit": 2 * noise,
+            "gap_to_golden": gap.tolist(), "witness_spread": spread.tolist(),
+            "windows_over": over,
+            "gap_to_golden_opens_at_window": (int(opened[0]) if len(opened)
+                                              else None)}
+        if over:
+            failures.append(f"{key}: windows {over} beyond their limits")
+    gap_p = float(np.abs(sdf - g["golden_sdf"]).max())
+    spread_p = float(np.abs(g["witness_sdf"] - g["golden_sdf"]).max())
+    report["probes"] = {"gap_to_golden": gap_p, "witness_spread": spread_p}
+    if gap_p > 2 * spread_p:
+        failures.append(f"probe sdf {gap_p} from the golden, beyond twice "
+                        f"the witness's {spread_p}")
+    return report, failures
+
+
+def dtable2_dropped(bwd_bwd):
+    """A planted fault: ``bwd_bwd`` with its table gradient zeroed (the
+    eikonal term's gradient of the table lost)."""
+    def faulty(*args, **kwargs):
+        d_dfeat, dtable2, dx2 = bwd_bwd(*args, **kwargs)
+        return d_dfeat, None if dtable2 is None else dtable2.zero_(), dx2
+
+    return faulty
+
+
+def step_ms(net_init, x, y, plain_encode: bool) -> float:
+    """One training step on a fixed batch (CUDA events over 10 steps),
+    through the kernels or, for the comparison only, through autograd of
+    the plain encode."""
+    from tropical_torch.core import hashgrid as hg
+    from tropical_torch.stanford import training as tr
+
+    net = net_init()
+    opt, sched = tr.make_optimizer(net.parameters(), 1e-3, 100)
+    encode = hg.encode
+    if plain_encode:
+        hg.encode = lambda spec, table, xu: hg.encode_plain(spec, table, xu)
+    try:
+        return cuda_ms(lambda: tr.train_step(net, opt, sched, x, y,
+                                             TRAIN_BATCH), iters=10, warmup=3)
+    finally:
+        hg.encode = encode
+
+
+def kernel_events(prof):
+    """The device's kernel events of a profile: CUDA events that are not
+    user annotations (the spans of record_function scopes)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def profiled_steps(net, opt, sched, x, y, steps):
+    """``steps`` training steps under torch.profiler: (profile, host wall
+    in us)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tropical_torch.stanford import training as tr
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        for _ in range(steps):
+            tr.train_step(net, opt, sched, x, y, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t) * 1e6
+    return prof, wall_us
+
+
+def first_step(net_init, x, y):
+    """The first training step of the process, profiled: its wall and the
+    host operations that take most of it (one-time set-up the later steps
+    do not pay)."""
+    from tropical_torch.stanford import training as tr
+
+    net = net_init()
+    opt, sched = tr.make_optimizer(net.parameters(), 1e-3, 100)
+    prof, wall_us = profiled_steps(net, opt, sched, x, y, 1)
+    top = sorted(prof.key_averages(), key=lambda e: -e.cpu_time_total)[:8]
+    return {"wall_s": wall_us / 1e6,
+            "top_host_s": {e.key[:60]: e.cpu_time_total / 1e6 for e in top}}
+
+
+def step_busy_share(net_init, x, y, steps: int = 10):
+    """The device's busy share over ``steps`` warm training steps through
+    the kernels: the summed time of the kernel events (torch.profiler) over
+    the host clock of the steps, and the kernels a step."""
+    from tropical_torch.stanford import training as tr
+
+    net = net_init()
+    opt, sched = tr.make_optimizer(net.parameters(), 1e-3, 100)
+    for _ in range(3):
+        tr.train_step(net, opt, sched, x, y, TRAIN_BATCH)
+    prof, wall_us = profiled_steps(net, opt, sched, x, y, steps)
+    events = kernel_events(prof)
+    busy_us = sum(e.device_time_total for e in events)
+    by_name = {}
+    for e in events:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_busy_share": busy_us / wall_us,
+            "device_us_per_step": busy_us / steps,
+            "wall_us_per_step": wall_us / steps,
+            "kernels_per_step": len(events) / steps,
+            "top_device_us_per_step": {k: v / steps for k, v in top}}
+
+
+def training_phase(flat_cd):
+    """Train from the golden's JAX init; returns the encode launches."""
+    phase("7. training path: train() on sphere-small, 10 epochs of 50 steps "
+          "of 1,000")
+    from tropical_torch.ops import launches
+    from tropical_torch.stanford import train as cli
+    from tropical_torch.stanford.dataset import StanfordDataset
+    from tropical_torch.stanford.model import net_for_size
+    from tropical_torch.stanford.training import train
+    from tropical_torch.utils.ply import Mesh
+
+    g = np.load(TRAIN_GOLDEN)
+    dev = torch.device("cuda")
+
+    def net_init():
+        return net_for_size("small", "sphere", TRAIN_SEED,
+                            device=dev).params_from_numpy(golden_params(g))
+
+    t = time.time()
+    ds = StanfordDataset("sphere", rng=np.random.default_rng(TRAIN_SEED),
+                         device=dev)
+    torch.cuda.synchronize()
+    dataset_s = time.time() - t
+    label_s = []
+    resample = ds.resample
+
+    def timed_resample():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        resample()
+        torch.cuda.synchronize()
+        label_s.append(time.time() - t0)
+
+    ds.resample = timed_resample
+    epoch_end = []
+
+    def epoch_done(_):
+        torch.cuda.synchronize()
+        epoch_end.append(time.time())
+
+    # the process's first training step, on a net of its own, before the
+    # run: the one-time set-up it pays is reported, not timed in the run
+    x0, y0 = ds.X[:TRAIN_BATCH], ds.Y[:TRAIN_BATCH]
+    print(json.dumps({"first_training_step": first_step(net_init, x0, y0)}))
+    net = net_init()
+    launches.reset()
+    t = time.time()
+    totals, l1s = train(net, ds, TRAIN_EPOCHS, TRAIN_BATCH,
+                        epoch_callback=epoch_done)
+    torch.cuda.synchronize()
+    train_s = time.time() - t
+    epoch_s = np.diff([t, *epoch_end, t + train_s]).tolist()
+    counts = dict(launches.LAUNCHES)
+    steps = len(totals)
+    print(f"trained {steps} steps in {train_s:.3f} s (epochs {epoch_s}; "
+          f"labels {np.mean(label_s):.4f} s an epoch, {label_s}; dataset "
+          f"built in {dataset_s:.3f} s); kernel launches {counts}")
+    check(steps == TRAIN_EPOCHS * 50, f"{steps} steps")
+    want = {k: v * steps for k, v in STEP_LAUNCHES.items()}
+    check(all(counts[k] == want[k] for k in ENCODE)
+          and counts["min_dist"] == counts["trilinear_roots"] == 0,
+          f"training launches {counts}, want {want}")
+
+    # against the JAX golden and its witnesses
+    probes = torch.from_numpy(g["probes"]).to(dev)
+    report, failures = golden_verdict(g, totals, l1s,
+                                      net.sdf(probes)[:, 0].cpu().numpy())
+    print(json.dumps({"train_vs_golden": report}))
+    check(not failures, "; ".join(failures))
+
+    # a control: the same check fails a run with a wrong training step
+    from tropical_torch.core import hashgrid as hg
+
+    bwd_bwd = hg.hashgrid_encode_bwd_bwd
+    hg.hashgrid_encode_bwd_bwd = dtable2_dropped(bwd_bwd)
+    try:
+        fault_net = net_init()
+        fault_totals, fault_l1s = train(
+            fault_net, StanfordDataset("sphere", rng=np.random.default_rng(
+                TRAIN_SEED), device=dev), TRAIN_EPOCHS, TRAIN_BATCH,
+            verbose=False)
+    finally:
+        hg.hashgrid_encode_bwd_bwd = bwd_bwd
+    fault_report, fault_failures = golden_verdict(
+        g, fault_totals, fault_l1s, fault_net.sdf(probes)[:, 0].cpu().numpy())
+    print(json.dumps({"planted_fault_dtable2_zeroed": {
+        "failures": fault_failures,
+        **{k: {"windows_over": fault_report[k]["windows_over"],
+               "gap_to_adam_run": fault_report[k]["gap_to_adam_run"]}
+           for k in ("totals", "l1s")},
+        "probes": fault_report["probes"]}}))
+    check(fault_failures, "the golden check passed a run with the double "
+          "backward's table gradient zeroed")
+
+    # the trained net on the flat path, evaluated
+    out_dir = os.path.join(cli.OUT_ROOT, "sphere_trained")
+    os.makedirs(out_dir, exist_ok=True)
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        _, V, F, take = cli.extract_mesh(net, True)
+        mesh = Mesh(V.cpu().numpy() / cli.DATASET_R, F.cpu().numpy())
+        check(mesh.vertices.shape[0] > 0, "the trained net's mesh is empty")
+        cli.evaluate_against_grid_gt(net, mesh, take, cli.DATASET_R, 128,
+                                     out_dir, "small_1")
+    cd = float(re.search(r"^Ours, +\d+, ([-\d.naif]+), ", tee.buf.getvalue(),
+                         re.M).group(1))
+    print(f"trained net: {mesh.vertices.shape[0]} vertices, "
+          f"{mesh.faces.shape[0]} faces, Ours CD {cd} against the committed "
+          f"checkpoint's {flat_cd}")
+    check(math.isfinite(cd) and 0 < cd <= 2 * flat_cd,
+          f"trained net's CD {cd} beyond twice the committed {flat_cd}")
+
+    # one step, through the kernels and through the plain encode
+    x, y = next(ds.batches(TRAIN_BATCH))
+    times = {"kernels": step_ms(net_init, x, y, False),
+             "plain_encode": step_ms(net_init, x, y, True)}
+    print(json.dumps({"train_step_ms": times,
+                      "speedup": times["plain_encode"] / times["kernels"],
+                      "labels_s_per_epoch": float(np.mean(label_s)),
+                      "train_s": train_s, "epoch_s": epoch_s,
+                      "steps": steps,
+                      "step_profile": step_busy_share(net_init, x, y)}))
+    return counts
+
+
+def tree_state(root):
+    """(path, size, mtime) of every file under ``root``."""
+    state = set()
+    for dirpath, _, names in os.walk(root):
+        for n in names:
+            st = os.stat(os.path.join(dirpath, n))
+            state.add((os.path.join(dirpath, n), st.st_size, st.st_mtime_ns))
+    return state
+
+
+def cli_training_phase():
+    argv = ["-m", "tropical_torch.stanford.train", *CLI_TRAIN_ARGV]
+    phase("8. training CLI: python " + " ".join(argv))
+    from tropical_torch.stanford import train as cli
+
+    watched = ("tropical", str(cli.MODELS_DIR))
+    before = [tree_state(r) for r in watched]
+    t = time.time()
+    proc = subprocess.run([sys.executable, *argv], capture_output=True,
+                          text=True, timeout=900)
+    wall = time.time() - t
+    print(proc.stdout[-4000:])
+    print(proc.stderr[-2000:], file=sys.stderr)
+    after = [tree_state(r) for r in watched]
+    changed = [sorted(a ^ b)[:5] for a, b in zip(before, after)]
+    print(f"CLI exit {proc.returncode} in {wall:.1f} s; files changed under "
+          f"{watched}: {changed}")
+    check("Finished training." in proc.stdout, "the CLI did not train")
+    check("# of vertices and edges" in proc.stdout, "the CLI did not extract")
+    check(not any(changed), f"the CLI wrote under {watched}: {changed}")
+    # one epoch leaves the sphere without a zero level set (the JAX
+    # package's CLI gives the same empty mesh): the CLI then exits 2 with
+    # its warning, as the JAX package's does
+    empty = "empty extraction" in proc.stdout
+    check(proc.returncode == (2 if empty else 0),
+          f"CLI exit {proc.returncode} (empty extraction: {empty})")
+
+
 def run_cli(argv):
     """The CLI once, with every kernel's count and largest shape and the
     stage timers zeroed just before it.  Returns (stdout, launches, largest
@@ -482,9 +1018,9 @@ def run_cli(argv):
     return tee.buf.getvalue(), counts, largest, wall
 
 
-def summary(text, wall) -> float:
+def summary(text, wall) -> tuple[float, float]:
     """Check the 'Ours' CD/AD row; print the funnel and the stage times.
-    Returns the extraction's ``take`` (s)."""
+    Returns the extraction's ``take`` (s) and the "Ours" CD."""
     from tropical_torch.extract import subdivide as sp
     from tropical_torch.stanford import train
 
@@ -502,7 +1038,33 @@ def summary(text, wall) -> float:
         "extract_stage_s": {k: round(v, 4) for k, v in sp.PHASES.totals.items()},
         "eval_stage_s": {k: round(v, 4) for k, v in train.PHASES.totals.items()},
         "wall_s": round(wall, 4), "ours_cd": cd, "ours_ad": ad}))
-    return extract_s
+    return extract_s, cd
+
+
+def fan_contract(v, ours, ref):
+    """The triangles of two meshes on one vertex set (``ours`` mapped onto
+    ``ref``'s vertices) under the fan-diagonal contract of
+    tests/test_device_faces.py: the rows that differ are as many on each
+    side, at most 0.5 % of them, on the same vertices, with the same area
+    (a fan's diagonal taken the other way)."""
+    s1 = set(map(tuple, np.sort(ours, 1)))
+    s2 = set(map(tuple, np.sort(ref, 1)))
+    d1, d2 = s1 - s2, s2 - s1
+
+    def area(tris):
+        if not tris:
+            return 0.0
+        p = np.asarray(v, np.float64)[np.asarray(sorted(tris))]
+        cr = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+        return float(0.5 * np.linalg.norm(cr, axis=1).sum())
+
+    a1, a2 = area(d1), area(d2)
+    print(f"triangles against the committed mesh: {len(d1)} / {len(d2)} "
+          f"rows differ of {len(s2)}, their areas {a1:.6e} / {a2:.6e}")
+    check(len(d1) == len(d2) and len(d1) <= 0.005 * len(s2)
+          and {i for t in d1 for i in t} == {i for t in d2 for i in t}
+          and abs(a1 - a2) <= 1e-6 * area(s2) + 1e-12,
+          "triangles outside the fan-diagonal contract")
 
 
 def main_path_phase():
@@ -513,7 +1075,7 @@ def main_path_phase():
 
     text, launches, largest, wall = run_cli(MAIN_ARGV)
     check(stats.LAST == GOLDEN, f"funnel {stats.LAST} != golden {GOLDEN}")
-    for k, want in MAIN_LAUNCHES.items():
+    for k, want in {**MAIN_LAUNCHES, **FLAT_ENCODE}.items():
         check(launches[k] == want, f"{k}: {launches[k]} launches, want {want}")
 
     # the exported mesh is the committed JAX one: same counts, and each
@@ -533,8 +1095,9 @@ def main_path_phase():
     print(f"exported vs committed mesh: max vertex distance {vmax:.3e}, "
           f"one to one: {one_to_one}")
     check(vmax <= 1e-4 and one_to_one, "exported mesh differs from committed")
-    summary(text, wall)
-    return launches, largest
+    fan_contract(ref.vertices, idx.cpu().numpy()[ours.faces], ref.faces)
+    _, cd = summary(text, wall)
+    return launches, largest, cd
 
 
 def curved_path_phase():
@@ -601,7 +1164,12 @@ def curved_path_phase():
           f"trilinear_roots: {launches['trilinear_roots']} launches and "
           f"{len(kept['inputs'])} inputs, want one per curved insertion step "
           f"({steps})")
-    return launches, kept["inputs"], summary(text, wall)
+    gd_steps = fo.COUNTERS["gd_steps"]
+    for k, want in CURVED_ENCODE.items():
+        want += gd_steps if k != "hashgrid_encode_bwd_bwd" else 0
+        check(launches[k] == want, f"{k}: {launches[k]} launches, want {want} "
+              f"({gd_steps} GD steps)")
+    return launches, kept["inputs"], summary(text, wall)[0]
 
 
 def main() -> int:
@@ -615,14 +1183,20 @@ def main() -> int:
     name, smi = device_phase()
     build_phase()
     records = {r["name"]: r for r in kernel_phase()}
-    flat_launches, flat_largest = main_path_phase()
+    flat_launches, flat_largest, flat_cd = main_path_phase()
     curved_launches, curved_inputs, curved_take = curved_path_phase()
     records["min_dist"]["launches"] = flat_launches["min_dist"]
     records["min_dist"]["launches_curved"] = curved_launches["min_dist"]
     records["trilinear_roots"]["launches"] = curved_launches["trilinear_roots"]
     shapes_phase(records, flat_largest, curved_inputs, curved_take)
+    train_launches = training_phase(flat_cd)
+    for k in ENCODE:
+        records[k].update(launches=train_launches[k],
+                          launches_flat=flat_launches[k],
+                          launches_curved=curved_launches[k])
+    cli_training_phase()
 
-    phase("7. result")
+    phase("9. result")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

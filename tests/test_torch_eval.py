@@ -166,5 +166,16 @@ def test_cli_cache_hit_path_on_cpu(monkeypatch, tmp_path):
     assert ours.faces.shape == ref.faces.shape
     idx = _match(ours.vertices, ref.vertices, atol=1e-4)
     assert (idx == np.arange(len(idx))).mean() > 0.99
-    with pytest.raises(NotImplementedError, match="training"):
+    # -c skips the cache and trains (here cut short before any step)
+    from tropical_torch.stanford import train as cli
+
+    class Trained(Exception):
+        pass
+
+    def fake_train(net, args, device):
+        assert not args.cache and device.type == "cpu"
+        raise Trained
+
+    monkeypatch.setattr(cli, "train_net", fake_train)
+    with pytest.raises(Trained):
         main(argv + ["--device", "cpu", "-c"])

@@ -207,3 +207,128 @@ def test_trilinear_roots_kernel_launch_rules():
     with pytest.raises(ValueError, match="int32"):
         ttri.run_kernel(cuda_build.load("trilinear_roots"), huge, huge)
     assert LAUNCHES["trilinear_roots"] == before
+
+
+def _encode_case(name):
+    """(spec, table, x, dfeat, ddx) on the card for one case of the encode
+    kernels: preset specs at ragged B, one point, and the unit cube's faces
+    (x = 1.0 on a level of integer scale reaches the corner at the
+    resolution, which wraps within the level)."""
+    from tropical_torch.stanford.model import SIZE_PRESETS, net_for_size
+
+    size, n = {"small_1000": ("small", 1000), "medium_777": ("medium", 777),
+               "large_hashed_1031": ("large", 1031), "small_1": ("small", 1),
+               "small_faces": ("small", 600), "large_0": ("large", 0)}[name]
+    spec = net_for_size(size, device="cpu").spec.grid
+    assert (spec.n_min, spec.n_max) == SIZE_PRESETS[size]
+    rng = np.random.default_rng(len(name))
+    x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    if name == "small_faces":
+        x = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), size=(n, 3))
+        x[: n // 2, 0] = rng.uniform(0, 1, n // 2)
+        assert float(spec.level_scale(spec.levels - 1)).is_integer()
+    table = rng.normal(size=(spec.n_entries, 2)).astype(np.float32)
+    dfeat = rng.normal(size=(n, spec.levels * 2)).astype(np.float32)
+    ddx = rng.normal(size=(n, 3)).astype(np.float32)
+    return (spec,) + tuple(torch.from_numpy(a).cuda()
+                           for a in (table, x, dfeat, ddx))
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _scatter_close(got, plain, n):
+    """A scattered table gradient against its plain version: within
+    4 2^-24 sqrt(n) of the plain version's largest row (the order of the
+    atomicAdds is free: a row of n terms moves by about 2^-24 sqrt(n) of its
+    size)."""
+    err = float((got - plain).abs().max())
+    assert err <= 4 * 2.0 ** -24 * n ** 0.5 * float(plain.abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["small_1000", "medium_777",
+                                  "large_hashed_1031", "small_1",
+                                  "small_faces", "large_0"])
+def test_hashgrid_encode_kernels_match_plain(name):
+    """Forward, dx, d_dfeat and dx2 to the bit; the table gradients to a
+    tolerance; one launch counted per kernel call, none for B = 0."""
+    _need_cuda()
+    from tropical_torch.core import hashgrid as thg
+
+    spec, table, x, dfeat, ddx = _encode_case(name)
+    n = x.shape[0]
+    names = ("hashgrid_encode_fwd", "hashgrid_encode_bwd",
+             "hashgrid_encode_bwd_bwd")
+    before = [LAUNCHES[k] for k in names]
+    feat = thg.hashgrid_encode_fwd(spec, table, x)
+    dx, dtable = thg.hashgrid_encode_bwd(spec, table, x, dfeat)
+    dd, dtable2, dx2 = thg.hashgrid_encode_bwd_bwd(spec, table, x, dfeat, ddx)
+    torch.cuda.synchronize()
+    assert [LAUNCHES[k] - b for k, b in zip(names, before)] == [int(n > 0)] * 3
+    assert _bits_equal(feat, thg.encode_plain(spec, table, x))
+    pdx, pdt = thg.encode_backward_plain(spec, table, x, dfeat)
+    assert _bits_equal(dx, pdx)
+    pdd, pdt2, pdx2 = thg.encode_double_backward_plain(spec, table, x, dfeat,
+                                                       ddx)
+    assert _bits_equal(dd, pdd) and _bits_equal(dx2, pdx2)
+    if n == 0:
+        assert not dtable.any() and not dtable2.any()
+        return
+    _scatter_close(dtable, pdt, n)
+    _scatter_close(dtable2, pdt2, n)
+
+
+@pytest.mark.gpu
+def test_hashgrid_encode_autograd_on_cuda_counts_a_training_step():
+    """One training step on the card: one forward, two backwards (J and the
+    loss) and one double backward, and the same loss as on the CPU."""
+    _need_cuda()
+    from tropical_torch.stanford import training as ttr
+    from tropical_torch.stanford.model import net_for_size
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.uniform(-1, 1, (1000, 3)).astype(np.float32))
+    y = torch.from_numpy(rng.uniform(-0.3, 0.3, 1000).astype(np.float32))
+    nets = {dev: net_for_size("small", "sphere", 1, device=dev)
+            for dev in ("cpu", "cuda")}
+    losses = {}
+    for dev, net in nets.items():
+        opt, sched = ttr.make_optimizer(net.parameters(), 1e-3, 10)
+        before = dict(LAUNCHES)
+        losses[dev] = ttr.train_step(net, opt, sched, x.to(dev), y.to(dev),
+                                     1000)
+        counts = [LAUNCHES[k] - before[k] for k in (
+            "hashgrid_encode_fwd", "hashgrid_encode_bwd",
+            "hashgrid_encode_bwd_bwd")]
+        assert counts == ([1, 2, 1] if dev == "cuda" else [0, 0, 0])
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
+
+
+@pytest.mark.gpu
+def test_hashgrid_encode_kernels_reject_what_they_do_not_take():
+    _need_cuda()
+    from tropical_torch.core import hashgrid as thg
+    from tropical_torch.stanford.model import net_for_size
+
+    spec = net_for_size("small", device="cpu").spec.grid
+    table = torch.zeros(spec.n_entries, 2, device="cuda")
+    x = torch.zeros(16, 3, device="cuda")
+    with pytest.raises(TypeError):
+        thg.hashgrid_encode_fwd(spec, table, x.double())
+    with pytest.raises(ValueError, match="shape"):
+        thg.hashgrid_encode_fwd(spec, table[:-1], x)
+    with pytest.raises(ValueError, match="contiguous"):
+        thg.hashgrid_encode_fwd(spec, table,
+                                torch.zeros(3, 16, device="cuda").T)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        thg.hashgrid_encode_fwd(spec, table, x.cpu())
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(spec.n_entries * 2 + 1, device="cuda")[1:]
+        thg.hashgrid_encode_fwd(spec, shifted.view(-1, 2), x)
+    with pytest.raises(ValueError, match="D = 3 and F = 2"):
+        thg.hashgrid_encode_fwd(
+            thg.HashGridSpec(levels=2, features=4, log2_table=10), table, x)

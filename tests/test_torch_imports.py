@@ -54,9 +54,13 @@ def test_scan_sees_every_module():
     assert os.path.join("scripts", "trilinear_roots_variants.py") in rel
     assert os.path.join("tropical_torch", "ops", "chamfer.py") in rel
     assert os.path.join("tests", "trilinear_cases.py") in rel
-    for name in ("roots.py", "trilinear.py"):
+    for name in ("roots.py", "trilinear.py", "hashgrid.py"):
         assert os.path.join("tropical_torch", "core", name) in rel
-    assert os.path.join("tropical_torch", "stanford", "train.py") in rel
+    for name in ("train.py", "training.py", "dataset.py"):
+        assert os.path.join("tropical_torch", "stanford", name) in rel
+    for name in ("procedural.py", "checkpoint.py"):
+        assert os.path.join("tropical_torch", "utils", name) in rel
+    assert os.path.join("tropical_torch", "ops", "mesh_queries.py") in rel
 
 
 @pytest.mark.parametrize("call", ["get_rays", "get_hypercube"])
@@ -73,3 +77,29 @@ def test_device_helpers_have_no_cpu_default(call):
     # given a device, both still work
     assert get_rays(16, device="cpu")[1].shape == (16, 3)
     assert get_hypercube(3, 1.0, "cpu")[1].shape == (12, 2)
+
+
+def test_training_entry_points_default_to_the_card():
+    """The dataset and the net run on ``cuda`` unless asked for the CPU;
+    the mesh query takes no default device; the encode kernels take only
+    CUDA tensors (the plain versions serve the CPU)."""
+    import numpy as np
+    import torch
+
+    from tropical_torch.core import hashgrid as thg
+    from tropical_torch.ops.mesh_queries import MeshQuery
+    from tropical_torch.stanford.dataset import StanfordDataset
+    from tropical_torch.utils.procedural import icosphere
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            StanfordDataset("sphere", n_samples=10)
+    mesh = icosphere(1)
+    with pytest.raises(TypeError, match="device"):
+        MeshQuery(mesh.vertices, mesh.faces)
+    spec = thg.HashGridSpec(levels=2, log2_table=10, n_min=2, n_max=4)
+    table = torch.zeros(spec.n_entries, 2)
+    x = torch.from_numpy(np.full((4, 3), 0.5, np.float32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        thg.hashgrid_encode_fwd(spec, table, x)
+    assert thg.encode(spec, table, x).shape == (4, 4)

@@ -8,7 +8,8 @@ engine:
 - ``sdf(x)`` = tanh(out1 - out0),
 - ``region(x, output, eps)`` -> ternary sign vector [B, D+R] prepended with
   the grid on-plane mask, plus per-axis cell offsets,
-- ``normal(x, l, h)`` = d sdf / dx (or of a chosen neuron) via autograd,
+- ``normal(x, l, h)`` = d sdf / dx (or of a chosen neuron) via autograd
+  (through the encode's backward),
 - ``preprocess``/``preprocess_inverse`` world <-> unit-cube maps.
 
 Parameters: ``enc.table`` [n_entries, F] and ``fc.{i}`` ``nn.Linear`` layers,
@@ -191,6 +192,16 @@ class TorchNet(nn.Module):
             lin.bias.copy_(torch.as_tensor(np.asarray(b, np.float32),
                                            device=dev))
         return self
+
+    @torch.no_grad()
+    def params_to_numpy(self):
+        """The inverse of ``params_from_numpy``: the JAX package's params
+        pytree as numpy arrays, ``mlp.w[i]`` in [in, out] layout."""
+        return {"table": self.enc.table.detach().cpu().numpy(),
+                "mlp": {"w": [lin.weight.detach().cpu().numpy().T.copy()
+                              for lin in self.fc],
+                        "b": [lin.bias.detach().cpu().numpy()
+                              for lin in self.fc]}}
 
     @torch.no_grad()
     def load_reference_state_dict(self, state) -> "TorchNet":

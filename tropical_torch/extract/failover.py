@@ -16,9 +16,10 @@ import torch
 # rescue optimized, and curved rows the strict filter dropped, counted as the
 # JAX host engine counts them; and the insertion steps that had curved rows
 # (each solves its intersections with one ``trilinear_roots`` launch on the
-# card).  All stay 0 on the flat path.
+# card), and the rescue's descent steps (each one forward and one backward
+# of the net).  All stay 0 on the flat path.
 COUNTERS = {"sentinels": 0, "gd_rows": 0, "strict_drops": 0,
-            "curved_steps": 0}
+            "curved_steps": 0, "gd_steps": 0}
 
 
 def reset_counters() -> None:
@@ -133,6 +134,7 @@ def gradient_descent_failover(net, e_c: torch.Tensor, ints: torch.Tensor,
     for _ in range(max_iters):
         if not bool(((d0.abs() > eps) | (d1.abs() > eps)).any()):
             break
+        COUNTERS["gd_steps"] += 1
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             outs = net(e0 + xx * de, gather=True)[1]

@@ -11,9 +11,13 @@ import math
 from typing import Dict, Optional, Tuple
 
 # kernel launches since the last reset
-LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0}
+LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
+                             "hashgrid_encode_fwd": 0,
+                             "hashgrid_encode_bwd": 0,
+                             "hashgrid_encode_bwd_bwd": 0}
 # the largest problem shape each kernel was launched on since the last reset:
-# (n, m) of a min_dist search, (B,) of a trilinear_roots solve
+# (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
+# hash-grid encode kernel
 LARGEST: Dict[str, Optional[Tuple[int, ...]]] = {k: None for k in LAUNCHES}
 
 

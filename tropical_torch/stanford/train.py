@@ -1,19 +1,23 @@
-"""Extract the exact polyhedral complex of a cached SDF net and evaluate it.
+"""Train an SDF net, extract its exact polyhedral complex, evaluate.
 
-Counterpart of ``tropical/stanford/train.py`` on the cache-hit path, with
-the same flags (including the inverted ``store_false`` semantics of -c/-f:
-*passing* -c disables the cache, *passing* -f disables the flat assumption)
-plus ``--device`` (default ``cuda``):
+Counterpart of ``tropical/stanford/train.py``, with the same flags
+(including the inverted ``store_false`` semantics of -c/-f: *passing* -c
+disables the cache, *passing* -f disables the flat assumption) plus
+``--device`` (default ``cuda``):
 
     python -m tropical_torch.stanford.train -e -m small -d sphere -s 1
     python -m tropical_torch.stanford.train -e -m medium -d sphere -s 1 -f
+    python -m tropical_torch.stanford.train -c -m small -d sphere -s 1 --epochs 1
 
-It loads the committed checkpoint under ``tropical/stanford/models/``,
-extracts with the flat path (or, with ``-f``, the curved path: exact
-trilinear intersections, the gradient-descent rescue and the strict
-filter), writes ``meshes_torch/<dataset>/our_mesh_*.ply`` and, with ``-e``,
-scores the mesh against a marching-cubes pseudo-GT.  Training is not ported
-yet.
+A cached checkpoint is looked for under ``tropical_torch/stanford/models/``
+(where this CLI saves), then among the JAX package's committed ones under
+``tropical/stanford/models/``.  On a miss, or with ``-c``, it builds the
+dataset (procedural ``sphere``/``torus``, or a Stanford scan where its PLY
+is present) and trains; it saves only without ``-c``, and never into the
+JAX package's tree.  It then extracts with the flat path (or, with ``-f``,
+the curved path: exact trilinear intersections, the gradient-descent rescue
+and the strict filter), writes ``meshes_torch/<dataset>/our_mesh_*.ply``
+and, with ``-e``, scores the mesh against a marching-cubes pseudo-GT.
 """
 
 from __future__ import annotations
@@ -28,11 +32,16 @@ from tropical_torch.utils.profiling import Phases
 
 DIM = 3
 CANVAS_SIZE = 1.2
+BATCH_SIZE = 1000
 # world scale divisor applied at export (the dataset's R; only R is needed
 # on the cache-hit path, so the dataset is not built)
 DATASET_R = 0.8
 
-MODELS_DIR = Path(__file__).resolve().parents[2] / "tropical" / "stanford" / "models"
+# where this CLI saves its checkpoints (listed in .gitignore), and the JAX
+# package's committed ones, read only
+MODELS_DIR = Path(__file__).resolve().parent / "models"
+COMMITTED_MODELS_DIR = (Path(__file__).resolve().parents[2] / "tropical"
+                        / "stanford" / "models")
 OUT_ROOT = "meshes_torch"
 
 # evaluation stages: "mc" (pseudo-GT and baseline meshes), "ray_trace",
@@ -62,13 +71,36 @@ def parse_args(argv=None):
     parser.add_argument("--gt_res", default=None, type=int,
                         help="Pseudo-GT grid resolution (default 512; lower "
                              "for quick runs)")
+    parser.add_argument("--epochs", default=None, type=int,
+                        help="Training epochs (default 10, 6 for drill)")
+    parser.add_argument("--extract_every", default=0, type=int,
+                        help="Extract the polyhedral complex every N training "
+                             "epochs (0 = only at the end), inside the one "
+                             "training run; the reference also draws each "
+                             "one, which waits for stanford/visualize.py")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda)")
     return parser.parse_args(argv)
 
 
-def model_path_for(dataset: str, model_size: str, seed: int) -> str:
-    return str(MODELS_DIR / dataset / f"{dataset}_sdf_{model_size}_{seed}.pth")
+def model_path_for(dataset: str, model_size: str, seed: int,
+                   root: Path | None = None) -> str:
+    """The checkpoint path under ``root`` (this CLI's ``MODELS_DIR`` by
+    default)."""
+    root = MODELS_DIR if root is None else root
+    return str(root / dataset / f"{dataset}_sdf_{model_size}_{seed}.pth")
+
+
+def cached_checkpoint(dataset: str, model_size: str, seed: int) -> str | None:
+    """This CLI's own checkpoint, else the JAX package's committed one."""
+    from tropical_torch.utils import checkpoint as ckpt
+
+    for root in (MODELS_DIR, COMMITTED_MODELS_DIR):
+        found = ckpt.find_checkpoint(
+            model_path_for(dataset, model_size, seed, root))
+        if found:
+            return found
+    return None
 
 
 def extract_mesh(net, force: bool):
@@ -155,6 +187,36 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
     print()
 
 
+def train_net(net, args, device) -> None:
+    """Build the dataset and train ``net`` in place; save unless -c."""
+    import numpy as np
+
+    from tropical_torch.stanford.dataset import StanfordDataset
+    from tropical_torch.stanford.training import train
+    from tropical_torch.utils import checkpoint as ckpt
+
+    epochs = args.epochs
+    if epochs is None:
+        epochs = 6 if args.dataset == "drill" else 10
+    dataset = StanfordDataset(args.dataset,
+                              rng=np.random.default_rng(args.seed),
+                              device=device)
+
+    def mid_train_extract(done: int) -> None:
+        if done % args.extract_every == 0:
+            print(f"[epoch {done}] intermediate extraction:", end="")
+            extract_mesh(net, args.force)
+
+    train(net, dataset, epochs, BATCH_SIZE,
+          epoch_callback=mid_train_extract if args.extract_every > 0 else None)
+    print("Finished training.", flush=True)
+    if args.cache:
+        saved = ckpt.save_params(
+            model_path_for(args.dataset, args.model_size, args.seed),
+            net.params_to_numpy())
+        print(f"Saved {saved}")
+
+
 def main(argv=None):
     from tropical_torch.stanford.model import net_for_size
     from tropical_torch.utils import checkpoint as ckpt
@@ -166,14 +228,16 @@ def main(argv=None):
     seed = args.seed
 
     net = net_for_size(args.model_size, args.dataset, seed, device=device)
-    model_path = model_path_for(args.dataset, args.model_size, seed)
-    found = ckpt.find_checkpoint(model_path)
-    if not (args.cache and found):
-        raise NotImplementedError(
-            f"no cached SDF at {model_path}[.npz] (or -c given): training is "
-            "not ported yet")
-    ckpt.load_into(net, found)
-    print(f"The pretrained model loaded from {found}")
+    found = (cached_checkpoint(args.dataset, args.model_size, seed)
+             if args.cache else None)
+    if found:
+        ckpt.load_into(net, found)
+        print(f"The pretrained model loaded from {found}")
+    else:
+        if args.cache:
+            print("warning: cannot find a pretrained model for seed "
+                  f"({seed})! Training from scratch.", flush=True)
+        train_net(net, args, device)
 
     polygons, vertices, faces_with_indices, our_t = extract_mesh(net, args.force)
 

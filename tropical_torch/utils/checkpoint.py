@@ -1,7 +1,9 @@
 """Checkpoint IO: the JAX package's ``.npz`` params plus reference ``.pth``.
 
 The reference caches ``state_dict`` at models/{d}/{d}_sdf_{size}_{seed}.pth;
-the JAX package saves its params as a sibling ``.npz``.  Both load here.
+the JAX package saves its params as a sibling ``.npz``.  Both load here, and
+``save_params`` writes the JAX package's ``.npz`` layout (``table``, ``w{i}``
+as [in, out], ``b{i}``), which its ``load_params`` reads.
 """
 
 from __future__ import annotations
@@ -9,6 +11,20 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+
+def save_params(path: str, params) -> str:
+    """Save a params pytree of numpy arrays (``TorchNet.params_to_numpy``)
+    to ``path`` with a forced ``.npz`` suffix; returns the path written."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = {"table": np.asarray(params["table"], np.float32)}
+    for i, (w, b) in enumerate(zip(params["mlp"]["w"], params["mlp"]["b"])):
+        flat[f"w{i}"] = np.asarray(w, np.float32)
+        flat[f"b{i}"] = np.asarray(b, np.float32)
+    np.savez(path, **flat)
+    return path
 
 
 def load_params(path: str):

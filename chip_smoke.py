@@ -16,13 +16,16 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    instrumented build), then kernel, plain and library times (CUDA
    events); ``trilinear_roots`` on the rows of
    ``tests/trilinear_cases.py:kernel_pq`` and 100,000 seeded rows; the
-   encode's forward, backward and double backward on the small, medium and
-   large grids (the large one hashes a level) at B = 0, 1 and 1,000, and
-   timed at B = 1,000;
+   encode's forward, backward (also in x alone, as the normals take it)
+   and double backward on the small, medium and large grids (the large one
+   hashes a level) at B = 0, 1, 1,000 and 278,528, and on sphere-small with
+   every point in one cell of every level and with every point on cell
+   boundaries, the scatters' spread printed; timed at B = 1,000;
 4. flat main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
    ``cuda``, held to the golden funnel, the committed mesh and the kernel
    launch counts (the encode's forward on every net evaluation, its
-   backward for the faces' normals);
+   backward for the faces' normals, in x alone: no backward of the flat or
+   the curved run scatters a table gradient);
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
    128`` on ``cuda``, held to the golden funnel (or, where only eps-boundary
    flips move it, to the committed JAX vertex set), |sdf| < 2e-4 on every
@@ -35,12 +38,14 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    seeded rows its device time (a CUDA graph of calls, ``graph_ms``), one
    wrapper call, the plain version and ``torch.linalg.eigvals`` on the
    companion matrices timed; the three hash-grid encode kernels held to
-   their plain versions and timed at the flat run's largest forward;
+   their plain versions and timed at the flat run's largest forward and at
+   its largest backward (the faces' normals);
 7. training path: ``train()`` on the sphere dataset at sphere-small's full
    width (10 epochs of 50 steps of 1,000 points) from the JAX initial
    params in ``tests/golden/sphere_small_train_1.npz``
    (``scripts/train_golden.py``): one forward, two backwards and one double
-   backward of the encode a step; every 10-step window of the losses held
+   backward of the encode a step, each backward scattering its table
+   gradient; every 10-step window of the losses held
    to the golden's JAX runs (``golden_verdict``) and the sdf at its probes
    to twice the one-ulp JAX witness's spread, and the same check shown to
    fail a run with the double backward's table gradient zeroed;
@@ -101,6 +106,11 @@ MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0}
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
 PREV_MS = {"min_dist": 4.486, "trilinear_roots": 0.0563}
+# the encode backwards' device times before their redesign, by B (H100 80GB
+# HBM3, 700 W; for the printed comparison only)
+PREV_ENCODE_MS = {"hashgrid_encode_bwd": {1000: 0.0147, 278528: 3.007},
+                  "hashgrid_encode_bwd_bwd": {1000: 0.0134, 278528: 3.014}}
+
 EXACT_COUNT = ("min_dist", ("MIN_DIST_COUNT_EXACT",))
 ENCODE = ("hashgrid_encode_fwd", "hashgrid_encode_bwd",
           "hashgrid_encode_bwd_bwd")
@@ -458,7 +468,7 @@ def shapes_phase(records, largest, curved_inputs, curved_take):
     rec.update(main_shape=list(shape), main_ms=ms, main_bound_ms=bound_ms)
     trilinear_roots_timing(records["trilinear_roots"], curved_inputs,
                            curved_take)
-    encode_at_largest(records, largest["hashgrid_encode_fwd"])
+    encode_at_largest(records, largest)
 
 
 def trilinear_roots_timing(rec, inputs, extract_s):
@@ -526,13 +536,33 @@ def encode_spec(size):
     return net_for_size(size, device="cpu").spec.grid
 
 
-def encode_inputs(spec, n, seed):
-    """Seeded (table, x, dfeat, ddx) on the card: points over the unit cube
-    and its margin (the extraction canvas reaches past it), a quarter on
-    grid planes and faces."""
+def boundary_points(spec, n, rng):
+    """n points on cell boundaries: on every axis, x s_l + 0.5 (in f32, two
+    roundings) an integer for a level l drawn per point."""
+    out = np.empty((0, 3), np.float32)
+    while out.shape[0] < n:
+        lv = rng.integers(0, spec.levels, 4 * n)
+        s = np.array([spec.level_scale(int(l)) for l in lv], np.float32)[:, None]
+        k = rng.integers(0, 40, (4 * n, 3)).astype(np.float32)
+        x = ((k - np.float32(0.5)) / s).astype(np.float32)
+        pos = (x * s).astype(np.float32) + np.float32(0.5)
+        out = np.concatenate([out, x[(pos == np.floor(pos)).all(1)]])
+    return out[:n]
+
+
+def encode_inputs(spec, n, seed, kind="mixed"):
+    """Seeded (table, x, dfeat, ddx) on the card.  Points ("mixed") over the
+    unit cube and its margin (the extraction canvas reaches past it), a
+    quarter on grid planes and faces; or ("one_cell") every point in one
+    cell of every level, the table gradients' worst contention; or
+    ("boundaries") on cell boundaries."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
     x[: n // 4] = np.round(x[: n // 4] * 4) / 4
+    if kind == "one_cell":
+        x[:] = np.float32([0.3141, 0.5926, 0.5358])
+    elif kind == "boundaries":
+        x = boundary_points(spec, n, rng)
     table = (0.1 * rng.normal(size=(spec.n_entries, 2))).astype(np.float32)
     dfeat = rng.normal(size=(n, spec.levels * 2)).astype(np.float32)
     ddx = rng.normal(size=(n, 3)).astype(np.float32)
@@ -548,13 +578,18 @@ def encode_vs_plain(recs, label, spec, table, x, dfeat, ddx):
 
     feat = hg.hashgrid_encode_fwd(spec, table, x)
     dx, dt = hg.hashgrid_encode_bwd(spec, table, x, dfeat)
+    # the x-only backward, as normal() and the GD rescue launch it
+    dx_only, none = hg.hashgrid_encode_bwd(spec, table, x, dfeat,
+                                           need_table=False)
     dd, dt2, dx2 = hg.hashgrid_encode_bwd_bwd(spec, table, x, dfeat, ddx)
     torch.cuda.synchronize()
+    check(none is None, "an x-only backward returned a table gradient")
     pdx, pdt = hg.encode_backward_plain(spec, table, x, dfeat)
     pdd, pdt2, pdx2 = hg.encode_double_backward_plain(spec, table, x, dfeat,
                                                       ddx)
     pairs = {"feat": (feat, hg.encode_plain(spec, table, x)), "dx": (dx, pdx),
-             "d_dfeat": (dd, pdd), "dx2": (dx2, pdx2)}
+             "dx_only": (dx_only, pdx), "d_dfeat": (dd, pdd),
+             "dx2": (dx2, pdx2)}
     bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
             for k, (a, b) in pairs.items()}
 
@@ -565,9 +600,11 @@ def encode_vs_plain(recs, label, spec, table, x, dfeat, ddx):
         return err(a, b) / max(float(b.abs().max()), 1e-30)
 
     scatter = {"dtable": rel(dt, pdt), "dtable2": rel(dt2, pdt2)}
-    tol = SCATTER_ULPS * 2.0 ** -24 * math.sqrt(max(x.shape[0], 1))
+    unit = 2.0 ** -24 * math.sqrt(max(x.shape[0], 1))
+    tol = SCATTER_ULPS * unit
     print(f"encode {label}: bit mismatches {bits}; table gradients against "
-          f"the plain version's largest row {scatter} (held to {tol:.3e})")
+          f"the plain version's largest row {scatter} (held to {tol:.3e}; "
+          f"{max(scatter.values()) / unit:.3f} of 2^-24 sqrt(B))")
     check(not any(bits.values()), f"encode {label}: kernel differs from "
           f"plain: {bits}")
     check(all(v <= tol for v in scatter.values()),
@@ -578,10 +615,16 @@ def encode_vs_plain(recs, label, spec, table, x, dfeat, ddx):
                                         err(dx2, pdx2)]}
     for k, v in errs.items():
         recs[k]["max_abs_err"] = max(recs[k]["max_abs_err"], *v)
+    for k, key in (("hashgrid_encode_bwd", "dtable"),
+                   ("hashgrid_encode_bwd_bwd", "dtable2")):
+        recs[k]["scatter_units_max"] = max(recs[k].get("scatter_units_max", 0.0),
+                                           scatter[key] / unit)
 
 
 def encode_phase():
     print("--- hashgrid encode: forward, backward, double backward")
+    from tropical_torch.core import hashgrid as hg
+
     recs = {k: {"name": k, "route": "cuda",
                 "source": "tropical_torch/csrc/hashgrid_encode.cu",
                 "replaces": ENCODE_REPLACES[k], "max_abs_err": 0.0}
@@ -589,10 +632,16 @@ def encode_phase():
     for size in ("small", "medium", "large"):
         spec = encode_spec(size)
         hashed = [l for l in range(spec.levels) if spec.level_uses_hash(l)]
-        for n in (0, 1, 1000):
+        print(f"{size}: backwards' private levels {hg.private_levels(spec)} "
+              f"({hg.private_rows(spec)} rows)")
+        for n in (0, 1, 1000, 278528):
             encode_vs_plain(recs, f"{size} (hashed levels {hashed}) B={n}",
                             spec, *encode_inputs(spec, n, seed=n + 7))
     spec = encode_spec("small")
+    for kind in ("one_cell", "boundaries"):
+        for n in (1000, 278528):
+            encode_vs_plain(recs, f"small {kind} B={n}", spec,
+                            *encode_inputs(spec, n, seed=n + 5, kind=kind))
     for k, v in encode_times(spec, *encode_inputs(spec, 1000, seed=3)).items():
         recs[k].update(v)
     return list(recs.values())
@@ -650,31 +699,51 @@ def encode_times(spec, table, x, dfeat, ddx):
     out = {}
     for name, (kernel, plain) in calls.items():
         ms = graph_ms(kernel)
-        call_ms = cuda_ms(kernel, iters=50, warmup=3)
+        call_ms = cuda_ms(kernel, iters=50, warmup=10)
         plain_ms = cuda_ms(plain, iters=10, warmup=2)
         bound_ms, bound_by = encode_bound_ms(name, spec, x)
-        print(f"{name} B={n}: kernel {ms:.4f} ms (a wrapper call "
+        prev = PREV_ENCODE_MS.get(name, {}).get(n)
+        before = "" if prev is None else f" (before the redesign {prev} ms)"
+        print(f"{name} B={n}: kernel {ms:.4f} ms{before} (a wrapper call "
               f"{call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.5f} ms ({bound_by}); kernel at "
               f"{bound_ms / ms:.1%} of the bound")
         out[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None, "shape": [n, spec.levels]}
+    # the backward in x alone (normal(), the GD rescue), and the host cost
+    # of a zero-filled table gradient against an unfilled one (the launch
+    # zero-fills it with cudaMemsetAsync in the same call)
+    def x_only():
+        return hg.hashgrid_encode_bwd(spec, table, x, dfeat, need_table=False)
+
+    fills = {"x_only_ms": graph_ms(x_only),
+             "x_only_call_ms": cuda_ms(x_only, iters=50, warmup=10),
+             "zeros_like_call_ms": cuda_ms(lambda: torch.zeros_like(table),
+                                           iters=50, warmup=10),
+             "empty_like_call_ms": cuda_ms(lambda: torch.empty_like(table),
+                                           iters=50, warmup=10)}
+    print(f"hashgrid_encode_bwd B={n} in x alone: {json.dumps(fills)}")
+    out["hashgrid_encode_bwd"].update(fills)
     return out
 
 
-def encode_at_largest(records, shape):
-    """The encode kernels at the flat run's largest forward: held to their
-    plain versions and timed (``main_*`` keys of each record)."""
-    check(shape is not None, "the flat path recorded no encode forward")
+def encode_at_largest(records, largest):
+    """The encode kernels at the flat run's largest forward (``main_*`` keys
+    of each record) and at its largest backward, the faces' normals
+    (``normals_*``): held to their plain versions and timed."""
     spec = encode_spec("small")
-    check(shape[1] == spec.levels, f"flat encode shape {shape}")
-    inputs = encode_inputs(spec, shape[0], seed=11)
     recs = {k: records[k] for k in ENCODE}
-    encode_vs_plain(recs, f"small B={shape[0]} (largest on the flat path)",
-                    spec, *inputs)
-    for k, v in encode_times(spec, *inputs).items():
-        records[k].update({f"main_{key}": val for key, val in v.items()})
+    for key, name in (("main", "hashgrid_encode_fwd"),
+                      ("normals", "hashgrid_encode_bwd")):
+        shape = largest[name]
+        check(shape is not None and shape[1] == spec.levels,
+              f"flat path's largest {name}: {shape}")
+        inputs = encode_inputs(spec, shape[0], seed=11)
+        encode_vs_plain(recs, f"small B={shape[0]} (largest {name} on the "
+                        "flat path)", spec, *inputs)
+        for k, v in encode_times(spec, *inputs).items():
+            records[k].update({f"{key}_{f}": val for f, val in v.items()})
 
 
 def golden_params(g):
@@ -884,6 +953,7 @@ def training_phase(flat_cd):
     train_s = time.time() - t
     epoch_s = np.diff([t, *epoch_end, t + train_s]).tolist()
     counts = dict(launches.LAUNCHES)
+    counts.update({f"{k}_scatters": v for k, v in launches.SCATTERS.items()})
     steps = len(totals)
     print(f"trained {steps} steps in {train_s:.3f} s (epochs {epoch_s}; "
           f"labels {np.mean(label_s):.4f} s an epoch, {label_s}; dataset "
@@ -893,6 +963,10 @@ def training_phase(flat_cd):
     check(all(counts[k] == want[k] for k in ENCODE)
           and counts["min_dist"] == counts["trilinear_roots"] == 0,
           f"training launches {counts}, want {want}")
+    # every training backward scatters its table gradient (the J pass's too,
+    # which autograd.grad(..., x) then discards)
+    check(all(counts[f"{k}_scatters"] == want[k] for k in launches.SCATTERS),
+          f"training backwards that scattered: {counts}, want {want}")
 
     # against the JAX golden and its witnesses
     probes = torch.from_numpy(g["probes"]).to(dev)
@@ -1013,8 +1087,16 @@ def run_cli(argv):
     torch.cuda.synchronize()
     wall = time.time() - t
     counts, largest = dict(launches.LAUNCHES), dict(launches.LARGEST)
+    counts.update({f"{k}_scatters": v for k, v in launches.SCATTERS.items()})
     check(rc == 0, f"CLI returned {rc}")
-    print(f"main path wall {wall:.2f} s; kernel launches {counts}")
+    print(f"main path wall {wall:.2f} s; kernel launches (and the encode "
+          f"backwards' that scattered a table gradient) {counts}")
+    # the paths differentiate in x alone (faces' normals, the GD rescue):
+    # none of their backwards scatters a table gradient
+    for k in launches.SCATTERS:
+        check(counts[f"{k}_scatters"] == 0,
+              f"{k}: {counts[k + '_scatters']} launches scattered a table "
+              "gradient nobody reads")
     return tee.buf.getvalue(), counts, largest, wall
 
 
@@ -1194,6 +1276,11 @@ def main() -> int:
         records[k].update(launches=train_launches[k],
                           launches_flat=flat_launches[k],
                           launches_curved=curved_launches[k])
+        if f"{k}_scatters" in train_launches:
+            records[k].update(
+                scatters=train_launches[f"{k}_scatters"],
+                scatters_flat=flat_launches[f"{k}_scatters"],
+                scatters_curved=curved_launches[f"{k}_scatters"])
     cli_training_phase()
 
     phase("9. result")

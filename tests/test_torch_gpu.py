@@ -213,20 +213,33 @@ def _encode_case(name):
     """(spec, table, x, dfeat, ddx) on the card for one case of the encode
     kernels: preset specs at ragged B, one point, and the unit cube's faces
     (x = 1.0 on a level of integer scale reaches the corner at the
-    resolution, which wraps within the level)."""
+    resolution, which wraps within the level); every point in one cell of
+    every level (the table gradients' worst contention); custom grids of 1,
+    5 and 16 levels (a point of more than 4 levels takes several passes in
+    the backwards); a ragged B over many blocks' grid-stride loops."""
+    from tropical_torch.core import hashgrid as thg
     from tropical_torch.stanford.model import SIZE_PRESETS, net_for_size
 
     size, n = {"small_1000": ("small", 1000), "medium_777": ("medium", 777),
                "large_hashed_1031": ("large", 1031), "small_1": ("small", 1),
-               "small_faces": ("small", 600), "large_0": ("large", 0)}[name]
-    spec = net_for_size(size, device="cpu").spec.grid
-    assert (spec.n_min, spec.n_max) == SIZE_PRESETS[size]
+               "small_faces": ("small", 600), "large_0": ("large", 0),
+               "small_one_cell": ("small", 5000),
+               "levels_1": (1, 333), "levels_5": (5, 1001),
+               "levels_16": (16, 257),
+               "small_ragged_100003": ("small", 100_003)}[name]
+    if isinstance(size, int):
+        spec = thg.HashGridSpec(levels=size, n_min=2, n_max=32, log2_table=12)
+    else:
+        spec = net_for_size(size, device="cpu").spec.grid
+        assert (spec.n_min, spec.n_max) == SIZE_PRESETS[size]
     rng = np.random.default_rng(len(name))
     x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
     if name == "small_faces":
         x = rng.choice(np.float32([0.0, 0.25, 0.5, 1.0]), size=(n, 3))
         x[: n // 2, 0] = rng.uniform(0, 1, n // 2)
         assert float(spec.level_scale(spec.levels - 1)).is_integer()
+    if name == "small_one_cell":
+        x[:] = x[0]
     table = rng.normal(size=(spec.n_entries, 2)).astype(np.float32)
     dfeat = rng.normal(size=(n, spec.levels * 2)).astype(np.float32)
     ddx = rng.normal(size=(n, 3)).astype(np.float32)
@@ -251,7 +264,9 @@ def _scatter_close(got, plain, n):
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", ["small_1000", "medium_777",
                                   "large_hashed_1031", "small_1",
-                                  "small_faces", "large_0"])
+                                  "small_faces", "large_0", "small_one_cell",
+                                  "levels_1", "levels_5", "levels_16",
+                                  "small_ragged_100003"])
 def test_hashgrid_encode_kernels_match_plain(name):
     """Forward, dx, d_dfeat and dx2 to the bit; the table gradients to a
     tolerance; one launch counted per kernel call, none for B = 0."""
@@ -271,6 +286,9 @@ def test_hashgrid_encode_kernels_match_plain(name):
     assert _bits_equal(feat, thg.encode_plain(spec, table, x))
     pdx, pdt = thg.encode_backward_plain(spec, table, x, dfeat)
     assert _bits_equal(dx, pdx)
+    dx_only, none = thg.hashgrid_encode_bwd(spec, table, x, dfeat,
+                                            need_table=False)
+    assert none is None and _bits_equal(dx_only, pdx)
     pdd, pdt2, pdx2 = thg.encode_double_backward_plain(spec, table, x, dfeat,
                                                        ddx)
     assert _bits_equal(dd, pdd) and _bits_equal(dx2, pdx2)
@@ -279,6 +297,62 @@ def test_hashgrid_encode_kernels_match_plain(name):
         return
     _scatter_close(dtable, pdt, n)
     _scatter_close(dtable2, pdt2, n)
+
+
+def _normal_with_table(net, x):
+    """The sdf's normal with the table in autograd (the route before
+    normal() detached it)."""
+    with torch.enable_grad():
+        xx = x.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(net._sdf(xx).sum(), xx)
+    return g
+
+
+@pytest.mark.gpu
+def test_normal_and_gd_rescue_scatter_no_table_gradient():
+    """normal() and the GD rescue launch the backward without a table
+    scatter, and their results are bitwise the table route's."""
+    _need_cuda()
+    from tropical_torch.extract import failover as tfo
+    from tropical_torch.ops import launches
+    from tropical_torch.stanford.model import net_for_size
+
+    net = net_for_size("small", "sphere", 1, device="cuda")
+    with torch.no_grad():
+        net.enc.table.mul_(3000.0)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(-1, 1, (10171, 3)).astype(np.float32))
+    x = x.cuda()
+    launches.reset()
+    got = net.normal(x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["hashgrid_encode_bwd"] == 1
+    assert launches.SCATTERS["hashgrid_encode_bwd"] == 0
+    assert _bits_equal(got, _normal_with_table(net, x))
+    assert launches.SCATTERS["hashgrid_encode_bwd"] == 1
+
+    n, R = 512, net.spec.n_neuron_cols
+    args = [torch.from_numpy(a).cuda() for a in (
+        rng.uniform(-0.8, 0.8, (n, 2, 3)).astype(np.float32),
+        rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        np.ones((n, 2), np.float32), rng.uniform(size=n) < 0.2,
+        rng.integers(0, R - 1, n))]
+    launches.reset()
+    got = tfo.gradient_descent_failover(net, *args, R - 1, eps=1e-4,
+                                        max_iters=3)
+    assert LAUNCHES["hashgrid_encode_bwd"] == 3
+    assert launches.SCATTERS["hashgrid_encode_bwd"] == 0
+    forward = net.forward
+    net.forward = lambda x, gather=False, group=1, table_grad=True: forward(
+        x, gather, group, True)
+    try:
+        want = tfo.gradient_descent_failover(net, *args, R - 1, eps=1e-4,
+                                             max_iters=3)
+    finally:
+        del net.forward
+    assert launches.SCATTERS["hashgrid_encode_bwd"] == 3
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
 
 
 @pytest.mark.gpu

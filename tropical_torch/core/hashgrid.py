@@ -29,7 +29,6 @@ follow bit for bit (but for the scattered table gradients).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from dataclasses import dataclass
 from functools import cached_property
@@ -273,14 +272,41 @@ def encode_double_backward_plain(spec: HashGridSpec, table: torch.Tensor,
 # --- the CUDA kernels (csrc/hashgrid_encode.cu) ------------------------------
 
 _THREADS_LIMIT = 2 ** 31
+# the backwards' shared memory for a block's private table-gradient rows
+# (csrc/hashgrid_encode.cu:kPrivateBytes): at the full budget, with the
+# warps' scratch, two blocks of 256 threads still fit an SM's 227 KB
+PRIVATE_BYTES = 80 * 1024
+
+
+def private_levels(spec: HashGridSpec) -> int:
+    """How many levels, from level 0 on, whose table-gradient rows the
+    backwards sum in a block-private copy in shared memory: the longest
+    prefix of levels whose rows (8 bytes each) fit ``PRIVATE_BYTES``.
+
+    A block flushes only the private rows it made non-zero, one atomic a
+    row, so a privatised level never takes more device-memory atomics than
+    its corners would, and a coarse level, whose few rows every point hits,
+    takes one a block instead of one a point; its cost is the block's
+    zero-fill and scan of the rows, and the shared memory."""
+    k = 0
+    while (k < spec.levels and 8 * (spec.level_offsets[k]
+                                    + spec.level_entries(k)) <= PRIVATE_BYTES):
+        k += 1
+    return k
+
+
+def private_rows(spec: HashGridSpec) -> int:
+    """The table rows of the ``private_levels``: rows [0, private_rows)."""
+    k = private_levels(spec)
+    return spec.n_entries if k == spec.levels else spec.level_offsets[k]
 
 
 def _group(spec: HashGridSpec) -> int:
-    """Threads a point: the power of two at or above the level count."""
+    """Threads a point in the forward: the power of two at or above the
+    level count."""
     return 1 << (spec.levels - 1).bit_length()
 
 
-@functools.lru_cache(maxsize=None)
 def _level_rows(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
     """Per-level constants on ``device``, one row a level as the kernel's
     ``LevelRow``: f32 scale (as its bits), offset, entries, resolution,
@@ -292,19 +318,72 @@ def _level_rows(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(rows).to(device)
 
 
-@functools.lru_cache(maxsize=None)
-def _launchers(lib: ctypes.CDLL):
-    """The library's three launch functions, their C signatures declared
-    once per library."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    head = [ptr, ptr, ptr, i32, i32, i32, ctypes.c_uint, i32]
-    fns = (lib.hashgrid_encode_fwd_launch, lib.hashgrid_encode_bwd_launch,
-           lib.hashgrid_encode_bwd_bwd_launch)
-    for fn, tail in zip(fns, ([ptr, ptr], [ptr, ptr, ptr, ptr],
-                              [ptr, ptr, ptr, ptr, ptr, ptr])):
-        fn.argtypes = head + tail
-        fn.restype = ctypes.c_int
-    return fns
+class _Plan(ctypes.Structure):
+    """The kernels' ``Plan``: a spec's launch constants on one device."""
+
+    _fields_ = [("rows", ctypes.c_void_p), ("levels", ctypes.c_int),
+                ("group", ctypes.c_int), ("n_rows", ctypes.c_int),
+                ("hash_mask", ctypes.c_uint), ("private_rows", ctypes.c_int),
+                ("blocks_bwd", ctypes.c_int), ("blocks_bwd_bwd", ctypes.c_int)]
+
+
+class _Launcher:
+    """A library's three launch functions bound to one spec on one device:
+    the plan (and the level rows it points at), filled once."""
+
+    def __init__(self, lib: ctypes.CDLL, spec: HashGridSpec,
+                 device: torch.device):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        self.fwd, self.bwd, self.bwd_bwd = fns = (
+            lib.hashgrid_encode_fwd_launch, lib.hashgrid_encode_bwd_launch,
+            lib.hashgrid_encode_bwd_bwd_launch)
+        # (plan, x, table, n, the gradients and outputs..., stream)
+        for fn, tail in zip(fns, (2, 4, 6)):
+            fn.argtypes = [ptr, ptr, ptr, i32] + [ptr] * tail
+            fn.restype = ctypes.c_int
+        self.device = device.index
+        self.rows = _level_rows(spec, device)
+        self.plan = _Plan(self.rows.data_ptr(), spec.levels, _group(spec),
+                          spec.n_entries, (1 << spec.log2_table) - 1,
+                          private_rows(spec), 0, 0)
+        self.ref = ctypes.addressof(self.plan)
+        lib.hashgrid_encode_configure.argtypes = [ptr]
+        lib.hashgrid_encode_configure.restype = ctypes.c_int
+        with torch.cuda.device(device):
+            rc = lib.hashgrid_encode_configure(self.ref)
+        if rc != 0:
+            raise RuntimeError(f"hashgrid_encode_configure failed: CUDA "
+                               f"error {rc}")
+
+    def __call__(self, fn, name: str, n: int, *pointers,
+                 scatter: bool = False) -> None:
+        """Launch ``fn`` on the current stream of the plan's device and
+        count it (and whether it scattered a table gradient)."""
+        if torch.cuda.current_device() == self.device:
+            rc = fn(self.ref, *pointers,
+                    torch._C._cuda_getCurrentRawStream(self.device))
+        else:
+            with torch.cuda.device(self.device):
+                rc = fn(self.ref, *pointers,
+                        torch._C._cuda_getCurrentRawStream(self.device))
+        if rc != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+        launches.record(name, (n, self.plan.levels), scatter=scatter)
+
+
+_LAUNCHERS: dict = {}
+
+
+def _launcher(spec: HashGridSpec, device: torch.device,
+              lib: ctypes.CDLL | None) -> _Launcher:
+    """The launcher of ``lib`` (default: the committed build) for ``spec`` on
+    ``device``, made on first use."""
+    key = (spec, device.index, lib)
+    found = _LAUNCHERS.get(key)
+    if found is None:
+        found = _LAUNCHERS[key] = _Launcher(
+            lib or cuda_build.load("hashgrid_encode"), spec, device)
+    return found
 
 
 def _check(t: torch.Tensor, name: str, shape, align: int) -> None:
@@ -321,9 +400,9 @@ def _check(t: torch.Tensor, name: str, shape, align: int) -> None:
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _check_inputs(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
-                  **grads: torch.Tensor) -> int:
-    """Check the kernels' inputs; returns B."""
+def _explain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
+             grads) -> None:
+    """Raise what is wrong with the kernels' inputs."""
     if spec.dim != 3 or spec.features != 2:
         raise ValueError(f"the kernels take D = 3 and F = 2, not D = "
                          f"{spec.dim} and F = {spec.features}")
@@ -344,21 +423,31 @@ def _check_inputs(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
     if n * _group(spec) >= _THREADS_LIMIT:
         raise ValueError(f"{n} points at {_group(spec)} threads a point "
                          "overflow the kernels' int32 thread count")
+    raise AssertionError("unreachable: the inputs passed every check")
+
+
+def _fits(t: torch.Tensor, shape, device, align: int) -> bool:
+    return (t.dtype is torch.float32 and t.shape == shape
+            and t.device == device and t.is_contiguous()
+            and not t.data_ptr() % align)
+
+
+def _check_inputs(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
+                  **grads: torch.Tensor) -> int:
+    """Check the kernels' inputs; returns B.  One pass of cheap tests, and
+    on a failure the detailed checks that say what failed."""
+    dev = x.device
+    n = x.shape[0] if x.ndim == 2 else -1
+    ok = (dev.type == "cuda" and spec.dim == 3 and spec.features == 2
+          and spec.levels <= 32 and n * _group(spec) < _THREADS_LIMIT
+          and _fits(x, (n, 3), dev, 4)
+          and _fits(table, (spec.n_entries, 2), dev, 8))
+    for name, t in grads.items():
+        ok = ok and _fits(t, (n, 3) if name == "ddx" else (n, spec.levels * 2),
+                          dev, 4 if name == "ddx" else 8)
+    if not ok:
+        _explain(spec, table, x, grads)
     return n
-
-
-def _launch(fn, name: str, spec: HashGridSpec, table: torch.Tensor,
-            x: torch.Tensor, n: int, *pointers) -> None:
-    """Launch ``fn`` on the current stream of x's device and count it."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), table.data_ptr(),
-                _level_rows(spec, x.device).data_ptr(), spec.levels,
-                _group(spec), spec.n_entries, (1 << spec.log2_table) - 1,
-                n, *pointers, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches.record(name, (n, spec.levels))
 
 
 def _ptr(t: torch.Tensor | None):
@@ -369,48 +458,53 @@ def hashgrid_encode_fwd(spec: HashGridSpec, table: torch.Tensor,
                         x: torch.Tensor) -> torch.Tensor:
     """``encode_plain`` by the CUDA kernel, bitwise: features [B, L*2]."""
     n = _check_inputs(spec, table, x)
-    feat = torch.empty((n, spec.levels * 2), dtype=torch.float32,
-                       device=x.device)
+    feat = x.new_empty((n, spec.levels * 2))
     if n:
-        fwd, _, _ = _launchers(cuda_build.load("hashgrid_encode"))
-        _launch(fwd, "hashgrid_encode_fwd", spec, table, x, n, feat.data_ptr())
+        run = _launcher(spec, x.device, None)
+        run(run.fwd, "hashgrid_encode_fwd", n, x.data_ptr(), table.data_ptr(),
+            n, feat.data_ptr())
     return feat
 
 
 def hashgrid_encode_bwd(spec: HashGridSpec, table: torch.Tensor,
                         x: torch.Tensor, dfeat: torch.Tensor,
-                        need_x: bool = True, need_table: bool = True):
+                        need_x: bool = True, need_table: bool = True,
+                        lib: ctypes.CDLL | None = None):
     """``encode_backward_plain`` by the CUDA kernel: dx bitwise, dtable an
-    ``atomicAdd`` scatter (its order of adds is free)."""
+    atomic scatter (its order of adds is free), zero-filled by the launch.
+    Without ``need_table`` nothing is scattered.  ``lib``: a variant build
+    of the kernels (scripts/hashgrid_encode_variants.py), else the
+    committed one."""
     n = _check_inputs(spec, table, x, dfeat=dfeat)
-    dx = (torch.empty((n, 3), dtype=torch.float32, device=x.device)
-          if need_x else None)
-    dtable = torch.zeros_like(table) if need_table else None
-    if n and (need_x or need_table):
-        _, bwd, _ = _launchers(cuda_build.load("hashgrid_encode"))
-        _launch(bwd, "hashgrid_encode_bwd", spec, table, x, n,
-                dfeat.data_ptr(), _ptr(dx), _ptr(dtable))
+    dx = x.new_empty((n, 3)) if need_x else None
+    if not n:
+        return dx, torch.zeros_like(table) if need_table else None
+    dtable = torch.empty_like(table) if need_table else None
+    if need_x or need_table:
+        run = _launcher(spec, x.device, lib)
+        run(run.bwd, "hashgrid_encode_bwd", n, x.data_ptr(), table.data_ptr(),
+            n, dfeat.data_ptr(), _ptr(dx), _ptr(dtable), scatter=need_table)
     return dx, dtable
 
 
 def hashgrid_encode_bwd_bwd(spec: HashGridSpec, table: torch.Tensor,
                             x: torch.Tensor, dfeat: torch.Tensor,
                             ddx: torch.Tensor, need_dfeat: bool = True,
-                            need_table: bool = True, need_x: bool = True):
+                            need_table: bool = True, need_x: bool = True,
+                            lib: ctypes.CDLL | None = None):
     """``encode_double_backward_plain`` by the CUDA kernel: d_dfeat and dx2
-    bitwise, dtable2 an ``atomicAdd`` scatter."""
+    bitwise, dtable2 an atomic scatter, zero-filled by the launch."""
     n = _check_inputs(spec, table, x, dfeat=dfeat, ddx=ddx)
-    dev = x.device
-    d_dfeat = (torch.empty((n, spec.levels * 2), dtype=torch.float32,
-                           device=dev) if need_dfeat else None)
-    dtable2 = torch.zeros_like(table) if need_table else None
-    dx2 = (torch.empty((n, 3), dtype=torch.float32, device=dev)
-           if need_x else None)
-    if n and (need_dfeat or need_table or need_x):
-        _, _, bwd_bwd = _launchers(cuda_build.load("hashgrid_encode"))
-        _launch(bwd_bwd, "hashgrid_encode_bwd_bwd", spec, table, x, n,
-                dfeat.data_ptr(), ddx.data_ptr(), _ptr(d_dfeat),
-                _ptr(dtable2), _ptr(dx2))
+    d_dfeat = x.new_empty((n, spec.levels * 2)) if need_dfeat else None
+    dx2 = x.new_empty((n, 3)) if need_x else None
+    if not n:
+        return d_dfeat, torch.zeros_like(table) if need_table else None, dx2
+    dtable2 = torch.empty_like(table) if need_table else None
+    if need_dfeat or need_table or need_x:
+        run = _launcher(spec, x.device, lib)
+        run(run.bwd_bwd, "hashgrid_encode_bwd_bwd", n, x.data_ptr(),
+            table.data_ptr(), n, dfeat.data_ptr(), ddx.data_ptr(),
+            _ptr(d_dfeat), _ptr(dtable2), _ptr(dx2), scatter=need_table)
     return d_dfeat, dtable2, dx2
 
 
@@ -536,5 +630,9 @@ class TropicalHashGrid(nn.Module):
         self.register_buffer("marks", torch.from_numpy(compute_marks(spec)),
                              persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return encode(self.spec, self.table, x)
+    def forward(self, x: torch.Tensor, table_grad: bool = True) -> torch.Tensor:
+        """The encode of ``x``; with ``table_grad`` False the table is
+        detached, so a gradient through it is in x alone and the backward
+        scatters no table gradient."""
+        return encode(self.spec, self.table if table_grad
+                      else self.table.detach(), x)

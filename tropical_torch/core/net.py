@@ -9,7 +9,7 @@ engine:
 - ``region(x, output, eps)`` -> ternary sign vector [B, D+R] prepended with
   the grid on-plane mask, plus per-axis cell offsets,
 - ``normal(x, l, h)`` = d sdf / dx (or of a chosen neuron) via autograd
-  (through the encode's backward),
+  (through the encode's backward, in x alone),
 - ``preprocess``/``preprocess_inverse`` world <-> unit-cube maps.
 
 Parameters: ``enc.table`` [n_entries, F] and ``fc.{i}`` ``nn.Linear`` layers,
@@ -119,15 +119,18 @@ class TorchNet(nn.Module):
     def preprocess_inverse(self, x):
         return preprocess_inverse(self.spec, x)
 
-    def forward(self, x: torch.Tensor, gather: bool = False, group: int = 1):
-        feats = self.enc(preprocess(self.spec, x))
+    def forward(self, x: torch.Tensor, gather: bool = False, group: int = 1,
+                table_grad: bool = True):
+        """out [B, 2] (and the gathered columns); ``table_grad`` False
+        leaves the hash table out of autograd, for gradients in x alone."""
+        feats = self.enc(preprocess(self.spec, x), table_grad)
         out, g = mlp_forward([l.weight for l in self.fc],
                              [l.bias for l in self.fc], feats,
                              gather=gather, group=group, eps=self.spec.eps)
         return (out, g) if gather else out
 
-    def _sdf(self, x: torch.Tensor) -> torch.Tensor:
-        out = self(x)
+    def _sdf(self, x: torch.Tensor, table_grad: bool = True) -> torch.Tensor:
+        out = self(x, table_grad=table_grad)
         # tanh does not move the zero level set
         return torch.tanh(out[:, 1:] - out[:, :1])
 
@@ -164,7 +167,8 @@ class TorchNet(nn.Module):
 
     def normal(self, x: torch.Tensor, l: int | None = None,
                h: int | None = None) -> torch.Tensor:
-        """Per-point gradient of the sdf (or of neuron column l*H+h) w.r.t. x."""
+        """Per-point gradient of the sdf (or of neuron column l*H+h) w.r.t. x
+        (the table detached: the encode's backward computes dx alone)."""
         if l is None or h is None or h == self.num_hidden:
             idx = None
         else:
@@ -172,9 +176,9 @@ class TorchNet(nn.Module):
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             if idx is None:
-                f = self._sdf(xx).sum()
+                f = self._sdf(xx, table_grad=False).sum()
             else:
-                f = self(xx, gather=True)[1][:, idx].sum()
+                f = self(xx, gather=True, table_grad=False)[1][:, idx].sum()
             (g,) = torch.autograd.grad(f, xx)
         return g
 

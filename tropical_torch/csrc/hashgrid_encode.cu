@@ -18,8 +18,8 @@
 //   pos = x * s_l + 0.5 with s_l the level scale rounded to f32, two
 //   roundings; frac = pos - floor(pos); w = (w_x * w_y) * w_z; the corners
 //   summed 0..7 in order; the levels of dx summed 0..L-1 in order.
-// The tables' gradients (dtable, dtable2) are atomicAdd scatters, whose
-// order of adds is free: they hold to a tolerance.
+// The tables' gradients (dtable, dtable2) are atomic scatters, whose order
+// of adds is free: they hold to a tolerance.
 //
 // Indices: the dense index gx + gy r + gz r^2 of a level, taken modulo the
 // level's entry count with a non-negative result (torch.remainder), or the
@@ -27,36 +27,87 @@
 // wraparound, masked to 2^T - 1; then the level's offset is added and the
 // row clamped to the table, as the plain version does.
 //
-// Design: one thread per (point, level), the points' levels on neighbouring
-// lanes (a group of G lanes, G the power of two at or above L, so a group
-// never straddles a warp).  A thread computes its level's 8 corners, reads
-// each corner's F = 2 features as one float2, and writes its level's two
-// features; dx and dx2 sum the group's levels in order by shuffles, lane 0
-// of the group writing the point's row.  Per-level constants come from a
-// small table in device memory (LevelRow), read through the L1 cache.
+// Forward: one thread per (point, level), the points' levels on
+// neighbouring lanes (a group of G lanes, G the power of two at or above L,
+// so a group never straddles a warp).  A thread computes its level's 8
+// corners, reads each corner's F = 2 features as one float2 and writes its
+// level's two features.  Per-level constants come from a small table in
+// device memory (LevelRow), read through the L1 cache.
 //
-// Bound: bytes.  A forward reads a point (12 bytes) and writes 8 bytes a
-// level, and must read each table row its corners reach once: the table
-// (281 KB for sphere-small) stays in the 50 MB L2, so the corners' further
-// gathers of a row are not HBM traffic.  That is 12 + 8 L bytes a point
-// plus 8 bytes a row reached, at 3.35 TB/s; the arithmetic is some 60
-// operations a level.  chip_smoke.py counts each kernel's bytes.  This
-// simple design gathers the corners with no reuse between the points of a
-// block and scatters the tables' gradients with one atomicAdd per corner
-// and feature.  Measured on an NVIDIA H100 80GB HBM3 at 700 W: at a
-// training batch of 1,000 points the kernels take 5-15 us, latency-bound
-// (16 blocks for 132 SMs); at 278,528 points the forward takes some 44 us,
-// about a tenth of the speed its bound allows, while the backwards'
-// atomicAdds serialise on the coarse levels' few rows (3 ms).
+// Backwards (bwd_kernel, bwd_bwd_kernel): one lane per (point, level,
+// corner).  A point takes P = 8 min(G, 4) lanes (at 4 levels a warp is one
+// point); a point of more than 4 levels takes its levels in passes of 4, in
+// order.  Each lane computes its corner's row, weights and terms; shuffles
+// bring a level's 8 corner terms to every lane of the level in corner order
+// 0..7 and the levels' sums in level order, so every sum is the plain
+// version's.  The table gradients:
+//   - the coarse levels' rows [0, private_rows) (the host's plan,
+//     core/hashgrid.py:private_levels) are summed in a block-private copy in
+//     shared memory with shared-memory atomics, and flushed once per block,
+//     a row only where it is non-zero, by one float2 atomicAdd a row;
+//   - the finer levels' rows take one float2 atomicAdd a corner (sm_90's
+//     vector atomic) to device memory;
+//   - lanes of a warp that hit one row add their terms first (match_any),
+//     and one of them makes the atomic.
+// The grid is at most one wave of resident blocks, and each warp walks over
+// points in a grid-stride loop, so a block flushes its private rows once
+// for many points.
+//
+// Bound.  A forward reads a point (12 bytes) and writes 8 bytes a level, and
+// must read each table row its corners reach once: the table (281 KB for
+// sphere-small) stays in the 50 MB L2, so the corners' further gathers of a
+// row are not HBM traffic.  The backwards also read 8 bytes a level of the
+// feature gradient and write the table gradient whole; they bound by bytes
+// at a batch and by their 150 and 250 unfused operations a (point, level) at
+// the flat run's 278,528 rows.  chip_smoke.py counts each kernel's bytes and
+// operations.  What the backwards' design buys, step by step, is measured
+// by scripts/hashgrid_encode_variants.py, which builds this file with
+//   -DHASHGRID_ENCODE_CORNER_LANES=1   one thread a (point, level), as the
+//                                      forward (the backwards' first design)
+//   -DHASHGRID_ENCODE_NO_PRIVATE       every row to device-memory atomics
+//   -DHASHGRID_ENCODE_SCALAR_ATOMICS   two scalar atomicAdds for a float2
+// and the times are in PERF.md.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 
+#ifndef HASHGRID_ENCODE_CORNER_LANES
+#define HASHGRID_ENCODE_CORNER_LANES 8
+#endif
+
+// A spec's launch constants, kept on the host by core/hashgrid.py:_Plan
+// (same layout) and passed by pointer (outside the unnamed namespace: the
+// extern "C" functions that take it keep external linkage).
+struct HashgridEncodePlan {
+  const void* rows;       // LevelRow [levels] on the device
+  int levels;
+  int group;              // a power of two >= levels, <= 32
+  int n_rows;
+  unsigned hash_mask;     // 2^T - 1
+  int private_rows;       // the backwards' rows reduced in shared memory
+  int blocks_bwd;         // one wave of resident blocks of each backward,
+  int blocks_bwd_bwd;     // set by hashgrid_encode_configure
+};
+
 namespace {
 
+using Plan = HashgridEncodePlan;
+
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+// lanes a (point, level) in the backwards, and the corners each lane takes
+constexpr int kCornerLanes = HASHGRID_ENCODE_CORNER_LANES;
+constexpr int kCornersPerLane = 8 / kCornerLanes;
+static_assert(kCornerLanes == 1 || kCornerLanes == 2 || kCornerLanes == 4 ||
+                  kCornerLanes == 8,
+              "HASHGRID_ENCODE_CORNER_LANES must be 1, 2, 4 or 8");
+// the private rows' budget (core/hashgrid.py:PRIVATE_BYTES), and a warp's
+// scratch of 32 float2 for the same-row pre-sums
+constexpr int kPrivateBytes = 80 * 1024;
+constexpr int kScratchBytes = kThreads * 8;
+constexpr int kMaxSharedBytes = kPrivateBytes + kScratchBytes;
 
 // One level's constants, as tropical_torch/core/hashgrid.py:_level_rows
 // writes them.
@@ -73,19 +124,16 @@ struct Grid {
   const float2* table;     // [n_rows, 2]
   const LevelRow* rows;    // [levels]
   int levels;
-  int group;               // lanes a point: a power of two >= levels, <= 32
+  int group;               // lanes a point in the forward
   int n_rows;
   unsigned hash_mask;      // 2^T - 1
   int n;
 };
 
-// The thread's point and level; `live` is false for the lanes past the last
-// point or the last level, which compute a copy of a live lane's work (so
-// that every lane runs every shuffle) and write nothing.
+// The thread's point and level in the forward.
 struct Slot {
   int b, l;
   bool live;
-  bool lead;  // the group's lane 0 of a live point
 };
 
 __device__ __forceinline__ Slot slot_of(const Grid& g) {
@@ -93,7 +141,6 @@ __device__ __forceinline__ Slot slot_of(const Grid& g) {
   const int b = t / g.group, l = t % g.group;
   Slot s;
   s.live = b < g.n && l < g.levels;
-  s.lead = b < g.n && l == 0;
   s.b = min(b, g.n - 1);
   s.l = min(l, g.levels - 1);
   return s;
@@ -140,7 +187,7 @@ __device__ __forceinline__ long long corner_row(const Grid& g,
 // Corner c's row and per-axis weights (frac where bit d of c is set, else
 // 1 - frac).
 struct Corner {
-  long long row;
+  int row;
   float w[3];
 };
 
@@ -148,7 +195,8 @@ __device__ __forceinline__ Corner corner_of(const Grid& g, const LevelRow& lr,
                                             const Cell& cl, int c) {
   Corner k;
   const int bx = c & 1, by = (c >> 1) & 1, bz = (c >> 2) & 1;
-  k.row = corner_row(g, lr, cl.g[0] + bx, cl.g[1] + by, cl.g[2] + bz);
+  k.row = static_cast<int>(
+      corner_row(g, lr, cl.g[0] + bx, cl.g[1] + by, cl.g[2] + bz));
   k.w[0] = bx ? cl.f[0] : cl.lo[0];
   k.w[1] = by ? cl.f[1] : cl.lo[1];
   k.w[2] = bz ? cl.f[2] : cl.lo[2];
@@ -157,23 +205,6 @@ __device__ __forceinline__ Corner corner_of(const Grid& g, const LevelRow& lr,
 
 __device__ __forceinline__ float neg_unless(float v, bool keep) {
   return keep ? v : -v;
-}
-
-// The group's values of v summed over its levels 0..levels-1 in order, in
-// every lane.
-__device__ __forceinline__ float level_sum(const Grid& g, float v) {
-  const int base = (threadIdx.x & 31) & ~(g.group - 1);
-  float sum = __shfl_sync(kFullMask, v, base);
-  for (int j = 1; j < g.levels; ++j)
-    sum = __fadd_rn(sum, __shfl_sync(kFullMask, v, base + j));
-  return sum;
-}
-
-// Whether the whole warp lies past the last point (it then returns whole,
-// and no lane of a warp that runs shuffles has left).
-__device__ __forceinline__ bool warp_done(const Grid& g) {
-  const int first = (blockIdx.x * blockDim.x + (threadIdx.x & ~31));
-  return first / g.group >= g.n;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -199,122 +230,283 @@ __global__ void __launch_bounds__(kThreads)
   feat[static_cast<long long>(s.b) * g.levels + s.l] = acc;
 }
 
+// --- the backwards ----------------------------------------------------------
+
+// Levels a pass of a point in the backwards: min(group, 32 / corner lanes).
+__host__ __device__ __forceinline__ int levels_per_pass(int group) {
+  return group < 32 / kCornerLanes ? group : 32 / kCornerLanes;
+}
+
+// A lane's place in the backwards: its point (b, live_point), its level in
+// the pass (li), its corner lane (k), the lanes of its point and level.
+struct Lane {
+  int lane, li, k;
+  int point_base;   // the point's first lane in the warp
+  int level_base;   // the (point, level)'s first lane
+  int lp;           // levels a pass
+  bool point_lead;  // the point's first lane
+};
+
+__device__ __forceinline__ Lane lane_of(const Grid& g) {
+  Lane a;
+  a.lane = threadIdx.x & 31;
+  a.lp = levels_per_pass(g.group);
+  const int pl = a.lp * kCornerLanes;
+  a.point_base = a.lane & ~(pl - 1);
+  a.li = (a.lane & (pl - 1)) / kCornerLanes;
+  a.k = a.lane % kCornerLanes;
+  a.level_base = a.point_base + a.li * kCornerLanes;
+  a.point_lead = a.lane == a.point_base;
+  return a;
+}
+
+// The 8 corner terms of the lane's level, t[j] its own corner k + K j's,
+// summed in corner order 0..7 (the same value in every lane of the level).
+__device__ __forceinline__ float corner_sum(const float (&t)[kCornersPerLane],
+                                            const Lane& a) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float v;
+    if constexpr (kCornerLanes == 1)
+      v = t[c];
+    else
+      v = __shfl_sync(kFullMask, t[c / kCornerLanes],
+                      a.level_base + c % kCornerLanes);
+    acc = c == 0 ? v : __fadd_rn(acc, v);
+  }
+  return acc;
+}
+
+// Adds the pass's level values v (one a level group) to sum in level order;
+// the levels before the pass are in sum already.
+__device__ __forceinline__ float add_levels(const Grid& g, const Lane& a,
+                                            int pass, float v, float sum) {
+  for (int j = 0; j < a.lp; ++j) {
+    const int l = pass * a.lp + j;
+    if (l >= g.levels) break;  // uniform across the warp
+    const float lv = __shfl_sync(kFullMask, v, a.point_base + j * kCornerLanes);
+    sum = l == 0 ? lv : __fadd_rn(sum, lv);
+  }
+  return sum;
+}
+
+__device__ __forceinline__ void global_add(float2* p, float2 v) {
+#ifdef HASHGRID_ENCODE_SCALAR_ATOMICS
+  atomicAdd(&p->x, v.x);
+  atomicAdd(&p->y, v.y);
+#else
+  atomicAdd(p, v);
+#endif
+}
+
+// The table gradient's shared state of a block: its private rows and its
+// warps' scratch.
+struct Scatter {
+  float2* table;      // [n_rows] in device memory, or null
+  float2* priv;       // [private_rows] in shared memory
+  float2* scratch;    // the warp's 32 float2
+  int private_rows;
+};
+
+// Adds v to row (row < 0: nothing) of the table gradient.  Every lane of
+// the warp calls it together.
+__device__ __forceinline__ void scatter_add(const Scatter& s, int lane,
+                                            int row, float2 v) {
+  const unsigned peers = __match_any_sync(kFullMask, row);
+  const int leader = __ffs(peers) - 1;
+  if (__any_sync(kFullMask, row >= 0 && peers != (1u << lane))) {
+    s.scratch[lane] = v;
+    __syncwarp();
+    if (row >= 0 && lane == leader) {
+      for (unsigned m = peers & (peers - 1); m != 0; m &= m - 1) {
+        const float2 o = s.scratch[__ffs(m) - 1];
+        v.x += o.x;
+        v.y += o.y;
+      }
+    }
+    __syncwarp();
+  }
+  if (row < 0 || lane != leader) return;
+  if (row < s.private_rows) {
+    atomicAdd(&s.priv[row].x, v.x);
+    atomicAdd(&s.priv[row].y, v.y);
+  } else {
+    global_add(s.table + row, v);
+  }
+}
+
+__device__ __forceinline__ Scatter scatter_begin(float* table,
+                                                 int private_rows) {
+  extern __shared__ float2 smem[];
+  Scatter s;
+  s.table = reinterpret_cast<float2*>(table);
+  s.private_rows = table != nullptr ? private_rows : 0;
+  s.priv = smem;
+  s.scratch = smem + s.private_rows + (threadIdx.x & ~31);
+  for (int r = threadIdx.x; r < s.private_rows; r += kThreads)
+    s.priv[r] = make_float2(0.0f, 0.0f);
+  __syncthreads();
+  return s;
+}
+
+__device__ __forceinline__ void scatter_end(const Scatter& s) {
+  if (s.private_rows == 0) return;
+  __syncthreads();
+  for (int r = threadIdx.x; r < s.private_rows; r += kThreads) {
+    const float2 v = s.priv[r];
+    if (v.x != 0.0f || v.y != 0.0f) global_add(s.table + r, v);
+  }
+}
+
+// The warps' points: warp w of the grid-stride loop takes points
+// w P/32 ... (P points a warp, P = 32 / lanes a point).
+__device__ __forceinline__ long long first_warp() {
+  return static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+}
+
 // dx [n, 3] and dtable [n_rows, 2] (zeroed by the caller), each skipped
 // where null.
 __global__ void __launch_bounds__(kThreads)
-    bwd_kernel(Grid g, const float2* __restrict__ dfeat, float* __restrict__ dx,
-               float* __restrict__ dtable) {
-  if (warp_done(g)) return;
-  const Slot s = slot_of(g);
-  const LevelRow lr = g.rows[s.l];
-  const Cell cl = cell_of(g.x + 3LL * s.b, lr.scale);
-  const float2 dl = dfeat[static_cast<long long>(s.b) * g.levels + s.l];
-  float acc[3] = {0.0f, 0.0f, 0.0f};
+    bwd_kernel(Grid g, int private_rows, const float2* __restrict__ dfeat,
+               float* __restrict__ dx, float* __restrict__ dtable) {
+  const Scatter sc = scatter_begin(dtable, private_rows);
+  const Lane a = lane_of(g);
+  const int per_warp = 32 / (a.lp * kCornerLanes);
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long w = first_warp(); w * per_warp < g.n; w += stride) {
+    const long long bw = w * per_warp + a.lane / (a.lp * kCornerLanes);
+    const bool live_point = bw < g.n;
+    const int b = static_cast<int>(min(bw, static_cast<long long>(g.n) - 1));
+    float sum[3] = {0.0f, 0.0f, 0.0f};
+    for (int pass = 0; pass * a.lp < g.levels; ++pass) {
+      const int lw = pass * a.lp + a.li;
+      const bool live = live_point && lw < g.levels;
+      const int l = min(lw, g.levels - 1);
+      const LevelRow lr = g.rows[l];
+      const Cell cl = cell_of(g.x + 3LL * b, lr.scale);
+      const float2 dl = dfeat[static_cast<long long>(b) * g.levels + l];
+      float term[3][kCornersPerLane];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const Corner k = corner_of(g, lr, cl, c);
-    if (dtable != nullptr && s.live) {
-      const float w = __fmul_rn(__fmul_rn(k.w[0], k.w[1]), k.w[2]);
-      atomicAdd(dtable + 2 * k.row, __fmul_rn(w, dl.x));
-      atomicAdd(dtable + 2 * k.row + 1, __fmul_rn(w, dl.y));
-    }
-    if (dx != nullptr) {
-      const float2 t = g.table[k.row];
-      const float gc = __fadd_rn(__fmul_rn(dl.x, t.x), __fmul_rn(dl.y, t.y));
-      const float p[3] = {__fmul_rn(k.w[1], k.w[2]),
-                          __fmul_rn(k.w[0], k.w[2]),
-                          __fmul_rn(k.w[0], k.w[1])};
+      for (int j = 0; j < kCornersPerLane; ++j) {
+        const int c = a.k + kCornerLanes * j;
+        const Corner k = corner_of(g, lr, cl, c);
+        if (dtable != nullptr) {
+          const float wt = __fmul_rn(__fmul_rn(k.w[0], k.w[1]), k.w[2]);
+          scatter_add(sc, a.lane, live ? k.row : -1,
+                      make_float2(__fmul_rn(wt, dl.x), __fmul_rn(wt, dl.y)));
+        }
+        if (dx != nullptr) {
+          const float2 t = g.table[k.row];
+          const float gc =
+              __fadd_rn(__fmul_rn(dl.x, t.x), __fmul_rn(dl.y, t.y));
+          const float p[3] = {__fmul_rn(k.w[1], k.w[2]),
+                              __fmul_rn(k.w[0], k.w[2]),
+                              __fmul_rn(k.w[0], k.w[1])};
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const float term = neg_unless(__fmul_rn(gc, p[d]), (c >> d) & 1);
-        acc[d] = c == 0 ? term : __fadd_rn(acc[d], term);
+          for (int d = 0; d < 3; ++d)
+            term[d][j] = neg_unless(__fmul_rn(gc, p[d]), (c >> d) & 1);
+        }
       }
+      if (dx == nullptr) continue;
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        sum[d] = add_levels(g, a, pass,
+                            __fmul_rn(corner_sum(term[d], a), lr.scale),
+                            sum[d]);
+    }
+    if (dx != nullptr && live_point && a.point_lead) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) dx[3LL * b + d] = sum[d];
     }
   }
-  if (dx == nullptr) return;
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float sum = level_sum(g, __fmul_rn(acc[d], lr.scale));
-    if (s.lead) dx[3LL * s.b + d] = sum;
-  }
+  scatter_end(sc);
 }
 
 // For the gradient ddx [n, 3] of dx: d_dfeat [n, 2L], dtable2 [n_rows, 2]
 // (zeroed by the caller) and dx2 [n, 3], each skipped where null.
 __global__ void __launch_bounds__(kThreads)
-    bwd_bwd_kernel(Grid g, const float2* __restrict__ dfeat,
+    bwd_bwd_kernel(Grid g, int private_rows, const float2* __restrict__ dfeat,
                    const float* __restrict__ ddx, float2* __restrict__ d_dfeat,
                    float* __restrict__ dtable2, float* __restrict__ dx2) {
-  if (warp_done(g)) return;
-  const Slot s = slot_of(g);
-  const LevelRow lr = g.rows[s.l];
-  const Cell cl = cell_of(g.x + 3LL * s.b, lr.scale);
-  const long long pl = static_cast<long long>(s.b) * g.levels + s.l;
-  const float2 dl = dfeat[pl];
-  float u[3];
+  const Scatter sc = scatter_begin(dtable2, private_rows);
+  const Lane a = lane_of(g);
+  const int per_warp = 32 / (a.lp * kCornerLanes);
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  const bool gather = d_dfeat != nullptr || dx2 != nullptr;
+  for (long long w = first_warp(); w * per_warp < g.n; w += stride) {
+    const long long bw = w * per_warp + a.lane / (a.lp * kCornerLanes);
+    const bool live_point = bw < g.n;
+    const int b = static_cast<int>(min(bw, static_cast<long long>(g.n) - 1));
+    float sum[3] = {0.0f, 0.0f, 0.0f};
+    for (int pass = 0; pass * a.lp < g.levels; ++pass) {
+      const int lw = pass * a.lp + a.li;
+      const bool live = live_point && lw < g.levels;
+      const int l = min(lw, g.levels - 1);
+      const LevelRow lr = g.rows[l];
+      const Cell cl = cell_of(g.x + 3LL * b, lr.scale);
+      const long long pl = static_cast<long long>(b) * g.levels + l;
+      const float2 dl = dfeat[pl];
+      float u[3];
 #pragma unroll
-  for (int d = 0; d < 3; ++d) u[d] = __fmul_rn(ddx[3LL * s.b + d], lr.scale);
-  float2 dd = make_float2(0.0f, 0.0f);
-  float acc[3] = {0.0f, 0.0f, 0.0f};
+      for (int d = 0; d < 3; ++d) u[d] = __fmul_rn(ddx[3LL * b + d], lr.scale);
+      float dd[2][kCornersPerLane], hx[3][kCornersPerLane];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const Corner k = corner_of(g, lr, cl, c);
-    const bool bit[3] = {(c & 1) != 0, ((c >> 1) & 1) != 0,
-                         ((c >> 2) & 1) != 0};
-    const float p[3] = {__fmul_rn(k.w[1], k.w[2]), __fmul_rn(k.w[0], k.w[2]),
-                        __fmul_rn(k.w[0], k.w[1])};
-    // a_c = grad(w_c) . u, axes in order
-    float a = neg_unless(__fmul_rn(p[0], u[0]), bit[0]);
-    a = __fadd_rn(a, neg_unless(__fmul_rn(p[1], u[1]), bit[1]));
-    a = __fadd_rn(a, neg_unless(__fmul_rn(p[2], u[2]), bit[2]));
-    if (dtable2 != nullptr && s.live) {
-      atomicAdd(dtable2 + 2 * k.row, __fmul_rn(a, dl.x));
-      atomicAdd(dtable2 + 2 * k.row + 1, __fmul_rn(a, dl.y));
-    }
-    if (d_dfeat == nullptr && dx2 == nullptr) continue;
-    const float2 t = g.table[k.row];
-    if (d_dfeat != nullptr) {
-      if (c == 0) {
-        dd.x = __fmul_rn(a, t.x);
-        dd.y = __fmul_rn(a, t.y);
-      } else {
-        dd.x = __fadd_rn(dd.x, __fmul_rn(a, t.x));
-        dd.y = __fadd_rn(dd.y, __fmul_rn(a, t.y));
+      for (int j = 0; j < kCornersPerLane; ++j) {
+        const int c = a.k + kCornerLanes * j;
+        const Corner k = corner_of(g, lr, cl, c);
+        const bool bit[3] = {(c & 1) != 0, ((c >> 1) & 1) != 0,
+                             ((c >> 2) & 1) != 0};
+        const float p[3] = {__fmul_rn(k.w[1], k.w[2]),
+                            __fmul_rn(k.w[0], k.w[2]),
+                            __fmul_rn(k.w[0], k.w[1])};
+        // a_c = grad(w_c) . u, axes in order
+        float ac = neg_unless(__fmul_rn(p[0], u[0]), bit[0]);
+        ac = __fadd_rn(ac, neg_unless(__fmul_rn(p[1], u[1]), bit[1]));
+        ac = __fadd_rn(ac, neg_unless(__fmul_rn(p[2], u[2]), bit[2]));
+        if (dtable2 != nullptr)
+          scatter_add(sc, a.lane, live ? k.row : -1,
+                      make_float2(__fmul_rn(ac, dl.x), __fmul_rn(ac, dl.y)));
+        if (!gather) continue;
+        const float2 t = g.table[k.row];
+        dd[0][j] = __fmul_rn(ac, t.x);
+        dd[1][j] = __fmul_rn(ac, t.y);
+        if (dx2 != nullptr) {
+          const float gc =
+              __fadd_rn(__fmul_rn(dl.x, t.x), __fmul_rn(dl.y, t.y));
+          // h_e = sum over d != e (in order) of the weight on the third
+          // axis times u_d, minus where bits d and e differ
+          const float h0 = __fadd_rn(
+              neg_unless(__fmul_rn(k.w[2], u[1]), bit[1] == bit[0]),
+              neg_unless(__fmul_rn(k.w[1], u[2]), bit[2] == bit[0]));
+          const float h1 = __fadd_rn(
+              neg_unless(__fmul_rn(k.w[2], u[0]), bit[0] == bit[1]),
+              neg_unless(__fmul_rn(k.w[0], u[2]), bit[2] == bit[1]));
+          const float h2 = __fadd_rn(
+              neg_unless(__fmul_rn(k.w[1], u[0]), bit[0] == bit[2]),
+              neg_unless(__fmul_rn(k.w[0], u[1]), bit[1] == bit[2]));
+          hx[0][j] = __fmul_rn(gc, h0);
+          hx[1][j] = __fmul_rn(gc, h1);
+          hx[2][j] = __fmul_rn(gc, h2);
+        }
       }
-    }
-    if (dx2 != nullptr) {
-      const float gc = __fadd_rn(__fmul_rn(dl.x, t.x), __fmul_rn(dl.y, t.y));
-      // h_e = sum over d != e (in order) of the weight on the third axis
-      // times u_d, minus where bits d and e differ
-      const float h0 = __fadd_rn(
-          neg_unless(__fmul_rn(k.w[2], u[1]), bit[1] == bit[0]),
-          neg_unless(__fmul_rn(k.w[1], u[2]), bit[2] == bit[0]));
-      const float h1 = __fadd_rn(
-          neg_unless(__fmul_rn(k.w[2], u[0]), bit[0] == bit[1]),
-          neg_unless(__fmul_rn(k.w[0], u[2]), bit[2] == bit[1]));
-      const float h2 = __fadd_rn(
-          neg_unless(__fmul_rn(k.w[1], u[0]), bit[0] == bit[2]),
-          neg_unless(__fmul_rn(k.w[0], u[1]), bit[1] == bit[2]));
-      const float h[3] = {h0, h1, h2};
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float term = __fmul_rn(gc, h[e]);
-        acc[e] = c == 0 ? term : __fadd_rn(acc[e], term);
+      if (d_dfeat != nullptr) {
+        const float2 v = make_float2(corner_sum(dd[0], a), corner_sum(dd[1], a));
+        if (live && a.k == 0) d_dfeat[pl] = v;
       }
+      if (dx2 == nullptr) continue;
+#pragma unroll
+      for (int e = 0; e < 3; ++e)
+        sum[e] = add_levels(g, a, pass,
+                            __fmul_rn(corner_sum(hx[e], a), lr.scale),
+                            sum[e]);
+    }
+    if (dx2 != nullptr && live_point && a.point_lead) {
+#pragma unroll
+      for (int e = 0; e < 3; ++e) dx2[3LL * b + e] = sum[e];
     }
   }
-  if (d_dfeat != nullptr && s.live) d_dfeat[pl] = dd;
-  if (dx2 == nullptr) return;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const float sum = level_sum(g, __fmul_rn(acc[e], lr.scale));
-    if (s.lead) dx2[3LL * s.b + e] = sum;
-  }
-}
-
-int blocks_for(const Grid& g) {
-  return static_cast<int>(
-      (static_cast<long long>(g.n) * g.group + kThreads - 1) / kThreads);
+  scatter_end(sc);
 }
 
 // cudaErrorInvalidValue, without a launch, for arguments the kernels do not
@@ -327,59 +519,115 @@ int check(const Grid& g) {
   return 0;
 }
 
-Grid make_grid(const float* x, const float* table, const void* rows,
-               int levels, int group, int n_rows, unsigned hash_mask, int n) {
+Grid make_grid(const Plan* p, const float* x, const float* table, int n) {
   return Grid{x, reinterpret_cast<const float2*>(table),
-              static_cast<const LevelRow*>(rows), levels, group, n_rows,
-              hash_mask, n};
+              static_cast<const LevelRow*>(p->rows), p->levels, p->group,
+              p->n_rows, p->hash_mask, n};
+}
+
+int private_rows_of(const Plan* p) {
+#ifdef HASHGRID_ENCODE_NO_PRIVATE
+  (void)p;
+  return 0;
+#else
+  return p->private_rows;
+#endif
+}
+
+// Blocks of a backward launch: enough for every point, at most one wave.
+int backward_blocks(const Grid& g, int wave) {
+  const int per_block = kWarps * 32 /
+                        (levels_per_pass(g.group) * kCornerLanes);
+  const long long need = (static_cast<long long>(g.n) + per_block - 1) /
+                         per_block;
+  return static_cast<int>(need < wave ? need : wave);
+}
+
+// Zero-fills the table gradient on the stream; returns the dynamic shared
+// memory of a backward launch.
+int begin_scatter(const Plan* p, float* table_grad, cudaStream_t stream) {
+  if (table_grad == nullptr) return 0;
+  cudaMemsetAsync(table_grad, 0, static_cast<size_t>(p->n_rows) * 8, stream);
+  return private_rows_of(p) * 8 + kScratchBytes;
+}
+
+template <typename Kernel>
+int wave_of(Kernel kernel, int shared_bytes, int sms, int* wave) {
+  int per_sm = 0;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       kMaxSharedBytes);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                shared_bytes);
+  *wave = per_sm * sms;
+  return per_sm;
 }
 
 }  // namespace
 
-// Each launch function takes x [n, 3], the table [n_rows, 2] and the level
-// rows [levels] (f32 and int32 on the device, contiguous, 8-byte aligned),
-// launches on `stream` and returns the CUDA error of the launch, or 0.
-// n = 0 launches nothing.
+// Each launch function takes the spec's plan, x [n, 3] and the table
+// [n_rows, 2] (f32 on the device, contiguous, 8-byte aligned), launches on
+// `stream` and returns the CUDA error of the launch, or 0.  n = 0 launches
+// nothing.
 
-extern "C" int hashgrid_encode_fwd_launch(const float* x, const float* table,
-                                          const void* rows, int levels,
-                                          int group, int n_rows,
-                                          unsigned hash_mask, int n,
+// Fills the plan's waves of the backwards on the current device (and lets
+// them take kMaxSharedBytes of dynamic shared memory); returns the CUDA
+// error, or cudaErrorInvalidValue where the private rows exceed the budget
+// or no block fits.
+extern "C" int hashgrid_encode_configure(Plan* p) {
+  if (p->private_rows < 0 || p->private_rows * 8 > kPrivateBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int shared = private_rows_of(p) * 8 + kScratchBytes;
+  const int a = wave_of(bwd_kernel, shared, sms, &p->blocks_bwd);
+  const int b = wave_of(bwd_bwd_kernel, shared, sms, &p->blocks_bwd_bwd);
+  if (const int rc = static_cast<int>(cudaGetLastError())) return rc;
+  return a > 0 && b > 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int hashgrid_encode_fwd_launch(const Plan* p, const float* x,
+                                          const float* table, int n,
                                           float* feat, cudaStream_t stream) {
-  const Grid g = make_grid(x, table, rows, levels, group, n_rows, hash_mask, n);
+  const Grid g = make_grid(p, x, table, n);
   if (const int rc = check(g)) return rc;
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  fwd_kernel<<<blocks_for(g), kThreads, 0, stream>>>(
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(g.n) * g.group + kThreads - 1) / kThreads);
+  fwd_kernel<<<blocks, kThreads, 0, stream>>>(
       g, reinterpret_cast<float2*>(feat));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int hashgrid_encode_bwd_launch(const float* x, const float* table,
-                                          const void* rows, int levels,
-                                          int group, int n_rows,
-                                          unsigned hash_mask, int n,
+extern "C" int hashgrid_encode_bwd_launch(const Plan* p, const float* x,
+                                          const float* table, int n,
                                           const float* dfeat, float* dx,
                                           float* dtable, cudaStream_t stream) {
-  const Grid g = make_grid(x, table, rows, levels, group, n_rows, hash_mask, n);
+  const Grid g = make_grid(p, x, table, n);
   if (const int rc = check(g)) return rc;
+  if (p->blocks_bwd < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || (dx == nullptr && dtable == nullptr))
     return static_cast<int>(cudaGetLastError());
-  bwd_kernel<<<blocks_for(g), kThreads, 0, stream>>>(
-      g, reinterpret_cast<const float2*>(dfeat), dx, dtable);
+  const int shared = begin_scatter(p, dtable, stream);
+  bwd_kernel<<<backward_blocks(g, p->blocks_bwd), kThreads, shared, stream>>>(
+      g, private_rows_of(p), reinterpret_cast<const float2*>(dfeat), dx,
+      dtable);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int hashgrid_encode_bwd_bwd_launch(
-    const float* x, const float* table, const void* rows, int levels,
-    int group, int n_rows, unsigned hash_mask, int n, const float* dfeat,
-    const float* ddx, float* d_dfeat, float* dtable2, float* dx2,
-    cudaStream_t stream) {
-  const Grid g = make_grid(x, table, rows, levels, group, n_rows, hash_mask, n);
+    const Plan* p, const float* x, const float* table, int n,
+    const float* dfeat, const float* ddx, float* d_dfeat, float* dtable2,
+    float* dx2, cudaStream_t stream) {
+  const Grid g = make_grid(p, x, table, n);
   if (const int rc = check(g)) return rc;
+  if (p->blocks_bwd_bwd < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0 || (d_dfeat == nullptr && dtable2 == nullptr && dx2 == nullptr))
     return static_cast<int>(cudaGetLastError());
-  bwd_bwd_kernel<<<blocks_for(g), kThreads, 0, stream>>>(
-      g, reinterpret_cast<const float2*>(dfeat), ddx,
+  const int shared = begin_scatter(p, dtable2, stream);
+  bwd_bwd_kernel<<<backward_blocks(g, p->blocks_bwd_bwd), kThreads, shared,
+                   stream>>>(
+      g, private_rows_of(p), reinterpret_cast<const float2*>(dfeat), ddx,
       reinterpret_cast<float2*>(d_dfeat), dtable2, dx2);
   return static_cast<int>(cudaGetLastError());
 }

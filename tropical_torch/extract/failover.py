@@ -137,7 +137,7 @@ def gradient_descent_failover(net, e_c: torch.Tensor, ints: torch.Tensor,
         COUNTERS["gd_steps"] += 1
         with torch.enable_grad():
             xx = x.detach().requires_grad_(True)
-            outs = net(e0 + xx * de, gather=True)[1]
+            outs = net(e0 + xx * de, gather=True, table_grad=False)[1]
             d0 = outs.gather(1, cols)[:, 0]
             d1 = outs[:, idx]
             (g,) = torch.autograd.grad((d0 * d0 + d1 * d1).sum(), xx)

@@ -19,16 +19,25 @@ LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
 # (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
 # hash-grid encode kernel
 LARGEST: Dict[str, Optional[Tuple[int, ...]]] = {k: None for k in LAUNCHES}
+# the launches of each hash-grid backward that scattered a table gradient
+# (a backward asked for the gradient in x alone scatters none)
+SCATTERS: Dict[str, int] = {"hashgrid_encode_bwd": 0,
+                            "hashgrid_encode_bwd_bwd": 0}
 
 
 def reset() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LARGEST[k] = None
+    for k in SCATTERS:
+        SCATTERS[k] = 0
 
 
-def record(name: str, shape: Tuple[int, ...]) -> None:
-    """Count one launch of kernel ``name`` on a problem of ``shape``."""
+def record(name: str, shape: Tuple[int, ...], scatter: bool = False) -> None:
+    """Count one launch of kernel ``name`` on a problem of ``shape``, and
+    whether it scattered a table gradient."""
     LAUNCHES[name] += 1
+    if scatter:
+        SCATTERS[name] += 1
     if math.prod(shape) > math.prod(LARGEST[name] or (0,)):
         LARGEST[name] = tuple(shape)

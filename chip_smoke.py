@@ -19,8 +19,11 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    encode's forward, backward (also in x alone, as the normals take it)
    and double backward on the small, medium and large grids (the large one
    hashes a level) at B = 0, 1, 1,000 and 278,528, and on sphere-small with
-   every point in one cell of every level and with every point on cell
-   boundaries, the scatters' spread printed; timed at B = 1,000;
+   every point in one cell of every level, with every point on cell
+   boundaries, far outside the cube (dense bases past int32) and at a
+   ragged B = 100,003, on grids of 1, 5 and 16 levels and on a grid whose
+   corner indices wrap past the int64 limit, the scatters' spread printed;
+   timed at B = 1,000, beside a CUDA graph's cost of one node;
 4. flat main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
    ``cuda``, held to the golden funnel, the committed mesh and the kernel
    launch counts (the encode's forward on every net evaluation, its
@@ -39,7 +42,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    wrapper call, the plain version and ``torch.linalg.eigvals`` on the
    companion matrices timed; the three hash-grid encode kernels held to
    their plain versions and timed at the flat run's largest forward and at
-   its largest backward (the faces' normals);
+   its largest backward (the faces' normals), and the forward also on that
+   largest forward's own points, a marching-cubes slab at 128;
 7. training path: ``train()`` on the sphere dataset at sphere-small's full
    width (10 epochs of 50 steps of 1,000 points) from the JAX initial
    params in ``tests/golden/sphere_small_train_1.npz``
@@ -106,10 +110,16 @@ MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0}
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
 PREV_MS = {"min_dist": 4.486, "trilinear_roots": 0.0563}
-# the encode backwards' device times before their redesign, by B (H100 80GB
+# the encode kernels' device times before their redesigns, by B (H100 80GB
 # HBM3, 700 W; for the printed comparison only)
-PREV_ENCODE_MS = {"hashgrid_encode_bwd": {1000: 0.0147, 278528: 3.007},
+PREV_ENCODE_MS = {"hashgrid_encode_fwd": {1000: 0.0054, 10171: 0.0065,
+                                          278528: 0.0440},
+                  "hashgrid_encode_bwd": {1000: 0.0147, 278528: 3.007},
                   "hashgrid_encode_bwd_bwd": {1000: 0.0134, 278528: 3.014}}
+# the flat run's largest forward is a marching-cubes slab at 128 (SLAB + 1
+# x-planes of 128 x 128 points); the one timed starts at this x index,
+# through the middle of the sphere
+SLAB_RES, SLAB_X0 = 128, 48
 
 EXACT_COUNT = ("min_dist", ("MIN_DIST_COUNT_EXACT",))
 ENCODE = ("hashgrid_encode_fwd", "hashgrid_encode_bwd",
@@ -555,7 +565,12 @@ def encode_inputs(spec, n, seed, kind="mixed"):
     unit cube and its margin (the extraction canvas reaches past it), a
     quarter on grid planes and faces; or ("one_cell") every point in one
     cell of every level, the table gradients' worst contention; or
-    ("boundaries") on cell boundaries."""
+    ("boundaries") on cell boundaries; or ("far") far outside the cube,
+    where dense bases leave int32; or ("wrap", on the grid
+    ``tests/encode_cases.WRAP_SPEC``) with bases at the int64 limit."""
+    sys.path.insert(0, "tests")
+    import encode_cases
+
     rng = np.random.default_rng(seed)
     x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
     x[: n // 4] = np.round(x[: n // 4] * 4) / 4
@@ -563,6 +578,10 @@ def encode_inputs(spec, n, seed, kind="mixed"):
         x[:] = np.float32([0.3141, 0.5926, 0.5358])
     elif kind == "boundaries":
         x = boundary_points(spec, n, rng)
+    elif kind == "far":
+        x = encode_cases.far_points(rng, n)
+    elif kind == "wrap":
+        x = encode_cases.wrap_points(n)
     table = (0.1 * rng.normal(size=(spec.n_entries, 2))).astype(np.float32)
     dfeat = rng.normal(size=(n, spec.levels * 2)).astype(np.float32)
     ddx = rng.normal(size=(n, 3)).astype(np.float32)
@@ -642,9 +661,42 @@ def encode_phase():
         for n in (1000, 278528):
             encode_vs_plain(recs, f"small {kind} B={n}", spec,
                             *encode_inputs(spec, n, seed=n + 5, kind=kind))
+    # the forward's index arithmetic: its 32-bit remainder where the base
+    # fits, the 64-bit one where it does not, a remainder a corner where a
+    # corner's index wraps past the int64 limit
+    encode_vs_plain(recs, "small far outside the cube (bases past int32) "
+                    "B=1000", spec, *encode_inputs(spec, 1000, seed=17,
+                                                   kind="far"))
+    sys.path.insert(0, "tests")
+    import encode_cases
+
+    wrap = hg.HashGridSpec(**encode_cases.WRAP_SPEC)
+    encode_vs_plain(recs, "one level, bases at the int64 limit B=64", wrap,
+                    *encode_inputs(wrap, 64, seed=19, kind="wrap"))
+    # level counts that are no power of two, or one, or many; a ragged B
+    for levels in (1, 5, 16):
+        lspec = hg.HashGridSpec(levels=levels, n_min=2, n_max=32,
+                                log2_table=12)
+        encode_vs_plain(recs, f"{levels} levels B=1001", lspec,
+                        *encode_inputs(lspec, 1001, seed=levels))
+    encode_vs_plain(recs, "small ragged B=100003", spec,
+                    *encode_inputs(spec, 100_003, seed=23))
     for k, v in encode_times(spec, *encode_inputs(spec, 1000, seed=3)).items():
         recs[k].update(v)
+    floor_ms = graph_floor_ms()
+    print(f"a CUDA graph's node floor (a one-element in-place add, "
+          f"graph_ms): {floor_ms:.5f} ms; the kernels above at B=1000 over "
+          f"it: " + ", ".join(f"{k} {recs[k]['ms'] - floor_ms:+.5f} ms"
+                              for k in ENCODE))
+    recs["hashgrid_encode_fwd"]["graph_floor_ms"] = floor_ms
     return list(recs.values())
+
+
+def graph_floor_ms() -> float:
+    """What one kernel node of a CUDA graph costs on this card: a
+    one-element in-place add, captured 100 times by ``graph_ms``."""
+    t = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: t.add_(1.0))
 
 
 def encode_rows_touched(spec, x) -> int:
@@ -711,6 +763,9 @@ def encode_times(spec, table, x, dfeat, ddx):
         out[name] = {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": None, "shape": [n, spec.levels]}
+    # the forward's lanes a (point, level) at this B
+    out["hashgrid_encode_fwd"]["lanes"] = hg._launcher(
+        spec, x.get_device(), None).lanes(n)
     # the backward in x alone (normal(), the GD rescue), and the host cost
     # of a zero-filled table gradient against an unfilled one (the launch
     # zero-fills it with cudaMemsetAsync in the same call)
@@ -731,7 +786,9 @@ def encode_times(spec, table, x, dfeat, ddx):
 def encode_at_largest(records, largest):
     """The encode kernels at the flat run's largest forward (``main_*`` keys
     of each record) and at its largest backward, the faces' normals
-    (``normals_*``): held to their plain versions and timed."""
+    (``normals_*``): held to their plain versions and timed; then the
+    forward on the points that largest forward serves, a marching-cubes
+    slab (``slab_*``)."""
     spec = encode_spec("small")
     recs = {k: records[k] for k in ENCODE}
     for key, name in (("main", "hashgrid_encode_fwd"),
@@ -744,6 +801,52 @@ def encode_at_largest(records, largest):
                         "flat path)", spec, *inputs)
         for k, v in encode_times(spec, *inputs).items():
             records[k].update({f"{key}_{f}": val for f, val in v.items()})
+        if key == "main":
+            encode_on_slab(records["hashgrid_encode_fwd"], spec, inputs[0],
+                           shape[0])
+
+
+def slab_points():
+    """The points of the flat run's marching-cubes slab at 128 that starts
+    at x index SLAB_X0, built as ``utils/marching_cubes._sdf_grid_vals``
+    builds them (``np.linspace`` axis in f32, row-major, z fastest), then
+    ``preprocess``ed into the unit cube as the net's forward does."""
+    from tropical_torch.core.net import preprocess
+    from tropical_torch.stanford.model import net_for_size
+    from tropical_torch.stanford.train import CANVAS_SIZE
+    from tropical_torch.utils import marching_cubes as mc
+
+    s = mc.grid_axis(SLAB_RES, CANVAS_SIZE, torch.device("cuda"))
+    pts = mc.grid_points(s, SLAB_X0 * SLAB_RES ** 2,
+                         (mc.SLAB + 1) * SLAB_RES ** 2)
+    return preprocess(net_for_size("small", device="cpu").spec, pts)
+
+
+def encode_on_slab(rec, spec, table, largest_rows):
+    """The forward on the slab's own points: bitwise its plain version, its
+    device time and one wrapper call beside ``main_ms`` (random points)."""
+    from tropical_torch.core import hashgrid as hg
+
+    x = slab_points().contiguous()
+    check(x.shape[0] == largest_rows, f"the slab has {x.shape[0]} points, "
+          f"the flat run's largest forward {largest_rows}")
+    feat = hg.hashgrid_encode_fwd(spec, table, x)
+    torch.cuda.synchronize()
+    bad = int((feat.view(torch.int32)
+               != hg.encode_plain(spec, table, x).view(torch.int32)).sum())
+    print(f"encode slab at {SLAB_RES} from x index {SLAB_X0} "
+          f"({x.shape[0]} points): forward bit mismatches {bad}")
+    check(bad == 0, "the forward differs from its plain version on the slab")
+
+    def fwd():
+        return hg.hashgrid_encode_fwd(spec, table, x)
+
+    slab_ms, call_ms = graph_ms(fwd), cuda_ms(fwd, iters=50, warmup=10)
+    bound_ms, _ = encode_bound_ms("hashgrid_encode_fwd", spec, x)
+    print(f"hashgrid_encode_fwd on the slab: kernel {slab_ms:.4f} ms (random "
+          f"points {rec['main_ms']:.4f} ms), a wrapper call {call_ms:.4f} ms, "
+          f"bound {bound_ms:.5f} ms; at {bound_ms / slab_ms:.1%} of the bound")
+    rec.update(slab_ms=slab_ms, slab_call_ms=call_ms, slab_bound_ms=bound_ms)
 
 
 def golden_params(g):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import encode_cases
 import trilinear_cases as cases
 from tropical_torch.core import trilinear as ttri
 from tropical_torch.ops import chamfer as tch
@@ -216,7 +217,9 @@ def _encode_case(name):
     resolution, which wraps within the level); every point in one cell of
     every level (the table gradients' worst contention); custom grids of 1,
     5 and 16 levels (a point of more than 4 levels takes several passes in
-    the backwards); a ragged B over many blocks' grid-stride loops."""
+    the backwards); a ragged B over many blocks' grid-stride loops; points
+    far outside the cube (dense bases past int32) and a grid whose corner
+    indices wrap past the int64 limit (``encode_cases``)."""
     from tropical_torch.core import hashgrid as thg
     from tropical_torch.stanford.model import SIZE_PRESETS, net_for_size
 
@@ -226,8 +229,11 @@ def _encode_case(name):
                "small_one_cell": ("small", 5000),
                "levels_1": (1, 333), "levels_5": (5, 1001),
                "levels_16": (16, 257),
-               "small_ragged_100003": ("small", 100_003)}[name]
-    if isinstance(size, int):
+               "small_ragged_100003": ("small", 100_003),
+               "small_far": ("small", 1000), "wrap": ("wrap", 64)}[name]
+    if size == "wrap":
+        spec = thg.HashGridSpec(**encode_cases.WRAP_SPEC)
+    elif isinstance(size, int):
         spec = thg.HashGridSpec(levels=size, n_min=2, n_max=32, log2_table=12)
     else:
         spec = net_for_size(size, device="cpu").spec.grid
@@ -240,6 +246,10 @@ def _encode_case(name):
         assert float(spec.level_scale(spec.levels - 1)).is_integer()
     if name == "small_one_cell":
         x[:] = x[0]
+    if name == "small_far":
+        x = encode_cases.far_points(rng, n)
+    if name == "wrap":
+        x = encode_cases.wrap_points(n)
     table = rng.normal(size=(spec.n_entries, 2)).astype(np.float32)
     dfeat = rng.normal(size=(n, spec.levels * 2)).astype(np.float32)
     ddx = rng.normal(size=(n, 3)).astype(np.float32)
@@ -266,7 +276,8 @@ def _scatter_close(got, plain, n):
                                   "large_hashed_1031", "small_1",
                                   "small_faces", "large_0", "small_one_cell",
                                   "levels_1", "levels_5", "levels_16",
-                                  "small_ragged_100003"])
+                                  "small_ragged_100003", "small_far",
+                                  "wrap"])
 def test_hashgrid_encode_kernels_match_plain(name):
     """Forward, dx, d_dfeat and dx2 to the bit; the table gradients to a
     tolerance; one launch counted per kernel call, none for B = 0."""
@@ -297,6 +308,31 @@ def test_hashgrid_encode_kernels_match_plain(name):
         return
     _scatter_close(dtable, pdt, n)
     _scatter_close(dtable2, pdt2, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [4, 1])
+def test_hashgrid_encode_forward_bitwise_at_each_lane_count(lanes):
+    """The forward takes 4 or 1 lanes a (point, level) by B: at a B that
+    takes each, bitwise ``encode_plain``, on points in and around the cube
+    and far outside it."""
+    _need_cuda()
+    from tropical_torch.core import hashgrid as thg
+    from tropical_torch.stanford.model import net_for_size
+
+    spec = net_for_size("small", device="cpu").spec.grid
+    run = thg._launcher(spec, torch.cuda.current_device(), None)
+    # slots x lanes at three quarters of the card's resident threads
+    n = int(0.75 * run.plan.fwd_wave / (thg._group(spec) * lanes))
+    assert run.lanes(n) == lanes
+    rng = np.random.default_rng(lanes)
+    x = rng.uniform(-0.1, 1.1, (n, 3)).astype(np.float32)
+    x[: n // 8] = encode_cases.far_points(rng, n // 8)
+    table = rng.normal(size=(spec.n_entries, 2)).astype(np.float32)
+    xc, tc = torch.from_numpy(x).cuda(), torch.from_numpy(table).cuda()
+    feat = thg.hashgrid_encode_fwd(spec, tc, xc)
+    torch.cuda.synchronize()
+    assert _bits_equal(feat, thg.encode_plain(spec, tc, xc))
 
 
 def _normal_with_table(net, x):

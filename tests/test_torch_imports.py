@@ -18,7 +18,10 @@ def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "scripts", "min_dist_variants.py"),
              os.path.join(ROOT, "scripts", "trilinear_roots_variants.py"),
-             os.path.join(ROOT, "tests", "trilinear_cases.py")]
+             os.path.join(ROOT, "scripts", "hashgrid_encode_variants.py"),
+             os.path.join(ROOT, "scripts", "hashgrid_encode_compare.py"),
+             os.path.join(ROOT, "tests", "trilinear_cases.py"),
+             os.path.join(ROOT, "tests", "encode_cases.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "tropical_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -54,6 +57,9 @@ def test_scan_sees_every_module():
     assert os.path.join("scripts", "trilinear_roots_variants.py") in rel
     assert os.path.join("tropical_torch", "ops", "chamfer.py") in rel
     assert os.path.join("tests", "trilinear_cases.py") in rel
+    assert os.path.join("tests", "encode_cases.py") in rel
+    assert os.path.join("scripts", "hashgrid_encode_variants.py") in rel
+    assert os.path.join("scripts", "hashgrid_encode_compare.py") in rel
     for name in ("roots.py", "trilinear.py", "hashgrid.py"):
         assert os.path.join("tropical_torch", "core", name) in rel
     for name in ("train.py", "training.py", "dataset.py"):

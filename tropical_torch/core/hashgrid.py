@@ -272,6 +272,8 @@ def encode_double_backward_plain(spec: HashGridSpec, table: torch.Tensor,
 # --- the CUDA kernels (csrc/hashgrid_encode.cu) ------------------------------
 
 _THREADS_LIMIT = 2 ** 31
+# the kernels' most levels (csrc/hashgrid_encode.cu:kMaxLevels)
+_MAX_LEVELS = 32
 # the backwards' shared memory for a block's private table-gradient rows
 # (csrc/hashgrid_encode.cu:kPrivateBytes): at the full budget, with the
 # warps' scratch, two blocks of 256 threads still fit an SM's 227 KB
@@ -307,15 +309,14 @@ def _group(spec: HashGridSpec) -> int:
     return 1 << (spec.levels - 1).bit_length()
 
 
-def _level_rows(spec: HashGridSpec, device: torch.device) -> torch.Tensor:
-    """Per-level constants on ``device``, one row a level as the kernel's
-    ``LevelRow``: f32 scale (as its bits), offset, entries, resolution,
-    whether the level hashes (int32 [L, 5])."""
-    rows = np.array([[np.float32(spec.level_scale(l)).view(np.int32),
+def _level_rows(spec: HashGridSpec) -> np.ndarray:
+    """Per-level constants, one row a level as the kernel's ``LevelRow``:
+    f32 scale (as its bits), offset, entries, resolution, whether the level
+    hashes (int32 [L, 5])."""
+    return np.array([[np.float32(spec.level_scale(l)).view(np.int32),
                       spec.level_offsets[l], spec.level_entries(l),
                       spec.level_resolution(l), int(spec.level_uses_hash(l))]
                      for l in range(spec.levels)], np.int32)
-    return torch.from_numpy(rows).to(device)
 
 
 class _Plan(ctypes.Structure):
@@ -324,15 +325,17 @@ class _Plan(ctypes.Structure):
     _fields_ = [("rows", ctypes.c_void_p), ("levels", ctypes.c_int),
                 ("group", ctypes.c_int), ("n_rows", ctypes.c_int),
                 ("hash_mask", ctypes.c_uint), ("private_rows", ctypes.c_int),
-                ("blocks_bwd", ctypes.c_int), ("blocks_bwd_bwd", ctypes.c_int)]
+                ("blocks_bwd", ctypes.c_int), ("blocks_bwd_bwd", ctypes.c_int),
+                ("fwd_wave", ctypes.c_int),
+                ("level_rows", ctypes.c_int32 * (_MAX_LEVELS * 5))]
 
 
 class _Launcher:
-    """A library's three launch functions bound to one spec on one device:
-    the plan (and the level rows it points at), filled once."""
+    """A library's launch functions bound to one spec on one device: the
+    plan (the level rows on the host and, for the backwards, on the device),
+    filled once."""
 
-    def __init__(self, lib: ctypes.CDLL, spec: HashGridSpec,
-                 device: torch.device):
+    def __init__(self, lib: ctypes.CDLL, spec: HashGridSpec, index: int):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         self.fwd, self.bwd, self.bwd_bwd = fns = (
             lib.hashgrid_encode_fwd_launch, lib.hashgrid_encode_bwd_launch,
@@ -341,49 +344,62 @@ class _Launcher:
         for fn, tail in zip(fns, (2, 4, 6)):
             fn.argtypes = [ptr, ptr, ptr, i32] + [ptr] * tail
             fn.restype = ctypes.c_int
-        self.device = device.index
-        self.rows = _level_rows(spec, device)
+        self.lanes_of = lib.hashgrid_encode_fwd_lanes
+        self.lanes_of.argtypes, self.lanes_of.restype = [ptr, i32], i32
+        self.device, self.levels = index, spec.levels
+        # with one card its device is always the current one
+        self.only_device = torch.cuda.device_count() == 1
+        rows = _level_rows(spec)
+        self.rows = torch.from_numpy(rows).to(torch.device("cuda", index))
         self.plan = _Plan(self.rows.data_ptr(), spec.levels, _group(spec),
                           spec.n_entries, (1 << spec.log2_table) - 1,
-                          private_rows(spec), 0, 0)
+                          private_rows(spec), 0, 0, 0)
+        self.plan.level_rows[:rows.size] = rows.ravel().tolist()
         self.ref = ctypes.addressof(self.plan)
         lib.hashgrid_encode_configure.argtypes = [ptr]
         lib.hashgrid_encode_configure.restype = ctypes.c_int
-        with torch.cuda.device(device):
+        with torch.cuda.device(index):
             rc = lib.hashgrid_encode_configure(self.ref)
         if rc != 0:
             raise RuntimeError(f"hashgrid_encode_configure failed: CUDA "
                                f"error {rc}")
 
+    def lanes(self, n: int) -> int:
+        """The lanes a (point, level) of a forward over n points."""
+        return self.lanes_of(self.ref, n)
+
     def __call__(self, fn, name: str, n: int, *pointers,
                  scatter: bool = False) -> None:
         """Launch ``fn`` on the current stream of the plan's device and
         count it (and whether it scattered a table gradient)."""
-        if torch.cuda.current_device() == self.device:
+        index = self.device
+        if self.only_device or torch.cuda.current_device() == index:
             rc = fn(self.ref, *pointers,
-                    torch._C._cuda_getCurrentRawStream(self.device))
+                    torch._C._cuda_getCurrentRawStream(index))
         else:
-            with torch.cuda.device(self.device):
+            with torch.cuda.device(index):
                 rc = fn(self.ref, *pointers,
-                        torch._C._cuda_getCurrentRawStream(self.device))
+                        torch._C._cuda_getCurrentRawStream(index))
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-        launches.record(name, (n, self.plan.levels), scatter=scatter)
+        launches.record(name, (n, self.levels), scatter=scatter)
 
 
+# (id of the spec, device index, library) -> (the spec, its launcher)
 _LAUNCHERS: dict = {}
 
 
-def _launcher(spec: HashGridSpec, device: torch.device,
+def _launcher(spec: HashGridSpec, index: int,
               lib: ctypes.CDLL | None) -> _Launcher:
     """The launcher of ``lib`` (default: the committed build) for ``spec`` on
-    ``device``, made on first use."""
-    key = (spec, device.index, lib)
-    found = _LAUNCHERS.get(key)
-    if found is None:
-        found = _LAUNCHERS[key] = _Launcher(
-            lib or cuda_build.load("hashgrid_encode"), spec, device)
-    return found
+    device ``index``, made on first use.  Found by the spec object's
+    identity: hashing the frozen dataclass's fields costs more than the
+    rest of the lookup."""
+    found = _LAUNCHERS.get((id(spec), index, lib))
+    if found is None or found[0] is not spec:
+        found = _LAUNCHERS[(id(spec), index, lib)] = (spec, _Launcher(
+            lib or cuda_build.load("hashgrid_encode"), spec, index))
+    return found[1]
 
 
 def _check(t: torch.Tensor, name: str, shape, align: int) -> None:
@@ -426,28 +442,29 @@ def _explain(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
     raise AssertionError("unreachable: the inputs passed every check")
 
 
-def _fits(t: torch.Tensor, shape, device, align: int) -> bool:
+def _fits(t: torch.Tensor, shape, index: int, align: int) -> bool:
     return (t.dtype is torch.float32 and t.shape == shape
-            and t.device == device and t.is_contiguous()
+            and t.get_device() == index and t.is_contiguous()
             and not t.data_ptr() % align)
 
 
 def _check_inputs(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor,
-                  **grads: torch.Tensor) -> int:
-    """Check the kernels' inputs; returns B.  One pass of cheap tests, and
-    on a failure the detailed checks that say what failed."""
-    dev = x.device
+                  **grads: torch.Tensor) -> tuple[int, int]:
+    """Check the kernels' inputs; returns (B, the index of their CUDA
+    device).  One pass of cheap tests, and on a failure the detailed checks
+    that say what failed."""
+    index = x.get_device() if x.is_cuda else -1
     n = x.shape[0] if x.ndim == 2 else -1
-    ok = (dev.type == "cuda" and spec.dim == 3 and spec.features == 2
+    ok = (index >= 0 and spec.dim == 3 and spec.features == 2
           and spec.levels <= 32 and n * _group(spec) < _THREADS_LIMIT
-          and _fits(x, (n, 3), dev, 4)
-          and _fits(table, (spec.n_entries, 2), dev, 8))
+          and _fits(x, (n, 3), index, 4)
+          and _fits(table, (spec.n_entries, 2), index, 8))
     for name, t in grads.items():
         ok = ok and _fits(t, (n, 3) if name == "ddx" else (n, spec.levels * 2),
-                          dev, 4 if name == "ddx" else 8)
+                          index, 4 if name == "ddx" else 8)
     if not ok:
         _explain(spec, table, x, grads)
-    return n
+    return n, index
 
 
 def _ptr(t: torch.Tensor | None):
@@ -455,12 +472,15 @@ def _ptr(t: torch.Tensor | None):
 
 
 def hashgrid_encode_fwd(spec: HashGridSpec, table: torch.Tensor,
-                        x: torch.Tensor) -> torch.Tensor:
-    """``encode_plain`` by the CUDA kernel, bitwise: features [B, L*2]."""
-    n = _check_inputs(spec, table, x)
+                        x: torch.Tensor,
+                        lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """``encode_plain`` by the CUDA kernel, bitwise: features [B, L*2].
+    ``lib``: a variant build of the kernels
+    (scripts/hashgrid_encode_variants.py), else the committed one."""
+    n, index = _check_inputs(spec, table, x)
     feat = x.new_empty((n, spec.levels * 2))
     if n:
-        run = _launcher(spec, x.device, None)
+        run = _launcher(spec, index, lib)
         run(run.fwd, "hashgrid_encode_fwd", n, x.data_ptr(), table.data_ptr(),
             n, feat.data_ptr())
     return feat
@@ -472,16 +492,15 @@ def hashgrid_encode_bwd(spec: HashGridSpec, table: torch.Tensor,
                         lib: ctypes.CDLL | None = None):
     """``encode_backward_plain`` by the CUDA kernel: dx bitwise, dtable an
     atomic scatter (its order of adds is free), zero-filled by the launch.
-    Without ``need_table`` nothing is scattered.  ``lib``: a variant build
-    of the kernels (scripts/hashgrid_encode_variants.py), else the
-    committed one."""
-    n = _check_inputs(spec, table, x, dfeat=dfeat)
+    Without ``need_table`` nothing is scattered.  ``lib`` as for
+    ``hashgrid_encode_fwd``."""
+    n, index = _check_inputs(spec, table, x, dfeat=dfeat)
     dx = x.new_empty((n, 3)) if need_x else None
     if not n:
         return dx, torch.zeros_like(table) if need_table else None
     dtable = torch.empty_like(table) if need_table else None
     if need_x or need_table:
-        run = _launcher(spec, x.device, lib)
+        run = _launcher(spec, index, lib)
         run(run.bwd, "hashgrid_encode_bwd", n, x.data_ptr(), table.data_ptr(),
             n, dfeat.data_ptr(), _ptr(dx), _ptr(dtable), scatter=need_table)
     return dx, dtable
@@ -494,14 +513,14 @@ def hashgrid_encode_bwd_bwd(spec: HashGridSpec, table: torch.Tensor,
                             lib: ctypes.CDLL | None = None):
     """``encode_double_backward_plain`` by the CUDA kernel: d_dfeat and dx2
     bitwise, dtable2 an atomic scatter, zero-filled by the launch."""
-    n = _check_inputs(spec, table, x, dfeat=dfeat, ddx=ddx)
+    n, index = _check_inputs(spec, table, x, dfeat=dfeat, ddx=ddx)
     d_dfeat = x.new_empty((n, spec.levels * 2)) if need_dfeat else None
     dx2 = x.new_empty((n, 3)) if need_x else None
     if not n:
         return d_dfeat, torch.zeros_like(table) if need_table else None, dx2
     dtable2 = torch.empty_like(table) if need_table else None
     if need_dfeat or need_table or need_x:
-        run = _launcher(spec, x.device, lib)
+        run = _launcher(spec, index, lib)
         run(run.bwd_bwd, "hashgrid_encode_bwd_bwd", n, x.data_ptr(),
             table.data_ptr(), n, dfeat.data_ptr(), ddx.data_ptr(),
             _ptr(d_dfeat), _ptr(dtable2), _ptr(dx2), scatter=need_table)

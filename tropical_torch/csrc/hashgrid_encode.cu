@@ -25,14 +25,27 @@
 // level's entry count with a non-negative result (torch.remainder), or the
 // hash (gx * 1) ^ (gy * 2654435761) ^ (gz * 805459861) in uint32 with
 // wraparound, masked to 2^T - 1; then the level's offset is added and the
-// row clamped to the table, as the plain version does.
+// row clamped to the table, as the plain version does (the forward factors
+// both per level: level_rows_of).
 //
-// Forward: one thread per (point, level), the points' levels on
-// neighbouring lanes (a group of G lanes, G the power of two at or above L,
-// so a group never straddles a warp).  A thread computes its level's 8
-// corners, reads each corner's F = 2 features as one float2 and writes its
-// level's two features.  Per-level constants come from a small table in
-// device memory (LevelRow), read through the L1 cache.
+// Forward (fwd_kernel): K lanes a (point, level), the levels of a point on
+// neighbouring lane groups (G of them, G the power of two at or above L, so
+// a point never straddles a warp); K = 4 where 4 lanes a pair keep the
+// launch within one wave of resident threads, else 1 (fwd_lanes).  What
+// bounds it, and what the design does about it:
+//   - a training batch (B = 1,000: 4,000 (point, level) pairs) fills a
+//     tenth of the card, so a thread's serial chain is the time: the chain
+//     starts at the load of x (the level rows are kernel parameters, not a
+//     load from device memory), takes one integer remainder a (point,
+//     level) instead of one a corner (the card has no integer divider: a
+//     64-bit remainder is a call to a software routine, a 32-bit one some
+//     ten instructions, and the one remainder is 32-bit where the base
+//     fits), and 4 lanes split the 8 corners' gathers; shuffles of the
+//     whole warp bring the products to the first lane in corner order;
+//   - at the flat run's 278,528 points (1.1 M pairs) the card is full and
+//     the instructions and the L1's scattered 8-byte gathers are the time:
+//     one lane a pair, so no work is repeated across lanes.
+// Stores are one float2 a (point, level), a warp's a contiguous run.
 //
 // Backwards (bwd_kernel, bwd_bwd_kernel): one lane per (point, level,
 // corner).  A point takes P = 8 min(G, 4) lanes (at 4 levels a warp is one
@@ -56,14 +69,20 @@
 // Bound.  A forward reads a point (12 bytes) and writes 8 bytes a level, and
 // must read each table row its corners reach once: the table (281 KB for
 // sphere-small) stays in the 50 MB L2, so the corners' further gathers of a
-// row are not HBM traffic.  The backwards also read 8 bytes a level of the
+// row are not HBM traffic.  At a batch the bound (0.03 us) is far below a
+// launch's own cost on the card; chip_smoke.py prints a CUDA graph's cost of
+// a node beside it.  The backwards also read 8 bytes a level of the
 // feature gradient and write the table gradient whole; they bound by bytes
 // at a batch and by their 150 and 250 unfused operations a (point, level) at
 // the flat run's 278,528 rows.  chip_smoke.py counts each kernel's bytes and
-// operations.  What the backwards' design buys, step by step, is measured
-// by scripts/hashgrid_encode_variants.py, which builds this file with
-//   -DHASHGRID_ENCODE_CORNER_LANES=1   one thread a (point, level), as the
-//                                      forward (the backwards' first design)
+// operations.  What each design buys, step by step, is measured by
+// scripts/hashgrid_encode_variants.py, which builds this file with
+//   -DHASHGRID_ENCODE_FWD_LANES=1, 2, 4, 8   the forward's lanes fixed
+//   -DHASHGRID_ENCODE_FWD_EIGHT_REMAINDERS   a 64-bit remainder a corner
+//   -DHASHGRID_ENCODE_FWD_WIDE               the one remainder in 64 bits
+//   -DHASHGRID_ENCODE_FWD_DEVICE_ROWS        level rows from device memory
+//   -DHASHGRID_ENCODE_CORNER_LANES=1   one thread a (point, level) in the
+//                                      backwards (their first design)
 //   -DHASHGRID_ENCODE_NO_PRIVATE       every row to device-memory atomics
 //   -DHASHGRID_ENCODE_SCALAR_ATOMICS   two scalar atomicAdds for a float2
 // and the times are in PERF.md.
@@ -71,9 +90,15 @@
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstring>
 
 #ifndef HASHGRID_ENCODE_CORNER_LANES
 #define HASHGRID_ENCODE_CORNER_LANES 8
+#endif
+// lanes a (point, level) in the forward: 0 chooses them from the batch
+// (fwd_lanes), 1, 2, 4 or 8 fixes them (an ablation)
+#ifndef HASHGRID_ENCODE_FWD_LANES
+#define HASHGRID_ENCODE_FWD_LANES 0
 #endif
 
 // A spec's launch constants, kept on the host by core/hashgrid.py:_Plan
@@ -88,6 +113,8 @@ struct HashgridEncodePlan {
   int private_rows;       // the backwards' rows reduced in shared memory
   int blocks_bwd;         // one wave of resident blocks of each backward,
   int blocks_bwd_bwd;     // set by hashgrid_encode_configure
+  int fwd_wave;           // resident forward threads of the card, set there
+  int level_rows[32 * 5]; // LevelRow [levels] on the host
 };
 
 namespace {
@@ -97,6 +124,7 @@ using Plan = HashgridEncodePlan;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMaxLevels = 32;
 // lanes a (point, level) in the backwards, and the corners each lane takes
 constexpr int kCornerLanes = HASHGRID_ENCODE_CORNER_LANES;
 constexpr int kCornersPerLane = 8 / kCornerLanes;
@@ -110,7 +138,7 @@ constexpr int kScratchBytes = kThreads * 8;
 constexpr int kMaxSharedBytes = kPrivateBytes + kScratchBytes;
 
 // One level's constants, as tropical_torch/core/hashgrid.py:_level_rows
-// writes them.
+// writes them (the plan's level_rows on the host).
 struct LevelRow {
   float scale;   // s_l rounded to f32
   int offset;    // the level's first table row
@@ -118,33 +146,18 @@ struct LevelRow {
   int res;       // the level's resolution
   int hashed;    // 1 where the level hashes
 };
+static_assert(sizeof(LevelRow) == 5 * sizeof(int), "LevelRow is 5 words");
 
 struct Grid {
   const float* x;          // [n, 3]
   const float2* table;     // [n_rows, 2]
   const LevelRow* rows;    // [levels]
   int levels;
-  int group;               // lanes a point in the forward
+  int group;               // a power of two >= levels, <= 32
   int n_rows;
   unsigned hash_mask;      // 2^T - 1
   int n;
 };
-
-// The thread's point and level in the forward.
-struct Slot {
-  int b, l;
-  bool live;
-};
-
-__device__ __forceinline__ Slot slot_of(const Grid& g) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = t / g.group, l = t % g.group;
-  Slot s;
-  s.live = b < g.n && l < g.levels;
-  s.b = min(b, g.n - 1);
-  s.l = min(l, g.levels - 1);
-  return s;
-}
 
 // The level's cell of the point: corner 0 and the fraction in the cell.
 struct Cell {
@@ -207,27 +220,151 @@ __device__ __forceinline__ float neg_unless(float v, bool keep) {
   return keep ? v : -v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(Grid g, float2* __restrict__ feat) {
-  const Slot s = slot_of(g);
-  if (!s.live) return;
-  const LevelRow lr = g.rows[s.l];
-  const Cell cl = cell_of(g.x + 3LL * s.b, lr.scale);
-  float2 acc = make_float2(0.0f, 0.0f);
+// --- the forward -------------------------------------------------------------
+
+// The forward's arguments, passed by value: the level rows live in the
+// kernel's parameter space (the constant bank), so the head of a thread's
+// chain is the load of x, not a load of its level's row.
+struct FwdArgs {
+  const float* x;          // [n, 3]
+  const float2* table;     // [n_rows, 2]
+  float2* feat;            // [n, levels]
+  const LevelRow* rows;    // the plan's device copy (an ablation reads it)
+  int n, levels, log2_group;
+  unsigned hash_mask;
+  LevelRow level[kMaxLevels];
+};
+
+__device__ __forceinline__ LevelRow level_row(const FwdArgs& a, int l) {
+#ifdef HASHGRID_ENCODE_FWD_DEVICE_ROWS
+  return a.rows[l];
+#else
+  return a.level[l];
+#endif
+}
+
+// Table rows (within the level) of the lane's corners c = k J + j, j < J,
+// for corner 0 at g.  Dense: the index V_c = g_x + g_y r + g_z r^2 + delta_c
+// with delta_c = b_x + b_y r + b_z r^2 (b the corner's bits) is reduced
+// modulo E with a non-negative result.  For a dense level E >= r^3 >
+// delta_c (r >= 2; E >= 8 > 3 for r = 1), so with m = base mod E the row is
+// m + delta_c, less E where that reaches E: one remainder for the 8
+// corners, taken in 32 bits where the base fits in them.  A base within
+// r^2 + r + 1 of the int64 limit (|x s_l| near 2^63 / r^2) would wrap
+// between the corners: there each corner takes its own remainder of the
+// wrapped V_c, as the plain version computes it.  Hashed: the six products
+// of the axes' two coordinates with their primes, in uint32, then one XOR
+// pair a corner.
+template <int J>
+__device__ __forceinline__ void level_rows_of(const FwdArgs& a,
+                                              const LevelRow& lr,
+                                              const long long (&g)[3], int k,
+                                              unsigned (&row)[J]) {
+  if (lr.hashed) {
+    const unsigned hx = static_cast<unsigned>(g[0]);
+    const unsigned hy = static_cast<unsigned>(g[1]) * 2654435761u;
+    const unsigned hz = static_cast<unsigned>(g[2]) * 805459861u;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const Corner k = corner_of(g, lr, cl, c);
-    const float w = __fmul_rn(__fmul_rn(k.w[0], k.w[1]), k.w[2]);
-    const float2 t = g.table[k.row];
-    if (c == 0) {
-      acc.x = __fmul_rn(w, t.x);
-      acc.y = __fmul_rn(w, t.y);
-    } else {
-      acc.x = __fadd_rn(acc.x, __fmul_rn(w, t.x));
-      acc.y = __fadd_rn(acc.y, __fmul_rn(w, t.y));
+    for (int j = 0; j < J; ++j) {
+      const int c = k * J + j;
+      row[j] = ((c & 1 ? hx + 1u : hx) ^ (c & 2 ? hy + 2654435761u : hy) ^
+                (c & 4 ? hz + 805459861u : hz)) & a.hash_mask;
     }
+    return;
   }
-  feat[static_cast<long long>(s.b) * g.levels + s.l] = acc;
+  const unsigned long long r = static_cast<unsigned>(lr.res);
+  const unsigned long long ubase =
+      static_cast<unsigned long long>(g[0]) +
+      static_cast<unsigned long long>(g[1]) * r +
+      static_cast<unsigned long long>(g[2]) * (r * r);
+  const long long base = static_cast<long long>(ubase);
+  const unsigned e = static_cast<unsigned>(lr.entries);
+  unsigned delta[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = k * J + j;
+    delta[j] = static_cast<unsigned>((c & 1) + (c & 2 ? r : 0) +
+                                     (c & 4 ? r * r : 0));
+  }
+#ifndef HASHGRID_ENCODE_FWD_EIGHT_REMAINDERS
+  if (base <= LLONG_MAX - static_cast<long long>(r * r + r + 1)) {
+    unsigned m;
+#ifndef HASHGRID_ENCODE_FWD_WIDE
+    if (base >= INT_MIN && base <= INT_MAX) {
+      const int q = static_cast<int>(base) % lr.entries;
+      m = static_cast<unsigned>(q < 0 ? q + lr.entries : q);
+    } else
+#endif
+    {
+      const long long q = base % lr.entries;
+      m = static_cast<unsigned>(q < 0 ? q + lr.entries : q);
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const unsigned v = m + delta[j];
+      row[j] = v >= e ? v - e : v;
+    }
+    return;
+  }
+#endif
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const long long q = static_cast<long long>(ubase + delta[j]) % lr.entries;
+    row[j] = static_cast<unsigned>(q < 0 ? q + lr.entries : q);
+  }
+}
+
+// K lanes a (point, level), J = 8 / K corners a lane; the slots (point,
+// level) of a point on neighbouring lane groups, G of them (the power of
+// two at or above L).  Each lane computes the cell and its corners' rows,
+// gathers their features and weights them; shuffles bring the 8 products
+// to the slot's first lane in corner order 0..7, which sums them and
+// writes the slot's float2: a warp's stores are one contiguous run.
+// Rows need no clamp: a row within the level is below E, and the level's
+// offset + E is at most the table's row count (the plain version's clamp
+// never binds).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel(const __grid_constant__ FwdArgs a) {
+  constexpr int J = 8 / K;
+  const long long slot = static_cast<long long>(blockIdx.x) * (kThreads / K) +
+                         threadIdx.x / K;
+  const int k = threadIdx.x % K;
+  const long long bw = slot >> a.log2_group;
+  const int lw = static_cast<int>(slot & ((1 << a.log2_group) - 1));
+  // a slot past the points or the levels computes the last one's and
+  // stores nothing: every lane of a warp takes the shuffles, which then
+  // need no partial-warp synchronisation
+  const bool live = bw < a.n && lw < a.levels;
+  const long long b = min(bw, static_cast<long long>(a.n) - 1);
+  const int l = min(lw, a.levels - 1);
+  const LevelRow lr = level_row(a, l);
+  const Cell cl = cell_of(a.x + 3 * b, lr.scale);
+  unsigned row[J];
+  level_rows_of<J>(a, lr, cl.g, k, row);
+  float2 p[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int c = k * J + j;
+    const float w = __fmul_rn(__fmul_rn(c & 1 ? cl.f[0] : cl.lo[0],
+                                        c & 2 ? cl.f[1] : cl.lo[1]),
+                              c & 4 ? cl.f[2] : cl.lo[2]);
+    const float2 v = __ldg(a.table + lr.offset + row[j]);
+    p[j] = make_float2(__fmul_rn(w, v.x), __fmul_rn(w, v.y));
+  }
+  // corners 0..J-1 are the first lane's own; corner c >= J comes from
+  // lane c / J of the slot
+  float2 acc = p[0];
+#pragma unroll
+  for (int c = 1; c < 8; ++c) {
+    float2 v = p[c % J];
+    if (c >= J) {
+      v.x = __shfl_sync(kFullMask, v.x, c / J, K);
+      v.y = __shfl_sync(kFullMask, v.y, c / J, K);
+    }
+    acc = make_float2(__fadd_rn(acc.x, v.x), __fadd_rn(acc.y, v.y));
+  }
+  if (live && k == 0) a.feat[b * a.levels + l] = acc;
 }
 
 // --- the backwards ----------------------------------------------------------
@@ -551,6 +688,26 @@ int begin_scatter(const Plan* p, float* table_grad, cudaStream_t stream) {
   return private_rows_of(p) * 8 + kScratchBytes;
 }
 
+// Lanes a (point, level) of a forward over `slots` (point, level) pairs: 4
+// where their threads stay within one wave of resident threads, else 1.  (In
+// the ablation 8 lanes were never faster than 4, nor 2 than the better of 4
+// and 1.)
+int fwd_lanes(long long slots, int wave) {
+#if HASHGRID_ENCODE_FWD_LANES
+  (void)slots;
+  (void)wave;
+  return HASHGRID_ENCODE_FWD_LANES;
+#else
+  return slots * 4 <= wave ? 4 : 1;
+#endif
+}
+
+template <int K>
+void launch_fwd(const FwdArgs& a, long long slots, cudaStream_t stream) {
+  const long long blocks = (slots * K + kThreads - 1) / kThreads;
+  fwd_kernel<K><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+}
+
 template <typename Kernel>
 int wave_of(Kernel kernel, int shared_bytes, int sms, int* wave) {
   int per_sm = 0;
@@ -569,10 +726,11 @@ int wave_of(Kernel kernel, int shared_bytes, int sms, int* wave) {
 // `stream` and returns the CUDA error of the launch, or 0.  n = 0 launches
 // nothing.
 
-// Fills the plan's waves of the backwards on the current device (and lets
-// them take kMaxSharedBytes of dynamic shared memory); returns the CUDA
-// error, or cudaErrorInvalidValue where the private rows exceed the budget
-// or no block fits.
+// Fills the plan's waves of the backwards (and lets them take
+// kMaxSharedBytes of dynamic shared memory) and the forward's resident
+// threads on the current device; returns the CUDA error, or
+// cudaErrorInvalidValue where the private rows exceed the budget or no block
+// fits.
 extern "C" int hashgrid_encode_configure(Plan* p) {
   if (p->private_rows < 0 || p->private_rows * 8 > kPrivateBytes)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -582,8 +740,14 @@ extern "C" int hashgrid_encode_configure(Plan* p) {
   const int shared = private_rows_of(p) * 8 + kScratchBytes;
   const int a = wave_of(bwd_kernel, shared, sms, &p->blocks_bwd);
   const int b = wave_of(bwd_bwd_kernel, shared, sms, &p->blocks_bwd_bwd);
+  int fwd_per_sm = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fwd_per_sm, fwd_kernel<1>,
+                                                kThreads, 0);
+  p->fwd_wave = fwd_per_sm * kThreads * sms;
   if (const int rc = static_cast<int>(cudaGetLastError())) return rc;
-  return a > 0 && b > 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  return a > 0 && b > 0 && fwd_per_sm > 0
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int hashgrid_encode_fwd_launch(const Plan* p, const float* x,
@@ -591,12 +755,31 @@ extern "C" int hashgrid_encode_fwd_launch(const Plan* p, const float* x,
                                           float* feat, cudaStream_t stream) {
   const Grid g = make_grid(p, x, table, n);
   if (const int rc = check(g)) return rc;
+  if (p->fwd_wave < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  const int blocks = static_cast<int>(
-      (static_cast<long long>(g.n) * g.group + kThreads - 1) / kThreads);
-  fwd_kernel<<<blocks, kThreads, 0, stream>>>(
-      g, reinterpret_cast<float2*>(feat));
+  FwdArgs a{};
+  a.x = x;
+  a.table = g.table;
+  a.feat = reinterpret_cast<float2*>(feat);
+  a.rows = g.rows;
+  a.n = n;
+  a.levels = g.levels;
+  while ((1 << a.log2_group) < g.group) ++a.log2_group;
+  a.hash_mask = g.hash_mask;
+  std::memcpy(a.level, p->level_rows, sizeof(LevelRow) * g.levels);
+  const long long slots = static_cast<long long>(n) * g.group;
+  switch (fwd_lanes(slots, p->fwd_wave)) {
+    case 1: launch_fwd<1>(a, slots, stream); break;
+    case 2: launch_fwd<2>(a, slots, stream); break;
+    case 4: launch_fwd<4>(a, slots, stream); break;
+    default: launch_fwd<8>(a, slots, stream); break;
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lanes a (point, level) a forward over n points takes on this plan.
+extern "C" int hashgrid_encode_fwd_lanes(const Plan* p, int n) {
+  return fwd_lanes(static_cast<long long>(n) * p->group, p->fwd_wave);
 }
 
 extern "C" int hashgrid_encode_bwd_launch(const Plan* p, const float* x,

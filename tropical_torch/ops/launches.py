@@ -19,6 +19,8 @@ LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
 # (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
 # hash-grid encode kernel
 LARGEST: Dict[str, Optional[Tuple[int, ...]]] = {k: None for k in LAUNCHES}
+# the product of each LARGEST shape (0 for none)
+_LARGEST_SIZE: Dict[str, int] = {k: 0 for k in LAUNCHES}
 # the launches of each hash-grid backward that scattered a table gradient
 # (a backward asked for the gradient in x alone scatters none)
 SCATTERS: Dict[str, int] = {"hashgrid_encode_bwd": 0,
@@ -29,6 +31,7 @@ def reset() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
         LARGEST[k] = None
+        _LARGEST_SIZE[k] = 0
     for k in SCATTERS:
         SCATTERS[k] = 0
 
@@ -39,5 +42,7 @@ def record(name: str, shape: Tuple[int, ...], scatter: bool = False) -> None:
     LAUNCHES[name] += 1
     if scatter:
         SCATTERS[name] += 1
-    if math.prod(shape) > math.prod(LARGEST[name] or (0,)):
+    size = math.prod(shape)
+    if size > _LARGEST_SIZE[name]:
+        _LARGEST_SIZE[name] = size
         LARGEST[name] = tuple(shape)

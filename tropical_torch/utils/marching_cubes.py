@@ -217,14 +217,26 @@ def _marching_cubes_core(occ: torch.Tensor, xs, ys, zs, fetch
     return verts, inv.reshape(-1, 3)
 
 
+def grid_axis(res: int, canvas: float, device) -> torch.Tensor:
+    """The grid's axis coordinates over [-canvas, canvas]: ``np.linspace``
+    in float32, as on the JAX package's CPU path."""
+    return torch.from_numpy(np.linspace(-canvas, canvas, res,
+                                        dtype=np.float32)).to(device)
+
+
+def grid_points(s: torch.Tensor, lin0: int, count: int) -> torch.Tensor:
+    """The points at row-major linear indices [lin0, lin0+count) of the
+    res^3 grid whose axis coordinates are ``s`` (z fastest): [count, 3]."""
+    res = s.shape[0]
+    idx = lin0 + torch.arange(count, device=s.device)
+    return torch.stack([s[idx // (res * res)], s[(idx // res) % res],
+                        s[idx % res]], dim=-1)
+
+
 def _sdf_grid_vals(net, s: torch.Tensor, lin0: int, count: int) -> torch.Tensor:
     """SDF values at row-major linear indices [lin0, lin0+count) of the
     res^3 grid whose axis coordinates are ``s``."""
-    res = s.shape[0]
-    idx = lin0 + torch.arange(count, device=s.device)
-    pts = torch.stack([s[idx // (res * res)], s[(idx // res) % res],
-                       s[idx % res]], dim=-1)
-    return net.sdf(pts)[:, 0]
+    return net.sdf(grid_points(s, lin0, count))[:, 0]
 
 
 # x-slab width in cubes: one slab's SDF sweep at res 512 is 17*512^2 points
@@ -240,9 +252,7 @@ def run_marching_cubes(net, res: int, canvas: float, R: float = 1.0) -> Mesh:
     slab-boundary duplicates (bitwise-identical positions) are merged at the
     end.
     """
-    dev = net.device
-    s = torch.from_numpy(np.linspace(-canvas, canvas, res,
-                                     dtype=np.float32)).to(dev)
+    s = grid_axis(res, canvas, net.device)
     all_verts, all_tris = [], []
     base = 0
     for x0 in range(0, res - 1, SLAB):

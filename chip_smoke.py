@@ -61,7 +61,18 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 8. training CLI: ``python -m tropical_torch.stanford.train -c -m small -d
    sphere -s 1 --epochs 1`` in a process of its own: it trains, extracts,
    and writes nothing under ``tropical/`` nor a checkpoint;
-9. one JSON line of kernel records, the card's line, and the result line.
+9. evaluate CLI: ``python -m tropical_torch.stanford.evaluate -d sphere -m
+   small -s 1 -t mtet`` (pseudo-GT at 256, marching tetrahedra at 16..96)
+   and ``... -t mc --gt_res 128``, in-process on phase 4's mesh: every row
+   of each table and the on-grid count held to the JAX CLI's
+   (``tests/golden/sphere_small_evaluate_1.json``,
+   ``scripts/evaluate_golden.py``), the launches (the encode forward once
+   a grid slab, ``min_dist`` twice a scored row), the stage times; the
+   exported tetrahedra meshes at 16..64 against the committed ones;
+   marching tetrahedra at 48 on the card bitwise the CPU's over the card's
+   field; every crossing on the slabs' shared planes merged (tetrahedra at
+   32..96, cubes at 128 and 256);
+10. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
 package is missing.
@@ -116,9 +127,10 @@ PREV_ENCODE_MS = {"hashgrid_encode_fwd": {1000: 0.0054, 10171: 0.0065,
                                           278528: 0.0440},
                   "hashgrid_encode_bwd": {1000: 0.0147, 278528: 3.007},
                   "hashgrid_encode_bwd_bwd": {1000: 0.0134, 278528: 3.014}}
-# the flat run's largest forward is a marching-cubes slab at 128 (SLAB + 1
-# x-planes of 128 x 128 points); the one timed starts at this x index,
-# through the middle of the sphere
+# the flat run's largest forward is its first marching-cubes slab at 128
+# (SLAB + 1 x-planes of 128 x 128 points; later slabs evaluate SLAB, the
+# shared plane reused); the one timed has SLAB + 1 planes from this x
+# index, through the middle of the sphere
 SLAB_RES, SLAB_X0 = 128, 48
 
 EXACT_COUNT = ("min_dist", ("MIN_DIST_COUNT_EXACT",))
@@ -161,6 +173,27 @@ STEP_LAUNCHES = {"hashgrid_encode_fwd": 1, "hashgrid_encode_bwd": 2,
 WINDOW = 10
 CLI_TRAIN_ARGV = ["-c", "-m", "small", "-d", "sphere", "-s", "1",
                   "--epochs", "1"]
+# the evaluate CLI on phase 4's mesh: -t mtet at its default --gt_res (256)
+# and -t mc at 128, held to the JAX CLI's tables on the committed mesh
+# (scripts/evaluate_golden.py, JAX on the CPU, 100,000 rays)
+EVAL_ARGV = {"mtet": ["-d", "sphere", "-m", "small", "-s", "1", "-t", "mtet"],
+             "mc": ["-d", "sphere", "-m", "small", "-s", "1", "-t", "mc",
+                    "--gt_res", "128"]}
+EVAL_GOLDEN = "tests/golden/sphere_small_evaluate_1.json"
+# a row: vertex count exact, CD and AD to these (the printed digits).  The
+# "Ours" row scores the port's mesh, not the JAX mesh of the golden, to the
+# same tolerances (tests/test_torch_evaluate.py measures them between the
+# two meshes on the CPU).  A grid value exactly 0 in the port's field and
+# not in JAX's (f32 rounding of the MLP; sphere-small at 256 has one, on
+# the CPU and on the card, where JAX's value is 4.47e-8) moves the
+# vertices of the 6 grid edges at that point: a row's count may then
+# differ by at most 6 a zero of the port's field at that resolution
+EVAL_CD_TOL, EVAL_AD_TOL = 1e-6, 0.1
+# the card's marching-tetrahedra meshes against the committed TPU-written
+# ones: the same topology, vertices within this (JAX on the CPU reproduces
+# them to 3.5e-5, tests/test_torch_isosurface.py)
+COMMITTED_MT_TOL = 1e-4
+MT_BITWISE_RES = 48
 
 
 class Tee(io.TextIOBase):
@@ -807,8 +840,8 @@ def encode_at_largest(records, largest):
 
 
 def slab_points():
-    """The points of the flat run's marching-cubes slab at 128 that starts
-    at x index SLAB_X0, built as ``utils/marching_cubes._sdf_grid_vals``
+    """SLAB + 1 x-planes of the flat run's marching-cubes grid at 128 from
+    x index SLAB_X0, built as ``utils/marching_cubes._sdf_grid_vals``
     builds them (``np.linspace`` axis in f32, row-major, z fastest), then
     ``preprocess``ed into the unit cube as the net's forward does."""
     from tropical_torch.core.net import preprocess
@@ -1357,6 +1390,192 @@ def curved_path_phase():
     return launches, kept["inputs"], summary(text, wall)[0]
 
 
+def file_digest(path) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def parse_eval(text):
+    """(on-grid count, table rows) of one evaluate run's output."""
+    grid = re.search(r"^Number of vertices near the grid marks: (\d+) "
+                     r"\(([\d.]+)\)$", text, re.M)
+    rows = re.findall(r"^(Ours|\s*\d+), +(\d+), ([\d.]+), +([\d.]+), "
+                      r"(-?[\d.]+)$", text, re.M)
+    check(grid and rows, "no on-grid line or table in the evaluate output")
+    return int(grid.group(1)), [
+        {"label": r[0].strip(), "vertices": int(r[1]), "cd": float(r[2]),
+         "ad": float(r[3]), "s": float(r[4])} for r in rows]
+
+
+def run_evaluate(argv):
+    """The evaluate CLI once, in-process, with every kernel's count and the
+    stage timers zeroed just before it.  Returns (stdout, launches, wall
+    seconds, stage seconds)."""
+    from tropical_torch.ops import launches
+    from tropical_torch.stanford import evaluate, train
+
+    train.PHASES.totals.clear()
+    train.PHASES.counts.clear()
+    launches.reset()
+    tee = Tee(sys.stdout)
+    t = time.time()
+    with contextlib.redirect_stdout(tee):
+        rc = evaluate.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = dict(launches.LAUNCHES)
+    check(rc == 0, f"evaluate {argv} returned {rc}")
+    return tee.buf.getvalue(), counts, wall, dict(train.PHASES.totals)
+
+
+def grid_zeros(net, res) -> int:
+    """Grid values of the net's field on the res^3 grid that are exactly 0,
+    each point once."""
+    from tropical_torch.utils.marching_cubes import slab_fields
+
+    return sum(int((vals[1 if x0 else 0:] == 0).sum())
+               for x0, _, vals in slab_fields(net, res, 1.2))
+
+
+def hold_eval_table(method, text, golden, net):
+    """Each row and the on-grid count against the JAX CLI's golden."""
+    on_grid, rows = parse_eval(text)
+    want = golden["runs"][method]
+    check([r["label"] for r in rows] == [r["label"] for r in want["rows"]],
+          f"{method}: rows {[r['label'] for r in rows]}")
+    check(on_grid == want["on_grid"],
+          f"{method}: {on_grid} vertices on the grid marks, golden "
+          f"{want['on_grid']}")
+    for r, g in zip(rows, want["rows"]):
+        dcd, dad = abs(r["cd"] - g["cd"]), abs(r["ad"] - g["ad"])
+        zeros = (0 if r["label"] == "Ours" or r["vertices"] == g["vertices"]
+                 else grid_zeros(net, int(r["label"])))
+        print(f"  {r['label']:>4}: {r['vertices']} vertices (golden "
+              f"{g['vertices']}; grid zeros {zeros}), CD {r['cd']:.6f} "
+              f"({g['cd']:.6f}), AD {r['ad']:.1f} ({g['ad']:.1f}), "
+              f"{r['s']:.2f} s")
+        check(abs(r["vertices"] - g["vertices"]) <= 6 * zeros
+              and dcd <= EVAL_CD_TOL + 1e-12 and dad <= EVAL_AD_TOL + 1e-9,
+              f"{method} row {r['label']}: {r} against the golden {g}")
+    return rows
+
+
+def hold_committed_mt(tag):
+    """The exported marching-tetrahedra meshes at 16..64 against the
+    committed ones: equal faces under a nearest-neighbour bijection."""
+    from tropical_torch.ops.chamfer import min_dist_plain
+    from tropical_torch.utils.ply import read_ply
+
+    out = {}
+    for res in (16, 32, 48, 64):
+        name = f"mtet{res:03d}_mesh_{tag}.ply"
+        ours = read_ply(os.path.join("meshes_torch", "sphere", name))
+        ref = read_ply(os.path.join("meshes", "sphere", name))
+        check(ours.faces.shape == ref.faces.shape
+              and ours.vertices.shape == ref.vertices.shape,
+              f"{name}: {ours.vertices.shape}/{ours.faces.shape} != committed "
+              f"{ref.vertices.shape}/{ref.faces.shape}")
+        d2, idx = min_dist_plain(
+            torch.from_numpy(ours.vertices.astype(np.float32)).cuda(),
+            torch.from_numpy(ref.vertices.astype(np.float32)).cuda())
+        idx = idx.cpu().numpy()
+        dist = float(np.abs(ours.vertices - ref.vertices[idx]).max())
+        bijection = len(np.unique(idx)) == len(idx)
+        faces = bool(np.array_equal(idx[ours.faces], ref.faces))
+        out[res] = {"faces": int(ours.faces.shape[0]), "bijection": bijection,
+                    "faces_equal": faces, "max_vertex_distance": dist}
+        check(bijection and faces and dist <= COMMITTED_MT_TOL,
+              f"{name} against the committed mesh: {out[res]}")
+    print(json.dumps({"committed_mtet": out}))
+
+
+def mt_card_vs_cpu(net):
+    """Marching tetrahedra on the card and on the CPU over one field the
+    card computed: vertices and triangles bitwise."""
+    from tropical_torch.utils import isosurface as iso
+    from tropical_torch.utils.marching_cubes import grid_axis, grid_points
+
+    res = MT_BITWISE_RES
+    vals = iso.sdf_grid(net, res, 1.2).reshape(-1)
+    pts = grid_points(grid_axis(res, 1.2, net.device), 0,
+                      res ** 3).to(torch.float64)
+    tets = iso.grid_tetrahedra(res, res, net.device)
+    v_gpu, t_gpu = iso.marching_tetrahedra(pts, tets, vals)
+    v_cpu, t_cpu = iso.marching_tetrahedra(pts.cpu(), tets.cpu(), vals.cpu())
+    same = (torch.equal(v_gpu.cpu(), v_cpu)
+            and torch.equal(t_gpu.cpu(), t_cpu))
+    print(f"marching tetrahedra at {res} on the card's field: "
+          f"{v_gpu.shape[0]} vertices, {t_gpu.shape[0]} triangles; card and "
+          f"CPU bitwise: {same}")
+    check(same and t_gpu.shape[0] > 0,
+          "marching tetrahedra differ between the card and the CPU")
+
+
+def slab_merges(net):
+    """Every crossing on the slabs' shared x-planes merges, for marching
+    tetrahedra at the ladder's sizes and marching cubes at both pseudo-GTs."""
+    from tropical_torch.utils import isosurface as iso
+    from tropical_torch.utils import marching_cubes as mc
+
+    out = {}
+    for name, slabs, res in [("mt", iso.mt_slabs, r) for r in (32, 48, 64, 96)] \
+            + [("mc", mc.mc_slabs, r) for r in (128, 256)]:
+        merged, crossings = mc.slab_merge_counts(slabs(net, res, 1.2))
+        out[f"{name}{res}"] = [merged, crossings]
+        check(merged == crossings > 0,
+              f"{name} at {res}: {merged} vertices merged across slabs, "
+              f"{crossings} crossings on the shared planes")
+    print(json.dumps({"slab_merges_and_crossings": out}))
+
+
+def evaluate_phase(mesh_digest):
+    """The evaluate CLI, -t mtet and -t mc, on phase 4's mesh.  Returns
+    each run's kernel launches."""
+    from tropical_torch.stanford.model import net_for_size
+    from tropical_torch.stanford.evaluate import resolutions_for
+    from tropical_torch.stanford.train import cached_checkpoint
+    from tropical_torch.utils import checkpoint as ckpt
+    from tropical_torch.utils.marching_cubes import SLAB
+
+    mesh = "meshes_torch/sphere/our_mesh_small_1.ply"
+    golden = json.load(open(EVAL_GOLDEN))
+    net = net_for_size("small", "sphere", 1, device="cuda")
+    ckpt.load_into(net, cached_checkpoint("sphere", "small", 1))
+    launches = {}
+    for method, argv in EVAL_ARGV.items():
+        phase("9. evaluate CLI: python -m tropical_torch.stanford.evaluate "
+              + " ".join(argv))
+        check(file_digest(mesh) == mesh_digest,
+              f"{mesh} is not the mesh phase 4 wrote")
+        text, counts, wall, stages = run_evaluate(argv)
+        rows = hold_eval_table(method, text, golden, net)
+        gt_res = int(rows[1]["label"])
+        ladder = resolutions_for(method, "small", gt_res)
+        want = {"hashgrid_encode_fwd": sum(len(range(0, r - 1, SLAB))
+                                           for r in ladder),
+                # "Ours" and each baseline row, two searches each
+                "min_dist": 2 * (len(rows) - 1)}
+        print(json.dumps({"method": method, "wall_s": wall,
+                          "eval_stage_s": stages,
+                          "row_s": {r["label"]: r["s"] for r in rows},
+                          "launches": counts}))
+        for k, n in want.items():
+            check(counts[k] == n, f"{method}: {k} {counts[k]} launches, "
+                  f"want {n}")
+        check(counts["trilinear_roots"] == 0
+              and counts["hashgrid_encode_bwd"] == 0,
+              f"{method}: unexpected launches {counts}")
+        launches[method] = counts
+        if method == "mtet":
+            hold_committed_mt("small_1")
+
+    mt_card_vs_cpu(net)
+    slab_merges(net)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1369,6 +1588,7 @@ def main() -> int:
     build_phase()
     records = {r["name"]: r for r in kernel_phase()}
     flat_launches, flat_largest, flat_cd = main_path_phase()
+    mesh_digest = file_digest("meshes_torch/sphere/our_mesh_small_1.ply")
     curved_launches, curved_inputs, curved_take = curved_path_phase()
     records["min_dist"]["launches"] = flat_launches["min_dist"]
     records["min_dist"]["launches_curved"] = curved_launches["min_dist"]
@@ -1385,8 +1605,14 @@ def main() -> int:
                 scatters_flat=flat_launches[f"{k}_scatters"],
                 scatters_curved=curved_launches[f"{k}_scatters"])
     cli_training_phase()
+    eval_launches = evaluate_phase(mesh_digest)
+    for k in ("min_dist", "hashgrid_encode_fwd"):
+        records[k].update(
+            launches_evaluate=sum(c[k] for c in eval_launches.values()),
+            **{f"launches_evaluate_{m}": c[k]
+               for m, c in eval_launches.items()})
 
-    phase("9. result")
+    phase("10. result")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

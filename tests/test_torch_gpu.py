@@ -442,3 +442,44 @@ def test_hashgrid_encode_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="D = 3 and F = 2"):
         thg.hashgrid_encode_fwd(
             thg.HashGridSpec(levels=2, features=4, log2_table=10), table, x)
+
+
+class _PolyField:
+    """A seeded cubic field on the host (numpy, elementwise, so bitwise the
+    same whatever the batch), handed out on ``device``: stands in for a
+    net's ``sdf``."""
+
+    def __init__(self, device, seed=7):
+        self.device = torch.device(device)
+        self.c = np.random.default_rng(seed).normal(size=(3, 3, 3)) * 0.08
+
+    def sdf(self, x):
+        p = x.cpu().numpy().astype(np.float64)
+        x0, x1, x2 = p[:, 0], p[:, 1], p[:, 2]
+        val = 0.5 - (x0 * x0 + x1 * x1) - x2 * x2
+        for i in range(3):
+            for j in range(3):
+                for k in range(3):
+                    val = val + self.c[i, j, k] * (x0 ** i) * (x1 ** j) * (x2 ** k)
+        return torch.from_numpy(val.astype(np.float32)[:, None]).to(self.device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["mt", "mc"])
+def test_grid_meshes_on_cuda_bitwise_cpu_and_slabs_merge(method):
+    """Marching tetrahedra (and cubes) on the card are bitwise the same on
+    the CPU, over a field of 3 slabs (res 40), and every crossing on the
+    two shared x-planes merges with its twin."""
+    _need_cuda()
+    from tropical_torch.utils import isosurface as iso
+    from tropical_torch.utils import marching_cubes as mc
+
+    slabs = iso.mt_slabs if method == "mt" else mc.mc_slabs
+    meshes = {dev: mc.merge_slabs(slabs(_PolyField(dev), 40, 1.2), R=0.8)
+              for dev in ("cuda", "cpu")}
+    assert meshes["cuda"].faces.shape[0] > 1000
+    np.testing.assert_array_equal(meshes["cuda"].vertices,
+                                  meshes["cpu"].vertices)
+    np.testing.assert_array_equal(meshes["cuda"].faces, meshes["cpu"].faces)
+    merged, crossings = mc.slab_merge_counts(slabs(_PolyField("cuda"), 40, 1.2))
+    assert merged == crossings > 0

@@ -64,8 +64,10 @@ def test_scan_sees_every_module():
         assert os.path.join("tropical_torch", "core", name) in rel
     for name in ("train.py", "training.py", "dataset.py"):
         assert os.path.join("tropical_torch", "stanford", name) in rel
-    for name in ("procedural.py", "checkpoint.py"):
+    for name in ("procedural.py", "checkpoint.py", "isosurface.py",
+                 "mtet.py"):
         assert os.path.join("tropical_torch", "utils", name) in rel
+    assert os.path.join("tropical_torch", "stanford", "evaluate.py") in rel
     assert os.path.join("tropical_torch", "ops", "mesh_queries.py") in rel
 
 

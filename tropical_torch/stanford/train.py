@@ -44,8 +44,9 @@ COMMITTED_MODELS_DIR = (Path(__file__).resolve().parents[2] / "tropical"
                         / "stanford" / "models")
 OUT_ROOT = "meshes_torch"
 
-# evaluation stages: "mc" (pseudo-GT and baseline meshes), "ray_trace",
-# "chamfer" (CD + AD); timed with TROPICAL_PROFILE=1
+# evaluation stages: "mc" (the pseudo-GT and marching-cubes baselines),
+# "mt" (marching-tetrahedra baselines), "ray_trace", "chamfer" (CD + AD);
+# timed with TROPICAL_PROFILE=1
 PHASES = Phases()
 
 
@@ -117,15 +118,20 @@ def extract_mesh(net, force: bool):
 
 
 def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
-                             out_dir, tag, resolutions=None):
-    """CD/AD of the extracted mesh vs a marching-cubes pseudo-GT, and of MC
-    baselines at lower resolutions, printed as the reference's table.
+                             out_dir, tag, resolutions=None, method="mc"):
+    """CD/AD of the extracted mesh vs a marching-cubes pseudo-GT, and of
+    grid baselines at lower resolutions, printed as the reference's table.
 
-    The GT row scores the pseudo-GT against itself, which is identically
-    zero, and is printed as zeros without computing it."""
+    The pseudo-GT (res == gt_res) is always marching cubes; ``method``
+    picks the baselines of the other rows: "mc" marching cubes, "mtet"
+    marching tetrahedra.  The GT row scores the pseudo-GT against itself,
+    which is identically zero, and is printed as zeros without computing
+    it.  Nothing here catches a failure: a mesh without ray hits scores a
+    zero row, and any error propagates."""
     from tropical_torch.utils.chamfer import (angular_distance,
                                               chamfer_distance, get_rays,
                                               sample_surface_from_rays)
+    from tropical_torch.utils.isosurface import run_marching_tetrahedra
     from tropical_torch.utils.marching_cubes import run_marching_cubes
 
     dev = net.device
@@ -150,12 +156,17 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
         return cd, ad
 
     gt_samples = gt_normals = gt_mask = None
-    print("Marching Cubes Results:")
+    print(f"Marching {'Cubes' if method == 'mc' else 'Tetrahedra'} Results:")
     print("#samples, #vertices, CD, AD, time")
     for i in resolutions:
         t = time.time()
-        with PHASES("mc"):
-            mc_mesh = run_marching_cubes(net, i, CANVAS_SIZE, R=dataset_R)
+        if method == "mc" or i == gt_res:
+            with PHASES("mc"):
+                mc_mesh = run_marching_cubes(net, i, CANVAS_SIZE, R=dataset_R)
+        else:
+            with PHASES("mt"):
+                mc_mesh = run_marching_tetrahedra(net, i, CANVAS_SIZE,
+                                                  R=dataset_R)
         t = time.time() - t
         n_mc = mc_mesh.vertices.shape[0]
         with PHASES("ray_trace"):
@@ -175,7 +186,8 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
                 our_cd, our_ad = score(our_samples, our_normals, our_mask)
                 row("Ours", our_mesh.vertices.shape[0], our_cd, our_ad, our_t)
             row(f"{i:4d}", n_mc, 0, 0, t)
-            mc_mesh.export(os.path.join(out_dir, f"mc{i:03d}_mesh_{tag}.ply"))
+            mc_mesh.export(os.path.join(out_dir,
+                                        f"{method}{i:03d}_mesh_{tag}.ply"))
             continue
 
         if gt_samples is None or mc_samples.shape[0] == 0:
@@ -183,7 +195,8 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
             continue
         mc_cd, mc_ad = score(mc_samples, mc_normals, mc_mask)
         row(f"{i:4d}", n_mc, mc_cd, mc_ad, t)
-        mc_mesh.export(os.path.join(out_dir, f"mc{i:03d}_mesh_{tag}.ply"))
+        mc_mesh.export(os.path.join(out_dir,
+                                    f"{method}{i:03d}_mesh_{tag}.ply"))
     print()
 
 

@@ -243,32 +243,90 @@ def _sdf_grid_vals(net, s: torch.Tensor, lin0: int, count: int) -> torch.Tensor:
 SLAB = 16
 
 
-def run_marching_cubes(net, res: int, canvas: float, R: float = 1.0) -> Mesh:
-    """MC mesh of the net's zero level set on a res^3 grid over
-    [-canvas, canvas]^3, vertices divided by the dataset scale R.
+def slab_fields(net, res: int, canvas: float):
+    """Yield ``(x0, s, vals)`` for each x-slab of the res^3 grid over
+    [-canvas, canvas]^3: its first x index, the grid axis, and the net's
+    SDF on the slab's ``SLAB + 1`` (fewer in the last slab) x-planes,
+    [nx, res, res].  The axis is ``np.linspace`` in float32, as on the JAX
+    package's CPU path.
 
-    The grid axis is ``np.linspace`` in float32, as on the JAX package's CPU
-    path.  x-slabs of ``SLAB`` cubes bound the memory of one SDF sweep;
-    slab-boundary duplicates (bitwise-identical positions) are merged at the
-    end.
-    """
+    Each grid point is evaluated once, one net evaluation a slab: a slab's
+    first x-plane is the previous slab's last, reused.  A point's value may
+    depend on the batch it is evaluated in (cuBLAS picks its kernel by the
+    batch size), and the vertices on a shared plane merge only where both
+    slabs hold it bitwise alike."""
     s = grid_axis(res, canvas, net.device)
+    shared = None
+    for x0 in range(0, res - 1, SLAB):
+        nxs = min(res - 1, x0 + SLAB) - x0 + 1
+        skip = 0 if shared is None else 1
+        vals = _sdf_grid_vals(net, s, (x0 + skip) * res * res,
+                              (nxs - skip) * res * res).reshape(-1, res, res)
+        if shared is not None:
+            vals = torch.cat([shared, vals])
+        shared = vals[-1:]
+        yield x0, s, vals
+
+
+def mc_slabs(net, res: int, canvas: float):
+    """Yield ``(vals, verts, tris)`` of marching cubes on each x-slab."""
+    for x0, s, vals in slab_fields(net, res, canvas):
+        verts, tris = marching_cubes(vals, s[x0:x0 + vals.shape[0]], s, s)
+        yield vals, verts, tris
+
+
+def merge_slabs(slabs, R: float = 1.0) -> Mesh:
+    """One mesh from the slabs' ``(vals, verts, tris)``, vertices divided by
+    the dataset scale R.  A vertex on a shared x-plane is merged with its
+    twin only where the two are bitwise equal (``torch.unique`` of the
+    rows, which also fixes the vertex order: rows sorted ascending)."""
     all_verts, all_tris = [], []
     base = 0
-    for x0 in range(0, res - 1, SLAB):
-        x1 = min(res - 1, x0 + SLAB)
-        nxs = x1 - x0 + 1
-        vals = _sdf_grid_vals(net, s, x0 * res * res,
-                              nxs * res * res).reshape(nxs, res, res)
-        verts, tris = marching_cubes(vals, s[x0:x1 + 1], s, s)
+    for _, verts, tris in slabs:
         if verts.shape[0]:
             all_verts.append(verts)
             all_tris.append(tris + base)
             base += verts.shape[0]
-
     if not all_verts:
         return Mesh(np.empty((0, 3)), np.empty((0, 3), np.int64))
-    verts = torch.cat(all_verts)
-    tris = torch.cat(all_tris)
-    uniq, inverse = torch.unique(verts, dim=0, return_inverse=True)
-    return Mesh((uniq / R).cpu().numpy(), inverse[tris].cpu().numpy())
+    uniq, inverse = torch.unique(torch.cat(all_verts), dim=0,
+                                 return_inverse=True)
+    # divided on the host: a CUDA tensor divided by a Python float is
+    # multiplied by its reciprocal, one ulp off the quotient
+    return Mesh(uniq.cpu().numpy() / R,
+                inverse[torch.cat(all_tris)].cpu().numpy())
+
+
+def slab_merge_counts(slabs) -> Tuple[int, int]:
+    """(vertices merged across slabs, crossings on the shared x-planes).
+
+    Each sign change (``vals > 0``) along y or z within a shared x-plane is
+    a vertex of both slabs (marching cubes cuts every such edge, and so does
+    the tetrahedral lattice, whose face diagonals differ between a plane's
+    two sides).  Both slabs hold the plane's field bitwise alike
+    (``slab_fields``), so the twins merge and the two counts are equal
+    unless the geometry of a crossing differs between the slabs.  Vertices
+    that coincide
+    within a slab (a grid value exactly 0 puts several edges' vertices on
+    one point) are merged first and not counted."""
+    crossings, total, all_verts = 0, 0, []
+    for k, (vals, verts, _) in enumerate(slabs):
+        if k:
+            occ = vals[0] > 0
+            crossings += int((occ[1:] != occ[:-1]).sum()
+                             + (occ[:, 1:] != occ[:, :-1]).sum())
+        verts = torch.unique(verts, dim=0)
+        total += verts.shape[0]
+        all_verts.append(verts)
+    merged = total - torch.unique(torch.cat(all_verts), dim=0).shape[0]
+    return merged, crossings
+
+
+def run_marching_cubes(net, res: int, canvas: float, R: float = 1.0) -> Mesh:
+    """MC mesh of the net's zero level set on a res^3 grid over
+    [-canvas, canvas]^3, vertices divided by the dataset scale R.
+
+    x-slabs of ``SLAB`` cubes bound the memory of one SDF sweep;
+    slab-boundary duplicates (bitwise-identical positions) are merged at the
+    end."""
+    return merge_slabs(mc_slabs(net, res, canvas), R)

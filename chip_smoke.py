@@ -64,14 +64,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 9. evaluate CLI: ``python -m tropical_torch.stanford.evaluate -d sphere -m
    small -s 1 -t mtet`` (pseudo-GT at 256, marching tetrahedra at 16..96)
    and ``... -t mc --gt_res 128``, in-process on phase 4's mesh: every row
-   of each table and the on-grid count held to the JAX CLI's
+   of each table (unrounded) and the on-grid count held to the JAX CLI's
    (``tests/golden/sphere_small_evaluate_1.json``,
-   ``scripts/evaluate_golden.py``), the launches (the encode forward once
-   a grid slab, ``min_dist`` twice a scored row), the stage times; the
-   exported tetrahedra meshes at 16..64 against the committed ones;
-   marching tetrahedra at 48 on the card bitwise the CPU's over the card's
-   field; every crossing on the slabs' shared planes merged (tetrahedra at
-   32..96, cubes at 128 and 256);
+   ``scripts/evaluate_golden.py``), a row's vertex count exactly once the
+   grid values that are exactly 0 in the port's field take JAX's; the
+   launches (the encode forward once a grid slab, ``min_dist`` twice a
+   scored row), the stage times; the exported tetrahedra meshes at 16..64
+   against the committed ones; marching tetrahedra at 48 on the card
+   bitwise the CPU's over the card's field; every crossing on the slabs'
+   shared planes merged (tetrahedra at 32..96, cubes at 128 and 256); the
+   encode forward at the run's largest forward (the 256 pseudo-GT's first
+   slab, 17 * 256^2 points) bitwise its plain version and timed;
 10. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
@@ -180,20 +183,25 @@ EVAL_ARGV = {"mtet": ["-d", "sphere", "-m", "small", "-s", "1", "-t", "mtet"],
              "mc": ["-d", "sphere", "-m", "small", "-s", "1", "-t", "mc",
                     "--gt_res", "128"]}
 EVAL_GOLDEN = "tests/golden/sphere_small_evaluate_1.json"
-# a row: vertex count exact, CD and AD to these (the printed digits).  The
-# "Ours" row scores the port's mesh, not the JAX mesh of the golden, to the
-# same tolerances (tests/test_torch_evaluate.py measures them between the
-# two meshes on the CPU).  A grid value exactly 0 in the port's field and
+# a row: CD and AD, unrounded, to these of the golden's: the CD of JAX's
+# samples with exact nearest neighbours ("cd_nn"; JAX's own CD lies up to
+# some 1e-6 above it, its search picking neighbours by the expanded form),
+# JAX's AD.  The "Ours" row scores the port's mesh, not the JAX mesh of
+# the golden: the golden's "ours_port_mesh" measures the gap between the
+# two meshes' "Ours" CD on the CPU at 256 with 100,000 rays, far inside
+# the same 1e-6.  A row's vertex count is exact.  A grid value exactly 0 in the port's field and
 # not in JAX's (f32 rounding of the MLP; sphere-small at 256 has one, on
-# the CPU and on the card, where JAX's value is 4.47e-8) moves the
-# vertices of the 6 grid edges at that point: a row's count may then
-# differ by at most 6 a zero of the port's field at that resolution
+# the CPU and on the card, where JAX's value is 4.47e-8) moves the vertices
+# at that point: such a row is rebuilt with JAX's value there (the
+# golden's "near_zero"), and that count must be the golden's
 EVAL_CD_TOL, EVAL_AD_TOL = 1e-6, 0.1
 # the card's marching-tetrahedra meshes against the committed TPU-written
 # ones: the same topology, vertices within this (JAX on the CPU reproduces
 # them to 3.5e-5, tests/test_torch_isosurface.py)
 COMMITTED_MT_TOL = 1e-4
 MT_BITWISE_RES = 48
+# the -t mtet run's pseudo-GT (the CLI's default for small)
+EVAL_GT_RES = 256
 
 
 class Tee(io.TextIOBase):
@@ -835,51 +843,60 @@ def encode_at_largest(records, largest):
         for k, v in encode_times(spec, *inputs).items():
             records[k].update({f"{key}_{f}": val for f, val in v.items()})
         if key == "main":
-            encode_on_slab(records["hashgrid_encode_fwd"], spec, inputs[0],
-                           shape[0])
+            encode_on_slab(records["hashgrid_encode_fwd"], "slab", spec,
+                           inputs[0], shape)
 
 
-def slab_points():
-    """SLAB + 1 x-planes of the flat run's marching-cubes grid at 128 from
-    x index SLAB_X0, built as ``utils/marching_cubes._sdf_grid_vals``
-    builds them (``np.linspace`` axis in f32, row-major, z fastest), then
+def slab_points(res=SLAB_RES, x0=SLAB_X0):
+    """SLAB + 1 x-planes of the marching-cubes grid at res from x index x0,
+    built as ``utils/marching_cubes.slab_fields`` builds a slab's points
+    (``np.linspace`` axis in f32, row-major, z fastest), then
     ``preprocess``ed into the unit cube as the net's forward does."""
     from tropical_torch.core.net import preprocess
     from tropical_torch.stanford.model import net_for_size
     from tropical_torch.stanford.train import CANVAS_SIZE
     from tropical_torch.utils import marching_cubes as mc
 
-    s = mc.grid_axis(SLAB_RES, CANVAS_SIZE, torch.device("cuda"))
-    pts = mc.grid_points(s, SLAB_X0 * SLAB_RES ** 2,
-                         (mc.SLAB + 1) * SLAB_RES ** 2)
+    s = mc.grid_axis(res, CANVAS_SIZE, torch.device("cuda"))
+    pts = mc.grid_points(s, x0 * res ** 2, (mc.SLAB + 1) * res ** 2)
     return preprocess(net_for_size("small", device="cpu").spec, pts)
 
 
-def encode_on_slab(rec, spec, table, largest_rows):
-    """The forward on the slab's own points: bitwise its plain version, its
-    device time and one wrapper call beside ``main_ms`` (random points)."""
+def encode_on_slab(rec, key, spec, table, largest, res=SLAB_RES,
+                   x0=SLAB_X0):
+    """The forward on a marching-cubes slab's own points (``slab_points``),
+    the shape ``largest`` a main path gave it: bitwise its plain version,
+    then its device time, one wrapper call, the plain version and its
+    bound (``{key}_*`` keys of the record)."""
     from tropical_torch.core import hashgrid as hg
 
-    x = slab_points().contiguous()
-    check(x.shape[0] == largest_rows, f"the slab has {x.shape[0]} points, "
-          f"the flat run's largest forward {largest_rows}")
+    x = slab_points(res, x0).contiguous()
+    check(tuple(largest) == (x.shape[0], spec.levels),
+          f"the slab at {res} has {x.shape[0]} points, the path's largest "
+          f"forward {largest}")
     feat = hg.hashgrid_encode_fwd(spec, table, x)
     torch.cuda.synchronize()
     bad = int((feat.view(torch.int32)
                != hg.encode_plain(spec, table, x).view(torch.int32)).sum())
-    print(f"encode slab at {SLAB_RES} from x index {SLAB_X0} "
-          f"({x.shape[0]} points): forward bit mismatches {bad}")
-    check(bad == 0, "the forward differs from its plain version on the slab")
+    print(f"encode slab at {res} from x index {x0} ({x.shape[0]} points): "
+          f"forward bit mismatches {bad}")
+    check(bad == 0, f"the forward differs from its plain version on the "
+          f"slab at {res}")
 
     def fwd():
         return hg.hashgrid_encode_fwd(spec, table, x)
 
-    slab_ms, call_ms = graph_ms(fwd), cuda_ms(fwd, iters=50, warmup=10)
-    bound_ms, _ = encode_bound_ms("hashgrid_encode_fwd", spec, x)
-    print(f"hashgrid_encode_fwd on the slab: kernel {slab_ms:.4f} ms (random "
-          f"points {rec['main_ms']:.4f} ms), a wrapper call {call_ms:.4f} ms, "
-          f"bound {bound_ms:.5f} ms; at {bound_ms / slab_ms:.1%} of the bound")
-    rec.update(slab_ms=slab_ms, slab_call_ms=call_ms, slab_bound_ms=bound_ms)
+    ms, call_ms = graph_ms(fwd), cuda_ms(fwd, iters=50, warmup=10)
+    plain_ms = cuda_ms(lambda: hg.encode_plain(spec, table, x), iters=3)
+    bound_ms, bound_by = encode_bound_ms("hashgrid_encode_fwd", spec, x)
+    print(f"hashgrid_encode_fwd on the slab at {res}: kernel {ms:.4f} ms (a "
+          f"wrapper call {call_ms:.4f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{bound_ms:.5f} ms ({bound_by}); at {bound_ms / ms:.1%} of the "
+          "bound")
+    rec.update({f"{key}_{k}": v for k, v in dict(
+        shape=list(largest), ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        max_abs_err=0.0).items()})
 
 
 def golden_params(g):
@@ -1397,68 +1414,121 @@ def file_digest(path) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
-def parse_eval(text):
-    """(on-grid count, table rows) of one evaluate run's output."""
-    grid = re.search(r"^Number of vertices near the grid marks: (\d+) "
-                     r"\(([\d.]+)\)$", text, re.M)
-    rows = re.findall(r"^(Ours|\s*\d+), +(\d+), ([\d.]+), +([\d.]+), "
-                      r"(-?[\d.]+)$", text, re.M)
-    check(grid and rows, "no on-grid line or table in the evaluate output")
-    return int(grid.group(1)), [
-        {"label": r[0].strip(), "vertices": int(r[1]), "cd": float(r[2]),
-         "ad": float(r[3]), "s": float(r[4])} for r in rows]
-
-
 def run_evaluate(argv):
-    """The evaluate CLI once, in-process, with every kernel's count and the
-    stage timers zeroed just before it.  Returns (stdout, launches, wall
+    """The evaluate CLI once, in-process, with every kernel's count and
+    largest shape and the stage timers zeroed just before it.  Returns
+    (stdout, the table's rows unrounded, launches, largest shapes, wall
     seconds, stage seconds)."""
     from tropical_torch.ops import launches
     from tropical_torch.stanford import evaluate, train
+
+    scored = evaluate.evaluate_against_grid_gt
+    kept = []
+
+    def keep_rows(*args, **kwargs):
+        kept.append(scored(*args, **kwargs))
+        return kept[-1]
 
     train.PHASES.totals.clear()
     train.PHASES.counts.clear()
     launches.reset()
     tee = Tee(sys.stdout)
+    evaluate.evaluate_against_grid_gt = keep_rows
     t = time.time()
-    with contextlib.redirect_stdout(tee):
-        rc = evaluate.main(argv)
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(tee):
+            rc = evaluate.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        evaluate.evaluate_against_grid_gt = scored
     wall = time.time() - t
-    counts = dict(launches.LAUNCHES)
-    check(rc == 0, f"evaluate {argv} returned {rc}")
-    return tee.buf.getvalue(), counts, wall, dict(train.PHASES.totals)
+    counts, largest = dict(launches.LAUNCHES), dict(launches.LARGEST)
+    check(rc == 0 and len(kept) == 1, f"evaluate {argv} returned {rc}")
+    return (tee.buf.getvalue(), kept[0], counts, largest, wall,
+            dict(train.PHASES.totals))
 
 
-def grid_zeros(net, res) -> int:
-    """Grid values of the net's field on the res^3 grid that are exactly 0,
-    each point once."""
-    from tropical_torch.utils.marching_cubes import slab_fields
+class PatchedField:
+    """A net's field with its values at some grid points replaced: the
+    same batches through ``net.sdf``, then the values of the rows at those
+    points overwritten."""
 
-    return sum(int((vals[1 if x0 else 0:] == 0).sum())
-               for x0, _, vals in slab_fields(net, res, 1.2))
+    def __init__(self, net, points, values):
+        self.net, self.device = net, net.device
+        self.points, self.values = points, values
+
+    def sdf(self, x):
+        out = self.net.sdf(x).clone()
+        rows, which = (x[:, None, :] == self.points[None]).all(-1).nonzero(
+            as_tuple=True)
+        out[rows, 0] = self.values[which]
+        return out
 
 
-def hold_eval_table(method, text, golden, net):
-    """Each row and the on-grid count against the JAX CLI's golden."""
-    on_grid, rows = parse_eval(text)
+def zeros_as_jax(net, res, near_zero):
+    """The grid indices where the port's field at res is exactly 0, and the
+    field with JAX's values there (``near_zero``: the golden's ``[i, j, k,
+    value]`` at this resolution).  Fails where JAX's field is not near 0
+    at such a point, or gave it two values."""
+    from tropical_torch.utils.isosurface import sdf_grid
+    from tropical_torch.utils.marching_cubes import grid_axis
+
+    zeros = [tuple(z) for z in
+             torch.nonzero(sdf_grid(net, res, 1.2) == 0).tolist()]
+    jax_vals = {}
+    for i, j, k, v in near_zero:
+        jax_vals.setdefault((i, j, k), set()).add(v)
+    check(all(len(jax_vals.get(z, ())) == 1 for z in zeros),
+          f"at {res} the port's field is 0 at {zeros}, JAX's values there "
+          f"{[jax_vals.get(z) for z in zeros]}")
+    s = grid_axis(res, 1.2, net.device)
+    points = torch.stack([torch.stack([s[i], s[j], s[k]])
+                          for i, j, k in zeros]) if zeros else s.new_empty(0, 3)
+    values = torch.tensor([next(iter(jax_vals[z])) for z in zeros],
+                          dtype=torch.float32, device=net.device)
+    return zeros, PatchedField(net, points, values)
+
+
+def hold_eval_table(method, text, rows, golden, net):
+    """Each row (unrounded) and the on-grid count against the JAX CLI's
+    golden.  A row whose vertex count differs is rebuilt with JAX's values
+    at the port's exact zeros and must then give the golden's count."""
+    from evaluate_table import parse_table
+    from tropical_torch.utils.isosurface import run_marching_tetrahedra
+    from tropical_torch.utils.marching_cubes import run_marching_cubes
+
+    printed = parse_table(text)
     want = golden["runs"][method]
-    check([r["label"] for r in rows] == [r["label"] for r in want["rows"]],
-          f"{method}: rows {[r['label'] for r in rows]}")
-    check(on_grid == want["on_grid"],
-          f"{method}: {on_grid} vertices on the grid marks, golden "
-          f"{want['on_grid']}")
-    for r, g in zip(rows, want["rows"]):
-        dcd, dad = abs(r["cd"] - g["cd"]), abs(r["ad"] - g["ad"])
-        zeros = (0 if r["label"] == "Ours" or r["vertices"] == g["vertices"]
-                 else grid_zeros(net, int(r["label"])))
-        print(f"  {r['label']:>4}: {r['vertices']} vertices (golden "
-              f"{g['vertices']}; grid zeros {zeros}), CD {r['cd']:.6f} "
-              f"({g['cd']:.6f}), AD {r['ad']:.1f} ({g['ad']:.1f}), "
-              f"{r['s']:.2f} s")
-        check(abs(r["vertices"] - g["vertices"]) <= 6 * zeros
-              and dcd <= EVAL_CD_TOL + 1e-12 and dad <= EVAL_AD_TOL + 1e-9,
-              f"{method} row {r['label']}: {r} against the golden {g}")
+    check([(r["label"], r["vertices"]) for r in printed["rows"]]
+          == [r[:2] for r in rows], f"{method}: printed rows "
+          f"{printed['rows']} are not the returned {rows}")
+    check([r[0] for r in rows] == [r["label"] for r in want["rows"]],
+          f"{method}: rows {[r[0] for r in rows]}")
+    check(printed["on_grid"] == want["on_grid"],
+          f"{method}: {printed['on_grid']} vertices on the grid marks, "
+          f"golden {want['on_grid']}")
+    gt_res = int(rows[1][0])
+    for (label, n_verts, cd, ad, t), g in zip(rows, want["rows"]):
+        dcd, dad = abs(cd - g["cd_nn"]), abs(ad - g["ad_jax"])
+        rebuilt = ""
+        if n_verts != g["vertices"]:
+            res = int(label)
+            zeros, field = zeros_as_jax(net, res,
+                                        want["near_zero"].get(str(res), []))
+            run = (run_marching_cubes if method == "mc" or res == gt_res
+                   else run_marching_tetrahedra)
+            n_as_jax = run(field, res, 1.2).vertices.shape[0]
+            rebuilt = (f"; exact zeros at {zeros}, with JAX's values there "
+                       f"{n_as_jax}")
+            check(n_as_jax == g["vertices"], f"{method} row {label}: "
+                  f"{n_verts} vertices{rebuilt}, golden {g['vertices']}")
+        print(f"  {label:>4}: {n_verts} vertices (golden {g['vertices']}"
+              f"{rebuilt}), CD {cd:.9f} (exact neighbours {g['cd_nn']:.9f}, "
+              f"off {cd - g['cd_nn']:.3e}; JAX's {g['cd_jax']:.9f}), AD "
+              f"{ad:.4f} ({g['ad_jax']:.4f}), {t:.2f} s")
+        check(dcd <= EVAL_CD_TOL and dad <= EVAL_AD_TOL,
+              f"{method} row {label}: CD {cd}, AD {ad} against the golden "
+              f"{g}")
     return rows
 
 
@@ -1530,28 +1600,30 @@ def slab_merges(net):
     print(json.dumps({"slab_merges_and_crossings": out}))
 
 
-def evaluate_phase(mesh_digest):
-    """The evaluate CLI, -t mtet and -t mc, on phase 4's mesh.  Returns
-    each run's kernel launches."""
+def evaluate_phase(mesh_digest, records):
+    """The evaluate CLI, -t mtet and -t mc, on phase 4's mesh; then the
+    encode forward at the runs' largest forward.  Returns each run's
+    kernel launches."""
     from tropical_torch.stanford.model import net_for_size
     from tropical_torch.stanford.evaluate import resolutions_for
     from tropical_torch.stanford.train import cached_checkpoint
     from tropical_torch.utils import checkpoint as ckpt
     from tropical_torch.utils.marching_cubes import SLAB
 
+    sys.path.insert(0, "tests")
     mesh = "meshes_torch/sphere/our_mesh_small_1.ply"
     golden = json.load(open(EVAL_GOLDEN))
     net = net_for_size("small", "sphere", 1, device="cuda")
     ckpt.load_into(net, cached_checkpoint("sphere", "small", 1))
-    launches = {}
+    launches, largest = {}, {}
     for method, argv in EVAL_ARGV.items():
         phase("9. evaluate CLI: python -m tropical_torch.stanford.evaluate "
               + " ".join(argv))
         check(file_digest(mesh) == mesh_digest,
               f"{mesh} is not the mesh phase 4 wrote")
-        text, counts, wall, stages = run_evaluate(argv)
-        rows = hold_eval_table(method, text, golden, net)
-        gt_res = int(rows[1]["label"])
+        text, rows, counts, shapes, wall, stages = run_evaluate(argv)
+        hold_eval_table(method, text, rows, golden, net)
+        gt_res = int(rows[1][0])
         ladder = resolutions_for(method, "small", gt_res)
         want = {"hashgrid_encode_fwd": sum(len(range(0, r - 1, SLAB))
                                            for r in ladder),
@@ -1559,8 +1631,8 @@ def evaluate_phase(mesh_digest):
                 "min_dist": 2 * (len(rows) - 1)}
         print(json.dumps({"method": method, "wall_s": wall,
                           "eval_stage_s": stages,
-                          "row_s": {r["label"]: r["s"] for r in rows},
-                          "launches": counts}))
+                          "row_s": {r[0]: r[4] for r in rows},
+                          "launches": counts, "largest": shapes}))
         for k, n in want.items():
             check(counts[k] == n, f"{method}: {k} {counts[k]} launches, "
                   f"want {n}")
@@ -1568,11 +1640,22 @@ def evaluate_phase(mesh_digest):
               and counts["hashgrid_encode_bwd"] == 0,
               f"{method}: unexpected launches {counts}")
         launches[method] = counts
+        for k, shape in shapes.items():
+            if shape and math.prod(shape) > math.prod(largest.get(k, (0,))):
+                largest[k] = shape
         if method == "mtet":
             hold_committed_mt("small_1")
 
     mt_card_vs_cpu(net)
     slab_merges(net)
+    # no search larger than the 100,000 x 100,000 held in phase 3
+    check(max(largest["min_dist"]) <= 100000,
+          f"evaluate's largest min_dist {largest['min_dist']}")
+    phase("9. the encode forward at the evaluate runs' largest forward, the "
+          f"{EVAL_GT_RES} pseudo-GT's first slab, on the checkpoint's table")
+    encode_on_slab(records["hashgrid_encode_fwd"], "evaluate", net.spec.grid,
+                   net.enc.table.detach(), largest["hashgrid_encode_fwd"],
+                   EVAL_GT_RES, 0)
     return launches
 
 
@@ -1605,7 +1688,7 @@ def main() -> int:
                 scatters_flat=flat_launches[f"{k}_scatters"],
                 scatters_curved=curved_launches[f"{k}_scatters"])
     cli_training_phase()
-    eval_launches = evaluate_phase(mesh_digest)
+    eval_launches = evaluate_phase(mesh_digest, records)
     for k in ("min_dist", "hashgrid_encode_fwd"):
         records[k].update(
             launches_evaluate=sum(c[k] for c in eval_launches.values()),

@@ -12,8 +12,8 @@ traces.
 
 import io
 import os
-import re
 import shutil
+import sys
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -23,6 +23,8 @@ import torch
 from test_torch_eval import N_RAYS, ROOT, _nets, _rows
 
 MESH = os.path.join(ROOT, "meshes/sphere/our_mesh_small_1.ply")
+# the golden writer's score recorder
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
 
 @pytest.fixture
@@ -49,37 +51,52 @@ def _assert_rows_match(rows_t, rows_j, labels):
 
 
 def test_evaluate_against_grid_gt_mtet_matches_jax(few_rays, tmp_path):
+    """The printed tables match; so do the port's returned rows, unrounded,
+    and JAX's evaluation (recorded as ``scripts/evaluate_golden.py``
+    records the golden): the CD of JAX's samples with exact nearest
+    neighbours, and JAX's AD."""
     import tropical.stanford.train as jtrain
     import tropical_torch.stanford.train as ttrain
+    from evaluate_golden import exact_rows, recorded
+    from evaluate_table import parse_table
     from tropical.utils.ply import read_ply
 
     jnet, tnet = _nets()
     mesh = read_ply(MESH)
-    outs = []
+    outs, recs = [], []
     for mod, net, sub in ((jtrain, jnet, "jax"), (ttrain, tnet, "torch")):
         os.makedirs(tmp_path / sub)
         buf = io.StringIO()
-        with redirect_stdout(buf):
-            mod.evaluate_against_grid_gt(net, mesh, 1.0, 0.8, 32,
-                                         str(tmp_path / sub), "t",
-                                         resolutions=[32, 16], method="mtet")
+        with recorded() as rec, redirect_stdout(buf):
+            returned = mod.evaluate_against_grid_gt(
+                net, mesh, 1.0, 0.8, 32, str(tmp_path / sub), "t",
+                resolutions=[32, 16], method="mtet")
         outs.append(buf.getvalue())
+        recs.append(rec)
     assert "Marching Tetrahedra Results:" in outs[1]
     _assert_rows_match(_rows(outs[1]), _rows(outs[0]), ["Ours", "32", "16"])
+
+    golden = parse_table(outs[0])
+    exact_rows(golden, recs[0])
+    assert recs[1]["cd"] == []  # the port computes its own
+    printed = parse_table(outs[1])["rows"]
+    assert [(r["label"], r["vertices"], f"{r['cd']:0.6f}", f"{r['ad']:4.1f}")
+            for r in printed] == [(lb, n, f"{cd:0.6f}", f"{ad:4.1f}")
+                                  for lb, n, cd, ad, _ in returned]
+    for (lb, n, cd, ad, _), g in zip(returned, golden["rows"]):
+        assert n == g["vertices"]
+        assert abs(cd - g["cd_nn"]) <= 1e-6, (lb, cd, g)
+        assert abs(ad - g["ad_jax"]) <= 0.1, (lb, ad, g)
     # the pseudo-GT row is marching cubes, named by the method as JAX's is
     assert sorted(os.listdir(tmp_path / "torch")) == sorted(
         os.listdir(tmp_path / "jax")) == ["mtet016_mesh_t.ply",
                                           "mtet032_mesh_t.ply"]
 
 
-def _on_grid(text):
-    return re.search(r"^Number of vertices near the grid marks: .*$", text,
-                     re.M).group(0)
-
-
 @pytest.mark.parametrize("method,labels", [("mtet", ["Ours", "32", "16"]),
                                            ("mc", ["Ours", "32", "16", "24"])])
 def test_cli_matches_jax(few_rays, monkeypatch, tmp_path, method, labels):
+    from evaluate_table import parse_table
     from tropical.stanford import evaluate as jeval
     from tropical_torch.stanford import evaluate as teval
 
@@ -96,7 +113,9 @@ def test_cli_matches_jax(few_rays, monkeypatch, tmp_path, method, labels):
             assert main(argv + extra) == 0
         outs.append(buf.getvalue())
     text_j, text_t = outs
-    assert _on_grid(text_t) == _on_grid(text_j)
+    table_j, table_t = parse_table(text_j), parse_table(text_t)
+    assert table_t["on_grid"] == table_j["on_grid"] == 10138
+    assert table_t["on_grid_frac"] == table_j["on_grid_frac"]
     _assert_rows_match(_rows(text_t), _rows(text_j), labels)
     want = sorted(f"{method}{r:03d}_mesh_small_1.ply" for r in
                   map(int, labels[1:]))

@@ -12,7 +12,8 @@ import io
 import shutil
 from contextlib import redirect_stdout
 
-from test_torch_evaluate import MESH, _on_grid, few_rays  # noqa: F401
+from evaluate_table import parse_table
+from test_torch_evaluate import MESH, few_rays  # noqa: F401
 from test_torch_eval import _rows
 
 
@@ -37,7 +38,9 @@ def test_ours_row_of_the_port_mesh_matches_the_jax_mesh(few_rays, monkeypatch,
         with redirect_stdout(buf):
             assert teval.main(argv) == 0
         outs.append(buf.getvalue())
-    assert _on_grid(outs[0]) == _on_grid(outs[1])
+    grids = [parse_table(t) for t in outs]
+    assert grids[0]["on_grid"] == grids[1]["on_grid"] == 10138
+    assert grids[0]["on_grid_frac"] == grids[1]["on_grid_frac"]
     ours = [_rows(t)[0] for t in outs]
     assert ours[0][:2] == ours[1][:2] == ("Ours", "10138")
     assert abs(float(ours[0][2]) - float(ours[1][2])) <= 1e-6

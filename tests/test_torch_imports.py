@@ -21,7 +21,8 @@ def _sources():
              os.path.join(ROOT, "scripts", "hashgrid_encode_variants.py"),
              os.path.join(ROOT, "scripts", "hashgrid_encode_compare.py"),
              os.path.join(ROOT, "tests", "trilinear_cases.py"),
-             os.path.join(ROOT, "tests", "encode_cases.py")]
+             os.path.join(ROOT, "tests", "encode_cases.py"),
+             os.path.join(ROOT, "tests", "evaluate_table.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "tropical_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -58,6 +59,7 @@ def test_scan_sees_every_module():
     assert os.path.join("tropical_torch", "ops", "chamfer.py") in rel
     assert os.path.join("tests", "trilinear_cases.py") in rel
     assert os.path.join("tests", "encode_cases.py") in rel
+    assert os.path.join("tests", "evaluate_table.py") in rel
     assert os.path.join("scripts", "hashgrid_encode_variants.py") in rel
     assert os.path.join("scripts", "hashgrid_encode_compare.py") in rel
     for name in ("roots.py", "trilinear.py", "hashgrid.py"):

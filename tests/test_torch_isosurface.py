@@ -180,6 +180,22 @@ def test_slab_boundaries_merge_every_crossing(method):
     assert merged == crossings > 100
 
 
+def test_sdf_grid_is_the_slabs_field():
+    """``sdf_grid`` holds each slab's field bitwise, the shared planes
+    once: the values the grid meshes see."""
+    from tropical_torch.utils import marching_cubes as tmc
+
+    _, tnet = _nets()
+    res = 2 * tmc.SLAB + 8
+    grid = tiso.sdf_grid(tnet, res, 1.2)
+    assert grid.shape == (res, res, res)
+    n = 0
+    for x0, _, vals in tmc.slab_fields(tnet, res, 1.2):
+        assert torch.equal(grid[x0:x0 + vals.shape[0]], vals)
+        n += 1
+    assert n == 3
+
+
 def test_sdf_grid_matches_jax():
     jnet, tnet = _nets()
     got = tiso.sdf_grid(tnet, 12, 1.2)

@@ -127,7 +127,10 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
     marching tetrahedra.  The GT row scores the pseudo-GT against itself,
     which is identically zero, and is printed as zeros without computing
     it.  Nothing here catches a failure: a mesh without ray hits scores a
-    zero row, and any error propagates."""
+    zero row, and any error propagates.
+
+    Returns the rows as printed, unrounded: ``(label, vertices, CD, AD,
+    seconds)``."""
     from tropical_torch.utils.chamfer import (angular_distance,
                                               chamfer_distance, get_rays,
                                               sample_surface_from_rays)
@@ -145,7 +148,10 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
         resolutions = [r for i, r in enumerate(resolutions)
                        if i == 0 or r < gt_res]
 
+    rows = []
+
     def row(label, n_verts, cd, ad, t):
+        rows.append((label.strip(), n_verts, cd, ad, t))
         print(f"{label}, {n_verts:5d}, {cd:0.6f}, {ad:4.1f}, {t:.2f}")
 
     def score(samples, normals, mask):
@@ -198,6 +204,7 @@ def evaluate_against_grid_gt(net, our_mesh, our_t, dataset_R, gt_res,
         mc_mesh.export(os.path.join(out_dir,
                                     f"{method}{i:03d}_mesh_{tag}.ply"))
     print()
+    return rows
 
 
 def train_net(net, args, device) -> None:

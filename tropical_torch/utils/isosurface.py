@@ -27,8 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from tropical_torch.utils.marching_cubes import (_sdf_grid_vals, grid_axis,
-                                                 grid_points, merge_slabs,
+from tropical_torch.utils.marching_cubes import (grid_points, merge_slabs,
                                                  slab_fields)
 from tropical_torch.utils.ply import Mesh
 
@@ -175,11 +174,11 @@ def grid_tetrahedra(nx: int, n: int, device) -> torch.Tensor:
 
 def sdf_grid(net, res: int, canvas: float) -> torch.Tensor:
     """net.sdf on the res^3 grid over [-canvas, canvas]^3, [res, res, res]
-    float32 on the net's device, one x-plane a net evaluation."""
-    s = grid_axis(res, canvas, net.device)
-    return torch.stack([_sdf_grid_vals(net, s, i * res * res,
-                                       res * res).reshape(res, res)
-                        for i in range(res)])
+    float32 on the net's device: the x-planes of
+    ``utils/marching_cubes.slab_fields``, each once, so each value is the
+    one the grid meshes see."""
+    return torch.cat([vals[1 if x0 else 0:]
+                      for x0, _, vals in slab_fields(net, res, canvas)])
 
 
 def mt_slabs(net, res: int, canvas: float):

@@ -7,8 +7,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
 2. build: every kernel of the main paths from ``tropical_torch/csrc/`` (one
-   ``nvcc`` per source, all started together), with the ``-Xptxas -v``
-   register and shared-memory summary; no spills;
+   ``nvcc`` per source, all started together, with the instrumented builds
+   of ``min_dist`` and ``bvh``), with the ``-Xptxas -v`` register and
+   shared-memory summary; no spills;
 3. kernels vs plain: each kernel against its plain PyTorch version, bit for
    bit (the encode's table gradients, scattered by atomicAdd, to a stated
    tolerance), on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
@@ -28,7 +29,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    ``cuda``, held to the golden funnel, the committed mesh and the kernel
    launch counts (the encode's forward on every net evaluation, its
    backward for the faces' normals, in x alone: no backward of the flat or
-   the curved run scatters a table gradient);
+   the curved run scatters a table gradient; on every path, a BVH build and
+   one ``bvh_ray`` trace a traced mesh);
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
    128`` on ``cuda``, held to the golden funnel (or, where only eps-boundary
    flips move it, to the committed JAX vertex set), |sdf| < 2e-4 on every
@@ -52,7 +54,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    gradient; every 10-step window of the losses held
    to the golden's JAX runs (``golden_verdict``) and the sdf at its probes
    to twice the one-ulp JAX witness's spread, and the same check shown to
-   fail a run with the double backward's table gradient zeroed;
+   fail a run with the double backward's table gradient zeroed; one
+   ``bvh_closest`` and one ``bvh_ray`` parity count a resample;
    the trained net extracted on the flat path and evaluated at ``--gt_res
    128``, its "Ours" CD at most twice the committed checkpoint's (phase 4);
    a training step timed with the kernels and with the plain encode, the
@@ -75,7 +78,19 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    shared planes merged (tetrahedra at 32..96, cubes at 128 and 256); the
    encode forward at the run's largest forward (the 256 pseudo-GT's first
    slab, 17 * 256^2 points) bitwise its plain version and timed;
-10. one JSON line of kernel records, the card's line, and the result line.
+10. the BVH tracer (``csrc/bvh.cu``): ``bvh_ray``'s first hits of the
+   100,000 evaluation rays bitwise the plain tiles' on every mesh the flat,
+   curved, -t mtet and -t mc runs traced (the -t mtet run's pseudo-GT
+   among them) and on an icosphere with adversarial rays added (zero
+   direction components, rays through shared vertices and edges, origins
+   on box faces); its parity counts and ``bvh_closest``'s squared
+   distances on one resample of the training labels; ``bvh_hierarchy`` and
+   ``bvh_refit`` bitwise their plain versions at the pseudo-GT; the box
+   and triangle tests each query makes and the parts of the tree the
+   queries read (an instrumented build); each kernel's device time (a
+   CUDA graph of raw launches) beside its bound and its plain version's
+   time;
+11. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
 package is missing.
@@ -202,6 +217,24 @@ COMMITTED_MT_TOL = 1e-4
 MT_BITWISE_RES = 48
 # the -t mtet run's pseudo-GT (the CLI's default for small)
 EVAL_GT_RES = 256
+BVH = ("bvh_hierarchy", "bvh_refit", "bvh_ray", "bvh_closest")
+# the instrumented build that counts the queries' box and triangle tests
+BVH_COUNT = ("bvh", ("BVH_COUNT_VISITS",))
+BVH_REPLACES = {"bvh_hierarchy": "tropical/csrc/bvh.cpp:207",
+                "bvh_refit": "tropical/csrc/bvh.cpp:207",
+                "bvh_ray": "tropical/ops/mesh_queries.py:170",
+                "bvh_closest": "tropical/ops/mesh_queries.py:123"}
+# float operations of one box test and one triangle test (counted in
+# csrc/bvh.cu: box_entry with its caller's two compares, ray_tri_t with the
+# hit update; box_dist2 with its compare, closest_dist2 on its longest
+# branch, the interior)
+BVH_RAY_OPS = (45, 60)
+BVH_CLOSEST_OPS = (18, 97)
+# the evaluation's rays a mesh (get_rays' default generator)
+EVAL_RAYS = 100_000
+# the adversarial icosphere: its subdivisions, and the seeds of the
+# adversarial sets (tests/bvh_cases.py) added to the evaluation's rays
+BVH_ICOSPHERE, BVH_ADVERSARIAL_SEEDS = 4, range(20)
 
 
 class Tee(io.TextIOBase):
@@ -274,7 +307,8 @@ def build_phase():
     from tropical_torch.ops import cuda_build
 
     t = time.time()
-    targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode"]
+    targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode",
+               "bvh", BVH_COUNT]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -1116,6 +1150,12 @@ def training_phase(flat_cd):
     check(all(counts[k] == want[k] for k in ENCODE)
           and counts["min_dist"] == counts["trilinear_roots"] == 0,
           f"training launches {counts}, want {want}")
+    # each epoch's resample labels its points: one closest-point query and
+    # one parity count; the dataset's tree was built before the run
+    resamples = len(label_s)
+    check(counts["bvh_closest"] == counts["bvh_ray"] == resamples > 0
+          and counts["bvh_hierarchy"] == counts["bvh_refit"] == 0,
+          f"training BVH launches {counts}, want {resamples} queries each")
     # every training backward scatters its table gradient (the J pass's too,
     # which autograd.grad(..., x) then discards)
     check(all(counts[f"{k}_scatters"] == want[k] for k in launches.SCATTERS),
@@ -1160,8 +1200,13 @@ def training_phase(flat_cd):
         _, V, F, take = cli.extract_mesh(net, True)
         mesh = Mesh(V.cpu().numpy() / cli.DATASET_R, F.cpu().numpy())
         check(mesh.vertices.shape[0] > 0, "the trained net's mesh is empty")
-        cli.evaluate_against_grid_gt(net, mesh, take, cli.DATASET_R, 128,
-                                     out_dir, "small_1")
+        launches.reset()
+        with traced_meshes() as meshes:
+            cli.evaluate_against_grid_gt(net, mesh, take, cli.DATASET_R, 128,
+                                         out_dir, "small_1")
+    eval_counts = dict(launches.LAUNCHES)
+    check_bvh_launches("the trained net's evaluation", eval_counts, meshes)
+    counts.update({f"{k}_evaluation": eval_counts[k] for k in BVH})
     cd = float(re.search(r"^Ours, +\d+, ([-\d.naif]+), ", tee.buf.getvalue(),
                          re.M).group(1))
     print(f"trained net: {mesh.vertices.shape[0]} vertices, "
@@ -1221,10 +1266,45 @@ def cli_training_phase():
           f"CLI exit {proc.returncode} (empty extraction: {empty})")
 
 
+@contextlib.contextmanager
+def traced_meshes():
+    """Keep (vertices, faces) of every mesh the evaluation traces, in a
+    list."""
+    from tropical_torch.utils import chamfer
+
+    kept = []
+    sample = chamfer.sample_surface_from_rays
+
+    def keep(rays_o, rays_d, mesh, return_normal=False):
+        kept.append((np.array(mesh.vertices, np.float32),
+                     np.array(mesh.faces, np.int64)))
+        return sample(rays_o, rays_d, mesh, return_normal)
+
+    chamfer.sample_surface_from_rays = keep
+    try:
+        yield kept
+    finally:
+        chamfer.sample_surface_from_rays = sample
+
+
+def check_bvh_launches(label, counts, meshes):
+    """One BVH build and one first-hit trace a traced mesh with triangles
+    (a mesh of one triangle has no internal node), none for an empty one."""
+    faces = [m[1].shape[0] for m in meshes]
+    want = {"bvh_hierarchy": sum(f >= 2 for f in faces),
+            "bvh_refit": sum(f >= 1 for f in faces),
+            "bvh_ray": sum(f >= 1 for f in faces), "bvh_closest": 0}
+    got = {k: counts[k] for k in BVH}
+    print(f"{label}: BVH launches {json.dumps(got)} for {len(faces)} traced "
+          f"meshes of {faces} triangles")
+    check(got == want and want["bvh_ray"] > 0,
+          f"{label}: BVH launches {got}, want {want}")
+
+
 def run_cli(argv):
     """The CLI once, with every kernel's count and largest shape and the
     stage timers zeroed just before it.  Returns (stdout, launches, largest
-    shapes, wall seconds)."""
+    shapes, wall seconds, the traced meshes)."""
     from tropical_torch.extract import subdivide as sp
     from tropical_torch.ops import launches
     from tropical_torch.stanford import train
@@ -1235,13 +1315,14 @@ def run_cli(argv):
     launches.reset()
     tee = Tee(sys.stdout)
     t = time.time()
-    with contextlib.redirect_stdout(tee):
+    with contextlib.redirect_stdout(tee), traced_meshes() as meshes:
         rc = train.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t
     counts, largest = dict(launches.LAUNCHES), dict(launches.LARGEST)
     counts.update({f"{k}_scatters": v for k, v in launches.SCATTERS.items()})
     check(rc == 0, f"CLI returned {rc}")
+    check_bvh_launches(" ".join(argv), counts, meshes)
     print(f"main path wall {wall:.2f} s; kernel launches (and the encode "
           f"backwards' that scattered a table gradient) {counts}")
     # the paths differentiate in x alone (faces' normals, the GD rescue):
@@ -1250,7 +1331,7 @@ def run_cli(argv):
         check(counts[f"{k}_scatters"] == 0,
               f"{k}: {counts[k + '_scatters']} launches scattered a table "
               "gradient nobody reads")
-    return tee.buf.getvalue(), counts, largest, wall
+    return tee.buf.getvalue(), counts, largest, wall, meshes
 
 
 def summary(text, wall) -> tuple[float, float]:
@@ -1308,7 +1389,7 @@ def main_path_phase():
     from tropical_torch.ops.chamfer import min_dist_plain
     from tropical_torch.utils.ply import read_ply
 
-    text, launches, largest, wall = run_cli(MAIN_ARGV)
+    text, launches, largest, wall, meshes = run_cli(MAIN_ARGV)
     check(stats.LAST == GOLDEN, f"funnel {stats.LAST} != golden {GOLDEN}")
     for k, want in {**MAIN_LAUNCHES, **FLAT_ENCODE}.items():
         check(launches[k] == want, f"{k}: {launches[k]} launches, want {want}")
@@ -1332,12 +1413,12 @@ def main_path_phase():
     check(vmax <= 1e-4 and one_to_one, "exported mesh differs from committed")
     fan_contract(ref.vertices, idx.cpu().numpy()[ours.faces], ref.faces)
     _, cd = summary(text, wall)
-    return launches, largest, cd
+    return launches, largest, cd, meshes
 
 
 def curved_path_phase():
     """The curved CLI run.  Returns (launches, every (p, q) the root
-    solve was given, the extraction's ``take``)."""
+    solve was given, the extraction's ``take``, the traced meshes)."""
     phase("5. curved main path: " + " ".join(CURVED_ARGV))
     from tropical_torch.core import trilinear as tl
     from tropical_torch.extract import failover as fo
@@ -1361,7 +1442,7 @@ def curved_path_phase():
 
     tl.intersection_of_two_planes, train.extract_mesh = keep_inputs, keep_mesh
     try:
-        text, launches, _, wall = run_cli(CURVED_ARGV)
+        text, launches, _, wall, meshes = run_cli(CURVED_ARGV)
     finally:
         tl.intersection_of_two_planes, train.extract_mesh = solve, extract
     print(f"failover counters {fo.COUNTERS}")
@@ -1404,7 +1485,7 @@ def curved_path_phase():
         want += gd_steps if k != "hashgrid_encode_bwd_bwd" else 0
         check(launches[k] == want, f"{k}: {launches[k]} launches, want {want} "
               f"({gd_steps} GD steps)")
-    return launches, kept["inputs"], summary(text, wall)[0]
+    return launches, kept["inputs"], summary(text, wall)[0], meshes
 
 
 def file_digest(path) -> str:
@@ -1418,7 +1499,7 @@ def run_evaluate(argv):
     """The evaluate CLI once, in-process, with every kernel's count and
     largest shape and the stage timers zeroed just before it.  Returns
     (stdout, the table's rows unrounded, launches, largest shapes, wall
-    seconds, stage seconds)."""
+    seconds, stage seconds, the traced meshes)."""
     from tropical_torch.ops import launches
     from tropical_torch.stanford import evaluate, train
 
@@ -1436,7 +1517,7 @@ def run_evaluate(argv):
     evaluate.evaluate_against_grid_gt = keep_rows
     t = time.time()
     try:
-        with contextlib.redirect_stdout(tee):
+        with contextlib.redirect_stdout(tee), traced_meshes() as meshes:
             rc = evaluate.main(argv)
         torch.cuda.synchronize()
     finally:
@@ -1444,8 +1525,9 @@ def run_evaluate(argv):
     wall = time.time() - t
     counts, largest = dict(launches.LAUNCHES), dict(launches.LARGEST)
     check(rc == 0 and len(kept) == 1, f"evaluate {argv} returned {rc}")
+    check_bvh_launches("evaluate " + " ".join(argv), counts, meshes)
     return (tee.buf.getvalue(), kept[0], counts, largest, wall,
-            dict(train.PHASES.totals))
+            dict(train.PHASES.totals), meshes)
 
 
 class PatchedField:
@@ -1603,7 +1685,8 @@ def slab_merges(net):
 def evaluate_phase(mesh_digest, records):
     """The evaluate CLI, -t mtet and -t mc, on phase 4's mesh; then the
     encode forward at the runs' largest forward.  Returns each run's
-    kernel launches."""
+    kernel launches, the -t mtet run's pseudo-GT (its largest traced mesh)
+    and each run's traced meshes."""
     from tropical_torch.stanford.model import net_for_size
     from tropical_torch.stanford.evaluate import resolutions_for
     from tropical_torch.stanford.train import cached_checkpoint
@@ -1615,13 +1698,13 @@ def evaluate_phase(mesh_digest, records):
     golden = json.load(open(EVAL_GOLDEN))
     net = net_for_size("small", "sphere", 1, device="cuda")
     ckpt.load_into(net, cached_checkpoint("sphere", "small", 1))
-    launches, largest = {}, {}
+    launches, largest, traced = {}, {}, {}
     for method, argv in EVAL_ARGV.items():
         phase("9. evaluate CLI: python -m tropical_torch.stanford.evaluate "
               + " ".join(argv))
         check(file_digest(mesh) == mesh_digest,
               f"{mesh} is not the mesh phase 4 wrote")
-        text, rows, counts, shapes, wall, stages = run_evaluate(argv)
+        text, rows, counts, shapes, wall, stages, meshes = run_evaluate(argv)
         hold_eval_table(method, text, rows, golden, net)
         gt_res = int(rows[1][0])
         ladder = resolutions_for(method, "small", gt_res)
@@ -1639,12 +1722,13 @@ def evaluate_phase(mesh_digest, records):
         check(counts["trilinear_roots"] == 0
               and counts["hashgrid_encode_bwd"] == 0,
               f"{method}: unexpected launches {counts}")
-        launches[method] = counts
+        launches[method], traced[method] = counts, meshes
         for k, shape in shapes.items():
             if shape and math.prod(shape) > math.prod(largest.get(k, (0,))):
                 largest[k] = shape
         if method == "mtet":
             hold_committed_mt("small_1")
+            gt_mesh = max(meshes, key=lambda m: m[1].shape[0])
 
     mt_card_vs_cpu(net)
     slab_merges(net)
@@ -1656,7 +1740,322 @@ def evaluate_phase(mesh_digest, records):
     encode_on_slab(records["hashgrid_encode_fwd"], "evaluate", net.spec.grid,
                    net.enc.table.detach(), largest["hashgrid_encode_fwd"],
                    EVAL_GT_RES, 0)
-    return launches
+    return launches, gt_mesh, traced
+
+
+# ---- 10. the BVH tracer ---------------------------------------------------------
+
+def bits_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def bvh_bound_ms(nbytes, tests, ops) -> tuple[float, str]:
+    """Least time of a BVH kernel: ``nbytes`` at 3.35 TB/s against the
+    float operations of the box and triangle ``tests`` it made (``ops`` a
+    test of each) at PEAK_F32_UNFUSED_OPS."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = (tests[0] * ops[0] + tests[1] * ops[1]) / PEAK_F32_UNFUSED_OPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def visit_counts(lib) -> list:
+    """(box tests, triangle tests) of an instrumented build since the last
+    read, which zeroes them."""
+    out = (ctypes.c_ulonglong * 2)()
+    lib.bvh_visit_counts.argtypes = [ctypes.c_void_p]
+    lib.bvh_visit_counts.restype = ctypes.c_int
+    check(lib.bvh_visit_counts(out) == 0, "bvh_visit_counts failed")
+    return list(out)
+
+
+def counted_query(lib, tree, queries, launch) -> dict:
+    """One ``launch()`` of the instrumented build's query on ``tree`` over
+    ``queries`` rows, with the nodes it reads marked: its (box, triangle)
+    tests, the bytes of the tree it read (each box, child pair, triangle
+    and face id it touched, once) and each query's tests, their largest and
+    the mean over warps (32 consecutive queries) of each warp's largest."""
+    n = tree.n
+    touched = torch.zeros((3, 2 * n - 1), dtype=torch.uint8, device="cuda")
+    per_query = torch.zeros((queries, 2), dtype=torch.int32, device="cuda")
+    lib.bvh_count_buffers.argtypes = [ctypes.c_void_p] * 2
+    lib.bvh_count_buffers.restype = ctypes.c_int
+    check(lib.bvh_count_buffers(touched.data_ptr(), per_query.data_ptr())
+          == 0, "bvh_count_buffers failed")
+    visit_counts(lib)
+    out = launch()
+    tests = visit_counts(lib)
+    check(lib.bvh_count_buffers(None, None) == 0, "bvh_count_buffers failed")
+    marks = touched.sum(dim=1, dtype=torch.int64).tolist()
+    expanded_leaves = int(touched[1, n - 1:].sum(dtype=torch.int64))
+    nbytes = (24 * marks[0] + 8 * (marks[1] - expanded_leaves)
+              + 36 * expanded_leaves + 4 * marks[2])
+    q = per_query.to(torch.int64)
+    check(q.sum(dim=0).tolist() == tests,
+          f"per-query tests {q.sum(dim=0).tolist()} != totals {tests}")
+    pad = (-queries) % 32
+    warps = torch.cat([q, q.new_zeros((pad, 2))]).view(-1, 32, 2)
+    return {"out": out, "tests": tests, "tree_bytes": nbytes,
+            "tree_bytes_all": tree_bytes(tree),
+            "nodes_read": marks, "mean": (q.double().mean(dim=0)).tolist(),
+            "max": q.max(dim=0).values.tolist(),
+            "warp_max_mean": warps.max(dim=1).values.double().mean(
+                dim=0).tolist()}
+
+
+def tree_bytes(tree) -> int:
+    """All the bytes of a tree a query may read: boxes, children, the
+    triangles in leaf order and their face ids."""
+    return sum(t.numel() * t.element_size()
+               for t in (tree.boxes, tree.children, tree.tris, tree.order))
+
+
+def traced_vs_plain(label, q, o, d) -> tuple[float, float]:
+    """``bvh_ray``'s first hits of the rays (o, d) on the mesh of ``q``
+    against the plain tiles, bitwise.  Returns (the plain tiles' ms, the
+    largest |t - plain t| over rays that hit)."""
+    from tropical_torch.ops import bvh
+    from tropical_torch.ops import mesh_queries as mq
+
+    t, fid = bvh.first_hits(q.bvh, o, d)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_t, want_id = mq.first_hits_plain(q.tris, o, d)
+    end.record()
+    torch.cuda.synchronize()
+    id_bad = int((fid != want_id).sum())
+    t_bad = int((t.view(torch.int32) != want_t.view(torch.int32)).sum())
+    hit = want_id >= 0
+    err = float((t - want_t)[hit].abs().max()) if bool(hit.any()) else 0.0
+    print(f"bvh_ray {label}, {q.bvh.n} triangles, {o.shape[0]} rays "
+          f"({int(hit.sum())} hit): face id mismatches {id_bad}, t bit "
+          f"mismatches {t_bad}; plain {start.elapsed_time(end):.1f} ms")
+    check(id_bad == 0 and t_bad == 0,
+          f"bvh_ray {label}: {id_bad} face ids and {t_bad} t differ from "
+          "the plain tiles")
+    return start.elapsed_time(end), err
+
+
+def bvh_kernel_times(tree, keys, o, d, labels_tree, points, direction):
+    """Device ms of each BVH kernel alone, a CUDA graph of 100 raw
+    launches (``ops/bvh.launch_*``: the wrappers' overflow check, a read
+    back, is left out): the build at ``tree``'s mesh, first hits of (o, d)
+    on it, and the labels' closest-point query and parity count of
+    ``points`` on ``labels_tree``."""
+    from tropical_torch.ops import bvh, cuda_build
+
+    lib = cuda_build.load("bvh")
+    dev = keys.device
+    children = torch.empty_like(tree.children)
+    parents = torch.full_like(tree.parents, -1)
+    arrivals = torch.zeros(tree.n - 1, dtype=torch.int32, device=dev)
+    boxes = torch.empty_like(tree.boxes)
+    out_t = torch.empty(o.shape[0], dtype=torch.float32, device=dev)
+    out_id = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
+    hits = torch.empty(points.shape[0], dtype=torch.int32, device=dev)
+    d2 = torch.empty(points.shape[0], dtype=torch.float32, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def refit():
+        arrivals.zero_()
+        bvh.launch_refit(lib, tree.tris, tree.children, tree.parents,
+                         tree.pad, arrivals, boxes)
+
+    times = {
+        "bvh_hierarchy": graph_ms(lambda: bvh.launch_hierarchy(
+            lib, keys, children, parents)),
+        "bvh_refit": graph_ms(refit),
+        "bvh_ray": graph_ms(lambda: bvh.launch_ray(
+            lib, tree, o, d, False, out_t, out_id, overflow)),
+        "bvh_ray_labels_parity": graph_ms(lambda: bvh.launch_ray(
+            lib, labels_tree, points, direction, True, out_t, hits,
+            overflow)),
+        "bvh_closest": graph_ms(lambda: bvh.launch_closest(
+            lib, labels_tree, points, d2, overflow))}
+    torch.cuda.synchronize()
+    check(int(overflow) == 0, "a BVH stack overflowed while timed")
+    check(torch.equal(children, tree.children)
+          and torch.equal(parents, tree.parents)
+          and bits_equal(boxes, tree.boxes),
+          "the timed build differs from the wrapper's")
+    return times
+
+
+def bvh_phase(traced, gt_mesh, records):
+    """The BVH tracer against the plain tiles: ``bvh_ray`` on every mesh
+    the paths traced (``traced``: a label to the meshes of that run; the
+    -t mtet run's pseudo-GT, ``gt_mesh``, among them) and an icosphere
+    under adversarial rays; the labels' closest-point query and parity
+    count; the build's kernels against their plain versions at the
+    pseudo-GT.  Then each kernel timed beside its bound and its plain
+    version."""
+    phase("10. the BVH tracer against the plain tiles, bit for bit")
+    import bvh_cases
+    from tropical_torch.ops import bvh, cuda_build
+    from tropical_torch.ops import mesh_queries as mq
+    from tropical_torch.stanford.dataset import StanfordDataset
+    from tropical_torch.utils.chamfer import get_rays
+    from tropical_torch.utils.procedural import icosphere
+
+    dev = torch.device("cuda")
+    o, d = get_rays(EVAL_RAYS, device=dev)
+    ray_err, checked, q = 0.0, 0, None
+    for path, meshes in traced.items():
+        for i, (v, f) in enumerate(meshes):
+            if not f.shape[0]:
+                continue
+            mesh_q = mq.MeshQuery(v, f, dev)
+            ms, err = traced_vs_plain(f"{path}, traced mesh {i + 1}/"
+                                      f"{len(meshes)}", mesh_q, o, d)
+            ray_err = max(ray_err, err)
+            checked += 1
+            if v is gt_mesh[0]:
+                q, plain_ray_ms = mesh_q, ms
+    check(q is not None, "the pseudo-GT is not among the traced meshes")
+    print(f"bvh_ray bitwise the plain tiles on all {checked} traced meshes "
+          f"of {len(traced)} runs")
+    ico = icosphere(BVH_ICOSPHERE)
+    qi = mq.MeshQuery(ico.vertices, ico.faces, dev)
+    extra = [bvh_cases.adversarial_rays(qi.tris, 0, s)
+             for s in BVH_ADVERSARIAL_SEEDS]
+    _, err = traced_vs_plain(
+        f"icosphere({BVH_ICOSPHERE}) under adversarial rays", qi,
+        torch.cat([o, *(e[0] for e in extra)]),
+        torch.cat([d, *(e[1] for e in extra)]))
+    ray_err = max(ray_err, err)
+
+    # the build at the pseudo-GT against its plain versions
+    tree = q.bvh
+    keys = bvh.morton_keys(q.tris)
+    children, parents = bvh.hierarchy_plain(keys)
+    boxes = bvh.refit_plain(tree.tris, children, tree.pad)
+    check(torch.equal(children, tree.children)
+          and torch.equal(parents, tree.parents),
+          "bvh_hierarchy differs from its plain version")
+    check(bits_equal(boxes, tree.boxes),
+          "bvh_refit differs from its plain version")
+    depth = 0
+    node = torch.arange(tree.n - 1, 2 * tree.n - 1, device=dev)  # the leaves
+    while bool((node >= 0).any()):
+        node = torch.where(node >= 0, tree.parents[node.clamp_min(0)], node)
+        depth += 1
+    print(f"the {EVAL_GT_RES} pseudo-GT's tree: {tree.n} leaves, depth "
+          f"{depth - 1}; hierarchy and boxes bitwise their plain versions")
+
+    # one resample of the training labels
+    ds = StanfordDataset("sphere", rng=np.random.default_rng(TRAIN_SEED),
+                         device=dev)
+    lq, points = ds.query, ds.X
+    direction = torch.from_numpy(mq._PARITY_DIR).to(dev)
+    hits = bvh.crossings(lq.bvh, points, direction)
+    d2 = bvh.min_dist2(lq.bvh, points)
+    want_hits = mq.crossings_plain(lq.tris, points, direction)
+    want_d2 = mq.min_dist2_plain(lq.tris, points)
+    print(f"labels: {points.shape[0]} points, {lq.bvh.n} triangles: "
+          f"crossing mismatches {int((hits != want_hits).sum())}, d2 bit "
+          f"mismatches {int((d2.view(torch.int32) != want_d2.view(torch.int32)).sum())}; "
+          f"inside {int((want_hits % 2 == 1).sum())}")
+    check(torch.equal(hits, want_hits), "bvh_ray's crossing counts differ "
+          "from the plain tiles on the labels")
+    check(bits_equal(d2, want_d2), "bvh_closest differs from the plain "
+          "tiles on the labels")
+
+    # what the queries read and test, from the instrumented build
+    counted = cuda_build.load(BVH_COUNT)
+    npts = points.shape[0]
+    ray_c = counted_query(counted, tree, EVAL_RAYS, lambda: bvh.run_ray(
+        counted, tree, o, d, False))
+    parity_c = counted_query(counted, lq.bvh, npts, lambda: bvh.run_ray(
+        counted, lq.bvh, points, direction.reshape(1, 3), True))
+    closest_c = counted_query(counted, lq.bvh, npts, lambda: bvh.run_closest(
+        counted, lq.bvh, points))
+    check(torch.equal(ray_c["out"][1], bvh.first_hits(tree, o, d)[1])
+          and torch.equal(parity_c["out"][1], hits.to(torch.int32))
+          and bits_equal(closest_c["out"], d2),
+          "the instrumented build disagrees with the kernels")
+    counts = {"bvh_ray_pseudo_gt": ray_c, "bvh_ray_labels_parity": parity_c,
+              "bvh_closest_labels": closest_c}
+    for c in counts.values():
+        del c["out"]
+    print(json.dumps({"tests_a_query": counts}))
+
+    # times: kernels alone (device), wrapper calls, plain versions
+    times = bvh_kernel_times(tree, keys, o, d, lq.bvh, points,
+                             direction.reshape(1, 3))
+    build_call_ms = cuda_ms(lambda: bvh.build(q.tris), iters=10)
+    ray_call_ms = cuda_ms(lambda: bvh.first_hits(tree, o, d), iters=10)
+    label_call_ms = cuda_ms(lambda: lq.signed_distance(points), iters=10)
+    plain = {"bvh_hierarchy": cuda_ms(lambda: bvh.hierarchy_plain(keys), 3),
+             "bvh_refit": cuda_ms(lambda: bvh.refit_plain(
+                 tree.tris, children, tree.pad), 3),
+             "bvh_ray": plain_ray_ms,
+             "bvh_closest": cuda_ms(lambda: mq.min_dist2_plain(lq.tris,
+                                                               points), 3)}
+    plain_parity_ms = cuda_ms(lambda: mq.crossings_plain(lq.tris, points,
+                                                         direction), 3)
+    n = tree.n
+    bounds = {
+        # keys read; children and parents written
+        "bvh_hierarchy": bvh_bound_ms(8 * n + 8 * (n - 1) + 4 * (2 * n - 1),
+                                      (0, 0), (0, 0)),
+        # triangles, parents and children read; boxes written; 12 min/max
+        # a leaf and 6 an internal node
+        "bvh_refit": bvh_bound_ms(36 * n + 4 * (2 * n - 1) + 8 * (n - 1)
+                                  + 24 * (2 * n - 1),
+                                  (12 * n + 6 * (n - 1), 0), (1, 0)),
+        # rays in, (t, id) out; the part of the tree these rays read
+        "bvh_ray": bvh_bound_ms(EVAL_RAYS * (24 + 8) + ray_c["tree_bytes"],
+                                ray_c["tests"], BVH_RAY_OPS),
+        # points in, d2 out; the part of the tree these points read
+        "bvh_closest": bvh_bound_ms(npts * (12 + 4)
+                                    + closest_c["tree_bytes"],
+                                    closest_c["tests"], BVH_CLOSEST_OPS)}
+    parity_bound = bvh_bound_ms(npts * (12 + 4) + 12
+                                + parity_c["tree_bytes"], parity_c["tests"],
+                                BVH_RAY_OPS)
+    shapes = {"bvh_hierarchy": [n], "bvh_refit": [n],
+              "bvh_ray": [EVAL_RAYS, n],
+              "bvh_closest": [npts, lq.bvh.n]}
+    for k in BVH:
+        ms = times[k]
+        bound_ms, bound_by = bounds[k]
+        records[k] = {"name": k, "route": "cuda",
+                      "source": "tropical_torch/csrc/bvh.cu",
+                      "replaces": BVH_REPLACES[k],
+                      "max_abs_err": ray_err if k == "bvh_ray" else 0.0,
+                      "ms": ms, "plain_ms": plain[k], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None,
+                      "shape": shapes[k]}
+        print(f"{k} {shapes[k]}: kernel {ms:.4f} ms, plain {plain[k]:.3f} "
+              f"ms, bound {bound_ms:.5f} ms ({bound_by}); kernel at "
+              f"{bound_ms / ms:.1%} of the bound")
+    records["bvh_ray"].update(
+        labels_parity_ms=times["bvh_ray_labels_parity"],
+        labels_parity_plain_ms=plain_parity_ms,
+        labels_parity_bound_ms=parity_bound[0],
+        labels_parity_bound_by=parity_bound[1],
+        labels_parity_shape=[npts, lq.bvh.n],
+        call_ms=ray_call_ms, tests=ray_c["tests"],
+        tests_max=ray_c["max"], tests_warp_max_mean=ray_c["warp_max_mean"],
+        tree_bytes_read=ray_c["tree_bytes"],
+        labels_parity_tests=parity_c["tests"],
+        labels_parity_tree_bytes_read=parity_c["tree_bytes"],
+        meshes_checked=checked)
+    records["bvh_closest"].update(
+        tests=closest_c["tests"], tests_max=closest_c["max"],
+        tests_warp_max_mean=closest_c["warp_max_mean"],
+        tree_bytes_read=closest_c["tree_bytes"], labels_call_ms=label_call_ms)
+    records["bvh_refit"].update(build_call_ms=build_call_ms, depth=depth - 1)
+    print(json.dumps({"bvh_calls_ms": {
+        "build at the pseudo-GT (keys, sort, both kernels)": build_call_ms,
+        "first hits at the pseudo-GT": ray_call_ms,
+        "signed distance of the labels": label_call_ms},
+        "labels_parity": {"ms": times["bvh_ray_labels_parity"],
+                          "plain_ms": plain_parity_ms,
+                          "bound_ms": parity_bound[0],
+                          "bound_by": parity_bound[1]}}))
 
 
 def main() -> int:
@@ -1670,9 +2069,10 @@ def main() -> int:
     name, smi = device_phase()
     build_phase()
     records = {r["name"]: r for r in kernel_phase()}
-    flat_launches, flat_largest, flat_cd = main_path_phase()
+    flat_launches, flat_largest, flat_cd, flat_meshes = main_path_phase()
     mesh_digest = file_digest("meshes_torch/sphere/our_mesh_small_1.ply")
-    curved_launches, curved_inputs, curved_take = curved_path_phase()
+    curved_launches, curved_inputs, curved_take, curved_meshes = \
+        curved_path_phase()
     records["min_dist"]["launches"] = flat_launches["min_dist"]
     records["min_dist"]["launches_curved"] = curved_launches["min_dist"]
     records["trilinear_roots"]["launches"] = curved_launches["trilinear_roots"]
@@ -1688,14 +2088,25 @@ def main() -> int:
                 scatters_flat=flat_launches[f"{k}_scatters"],
                 scatters_curved=curved_launches[f"{k}_scatters"])
     cli_training_phase()
-    eval_launches = evaluate_phase(mesh_digest, records)
-    for k in ("min_dist", "hashgrid_encode_fwd"):
+    eval_launches, gt_mesh, eval_meshes = evaluate_phase(mesh_digest,
+                                                         records)
+    bvh_phase({"flat": flat_meshes, "curved": curved_meshes,
+               **{f"evaluate -t {m}": v for m, v in eval_meshes.items()}},
+              gt_mesh, records)
+    for k in BVH:
+        records[k].update(
+            launches=(train_launches if k == "bvh_closest"
+                      else flat_launches)[k],
+            launches_flat=flat_launches[k], launches_curved=curved_launches[k],
+            launches_training=train_launches[k],
+            launches_training_evaluation=train_launches[f"{k}_evaluation"])
+    for k in ("min_dist", "hashgrid_encode_fwd", *BVH):
         records[k].update(
             launches_evaluate=sum(c[k] for c in eval_launches.values()),
             **{f"launches_evaluate_{m}": c[k]
                for m, c in eval_launches.items()})
 
-    phase("10. result")
+    phase("11. result")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

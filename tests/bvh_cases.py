@@ -1,0 +1,44 @@
+"""Rays and points hard for the BVH's culling and tie rule, shared by the
+CPU tests, the GPU tests and ``chip_smoke.py``.  Imports neither jax nor the
+JAX package."""
+
+import numpy as np
+import torch
+
+
+def adversarial_rays(tris, n_random, seed):
+    """(o, d) [N, 3] f32 for a mesh ``tris`` [T, 3, 3], on its device: from
+    the origin in ``n_random`` random directions first; then along the axes
+    and in the axis planes (zero components); through vertices and edge
+    midpoints (shared by neighbours: ties); from origins on the faces of
+    leaf boxes (a vertex's coordinates), along zero-component directions;
+    and from points near the mesh in random directions."""
+    rng = np.random.default_rng(seed)
+    v = tris.reshape(-1, 3).cpu().numpy()
+    d = rng.normal(size=(n_random, 3))
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    plane = rng.normal(size=(60, 3))
+    plane[np.arange(60), np.arange(60) % 3] = 0.0
+    through = np.concatenate([v[rng.integers(0, len(v), 80)],
+                              (v[0::3][:80] + v[1::3][:80]) / 2])
+    dirs = np.concatenate([d, axes, plane, through])
+    o = np.zeros_like(dirs)
+    on_face = v[rng.integers(0, len(v), 60)]
+    face_dirs = np.concatenate([axes, plane])[rng.integers(0, 66, 60)]
+    near = v[rng.integers(0, len(v), 100)] + rng.normal(scale=0.05,
+                                                       size=(100, 3))
+    o = np.concatenate([o, on_face, near])
+    dirs = np.concatenate([dirs, face_dirs, rng.normal(size=(100, 3))])
+    dirs = dirs / np.linalg.norm(dirs, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)).to(tris.device),
+            torch.from_numpy(dirs.astype(np.float32)).to(tris.device))
+
+
+def near_points(tris, n, seed):
+    """n points [n, 3] f32 on the device of ``tris``: within about 0.05 of
+    the mesh's vertices, a tenth of them on a vertex (distance 0)."""
+    rng = np.random.default_rng(seed)
+    v = tris.reshape(-1, 3).cpu().numpy()
+    p = v[rng.integers(0, len(v), n)] + rng.normal(scale=0.05, size=(n, 3))
+    p[: n // 10] = v[rng.integers(0, len(v), n // 10)]
+    return torch.from_numpy(p.astype(np.float32)).to(tris.device)

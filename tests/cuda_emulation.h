@@ -1,13 +1,19 @@
-// The CUDA surface that tropical_torch/csrc/hashgrid_encode.cu uses, on the
-// CPU, so that the CPU tests can run its forward kernel
-// (tests/test_torch_encode_forward.py): one std::thread a lane, a warp's 32
-// lanes meeting at a std::barrier in each shuffle, a lane that returns
-// leaving the barrier.  Float arithmetic is IEEE single precision rounded to
-// nearest (built with -ffp-contract=off), as __fmul_rn and __fadd_rn are.
-// The backwards' intrinsics (atomics, match, block barriers) compile but
-// abort when called: only the forward is emulated.
+// The CUDA surface that tropical_torch/csrc/hashgrid_encode.cu and
+// tropical_torch/csrc/bvh.cu use, on the CPU, so that the CPU tests can run
+// the encode's forward kernel (tests/test_torch_encode_forward.py) and the
+// BVH's four kernels (tests/test_torch_bvh.py): one std::thread a lane, a
+// warp's 32 lanes meeting at a std::barrier in each shuffle, a lane that
+// returns leaving the barrier.  Float arithmetic is IEEE single precision
+// rounded to nearest (built with -ffp-contract=off), as __fmul_rn and
+// __fadd_rn are.  The integer atomicAdd, __threadfence and __ldcg that the
+// BVH's refit (and its instrumented build's counters) use are
+// std::atomic_ref operations and sequentially consistent fences; a
+// __device__ variable is a host one, which cudaMemcpyToSymbol and
+// cudaMemcpyFromSymbol copy.  The encode backwards' intrinsics (float
+// atomics, match, block barriers) compile but abort when called.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <climits>
 #include <cmath>
@@ -57,6 +63,22 @@ inline float __fsub_rn(float a, float b) {
   volatile float r = a - b;
   return r;
 }
+inline float __fdiv_rn(float a, float b) {
+  volatile float r = a / b;
+  return r;
+}
+inline int __clzll(long long x) {
+  return x == 0 ? 64 : __builtin_clzll(static_cast<unsigned long long>(x));
+}
+inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+template <typename T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 template <typename T>
 inline T __ldg(const T* p) {
   return *p;
@@ -90,6 +112,18 @@ inline float atomicAdd(float*, float) { emu_unsupported("atomicAdd"); }
 inline float2 atomicAdd(float2*, float2) { emu_unsupported("atomicAdd"); }
 
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaDeviceSynchronize() { return cudaSuccess; }
+// a __device__ variable is a host variable here
+template <typename T>
+inline cudaError_t cudaMemcpyToSymbol(T& symbol, const void* src, size_t n) {
+  std::memcpy(&symbol, src, n);
+  return cudaSuccess;
+}
+template <typename T>
+inline cudaError_t cudaMemcpyFromSymbol(void* dst, const T& symbol, size_t n) {
+  std::memcpy(dst, &symbol, n);
+  return cudaSuccess;
+}
 inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
   std::memset(p, v, n);
   return cudaSuccess;

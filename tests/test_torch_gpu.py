@@ -483,3 +483,82 @@ def test_grid_meshes_on_cuda_bitwise_cpu_and_slabs_merge(method):
     np.testing.assert_array_equal(meshes["cuda"].faces, meshes["cpu"].faces)
     merged, crossings = mc.slab_merge_counts(slabs(_PolyField("cuda"), 40, 1.2))
     assert merged == crossings > 0
+
+
+@pytest.mark.gpu
+def test_bvh_kernels_match_plain_on_a_ladder_mesh():
+    """The BVH on the card, built from the committed sphere-small
+    checkpoint's marching-cubes mesh at 64 (a mesh of the flat run's
+    ladder): hierarchy and boxes bitwise their plain versions; first hits
+    (100,000 evaluation rays and adversarial ones), crossing counts and
+    squared distances bitwise the plain tiles'; one launch of each kernel a
+    call."""
+    _need_cuda()
+    import bvh_cases
+    from tropical_torch.ops import bvh
+    from tropical_torch.ops import mesh_queries as mq
+    from tropical_torch.stanford.model import Net
+    from tropical_torch.utils import checkpoint as ckpt
+    from tropical_torch.utils.chamfer import get_rays
+    from tropical_torch.utils.marching_cubes import run_marching_cubes
+
+    net = ckpt.load_into(Net(r_min=2, r_max=32, device="cuda"), os.path.join(
+        ROOT, "tropical/stanford/models/sphere/sphere_sdf_small_1.pth.npz"))
+    mesh = run_marching_cubes(net, 64, 1.2, R=0.8)
+    before = dict(LAUNCHES)
+    q = mq.MeshQuery(mesh.vertices, mesh.faces, "cuda")
+    tree = q.bvh
+    n = tree.n
+    assert n == mesh.faces.shape[0] > 1000
+    assert LAUNCHES["bvh_hierarchy"] == before["bvh_hierarchy"] + 1
+    assert LAUNCHES["bvh_refit"] == before["bvh_refit"] + 1
+    children, parents = bvh.hierarchy_plain(bvh.morton_keys(q.tris))
+    assert torch.equal(children, tree.children)
+    assert torch.equal(parents, tree.parents)
+    boxes = bvh.refit_plain(tree.tris, children, tree.pad)
+    assert torch.equal(boxes.view(torch.int32), tree.boxes.view(torch.int32))
+
+    o, d = get_rays(100_000, device="cuda")
+    o2, d2 = bvh_cases.adversarial_rays(q.tris, 2000, 5)
+    o, d = torch.cat([o, o2]), torch.cat([d, d2])
+    t, fid = bvh.first_hits(tree, o, d)
+    want_t, want_id = mq.first_hits_plain(q.tris, o, d)
+    assert torch.equal(t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(fid, want_id)
+    assert (fid >= 0).float().mean() > 0.9
+
+    p = bvh_cases.near_points(q.tris, 20_000, 6)
+    direction = torch.from_numpy(mq._PARITY_DIR).cuda()
+    assert torch.equal(bvh.crossings(tree, p, direction),
+                       mq.crossings_plain(q.tris, p, direction))
+    got = bvh.min_dist2(tree, p)
+    assert torch.equal(got.view(torch.int32),
+                       mq.min_dist2_plain(q.tris, p).view(torch.int32))
+    assert LAUNCHES["bvh_ray"] == before["bvh_ray"] + 2
+    assert LAUNCHES["bvh_closest"] == before["bvh_closest"] + 1
+
+
+@pytest.mark.gpu
+def test_bvh_kernels_on_empty_and_one_triangle_meshes():
+    _need_cuda()
+    from tropical_torch.ops import mesh_queries as mq
+
+    v = np.array([[0, 0, 0.5], [1, 0, 0.5], [0, 1, 0.5]], np.float32)
+    o = torch.zeros((3, 3), device="cuda")
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [0.3, 0.3, 0.53]],
+                     device="cuda")
+    d = d / d.norm(dim=1, keepdim=True)
+    p = torch.tensor([[0.2, 0.2, 0.0], [0.2, 0.2, 1.0]], device="cuda")
+    for faces in (np.zeros((0, 3), np.int64), np.array([[0, 1, 2]])):
+        before = dict(LAUNCHES)
+        got = mq.MeshQuery(v, faces, "cuda")
+        want = mq.MeshQuery(v, faces, "cpu")
+        for a, b in zip(got.ray_trace(o, d), want.ray_trace(o.cpu(), d.cpu())):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(got.signed_distance(p).cpu(),
+                           want.signed_distance(p.cpu()))
+        launched = {k: LAUNCHES[k] - before[k] for k in
+                    ("bvh_hierarchy", "bvh_refit", "bvh_ray", "bvh_closest")}
+        assert launched == ({k: 0 for k in launched} if len(faces) == 0 else
+                            {"bvh_hierarchy": 0, "bvh_refit": 1, "bvh_ray": 2,
+                             "bvh_closest": 1})

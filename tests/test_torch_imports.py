@@ -22,7 +22,8 @@ def _sources():
              os.path.join(ROOT, "scripts", "hashgrid_encode_compare.py"),
              os.path.join(ROOT, "tests", "trilinear_cases.py"),
              os.path.join(ROOT, "tests", "encode_cases.py"),
-             os.path.join(ROOT, "tests", "evaluate_table.py")]
+             os.path.join(ROOT, "tests", "evaluate_table.py"),
+             os.path.join(ROOT, "tests", "bvh_cases.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "tropical_torch")):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -60,6 +61,7 @@ def test_scan_sees_every_module():
     assert os.path.join("tests", "trilinear_cases.py") in rel
     assert os.path.join("tests", "encode_cases.py") in rel
     assert os.path.join("tests", "evaluate_table.py") in rel
+    assert os.path.join("tests", "bvh_cases.py") in rel
     assert os.path.join("scripts", "hashgrid_encode_variants.py") in rel
     assert os.path.join("scripts", "hashgrid_encode_compare.py") in rel
     for name in ("roots.py", "trilinear.py", "hashgrid.py"):

@@ -150,10 +150,21 @@ def test_run_marching_tetrahedra_bitwise_on_jax_field():
     np.testing.assert_array_equal(m_t.faces, m_j.faces)
 
 
-def test_run_marching_tetrahedra_matches_jax_cpu_path():
+@pytest.fixture(scope="module")
+def mt48_slabs():
+    """The port's marching-tetrahedra slabs of sphere-small's checkpoint at
+    48, shared by the tests that mesh that field (``run_marching_tetrahedra``
+    is ``merge_slabs`` of them)."""
+    _, tnet = _nets()
+    return list(tiso.mt_slabs(tnet, 48, 1.2))
+
+
+def test_run_marching_tetrahedra_matches_jax_cpu_path(mt48_slabs):
+    from tropical_torch.utils.marching_cubes import merge_slabs
+
     jnet, tnet = _nets()
     m_j = jiso.run_marching_tetrahedra(jnet, 48, 1.2, R=0.8)
-    m_t = tiso.run_marching_tetrahedra(tnet, 48, 1.2, R=0.8)
+    m_t = merge_slabs(mt48_slabs, R=0.8)
     assert m_t.faces.shape == m_j.faces.shape == (42352, 3)
     assert m_t.vertices.shape == m_j.vertices.shape == (24506, 3)
     idx = _match(m_t.vertices, m_j.vertices, atol=1e-5)
@@ -169,14 +180,15 @@ def test_run_marching_tetrahedra_matches_jax_cpu_path():
 
 
 @pytest.mark.parametrize("method", ["mt", "mc"])
-def test_slab_boundaries_merge_every_crossing(method):
+def test_slab_boundaries_merge_every_crossing(method, request):
     """At 48 (3 slabs) every crossing on the two shared x-planes is a vertex
     of both slabs, bitwise equal, and merges."""
     from tropical_torch.utils import marching_cubes as tmc
 
     _, tnet = _nets()
-    slabs = tiso.mt_slabs if method == "mt" else tmc.mc_slabs
-    merged, crossings = tmc.slab_merge_counts(slabs(tnet, 48, 1.2))
+    slabs = (request.getfixturevalue("mt48_slabs") if method == "mt"
+             else tmc.mc_slabs(tnet, 48, 1.2))
+    merged, crossings = tmc.slab_merge_counts(slabs)
     assert merged == crossings > 100
 
 
@@ -205,17 +217,21 @@ def test_sdf_grid_matches_jax():
 
 
 @pytest.mark.parametrize("name", ["sphere", "torus"])
-def test_self_golden_mt48_and_on_grid(name):
+def test_self_golden_mt48_and_on_grid(name, request):
     """The port's own flat extraction against its MT-48 mesh (R = 1, as
-    tests/test_golden.py scores JAX's), to the golden's printed digits."""
+    tests/test_golden.py scores JAX's), to the golden's printed digits.
+    The sphere's net is the committed sphere-small checkpoint, whose slabs
+    at 48 the module shares."""
     from test_torch_extract import _torch_net
     from tropical_torch.extract.subdivide import subpoly
     from tropical_torch.utils.chamfer import chamfer_distance
+    from tropical_torch.utils.marching_cubes import merge_slabs
 
     g = GOLDEN[name]
     net = _torch_net(g)
     _, vertices, _ = subpoly(net, 3, 1.2, force=True, verbose=False)
-    gt = tiso.run_marching_tetrahedra(net, 48, 1.2)
+    gt = (merge_slabs(request.getfixturevalue("mt48_slabs")) if name == "sphere"
+          else tiso.run_marching_tetrahedra(net, 48, 1.2))
     cd = chamfer_distance(vertices, torch.from_numpy(
         np.asarray(gt.vertices, np.float32)))
     assert abs(cd - g["cd_vs_mt48"]) <= 1e-6, cd

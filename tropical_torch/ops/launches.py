@@ -14,10 +14,13 @@ from typing import Dict, Optional, Tuple
 LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
                              "hashgrid_encode_fwd": 0,
                              "hashgrid_encode_bwd": 0,
-                             "hashgrid_encode_bwd_bwd": 0}
+                             "hashgrid_encode_bwd_bwd": 0,
+                             "bvh_hierarchy": 0, "bvh_refit": 0,
+                             "bvh_ray": 0, "bvh_closest": 0}
 # the largest problem shape each kernel was launched on since the last reset:
 # (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
-# hash-grid encode kernel
+# hash-grid encode kernel, (T,) triangles of a BVH build kernel, (N, T) rays
+# or points by triangles of a BVH query
 LARGEST: Dict[str, Optional[Tuple[int, ...]]] = {k: None for k in LAUNCHES}
 # the product of each LARGEST shape (0 for none)
 _LARGEST_SIZE: Dict[str, int] = {k: 0 for k in LAUNCHES}

@@ -84,12 +84,18 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    among them) and on an icosphere with adversarial rays added (zero
    direction components, rays through shared vertices and edges, origins
    on box faces); its parity counts and ``bvh_closest``'s squared
-   distances on one resample of the training labels; ``bvh_hierarchy`` and
-   ``bvh_refit`` bitwise their plain versions at the pseudo-GT; the box
-   and triangle tests each query makes and the parts of the tree the
-   queries read (an instrumented build); each kernel's device time (a
-   CUDA graph of raw launches) beside its bound and its plain version's
-   time;
+   distances on one resample of the training labels, and the squared
+   distances from points near the centre of the labels' icosphere and of
+   the pseudo-GT (through the warp pass), on vertices, on edge midpoints,
+   on duplicates and with a NaN point; ``bvh_hierarchy`` and ``bvh_refit``
+   bitwise their plain versions on every traced mesh and on meshes of 1
+   and 2 triangles; the box and triangle tests each query makes and the
+   parts of the tree the queries read (an instrumented build, with the
+   first one-thread ``bvh_closest``), and the two-pass query's own tests;
+   each kernel's device time (a CUDA graph of raw launches) beside its
+   bound and its plain version's time, ``bvh_closest`` and ``bvh_refit``
+   also beside their first designs' (``BVH_FIRST``) and on the centre sets
+   and the flat ladder's largest mesh;
 11. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
@@ -219,7 +225,16 @@ MT_BITWISE_RES = 48
 EVAL_GT_RES = 256
 BVH = ("bvh_hierarchy", "bvh_refit", "bvh_ray", "bvh_closest")
 # the instrumented build that counts the queries' box and triangle tests
+# (its bvh_closest the first design, one thread a point: the yardstick of
+# the bound), and the one that counts the two-pass bvh_closest's own
 BVH_COUNT = ("bvh", ("BVH_COUNT_VISITS",))
+BVH_COUNT_DESIGN = ("bvh", ("BVH_COUNT_VISITS", "BVH_COUNT_DESIGN"))
+# the first designs of bvh_closest and bvh_refit, timed beside the redesign
+BVH_FIRST = ("bvh", ("BVH_CLOSEST_ONE_THREAD", "BVH_REFIT_FENCES"))
+# closest-point sets (tests/bvh_cases.py): points within 0.05 of the
+# centre of the labels' icosphere (with vertices, edge midpoints, duplicates
+# and a NaN point, as many each) and of the 256 pseudo-GT; their seed
+BVH_CENTRE_LABELS, BVH_CENTRE_GT, BVH_SET_SEED = 2000, 256, 11
 BVH_REPLACES = {"bvh_hierarchy": "tropical/csrc/bvh.cpp:207",
                 "bvh_refit": "tropical/csrc/bvh.cpp:207",
                 "bvh_ray": "tropical/ops/mesh_queries.py:170",
@@ -308,7 +323,7 @@ def build_phase():
 
     t = time.time()
     targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode",
-               "bvh", BVH_COUNT]
+               "bvh", BVH_COUNT, BVH_COUNT_DESIGN, BVH_FIRST]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -1838,59 +1853,183 @@ def traced_vs_plain(label, q, o, d) -> tuple[float, float]:
     return start.elapsed_time(end), err
 
 
-def bvh_kernel_times(tree, keys, o, d, labels_tree, points, direction):
+def build_vs_plain(label, tris, tree) -> None:
+    """The card's tree (``bvh_hierarchy``, ``bvh_refit``) over ``tris``
+    [n, 3, 3] against the plain build, bitwise: children, parents, far
+    ends, boxes, node records and padded triangles."""
+    from tropical_torch.ops import bvh
+
+    children, parents, far = bvh.hierarchy_plain(bvh.morton_keys(tris))
+    boxes = bvh.refit_plain(tree.tris, children, tree.pad)
+    check(torch.equal(children, tree.children)
+          and torch.equal(parents, tree.parents)
+          and torch.equal(far, tree.far),
+          f"{label}: bvh_hierarchy differs from its plain version")
+    check(bits_equal(boxes, tree.boxes)
+          and bits_equal(bvh.records_plain(children, boxes), tree.records)
+          and bits_equal(torch.nn.functional.pad(tree.tris, (0, 3)),
+                         tree.tris_padded),
+          f"{label}: bvh_refit differs from its plain version "
+          f"({tree.n} triangles)")
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal, a NaN matching any NaN."""
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and bits_equal(a[~nan].contiguous(), b[~nan].contiguous()))
+
+
+def closest_sets_vs_plain(cases) -> dict:
+    """``bvh_closest`` (both passes, ``run_closest``) on each labelled
+    (MeshQuery, points) against the plain tiles, bitwise (a NaN matching a
+    NaN).  Returns the points each set queued for pass 2."""
+    from tropical_torch.ops import bvh, cuda_build
+    from tropical_torch.ops import mesh_queries as mq
+
+    lib = cuda_build.load("bvh")
+    queued = {}
+    for label, (q, p) in cases.items():
+        got, queued[label] = bvh.run_closest(lib, q.bvh, p)
+        want = mq.min_dist2_plain(q.tris, p)
+        ok = same_bits(got, want)
+        print(f"bvh_closest {label}: {p.shape[0]} points, {q.bvh.n} "
+              f"triangles, {queued[label]} through pass 2; bitwise the "
+              f"plain tiles: {ok}; NaN {int(torch.isnan(want).sum())}, "
+              f"zero {int((want == 0).sum())}")
+        check(ok, f"bvh_closest differs from the plain tiles on {label}")
+    return queued
+
+
+def closest_runner(lib, tree, p):
+    """A raw ``launch_closest`` of ``lib`` on ``tree`` and ``p``, into
+    buffers made once; its state is read after timing."""
+    from tropical_torch.ops import bvh
+
+    d2 = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
+    state = torch.zeros(2, dtype=torch.int32, device=p.device)
+    queue = torch.empty((p.shape[0], 2), dtype=torch.int32, device=p.device)
+
+    def run():
+        bvh.launch_closest(lib, tree, p, d2, state, queue)
+
+    run.state = state
+    return run
+
+
+def refit_runner(lib, tree):
+    """A raw ``launch_refit`` of ``lib`` at ``tree``, its arrivals zeroed
+    first, into boxes that are checked after timing."""
+    from tropical_torch.ops import bvh
+
+    arrivals = torch.zeros(max(tree.n - 1, 1), dtype=torch.int32,
+                           device=tree.tris.device)
+    boxes = torch.empty_like(tree.boxes)
+    records = torch.empty_like(tree.records)
+    tris_padded = torch.empty_like(tree.tris_padded)
+
+    def run():
+        arrivals.zero_()
+        bvh.launch_refit(lib, tree.tris, tree.children, tree.parents,
+                         tree.far, tree.pad, arrivals, boxes, records,
+                         tris_padded)
+
+    run.boxes, run.records, run.tris_padded = boxes, records, tris_padded
+    return run
+
+
+def bvh_kernel_times(tree, keys, o, d, labels_tree, points, direction,
+                     ladder_tree, centre_labels, gt_centre):
     """Device ms of each BVH kernel alone, a CUDA graph of 100 raw
     launches (``ops/bvh.launch_*``: the wrappers' overflow check, a read
     back, is left out): the build at ``tree``'s mesh, first hits of (o, d)
     on it, and the labels' closest-point query and parity count of
-    ``points`` on ``labels_tree``."""
+    ``points`` on ``labels_tree``; ``bvh_refit`` also at ``ladder_tree``
+    and ``bvh_closest`` also on the centre sets, each beside its first
+    design (``BVH_FIRST``; on the pseudo-GT's centre set over 3 launches,
+    CUDA events, not a graph: its one thread a point walks a large part of
+    the tree)."""
     from tropical_torch.ops import bvh, cuda_build
 
     lib = cuda_build.load("bvh")
+    first = cuda_build.load(BVH_FIRST)
     dev = keys.device
     children = torch.empty_like(tree.children)
     parents = torch.full_like(tree.parents, -1)
-    arrivals = torch.zeros(tree.n - 1, dtype=torch.int32, device=dev)
-    boxes = torch.empty_like(tree.boxes)
+    far = torch.empty_like(tree.far)
     out_t = torch.empty(o.shape[0], dtype=torch.float32, device=dev)
     out_id = torch.empty(o.shape[0], dtype=torch.int32, device=dev)
     hits = torch.empty(points.shape[0], dtype=torch.int32, device=dev)
-    d2 = torch.empty(points.shape[0], dtype=torch.float32, device=dev)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-
-    def refit():
-        arrivals.zero_()
-        bvh.launch_refit(lib, tree.tris, tree.children, tree.parents,
-                         tree.pad, arrivals, boxes)
-
+    refits = {"bvh_refit": refit_runner(lib, tree),
+              "bvh_refit_first": refit_runner(first, tree),
+              "bvh_refit_ladder": refit_runner(lib, ladder_tree),
+              "bvh_refit_ladder_first": refit_runner(first, ladder_tree)}
+    closests = {
+        "bvh_closest": closest_runner(lib, labels_tree, points),
+        "bvh_closest_first": closest_runner(first, labels_tree, points),
+        "bvh_closest_centre_labels": closest_runner(lib, labels_tree,
+                                                    centre_labels),
+        "bvh_closest_centre_labels_first": closest_runner(
+            first, labels_tree, centre_labels),
+        "bvh_closest_centre_gt": closest_runner(lib, tree, gt_centre),
+        "bvh_closest_centre_gt_first": closest_runner(first, tree,
+                                                      gt_centre)}
     times = {
         "bvh_hierarchy": graph_ms(lambda: bvh.launch_hierarchy(
-            lib, keys, children, parents)),
-        "bvh_refit": graph_ms(refit),
+            lib, keys, children, parents, far)),
+        **{k: graph_ms(run) for k, run in refits.items()},
         "bvh_ray": graph_ms(lambda: bvh.launch_ray(
             lib, tree, o, d, False, out_t, out_id, overflow)),
         "bvh_ray_labels_parity": graph_ms(lambda: bvh.launch_ray(
             lib, labels_tree, points, direction, True, out_t, hits,
-            overflow)),
-        "bvh_closest": graph_ms(lambda: bvh.launch_closest(
-            lib, labels_tree, points, d2, overflow))}
+            overflow))}
+    for k, run in closests.items():
+        times[k] = (cuda_ms(run, iters=3) if k == "bvh_closest_centre_gt_first"
+                    else graph_ms(run))
     torch.cuda.synchronize()
     check(int(overflow) == 0, "a BVH stack overflowed while timed")
+    check(all(run.state[0] == 0 for run in closests.values()),
+          "a bvh_closest stack or queue overflowed while timed")
     check(torch.equal(children, tree.children)
           and torch.equal(parents, tree.parents)
-          and bits_equal(boxes, tree.boxes),
+          and torch.equal(far, tree.far)
+          and all(bits_equal(run.boxes, t.boxes) for run, t in (
+              (refits["bvh_refit"], tree), (refits["bvh_refit_first"], tree),
+              (refits["bvh_refit_ladder"], ladder_tree),
+              (refits["bvh_refit_ladder_first"], ladder_tree)))
+          and all(bits_equal(run.records, t.records)
+                  and bits_equal(run.tris_padded, t.tris_padded)
+                  for run, t in ((refits["bvh_refit"], tree),
+                                 (refits["bvh_refit_ladder"], ladder_tree))),
           "the timed build differs from the wrapper's")
+    times["queued"] = {k: int(run.state[1]) for k, run in closests.items()}
     return times
+
+
+def closest_bound_ms(c, npts) -> tuple[float, str]:
+    """The bound of a closest-point query over ``npts`` points, from the
+    first design's counts ``c`` (``counted_query``): points in, d2 out, the
+    part of the tree they read; the tests that design made."""
+    return bvh_bound_ms(npts * (12 + 4) + c["tree_bytes"], c["tests"],
+                        BVH_CLOSEST_OPS)
+
+
+def refit_bound_ms(n) -> tuple[float, str]:
+    """The build's boxes over ``n`` triangles: triangles, parents and
+    children read, boxes written (the [2n-1, 6] layout); 12 min/max a leaf
+    and 6 an internal node."""
+    return bvh_bound_ms(36 * n + 4 * (2 * n - 1) + 8 * (n - 1)
+                        + 24 * (2 * n - 1), (12 * n + 6 * (n - 1), 0), (1, 0))
 
 
 def bvh_phase(traced, gt_mesh, records):
     """The BVH tracer against the plain tiles: ``bvh_ray`` on every mesh
     the paths traced (``traced``: a label to the meshes of that run; the
     -t mtet run's pseudo-GT, ``gt_mesh``, among them) and an icosphere
-    under adversarial rays; the labels' closest-point query and parity
-    count; the build's kernels against their plain versions at the
-    pseudo-GT.  Then each kernel timed beside its bound and its plain
-    version."""
+    under adversarial rays, the build on each of them; the labels'
+    closest-point query and parity count, and the closest-point sets.  Then
+    each kernel timed beside its bound and its plain version."""
     phase("10. the BVH tracer against the plain tiles, bit for bit")
     import bvh_cases
     from tropical_torch.ops import bvh, cuda_build
@@ -1901,23 +2040,28 @@ def bvh_phase(traced, gt_mesh, records):
 
     dev = torch.device("cuda")
     o, d = get_rays(EVAL_RAYS, device=dev)
-    ray_err, checked, q = 0.0, 0, None
+    ray_err, checked, q, ladder = 0.0, 0, None, None
     for path, meshes in traced.items():
         for i, (v, f) in enumerate(meshes):
             if not f.shape[0]:
                 continue
             mesh_q = mq.MeshQuery(v, f, dev)
-            ms, err = traced_vs_plain(f"{path}, traced mesh {i + 1}/"
-                                      f"{len(meshes)}", mesh_q, o, d)
+            label = f"{path}, traced mesh {i + 1}/{len(meshes)}"
+            build_vs_plain(label, mesh_q.tris, mesh_q.bvh)
+            ms, err = traced_vs_plain(label, mesh_q, o, d)
             ray_err = max(ray_err, err)
             checked += 1
             if v is gt_mesh[0]:
                 q, plain_ray_ms = mesh_q, ms
+            if path == "flat" and (ladder is None
+                                   or mesh_q.bvh.n > ladder.bvh.n):
+                ladder = mesh_q
     check(q is not None, "the pseudo-GT is not among the traced meshes")
-    print(f"bvh_ray bitwise the plain tiles on all {checked} traced meshes "
-          f"of {len(traced)} runs")
+    print(f"bvh_ray bitwise the plain tiles, and the build its plain "
+          f"versions, on all {checked} traced meshes of {len(traced)} runs")
     ico = icosphere(BVH_ICOSPHERE)
     qi = mq.MeshQuery(ico.vertices, ico.faces, dev)
+    build_vs_plain(f"icosphere({BVH_ICOSPHERE})", qi.tris, qi.bvh)
     extra = [bvh_cases.adversarial_rays(qi.tris, 0, s)
              for s in BVH_ADVERSARIAL_SEEDS]
     _, err = traced_vs_plain(
@@ -1925,24 +2069,25 @@ def bvh_phase(traced, gt_mesh, records):
         torch.cat([o, *(e[0] for e in extra)]),
         torch.cat([d, *(e[1] for e in extra)]))
     ray_err = max(ray_err, err)
+    for k in (1, 2):  # a root leaf; a root with two leaves
+        small = torch.tensor(np.stack([ico.vertices[ico.faces[f]]
+                                       for f in range(k)]),
+                             dtype=torch.float32, device=dev)
+        build_vs_plain(f"{k} triangle(s)", small, bvh.build(small))
+    print("the build bitwise its plain versions on meshes of 1 and 2 "
+          "triangles")
 
-    # the build at the pseudo-GT against its plain versions
     tree = q.bvh
     keys = bvh.morton_keys(q.tris)
-    children, parents = bvh.hierarchy_plain(keys)
-    boxes = bvh.refit_plain(tree.tris, children, tree.pad)
-    check(torch.equal(children, tree.children)
-          and torch.equal(parents, tree.parents),
-          "bvh_hierarchy differs from its plain version")
-    check(bits_equal(boxes, tree.boxes),
-          "bvh_refit differs from its plain version")
+    children, _, _ = bvh.hierarchy_plain(keys)
     depth = 0
     node = torch.arange(tree.n - 1, 2 * tree.n - 1, device=dev)  # the leaves
     while bool((node >= 0).any()):
         node = torch.where(node >= 0, tree.parents[node.clamp_min(0)], node)
         depth += 1
     print(f"the {EVAL_GT_RES} pseudo-GT's tree: {tree.n} leaves, depth "
-          f"{depth - 1}; hierarchy and boxes bitwise their plain versions")
+          f"{depth - 1}; the flat ladder's largest mesh {ladder.bvh.n} "
+          "triangles")
 
     # one resample of the training labels
     ds = StanfordDataset("sphere", rng=np.random.default_rng(TRAIN_SEED),
@@ -1962,28 +2107,62 @@ def bvh_phase(traced, gt_mesh, records):
     check(bits_equal(d2, want_d2), "bvh_closest differs from the plain "
           "tiles on the labels")
 
-    # what the queries read and test, from the instrumented build
+    # the closest-point sets, through both passes
+    sets = bvh_cases.closest_sets(lq.tris, BVH_CENTRE_LABELS, BVH_SET_SEED)
+    gt_centre = bvh_cases.centre_points(q.tris, BVH_CENTRE_GT, BVH_SET_SEED)
+    queued = closest_sets_vs_plain({
+        "labels": (lq, points),
+        **{f"labels {k}": (lq, p) for k, p in sets.items()},
+        "pseudo-GT centre": (q, gt_centre)})
+    check(queued["labels centre"] > 0 and queued["pseudo-GT centre"] > 0,
+          f"the centre sets did not go through pass 2: {queued}")
+
+    # what the queries read and test, from the instrumented builds
     counted = cuda_build.load(BVH_COUNT)
     npts = points.shape[0]
     ray_c = counted_query(counted, tree, EVAL_RAYS, lambda: bvh.run_ray(
         counted, tree, o, d, False))
     parity_c = counted_query(counted, lq.bvh, npts, lambda: bvh.run_ray(
         counted, lq.bvh, points, direction.reshape(1, 3), True))
-    closest_c = counted_query(counted, lq.bvh, npts, lambda: bvh.run_closest(
-        counted, lq.bvh, points))
+    closest_sets_c = {
+        label: counted_query(counted, t, p.shape[0],
+                             lambda t=t, p=p: bvh.run_closest(counted, t, p))
+        for label, (t, p) in (("labels", (lq.bvh, points)),
+                              ("labels centre", (lq.bvh, sets["centre"])),
+                              ("pseudo-GT centre", (tree, gt_centre)))}
+    closest_c = closest_sets_c["labels"]
     check(torch.equal(ray_c["out"][1], bvh.first_hits(tree, o, d)[1])
           and torch.equal(parity_c["out"][1], hits.to(torch.int32))
-          and bits_equal(closest_c["out"], d2),
+          and bits_equal(closest_c["out"][0], d2)
+          and all(c["out"][1] == 0 for c in closest_sets_c.values()),
           "the instrumented build disagrees with the kernels")
+    design = cuda_build.load(BVH_COUNT_DESIGN)
+    design_c = {
+        label: counted_query(design, t, p.shape[0],
+                             lambda t=t, p=p: bvh.run_closest(design, t, p))
+        for label, (t, p) in (("labels", (lq.bvh, points)),
+                              ("labels centre", (lq.bvh, sets["centre"])),
+                              ("pseudo-GT centre", (tree, gt_centre)))}
+    for label, c in design_c.items():
+        check(same_bits(c["out"][0], closest_sets_c[label]["out"][0]),
+              f"the design's instrumented build disagrees on {label}")
+        print(f"bvh_closest {label}: box and triangle tests {c['tests']} "
+              f"in two passes ({c['out'][1]} points through pass 2; the "
+              f"largest point's {c['max']}), the bound's one-thread "
+              f"traversal {closest_sets_c[label]['tests']} (the largest "
+              f"point's {closest_sets_c[label]['max']})")
     counts = {"bvh_ray_pseudo_gt": ray_c, "bvh_ray_labels_parity": parity_c,
-              "bvh_closest_labels": closest_c}
+              **{f"bvh_closest_{k}": c for k, c in closest_sets_c.items()},
+              **{f"bvh_closest_{k}_two_pass": c
+                 for k, c in design_c.items()}}
     for c in counts.values():
         del c["out"]
     print(json.dumps({"tests_a_query": counts}))
 
     # times: kernels alone (device), wrapper calls, plain versions
     times = bvh_kernel_times(tree, keys, o, d, lq.bvh, points,
-                             direction.reshape(1, 3))
+                             direction.reshape(1, 3), ladder.bvh,
+                             sets["centre"], gt_centre)
     build_call_ms = cuda_ms(lambda: bvh.build(q.tris), iters=10)
     ray_call_ms = cuda_ms(lambda: bvh.first_hits(tree, o, d), iters=10)
     label_call_ms = cuda_ms(lambda: lq.signed_distance(points), iters=10)
@@ -2000,18 +2179,17 @@ def bvh_phase(traced, gt_mesh, records):
         # keys read; children and parents written
         "bvh_hierarchy": bvh_bound_ms(8 * n + 8 * (n - 1) + 4 * (2 * n - 1),
                                       (0, 0), (0, 0)),
-        # triangles, parents and children read; boxes written; 12 min/max
-        # a leaf and 6 an internal node
-        "bvh_refit": bvh_bound_ms(36 * n + 4 * (2 * n - 1) + 8 * (n - 1)
-                                  + 24 * (2 * n - 1),
-                                  (12 * n + 6 * (n - 1), 0), (1, 0)),
+        "bvh_refit": refit_bound_ms(n),
         # rays in, (t, id) out; the part of the tree these rays read
         "bvh_ray": bvh_bound_ms(EVAL_RAYS * (24 + 8) + ray_c["tree_bytes"],
                                 ray_c["tests"], BVH_RAY_OPS),
-        # points in, d2 out; the part of the tree these points read
-        "bvh_closest": bvh_bound_ms(npts * (12 + 4)
-                                    + closest_c["tree_bytes"],
-                                    closest_c["tests"], BVH_CLOSEST_OPS)}
+        "bvh_closest": closest_bound_ms(closest_c, npts)}
+    centre_bounds = {
+        "labels centre": closest_bound_ms(closest_sets_c["labels centre"],
+                                          BVH_CENTRE_LABELS),
+        "pseudo-GT centre": closest_bound_ms(
+            closest_sets_c["pseudo-GT centre"], BVH_CENTRE_GT)}
+    ladder_bound = refit_bound_ms(ladder.bvh.n)
     parity_bound = bvh_bound_ms(npts * (12 + 4) + 12
                                 + parity_c["tree_bytes"], parity_c["tests"],
                                 BVH_RAY_OPS)
@@ -2028,9 +2206,33 @@ def bvh_phase(traced, gt_mesh, records):
                       "ms": ms, "plain_ms": plain[k], "bound_ms": bound_ms,
                       "bound_by": bound_by, "library_ms": None,
                       "shape": shapes[k]}
-        print(f"{k} {shapes[k]}: kernel {ms:.4f} ms, plain {plain[k]:.3f} "
-              f"ms, bound {bound_ms:.5f} ms ({bound_by}); kernel at "
-              f"{bound_ms / ms:.1%} of the bound")
+        first = (f", first design {times[k + '_first']:.4f} ms"
+                 if k + "_first" in times else "")
+        print(f"{k} {shapes[k]}: kernel {ms:.4f} ms{first}, plain "
+              f"{plain[k]:.3f} ms, bound {bound_ms:.5f} ms ({bound_by}); "
+              f"kernel at {bound_ms / ms:.1%} of the bound")
+    centre = {}
+    for label, key, npts_set, t in (
+            ("labels centre", "centre_labels", BVH_CENTRE_LABELS, lq.bvh),
+            ("pseudo-GT centre", "centre_gt", BVH_CENTRE_GT, tree)):
+        ms, first_ms = (times[f"bvh_closest_{key}"],
+                        times[f"bvh_closest_{key}_first"])
+        bound_ms, bound_by = centre_bounds[label]
+        centre[key] = {"shape": [npts_set, t.n], "ms": ms,
+                       "first_design_ms": first_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by,
+                       "queued": times["queued"][f"bvh_closest_{key}"],
+                       "tests": design_c[label]["tests"],
+                       "tests_first_design": closest_sets_c[label]["tests"]}
+        print(f"bvh_closest {label} [{npts_set}, {t.n}]: kernel {ms:.4f} "
+              f"ms, first design {first_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({bound_by}); kernel at {bound_ms / ms:.2%} of the bound, "
+              f"the first design at {bound_ms / first_ms:.2%}")
+    print(f"bvh_refit at the flat ladder's largest mesh [{ladder.bvh.n}]: "
+          f"kernel {times['bvh_refit_ladder']:.4f} ms, first design "
+          f"{times['bvh_refit_ladder_first']:.4f} ms, bound "
+          f"{ladder_bound[0]:.5f} ms ({ladder_bound[1]}); kernel at "
+          f"{ladder_bound[0] / times['bvh_refit_ladder']:.1%} of the bound")
     records["bvh_ray"].update(
         labels_parity_ms=times["bvh_ray_labels_parity"],
         labels_parity_plain_ms=plain_parity_ms,
@@ -2044,10 +2246,19 @@ def bvh_phase(traced, gt_mesh, records):
         labels_parity_tree_bytes_read=parity_c["tree_bytes"],
         meshes_checked=checked)
     records["bvh_closest"].update(
+        first_design_ms=times["bvh_closest_first"],
         tests=closest_c["tests"], tests_max=closest_c["max"],
         tests_warp_max_mean=closest_c["warp_max_mean"],
-        tree_bytes_read=closest_c["tree_bytes"], labels_call_ms=label_call_ms)
-    records["bvh_refit"].update(build_call_ms=build_call_ms, depth=depth - 1)
+        tests_two_pass=design_c["labels"]["tests"],
+        queued=times["queued"]["bvh_closest"],
+        tree_bytes_read=closest_c["tree_bytes"], labels_call_ms=label_call_ms,
+        sets_queued=queued, **centre)
+    records["bvh_refit"].update(
+        first_design_ms=times["bvh_refit_first"], build_call_ms=build_call_ms,
+        depth=depth - 1, ladder_shape=[ladder.bvh.n],
+        ladder_ms=times["bvh_refit_ladder"],
+        ladder_first_design_ms=times["bvh_refit_ladder_first"],
+        ladder_bound_ms=ladder_bound[0], ladder_bound_by=ladder_bound[1])
     print(json.dumps({"bvh_calls_ms": {
         "build at the pseudo-GT (keys, sort, both kernels)": build_call_ms,
         "first hits at the pseudo-GT": ray_call_ms,

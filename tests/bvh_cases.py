@@ -42,3 +42,40 @@ def near_points(tris, n, seed):
     p = v[rng.integers(0, len(v), n)] + rng.normal(scale=0.05, size=(n, 3))
     p[: n // 10] = v[rng.integers(0, len(v), n // 10)]
     return torch.from_numpy(p.astype(np.float32)).to(tris.device)
+
+
+def centre_points(tris, n, seed, radius=0.05):
+    """n points [n, 3] f32 on the device of ``tris``, uniform in the ball of
+    ``radius`` about the centre of the mesh's box: deep inside a closed
+    mesh, where every box lies about as near as the nearest triangle."""
+    rng = np.random.default_rng(seed)
+    v = tris.reshape(-1, 3).cpu().numpy().astype(np.float64)
+    centre = (v.min(axis=0) + v.max(axis=0)) / 2
+    d = rng.normal(size=(n, 3))
+    d *= radius * rng.uniform(size=(n, 1)) ** (1 / 3) / np.linalg.norm(
+        d, axis=1, keepdims=True)
+    return torch.from_numpy((centre + d).astype(np.float32)).to(tris.device)
+
+
+def closest_sets(tris, n, seed):
+    """Named point sets [*, 3] f32 on the device of ``tris`` for the
+    closest-point query: ``centre`` (``centre_points``), ``vertices`` (n of
+    the mesh's vertices: distance 0), ``edges`` (n edge midpoints, each on
+    two triangles), ``duplicates`` (n copies of 4 points near the mesh, so
+    that whole warps ask the same query) and ``nan`` (n points near the
+    mesh, one of them NaN)."""
+    rng = np.random.default_rng(seed)
+    t = tris.cpu().numpy()
+    v = t.reshape(-1, 3)
+    faces = rng.integers(0, len(t), n)
+    corner = rng.integers(0, 3, n)
+    edges = (t[faces, corner] + t[faces, (corner + 1) % 3]) / 2
+    four = near_points(tris, 4, seed).cpu().numpy()
+    nan = near_points(tris, n, seed + 1).cpu().numpy()
+    nan[n // 2] = np.nan
+    sets = {"centre": centre_points(tris, n, seed)}
+    for name, p in (("vertices", v[rng.integers(0, len(v), n)]),
+                    ("edges", edges), ("duplicates", four[np.arange(n) % 4]),
+                    ("nan", nan)):
+        sets[name] = torch.from_numpy(p.astype(np.float32)).to(tris.device)
+    return sets

@@ -1,16 +1,20 @@
 // The CUDA surface that tropical_torch/csrc/hashgrid_encode.cu and
 // tropical_torch/csrc/bvh.cu use, on the CPU, so that the CPU tests can run
 // the encode's forward kernel (tests/test_torch_encode_forward.py) and the
-// BVH's four kernels (tests/test_torch_bvh.py): one std::thread a lane, a
-// warp's 32 lanes meeting at a std::barrier in each shuffle, a lane that
-// returns leaving the barrier.  Float arithmetic is IEEE single precision
-// rounded to nearest (built with -ffp-contract=off), as __fmul_rn and
-// __fadd_rn are.  The integer atomicAdd, __threadfence and __ldcg that the
-// BVH's refit (and its instrumented build's counters) use are
-// std::atomic_ref operations and sequentially consistent fences; a
+// BVH's kernels (tests/test_torch_bvh.py): one std::thread a lane, all the
+// lanes of a block at once; a warp's 32 lanes meet at a std::barrier in each
+// shuffle, vote, reduction and __syncwarp, a block's at another in
+// __syncthreads, and a lane that returns leaves both.  The blocks run one
+// after another, so a __shared__ array is a function-static one, which each
+// block's kernel sets before it reads it, as on the card.  Float arithmetic
+// is IEEE single precision rounded to nearest (built with -ffp-contract=off),
+// as __fmul_rn and __fadd_rn are.  The integer atomics, __threadfence and
+// __ldcg that the BVH's kernels (and its instrumented build's counters) use
+// are std::atomic_ref operations and sequentially consistent fences, and
+// cuda::atomic_ref (<cuda/atomic>) is std::atomic_ref whatever its scope; a
 // __device__ variable is a host one, which cudaMemcpyToSymbol and
-// cudaMemcpyFromSymbol copy.  The encode backwards' intrinsics (float
-// atomics, match, block barriers) compile but abort when called.
+// cudaMemcpyFromSymbol copy.  The encode backwards' other intrinsics (float
+// atomics, match, any) compile but abort when called.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -30,7 +34,7 @@
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __grid_constant__
-#define __shared__
+#define __shared__ static
 
 using std::max;
 using std::min;
@@ -39,6 +43,12 @@ struct alignas(8) float2 {
   float x, y;
 };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) {
+  return float4{a, b, c, d};
+}
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
@@ -71,6 +81,16 @@ inline int __clzll(long long x) {
   return x == 0 ? 64 : __builtin_clzll(static_cast<unsigned long long>(x));
 }
 inline int atomicAdd(int* p, int v) { return std::atomic_ref<int>(*p).fetch_add(v); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return std::atomic_ref<unsigned>(*p).fetch_add(v);
+}
+inline unsigned atomicMin(unsigned* p, unsigned v) {
+  std::atomic_ref<unsigned> a(*p);
+  unsigned old = a.load();
+  while (v < old && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
 }
@@ -83,21 +103,85 @@ template <typename T>
 inline T __ldg(const T* p) {
   return *p;
 }
+inline unsigned __float_as_uint(float x) {
+  unsigned r;
+  std::memcpy(&r, &x, sizeof r);
+  return r;
+}
+inline float __uint_as_float(unsigned x) {
+  float r;
+  std::memcpy(&r, &x, sizeof r);
+  return r;
+}
+inline int __float_as_int(float x) { return static_cast<int>(__float_as_uint(x)); }
+inline float __int_as_float(int x) { return __uint_as_float(static_cast<unsigned>(x)); }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+
+// <cuda/atomic>'s atomic_ref and memory orders; every scope is the process
+namespace cuda {
+enum thread_scope {
+  thread_scope_system,
+  thread_scope_device,
+  thread_scope_block,
+  thread_scope_thread
+};
+namespace std {
+using ::std::memory_order;
+using ::std::memory_order_acq_rel;
+using ::std::memory_order_acquire;
+using ::std::memory_order_relaxed;
+using ::std::memory_order_release;
+using ::std::memory_order_seq_cst;
+}  // namespace std
+template <typename T, thread_scope = thread_scope_system>
+struct atomic_ref : ::std::atomic_ref<T> {
+  explicit atomic_ref(T& obj) : ::std::atomic_ref<T>(obj) {}
+};
+}  // namespace cuda
 
 struct EmuWarp {
   std::barrier<> bar{32};
-  float buf[32];
+  unsigned long long buf[32];
+};
+struct EmuBlock {
+  explicit EmuBlock(unsigned threads) : bar(threads) {}
+  std::barrier<> bar;
 };
 inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local EmuBlock* emu_block = nullptr;
 
-inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
+// each lane's value in, lane src's out (within sections of `width` lanes)
+template <typename T>
+inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long));
   const int lane = threadIdx.x & 31;
-  emu_warp->buf[lane] = v;
+  std::memcpy(&emu_warp->buf[lane], &v, sizeof v);
   emu_warp->bar.arrive_and_wait();
-  const float r = emu_warp->buf[(lane & ~(width - 1)) + src % width];
+  T r;
+  std::memcpy(&r, &emu_warp->buf[(lane & ~(width - 1)) + src % width], sizeof r);
   emu_warp->bar.arrive_and_wait();
   return r;
 }
+
+// every lane's value in, f(all 32 values) out, in every lane
+template <typename F>
+inline unsigned emu_warp_fold(unsigned v, F f) {
+  emu_warp->buf[threadIdx.x & 31] = v;
+  emu_warp->bar.arrive_and_wait();
+  unsigned r = static_cast<unsigned>(emu_warp->buf[0]);
+  for (int l = 1; l < 32; ++l) r = f(r, static_cast<unsigned>(emu_warp->buf[l]), l);
+  emu_warp->bar.arrive_and_wait();
+  return r;
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  return emu_warp_fold(pred ? 1u << (threadIdx.x & 31) : 0u,
+                       [](unsigned a, unsigned b, int) { return a | b; });
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu_warp_fold(v, [](unsigned a, unsigned b, int) { return b < a ? b : a; });
+}
+inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->bar.arrive_and_wait(); }
 
 [[noreturn]] inline void emu_unsupported(const char* what) {
   std::fprintf(stderr, "cuda_emulation.h: %s is not emulated\n", what);
@@ -105,8 +189,6 @@ inline float __shfl_sync(unsigned, float v, int src, int width = 32) {
 }
 inline unsigned __match_any_sync(unsigned, int) { emu_unsupported("match"); }
 inline bool __any_sync(unsigned, bool) { emu_unsupported("any"); }
-inline void __syncwarp() { emu_unsupported("syncwarp"); }
-inline void __syncthreads() { emu_unsupported("syncthreads"); }
 inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 inline float atomicAdd(float*, float) { emu_unsupported("atomicAdd"); }
 inline float2 atomicAdd(float2*, float2) { emu_unsupported("atomicAdd"); }
@@ -149,8 +231,8 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 }
 
 // kernel<<<grid, block, shared, stream>>>(args) becomes
-// EmuLaunch(grid, block, shared, stream).run(kernel, args): the blocks' warps
-// in turn, a warp's 32 lanes as threads.
+// EmuLaunch(grid, block, shared, stream).run(kernel, args): the blocks in
+// turn, a block's lanes as threads.
 struct EmuLaunch {
   unsigned grid, block;
   EmuLaunch(long long g, int b, int = 0, cudaStream_t = nullptr)
@@ -159,19 +241,23 @@ struct EmuLaunch {
   void run(Kernel kernel, const Args&... args) {
     gridDim.x = grid;
     blockDim.x = block;
-    for (unsigned bx = 0; bx < grid; ++bx)
-      for (unsigned w = 0; w < block / 32; ++w) {
-        auto warp = std::make_unique<EmuWarp>();
-        std::vector<std::thread> lanes;
-        for (unsigned lane = 0; lane < 32; ++lane)
-          lanes.emplace_back([&, lane] {
-            blockIdx.x = bx;
-            threadIdx.x = w * 32 + lane;
-            emu_warp = warp.get();
-            kernel(args...);
-            warp->bar.arrive_and_drop();
-          });
-        for (auto& t : lanes) t.join();
-      }
+    for (unsigned bx = 0; bx < grid; ++bx) {
+      EmuBlock shared_block(block);
+      std::vector<std::unique_ptr<EmuWarp>> warps;
+      for (unsigned w = 0; w < block / 32; ++w)
+        warps.push_back(std::make_unique<EmuWarp>());
+      std::vector<std::thread> lanes;
+      for (unsigned t = 0; t < block; ++t)
+        lanes.emplace_back([&, t] {
+          blockIdx.x = bx;
+          threadIdx.x = t;
+          emu_warp = warps[t / 32].get();
+          emu_block = &shared_block;
+          kernel(args...);
+          emu_warp->bar.arrive_and_drop();
+          shared_block.bar.arrive_and_drop();
+        });
+      for (auto& t : lanes) t.join();
+    }
   }
 };

@@ -5,12 +5,16 @@
   invariants: every triangle in one leaf, every box holding its children's
   and its triangle;
 - the four kernels' CUDA source, built with g++ against
-  ``tests/cuda_emulation.h`` (one thread a lane; the refit's atomics are
-  ``std::atomic_ref``), bitwise against the plain versions on at most
-  2,000 triangles: children, parents and boxes, and each query's t, face id,
-  crossing count and squared distance, on adversarial rays (zero direction
-  components, rays through shared vertices and edges, origins on box
-  faces);
+  ``tests/cuda_emulation.h`` (one thread a lane, a block's lanes at once;
+  the refit's atomics are ``std::atomic_ref``), bitwise against the plain
+  versions on at most 2,000 triangles: children, parents, far ends and
+  boxes, and each query's t, face id, crossing count and squared distance,
+  on adversarial rays (zero direction components, rays through shared
+  vertices and edges, origins on box faces); the closest-point query's two
+  passes also with a budget of 2 box tests (nearly every point through the
+  warp pass), from the centre of a closed mesh, on vertices, edge
+  midpoints, duplicates and a NaN point; the refit's designs on meshes of
+  1, 2 and 3 triangles and across blocks;
 - the port's ``MeshQuery`` against the JAX package's ``HostBVH`` and its
   ``MeshQuery`` on ``icosphere(3)`` and on a marching-cubes mesh of
   sphere-small at 32: face ids equal but at edge ties, t within 1e-6, the
@@ -30,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import bvh_cases
 from bvh_cases import adversarial_rays, near_points
 from test_torch_encode_forward import emulated_source
 from tropical.ops.mesh_queries import MeshQuery as JaxMeshQuery
@@ -48,8 +53,8 @@ RANDOM_RAYS = 1000
 # --- Karras's hierarchy, a node at a time ------------------------------------
 
 def karras_reference(keys):
-    """(children, parents) of sorted unique int keys, one internal node at a
-    time, as Karras (2012) writes it."""
+    """(children, parents, far ends j) of sorted unique int keys, one
+    internal node at a time, as Karras (2012) writes it."""
     n = len(keys)
 
     def delta(i, j):
@@ -59,6 +64,7 @@ def karras_reference(keys):
 
     children = [[0, 0] for _ in range(n - 1)]
     parents = [-1] * (2 * n - 1)
+    far = [0] * (n - 1)
     for i in range(n - 1):
         d = 1 if delta(i, i + 1) - delta(i, i - 1) > 0 else -1
         dmin = delta(i, i - d)
@@ -85,7 +91,8 @@ def karras_reference(keys):
         right = n + split if max(i, j) == split + 1 else split + 1
         children[i] = [left, right]
         parents[left] = parents[right] = i
-    return children, parents
+        far[i] = j
+    return children, parents, far
 
 
 def _keys(codes):
@@ -107,10 +114,11 @@ def _key_sets():
 @pytest.mark.parametrize("name,keys", list(_key_sets()),
                          ids=[k for k, _ in _key_sets()])
 def test_plain_hierarchy_is_karras(name, keys):
-    children, parents = bvh.hierarchy_plain(torch.from_numpy(keys))
-    want_c, want_p = karras_reference([int(k) for k in keys])
+    children, parents, far = bvh.hierarchy_plain(torch.from_numpy(keys))
+    want_c, want_p, want_f = karras_reference([int(k) for k in keys])
     assert children.tolist() == want_c
     assert parents.tolist() == want_p
+    assert far.tolist() == want_f
 
 
 def test_clz64_is_the_bit_length():
@@ -170,12 +178,47 @@ def test_plain_tree_invariants(name, tris):
     # each internal node's box is exactly its children's union
     assert torch.equal(lo[:n - 1], torch.minimum(lo[ch[:, 0]], lo[ch[:, 1]]))
     assert torch.equal(hi[:n - 1], torch.maximum(hi[ch[:, 0]], hi[ch[:, 1]]))
+    # node i covers the leaves from min(i, far) to max(i, far): its left
+    # child's first and its right child's last
+    i = torch.arange(n - 1)
+    first, last = torch.minimum(i, tree.far.long()), torch.maximum(
+        i, tree.far.long())
+    span = torch.stack([first, last], 1)
+    leaf_span = torch.cat([span, torch.arange(n)[:, None].repeat(1, 2)])
+    assert torch.equal(leaf_span[ch[:, 0], 0], first)
+    assert torch.equal(leaf_span[ch[:, 1], 1], last)
+    assert torch.equal(leaf_span[ch[:, 0], 1] + 1, leaf_span[ch[:, 1], 0])
+    # node i's record: its children's boxes, then their ids' bits
+    assert torch.equal(tree.records[:, :6], tree.boxes[ch[:, 0]])
+    assert torch.equal(tree.records[:, 6:12], tree.boxes[ch[:, 1]])
+    assert torch.equal(tree.records[:, 12:14].contiguous().view(torch.int32),
+                       tree.children)
+    assert torch.equal(tree.tris_padded[:, :9], tree.tris)
 
 
 # --- the CUDA source under the emulation ---------------------------------------
 
-def _emulate(tmp_path_factory, *defines):
-    """csrc/bvh.cu built with g++ against the emulation header."""
+# the emulated builds: the design (4 warps a point in pass 2); pass 1 on a
+# budget of 2 box tests, 2 warps a point (and the refit without the block's
+# shared levels); the same at 1 warp a point without the node records (the
+# refit writing none), the selects and the handing over of subtrees; the
+# first design of both kernels; and the instrumented builds of the bound
+# (one thread a point) and of the design's own tests
+BUILDS = {"design": (), "budget2": ("BVH_CLOSEST_BUDGET=2",
+                                    "BVH_CLOSEST_WARPS=2",
+                                    "BVH_REFIT_DEVICE_ONLY"),
+          "ablated": ("BVH_CLOSEST_BUDGET=2", "BVH_CLOSEST_WARPS=1",
+                      "BVH_CLOSEST_SPLIT_LOADS", "BVH_CLOSEST_BRANCHES",
+                      "BVH_CLOSEST_NO_DONATE", "BVH_REFIT_NO_RECORDS"),
+          "first": ("BVH_CLOSEST_ONE_THREAD", "BVH_REFIT_FENCES"),
+          "count": ("BVH_COUNT_VISITS",),
+          "count_design": ("BVH_COUNT_VISITS", "BVH_COUNT_DESIGN")}
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """csrc/bvh.cu built with g++ against the emulation header, once a
+    build of BUILDS, the compiles side by side."""
     compiler = shutil.which("g++")
     if compiler is None:
         pytest.skip("needs g++ to emulate the CUDA source")
@@ -183,22 +226,36 @@ def _emulate(tmp_path_factory, *defines):
     cpp = out / "bvh.cpp"
     cpp.write_text(emulated_source(
         (ROOT / "tropical_torch" / "csrc" / "bvh.cu").read_text()))
-    so = out / "libbvh.so"
-    subprocess.run([compiler, "-std=c++20", "-O1", "-ffp-contract=off",
-                    "-fPIC", "-shared", "-pthread", f"-I{ROOT / 'tests'}",
-                    *(f"-D{m}" for m in defines),
-                    "-include", "cuda_emulation.h", "-o", str(so), str(cpp)],
-                   check=True, capture_output=True)
-    return ctypes.CDLL(str(so))
+    running = {}
+    for name, defines in BUILDS.items():
+        so = out / f"libbvh_{name}.so"
+        running[name] = (so, subprocess.Popen(
+            [compiler, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+             "-shared", "-pthread", f"-I{ROOT / 'tests'}",
+             *(f"-D{m}" for m in defines), "-include", "cuda_emulation.h",
+             "-o", str(so), str(cpp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    for name, (so, proc) in running.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"g++ failed for {name}:\n{log}"
+    return {name: ctypes.CDLL(str(so)) for name, (so, _) in running.items()}
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    return _emulate(tmp_path_factory)
+def emulated(libs):
+    return libs["design"]
 
 
 def _bits(t):
     return t.contiguous().view(torch.int32)
+
+
+def _same_bits(got, want):
+    """Bitwise equal, a NaN matching any NaN (its payload is the
+    platform's)."""
+    nan = torch.isnan(want)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(_bits(got)[~nan], _bits(want)[~nan]))
 
 
 @pytest.mark.parametrize("name,tris", MESHES, ids=[m for m, _ in MESHES])
@@ -206,11 +263,15 @@ def test_emulated_kernels_bitwise_plain(emulated, name, tris):
     n = tris.shape[0]
     keys = bvh.morton_keys(tris)
     tree = bvh.build(tris)
-    children, parents = bvh.run_hierarchy(emulated, keys)
+    children, parents, far = bvh.run_hierarchy(emulated, keys)
     assert torch.equal(children, tree.children)
     assert torch.equal(parents, tree.parents)
-    boxes = bvh.run_refit(emulated, tree.tris, children, parents, tree.pad)
+    assert torch.equal(far, tree.far)
+    boxes, records, padded = bvh.run_refit(emulated, tree.tris, children,
+                                           parents, far, tree.pad)
     assert torch.equal(_bits(boxes), _bits(tree.boxes))
+    assert torch.equal(_bits(records), _bits(tree.records))
+    assert torch.equal(_bits(padded), _bits(tree.tris_padded))
 
     o, d = adversarial_rays(tris, 1200, n)
     t, fid = bvh.run_ray(emulated, tree, o, d, False)
@@ -224,7 +285,7 @@ def test_emulated_kernels_bitwise_plain(emulated, name, tris):
     _, hits = bvh.run_ray(emulated, tree, p, direction.reshape(1, 3), True)
     want_hits = mq.crossings_plain(tris, p, direction)
     assert torch.equal(hits.long(), want_hits)
-    d2 = bvh.run_closest(emulated, tree, p)
+    d2, _ = bvh.run_closest(emulated, tree, p)
     want_d2 = mq.min_dist2_plain(tris, p)
     assert torch.equal(_bits(d2), _bits(want_d2))
     assert float(want_d2[200:230].max()) == 0.0  # on vertices
@@ -236,9 +297,10 @@ def test_emulated_one_triangle(emulated):
     tris = torch.tensor([[[0.0, 0.0, 0.5], [1.0, 0.0, 0.5], [0.0, 1.0, 0.5]]])
     tree = bvh.build(tris)
     assert tree.children.shape == (0, 2) and tree.parents.tolist() == [-1]
-    boxes = bvh.run_refit(emulated, tree.tris, tree.children, tree.parents,
-                          tree.pad)
-    assert torch.equal(boxes, tree.boxes)
+    boxes, records, padded = bvh.run_refit(emulated, tree.tris, tree.children,
+                                           tree.parents, tree.far, tree.pad)
+    assert torch.equal(boxes, tree.boxes) and records.shape == (0, 16)
+    assert torch.equal(padded[:, :9], tree.tris) and not padded[:, 9:].any()
     o = torch.tensor([[0.2, 0.2, 0.0], [0.9, 0.9, 0.0], [0.0, 0.0, 0.0]])
     d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0], [0.0, 0.0, 1.0]])
     t, fid = bvh.run_ray(emulated, tree, o, d, False)
@@ -264,13 +326,13 @@ def _counted(lib, tree, queries, launch):
     return out, touched.bool(), per_query.long(), list(totals)
 
 
-def test_emulated_count_build_marks_what_the_queries_read(tmp_path_factory):
+def test_emulated_count_build_marks_what_the_queries_read(libs):
     """The instrumented build (-DBVH_COUNT_VISITS) that chip_smoke.py's
     bounds read: its results are the plain versions'; each query's tests
     add up to the totals; it marks a box only with its sibling's, below a
     node whose children it read, and never the root's; it reads a face id
     only at a leaf it tested, and at the leaf of every first hit."""
-    lib = _emulate(tmp_path_factory, "BVH_COUNT_VISITS")
+    lib = libs["count"]
     tris = MESHES[0][1]
     tree = bvh.build(tris)
     n = tree.n
@@ -281,7 +343,7 @@ def test_emulated_count_build_marks_what_the_queries_read(tmp_path_factory):
         "first": (o.shape[0], lambda: bvh.run_ray(lib, tree, o, d, False)),
         "parity": (p.shape[0], lambda: bvh.run_ray(
             lib, tree, p, direction.reshape(1, 3), True)),
-        "closest": (p.shape[0], lambda: bvh.run_closest(lib, tree, p))}
+        "closest": (p.shape[0], lambda: bvh.run_closest(lib, tree, p)[0])}
     want_t, want_id = mq.first_hits_plain(tris, o, d)
     for name, (queries, launch) in runs.items():
         out, marks, per_query, totals = _counted(lib, tree, queries, launch)
@@ -312,6 +374,97 @@ def test_emulated_count_build_marks_what_the_queries_read(tmp_path_factory):
             assert face_id[n - 1 + leaf_of[want_id[want_id >= 0]]].all()
         else:
             assert not face_id.any()
+
+
+CLOSEST_MESHES = [("icosphere2", _tris(icosphere(2))), MESHES[2]]
+
+
+@pytest.mark.parametrize("name,tris", CLOSEST_MESHES,
+                         ids=[m for m, _ in CLOSEST_MESHES])
+def test_emulated_closest_two_passes_bitwise_plain(libs, name, tris):
+    """The closest-point query's two passes, and its first design, bitwise
+    the plain tiles on points from the centre of the mesh's box, on
+    vertices, on edge midpoints, on duplicates and with a NaN point: with
+    the design's budget (the centre points through the warp pass on the
+    closed icosphere) and with a budget of 2 box tests (every point
+    through it), and with each step of the design taken out."""
+    tree = bvh.build(tris)
+    sets = bvh_cases.closest_sets(tris, 24, 7)
+    p = torch.cat(list(sets.values()))
+    want = mq.min_dist2_plain(tris, p)
+    assert torch.isnan(want).sum() == 1 and (want == 0).sum() >= 24
+    queued = {}
+    for build in ("design", "budget2", "ablated", "first"):
+        d2, queued[build] = bvh.run_closest(libs[build], tree, p)
+        assert _same_bits(d2, want), build
+    assert queued["budget2"] == queued["ablated"] == p.shape[0]
+    assert queued["first"] == 0
+    d2, centre_queued = bvh.run_closest(libs["design"], tree, sets["centre"])
+    assert _same_bits(d2, mq.min_dist2_plain(tris, sets["centre"]))
+    if name == "icosphere2":
+        assert centre_queued == sets["centre"].shape[0]
+        assert queued["design"] >= centre_queued
+
+
+def _small_meshes():
+    """Meshes of 1, 2 and 3 triangles (shared edges, a NaN coordinate in
+    the third's), and one whose tree spans three blocks of leaves."""
+    tri = [[0.0, 0.0, 0.5], [1.0, 0.0, 0.5], [0.0, 1.0, 0.5]]
+    yield "one", torch.tensor([tri])
+    yield "two", torch.tensor([tri, [[1.0, 0.0, 0.5], [1.0, 1.0, 0.2],
+                                     [0.0, 1.0, 0.5]]])
+    yield "three", torch.tensor([tri, [[1.0, 0.0, 0.5], [1.0, 1.0, 0.2],
+                                       [0.0, 1.0, 0.5]],
+                                 [[2.0, 0.0, 0.0], [2.0, float("nan"), 1.0],
+                                  [3.0, 1.0, 0.0]]])
+    yield MESHES[1]
+
+
+SMALL_MESHES = list(_small_meshes())
+
+
+@pytest.mark.parametrize("name,tris", SMALL_MESHES,
+                         ids=[m for m, _ in SMALL_MESHES])
+def test_emulated_refit_designs_bitwise_plain(libs, name, tris):
+    """The refit with the block's shared levels, without them (device-scope
+    counts only), without its records and in its first design (fences),
+    bitwise ``refit_plain``, NaN coordinates and all; the node records and
+    padded triangles of the first two bitwise ``records_plain`` and the
+    triangles."""
+    tree = bvh.build(tris)
+    for build in ("design", "budget2", "ablated", "first"):
+        boxes, records, padded = bvh.run_refit(
+            libs[build], tree.tris, tree.children, tree.parents, tree.far,
+            tree.pad)
+        assert torch.equal(_bits(boxes), _bits(tree.boxes)), build
+        if build in ("design", "budget2"):
+            assert torch.equal(_bits(records), _bits(tree.records)), build
+            assert torch.equal(_bits(padded), _bits(tree.tris_padded)), build
+    if name == "three":
+        assert torch.isnan(tree.boxes).any()
+
+
+def test_emulated_count_design_adds_both_passes(libs):
+    """The design's instrumented build (-DBVH_COUNT_DESIGN): each point's
+    tests are its pass 1's plus its warp's, and add up to the totals; the
+    centre points make more tests in all than one thread a point makes for
+    them (the warp's subtrees start without a best of their own), and the
+    results are the plain tiles'."""
+    tris = CLOSEST_MESHES[0][1]
+    tree = bvh.build(tris)
+    p = bvh_cases.centre_points(tris, 32, 8)
+    want = mq.min_dist2_plain(tris, p)
+    runs = {}
+    for build in ("count", "count_design"):
+        lib = libs[build]
+        out, _, per_query, totals = _counted(
+            lib, tree, p.shape[0], lambda: bvh.run_closest(lib, tree, p))
+        assert _same_bits(out[0], want)
+        assert per_query.sum(dim=0).tolist() == totals
+        assert (per_query[:, 0] % 2 == 0).all() and (per_query[:, 0] > 0).all()
+        runs[build] = (out[1], totals)
+    assert runs["count"][0] == 0 and runs["count_design"][0] == p.shape[0]
+    assert runs["count_design"][1][0] >= runs["count"][1][0]
 
 
 # --- MeshQuery against the JAX package ------------------------------------------

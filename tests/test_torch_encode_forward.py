@@ -218,8 +218,10 @@ def _emulated_build(tmp_path, lanes):
 
 def emulated_source(src: str) -> str:
     """The .cu source with each launch ``k<<<grid, block, ...>>>(args)``
-    made a call of the emulation's launcher."""
-    src = re.sub(r"#include <cuda_runtime.h>", "", src)
+    made a call of the emulation's launcher, the CUDA headers left to the
+    emulation, and the dynamic shared buffer a namespace-scope array."""
+    src = re.sub(r"#include <cuda_runtime.h>|#include <cuda/atomic>", "", src)
+    src = src.replace("extern __shared__", "extern")
     src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(\s*", r"EmuLaunch(\2).run(\1, ",
                  src, flags=re.S)
     return src + "\nnamespace { float2 smem[1]; }\n"

@@ -489,10 +489,10 @@ def test_grid_meshes_on_cuda_bitwise_cpu_and_slabs_merge(method):
 def test_bvh_kernels_match_plain_on_a_ladder_mesh():
     """The BVH on the card, built from the committed sphere-small
     checkpoint's marching-cubes mesh at 64 (a mesh of the flat run's
-    ladder): hierarchy and boxes bitwise their plain versions; first hits
-    (100,000 evaluation rays and adversarial ones), crossing counts and
-    squared distances bitwise the plain tiles'; one launch of each kernel a
-    call."""
+    ladder): hierarchy, boxes and node records bitwise their plain
+    versions; first hits (100,000 evaluation rays and adversarial ones),
+    crossing counts and squared distances bitwise the plain tiles'; one
+    launch of each kernel a call."""
     _need_cuda()
     import bvh_cases
     from tropical_torch.ops import bvh
@@ -512,11 +512,16 @@ def test_bvh_kernels_match_plain_on_a_ladder_mesh():
     assert n == mesh.faces.shape[0] > 1000
     assert LAUNCHES["bvh_hierarchy"] == before["bvh_hierarchy"] + 1
     assert LAUNCHES["bvh_refit"] == before["bvh_refit"] + 1
-    children, parents = bvh.hierarchy_plain(bvh.morton_keys(q.tris))
+    children, parents, far = bvh.hierarchy_plain(bvh.morton_keys(q.tris))
     assert torch.equal(children, tree.children)
     assert torch.equal(parents, tree.parents)
+    assert torch.equal(far, tree.far)
     boxes = bvh.refit_plain(tree.tris, children, tree.pad)
     assert torch.equal(boxes.view(torch.int32), tree.boxes.view(torch.int32))
+    assert torch.equal(bvh.records_plain(children, boxes).view(torch.int32),
+                       tree.records.view(torch.int32))
+    assert torch.equal(tree.tris_padded[:, :9], tree.tris)
+    assert not tree.tris_padded[:, 9:].any()
 
     o, d = get_rays(100_000, device="cuda")
     o2, d2 = bvh_cases.adversarial_rays(q.tris, 2000, 5)
@@ -562,3 +567,76 @@ def test_bvh_kernels_on_empty_and_one_triangle_meshes():
         assert launched == ({k: 0 for k in launched} if len(faces) == 0 else
                             {"bvh_hierarchy": 0, "bvh_refit": 1, "bvh_ray": 2,
                              "bvh_closest": 1})
+
+
+def _same_bits(a, b):
+    """Bitwise equal, a NaN matching any NaN."""
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
+
+
+@pytest.mark.gpu
+def test_bvh_closest_two_passes_bitwise_on_hard_sets():
+    """``bvh_closest`` on the labels' icosphere (5,120 triangles), bitwise
+    the plain tiles on points near its centre (all through the warp pass),
+    on vertices, on edge midpoints, on duplicates and with a NaN point;
+    its first design (one thread a point) too; one launch counted a
+    ``min_dist2`` call."""
+    _need_cuda()
+    import bvh_cases
+    from tropical_torch.ops import bvh, cuda_build
+    from tropical_torch.ops import mesh_queries as mq
+    from tropical_torch.utils.procedural import icosphere
+
+    ico = icosphere(4)
+    q = mq.MeshQuery(ico.vertices, ico.faces, "cuda")
+    assert q.bvh.n == 5120
+    lib = cuda_build.load("bvh")
+    first = cuda_build.load(("bvh", ("BVH_CLOSEST_ONE_THREAD",
+                                     "BVH_REFIT_FENCES")))
+    sets = bvh_cases.closest_sets(q.tris, 2000, 11)
+    for name, p in sets.items():
+        want = mq.min_dist2_plain(q.tris, p)
+        got, queued = bvh.run_closest(lib, q.bvh, p)
+        assert _same_bits(got, want), name
+        got, first_queued = bvh.run_closest(first, q.bvh, p)
+        assert _same_bits(got, want) and first_queued == 0, name
+        if name == "centre":
+            assert queued == p.shape[0]
+        if name == "nan":
+            assert int(torch.isnan(got).sum()) == 1
+    before = LAUNCHES["bvh_closest"]
+    bvh.min_dist2(q.bvh, sets["centre"])
+    assert LAUNCHES["bvh_closest"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("faces", [1, 2, 3])
+def test_bvh_refit_bitwise_on_small_meshes(faces):
+    """The build of 1, 2 and 3 triangles on the card: hierarchy, far ends,
+    boxes, node records and padded triangles bitwise the plain build, the
+    boxes also in the refit's first design."""
+    _need_cuda()
+    from tropical_torch.ops import bvh, cuda_build
+
+    tris = torch.tensor([[[0.0, 0.0, 0.5], [1.0, 0.0, 0.5], [0.0, 1.0, 0.5]],
+                         [[1.0, 0.0, 0.5], [1.0, 1.0, 0.2], [0.0, 1.0, 0.5]],
+                         [[2.0, 0.0, 0.0], [2.0, 3.0, 1.0],
+                          [3.0, 1.0, 0.0]]])[:faces]
+    want = bvh.build(tris)
+    before = dict(LAUNCHES)
+    got = bvh.build(tris.cuda())
+    assert LAUNCHES["bvh_refit"] == before["bvh_refit"] + 1
+    assert LAUNCHES["bvh_hierarchy"] == before["bvh_hierarchy"] + (faces > 1)
+    for name in ("children", "parents", "far", "order"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    for name in ("boxes", "records", "tris_padded"):
+        assert torch.equal(getattr(got, name).cpu().view(torch.int32),
+                           getattr(want, name).view(torch.int32))
+    first = cuda_build.load(("bvh", ("BVH_CLOSEST_ONE_THREAD",
+                                     "BVH_REFIT_FENCES")))
+    boxes, _, _ = bvh.run_refit(first, got.tris, got.children, got.parents,
+                                got.far, got.pad)
+    assert torch.equal(boxes.view(torch.int32), got.boxes.view(torch.int32))

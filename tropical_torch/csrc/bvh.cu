@@ -10,27 +10,62 @@
 // 64-bit keys (code << 32 | triangle id, made and sorted in torch by
 // ops/bvh.py), so every key is unique and the tree is the same on every run.
 // Node numbering: internal nodes 0 .. n-2 (the root is 0), leaf k is node
-// n - 1 + k; a mesh of one triangle is its root leaf.
+// n - 1 + k; a mesh of one triangle is its root leaf.  Internal node i
+// covers the leaves [min(i, j), max(i, j)], j its far end.
 //   - bvh_hierarchy: one thread an internal node.  Its range's direction
-//     from the sign of delta, its far end by an exponential then a binary
+//     from the sign of delta, its far end j by an exponential then a binary
 //     search, the split by a binary search on __clzll of the XOR of keys;
-//     writes the children and the parents.
+//     writes the children, the parents and j.
 //   - bvh_refit: one thread a leaf.  The leaf box from its triangle's
 //     vertices, widened by `pad` a face; then up the tree, with an arrival
-//     counter on each internal node: the second thread to arrive merges the
-//     two child boxes.  Min and max are exact (and propagate a NaN, as the
-//     plain version's do), so the boxes are bitwise the same in any order
-//     of arrival.
+//     count on each internal node: the second thread to arrive merges the
+//     two child boxes.  A node whose leaves all lie in the block's own
+//     (kBuildThreads consecutive leaves) counts its arrivals in shared
+//     memory and keeps its box there too, with block-scope atomics; only a
+//     node across a block boundary counts in device memory, with one
+//     device-scope acquire-release fetch_add a level; the next level's
+//     read-only loads (children, far end, parent) are issued before it.  The
+//     merging thread also writes the node's record (both children's boxes
+//     and ids, for the closest-point query) once its next count is made, so
+//     that the count's release does not wait for it; a leaf's thread writes
+//     its triangle padded to 48 bytes.  Min and max are exact (and propagate
+//     a NaN, as the plain version's do), so the boxes are bitwise the same
+//     in any order of arrival.
+//     -DBVH_REFIT_FENCES builds the first design (every level in device
+//     memory, a __threadfence on each side of the atomicAdd, the children
+//     and both boxes loaded after it, no records); -DBVH_REFIT_DEVICE_ONLY
+//     the acquire-release climb without the block's shared levels;
+//     -DBVH_REFIT_NO_RECORDS the design without the records.
 //
-// Queries: one thread a ray or a point, a stack of at most kStack far
-// children, the nearer child first.
-//   - bvh_ray: the first hit of each ray, the lexicographic least (t, face
-//     id) over the triangles that Moller-Trumbore hits (the plain tiles'
-//     `min` takes the first, lowest, id on an equal t); or, in count mode,
-//     how many triangles the ray crosses (the parity ray of a signed
-//     distance), which visits every box the ray meets.
+// Queries: a stack of at most kStack far children, the nearer child first.
+//   - bvh_ray: one thread a ray.  The first hit of each ray, the
+//     lexicographic least (t, face id) over the triangles that
+//     Moller-Trumbore hits (the plain tiles' `min` takes the first, lowest,
+//     id on an equal t); or, in count mode, how many triangles the ray
+//     crosses (the parity ray of a signed distance), which visits every box
+//     the ray meets.
 //   - bvh_closest: the least squared distance from each point to a triangle
-//     (Ericson's closest point).
+//     (Ericson's closest point), in two passes.  Pass 1, one thread a
+//     point, stops after a budget of box tests (BVH_CLOSEST_BUDGET, 256); a
+//     point not done by then joins a queue in device memory with its best
+//     so far, an upper bound of its answer.  Pass 2 gives each queued point
+//     a block of kPointWarps warps: its first warp expands the tree
+//     breadth-first from the root (culled by that bound) until the frontier
+//     holds a subtree for every lane of the block; each lane walks one or
+//     two of them depth-first with its own stack; every kSyncVisits visits
+//     a warp shares its best by __reduce_min_sync on its bits (a
+//     non-negative float orders as its bits; a NaN, whose bits order above
+//     +inf, is voted on apart and wins) and, across the block, by atomicMin
+//     in shared memory, and its lanes with no subtree left take the bottom
+//     (largest) subtree of a lane that holds one.  A visit reads a node's
+//     64-byte record (four 16-byte loads: both children's boxes and ids)
+//     or a leaf's triangle padded to 48 bytes (three), and picks the
+//     closest point's case by selects, so that a warp's lanes do not part
+//     on it.  The least of exact values does not depend on the order of
+//     the search, so any split gives the same bits.
+//     -DBVH_CLOSEST_ONE_THREAD builds the first design (pass 1 with no
+//     budget, one thread a point to the end, reading children and then
+//     boxes, the case picked by branches).
 //
 // Each per-pair test rounds every operation alone, in the order of the
 // plain version in ops/mesh_queries.py (the dot and cross products written
@@ -47,28 +82,97 @@
 // 2^-20 (above 2 gamma_3, Ize 2013), a NaN of 0 * inf (a zero direction
 // component on a box face) opens that slab instead of closing it, and a
 // node is culled only when its entry t (or its box distance) is strictly
-// greater than the best so far.  A stack overflow sets *overflow, which the
+// greater than the best so far (in pass 2 the best shared so far, a
+// distance to some triangle).  A stack overflow sets *overflow (for
+// bvh_closest state[0] = 1, and a queue overflow state[0] = 2), which the
 // wrapper raises on; no node is ever dropped.
 //
 // What bounds it on this card: the traversal is latency-bound pointer
-// chasing (a node's box, then its children), some tens of box tests and a
-// few triangle tests a ray; the bound chip_smoke.py states counts those
-// tests at the f32 rate and, once each, the bytes of the inputs, the
-// outputs and the boxes, children, triangles and face ids that the queries
-// read (an instrumented build, -DBVH_COUNT_VISITS, counts and marks them).
-// This first design keeps one box a node and reads the children's boxes on
-// a visit; a later one may keep both child boxes in the parent (one 64-byte
-// line a visit).
+// chasing (a node's record, or its children and then their boxes), some
+// tens of box tests and a few triangle tests a ray; the bound chip_smoke.py
+// states counts those tests at the f32 rate and, once each, the bytes of
+// the inputs, the outputs and the boxes, children, triangles and face ids
+// that the queries read (an instrumented build, -DBVH_COUNT_VISITS, counts
+// and marks them;
+// its bvh_closest is the one-thread design, the yardstick, unless
+// -DBVH_COUNT_DESIGN asks for the two passes' own counts).  A closest-point
+// query from deep inside a closed mesh finds every box about as near as
+// its best and prunes little: thousands of dependent visits on one thread,
+// which the budget hands to a block.  There a visit's dependent loads and
+// the lanes' divergent paths (leaf or node, push or pop) set the time,
+// not the bytes or the operations (scripts/bvh_variants.py).  The refit's
+// climb is a chain of atomics, one a level, as deep as the tree: the
+// block's levels take the chain's bottom out of device memory.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+// pass 1's budget of box tests a point (0: every point to pass 2)
+#ifndef BVH_CLOSEST_BUDGET
+#define BVH_CLOSEST_BUDGET 256
+#endif
+// pass 2's warps a queued point
+#ifndef BVH_CLOSEST_WARPS
+#define BVH_CLOSEST_WARPS 4
+#endif
 
 namespace {
 
 constexpr int kStack = 64;
 constexpr int kBuildThreads = 256;
 constexpr int kQueryThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+// pass 2's visits a lane between two shares of the best
+constexpr int kSyncVisits = 8;
+// The closest-point query's design: two passes, node records, the case of
+// the closest point picked by selects, pass 2's idle lanes given subtrees.
+// The first design (-DBVH_CLOSEST_ONE_THREAD, and the instrumented build's
+// yardstick unless -DBVH_COUNT_DESIGN) has none of these; the ablation
+// takes one out at a time: -DBVH_CLOSEST_SPLIT_LOADS reads a node's
+// children and then their boxes, and a triangle, a float at a time;
+// -DBVH_CLOSEST_BRANCHES picks the case by branches; -DBVH_CLOSEST_NO_DONATE
+// keeps each lane to its own subtrees.
+#if defined(BVH_CLOSEST_ONE_THREAD) || \
+    (defined(BVH_COUNT_VISITS) && !defined(BVH_COUNT_DESIGN))
+constexpr bool kTwoPass = false;
+#else
+constexpr bool kTwoPass = true;
+#endif
+#ifdef BVH_CLOSEST_SPLIT_LOADS
+constexpr bool kRecords = false;
+#else
+constexpr bool kRecords = kTwoPass;
+#endif
+#ifdef BVH_CLOSEST_BRANCHES
+constexpr bool kSelectCase = false;
+#else
+constexpr bool kSelectCase = kTwoPass;
+#endif
+#ifdef BVH_CLOSEST_NO_DONATE
+constexpr bool kDonate = false;
+#else
+constexpr bool kDonate = true;
+#endif
+// pass 2's warps a queued point, a block of them
+constexpr int kPointWarps = BVH_CLOSEST_WARPS;
+constexpr int kPointLanes = 32 * kPointWarps;
+// the breadth-first start's frontier: below 2 kPointLanes subtrees
+constexpr int kFrontier = 2 * kPointLanes;
+constexpr unsigned kClosestBudget = kTwoPass ? BVH_CLOSEST_BUDGET : 0xffffffffu;
+#ifdef BVH_REFIT_DEVICE_ONLY
+constexpr bool kBlockLevels = false;
+#else
+constexpr bool kBlockLevels = true;
+#endif
+// -DBVH_REFIT_NO_RECORDS (a measurement of their cost only: the two-pass
+// query needs them) leaves the node records and padded triangles unwritten
+#ifdef BVH_REFIT_NO_RECORDS
+constexpr bool kWriteRecords = false;
+#else
+constexpr bool kWriteRecords = true;
+#endif
 // 2^-20, above 2 gamma_3 = 6u / (1 - 3u) with u = 2^-24
 constexpr float kSlack = 9.5367431640625e-07f;
 // the plain version's Moller-Trumbore and Ericson constants
@@ -134,7 +238,8 @@ __device__ __forceinline__ int delta(const long long* keys, int n, int i,
 
 __global__ void __launch_bounds__(kBuildThreads)
     hierarchy_kernel(const long long* __restrict__ keys, int n,
-                     int* __restrict__ children, int* __restrict__ parents) {
+                     int* __restrict__ children, int* __restrict__ parents,
+                     int* __restrict__ far) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n - 1) return;
   const int d = delta(keys, n, i, i + 1) - delta(keys, n, i, i - 1) > 0 ? 1 : -1;
@@ -164,21 +269,28 @@ __global__ void __launch_bounds__(kBuildThreads)
   children[2 * i + 1] = right;
   parents[left] = i;
   parents[right] = i;
+  far[i] = static_cast<int>(j);
 }
 
-__global__ void __launch_bounds__(kBuildThreads)
-    refit_kernel(const float* __restrict__ tris, const int* __restrict__ parents,
-                 const int* __restrict__ children, int n, float pad,
-                 int* arrivals, float* boxes) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  const float* v = tris + 9 * static_cast<long long>(k);
-  int node = n - 1 + k;
-  float* b = boxes + 6 * static_cast<long long>(node);
+// the leaf box of triangle v (9 floats), widened by pad
+__device__ __forceinline__ void leaf_box(const float* v, float pad, float* b) {
   for (int a = 0; a < 3; ++a) {
     b[a] = __fsub_rn(nan_min(nan_min(v[a], v[3 + a]), v[6 + a]), pad);
     b[3 + a] = __fadd_rn(nan_max(nan_max(v[a], v[3 + a]), v[6 + a]), pad);
   }
+}
+
+#ifdef BVH_REFIT_FENCES
+__global__ void __launch_bounds__(kBuildThreads)
+    refit_kernel(const float* __restrict__ tris, const int* __restrict__ parents,
+                 const int* __restrict__ children, const int* __restrict__,
+                 int n, float pad, int* arrivals, float* boxes, float4*,
+                 float4*) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  int node = n - 1 + k;
+  leaf_box(tris + 9 * static_cast<long long>(k), pad,
+           boxes + 6 * static_cast<long long>(node));
   int p = parents[node];
   while (p >= 0) {
     // this node's box is written before the arrival is counted; the second
@@ -196,6 +308,119 @@ __global__ void __launch_bounds__(kBuildThreads)
     p = parents[p];
   }
 }
+#else
+// A block's leaves are b0 .. b0 + kBuildThreads - 1; a node whose range
+// lies among them is the block's own.  Its shared slot: leaf k at k - b0,
+// internal node i (one end of its own range, so also among them) at
+// kBuildThreads + i - b0.
+//
+// Besides the boxes, each internal node's record (records[4i .. 4i + 3]:
+// its left child's box, its right child's, their ids' bits, two zeros) and
+// each leaf's triangle padded to 12 floats (tris_padded[3k .. 3k + 2]),
+// for the closest-point query.
+__global__ void __launch_bounds__(kBuildThreads)
+    refit_kernel(const float* __restrict__ tris, const int* __restrict__ parents,
+                 const int* __restrict__ children, const int* __restrict__ far,
+                 int n, float pad, int* arrivals, float* boxes,
+                 float4* __restrict__ records,
+                 float4* __restrict__ tris_padded) {
+  __shared__ float shared_box[2 * kBuildThreads][6];
+  __shared__ int shared_arrivals[kBuildThreads];
+  shared_arrivals[threadIdx.x] = 0;
+  __syncthreads();
+  const int b0 = blockIdx.x * kBuildThreads;
+  const int k = b0 + threadIdx.x;
+  if (k >= n) return;
+  const float* v = tris + 9 * static_cast<long long>(k);
+  float box[6];
+  leaf_box(v, pad, box);
+  if (kWriteRecords) {
+    float4* padded = tris_padded + 3 * static_cast<long long>(k);
+    padded[0] = make_float4(v[0], v[1], v[2], v[3]);
+    padded[1] = make_float4(v[4], v[5], v[6], v[7]);
+    padded[2] = make_float4(v[8], 0.0f, 0.0f, 0.0f);
+  }
+  int node = n - 1 + k;
+  for (int a = 0; a < 6; ++a) {
+    boxes[6 * static_cast<long long>(node) + a] = box[a];
+    shared_box[threadIdx.x][a] = box[a];
+  }
+  // a merged node's record waits in registers until the next count has
+  // been made: the count's release need not wait for its stores
+  float4 record[4];
+  long long record_at = -1;
+  int p = parents[node];
+  // the level's read-only loads (children, far end, parent), one level
+  // ahead: the next level's are issued before this level's count
+  int left = 0, right = 0, j = 0, up = -1;
+  if (p >= 0) {
+    left = children[2 * p];
+    right = children[2 * p + 1];
+    j = far[p];
+    up = parents[p];
+  }
+  while (p >= 0) {
+    int next_left = 0, next_right = 0, next_j = 0, next_up = -1;
+    if (up >= 0) {
+      next_left = children[2 * up];
+      next_right = children[2 * up + 1];
+      next_j = far[up];
+      next_up = parents[up];
+    }
+    const bool own = kBlockLevels && (p < j ? p : j) >= b0 &&
+                     (p < j ? j : p) < b0 + kBuildThreads;
+    const bool is_left = left == node;
+    const int sibling = is_left ? right : left;
+    // this node's box is in shared memory (a node of the block's own) or
+    // in device memory before the count releases it
+    const bool first =
+        own ? cuda::atomic_ref<int, cuda::thread_scope_block>(
+                  shared_arrivals[p - b0])
+                      .fetch_add(1, cuda::std::memory_order_acq_rel) == 0
+            : cuda::atomic_ref<int, cuda::thread_scope_device>(arrivals[p])
+                      .fetch_add(1, cuda::std::memory_order_acq_rel) == 0;
+    if (kWriteRecords && record_at >= 0)
+      for (int a = 0; a < 4; ++a) records[record_at + a] = record[a];
+    if (first) return;
+    float other[6];
+    if (own) {
+      const int slot = sibling >= n - 1 ? sibling - (n - 1) - b0
+                                        : kBuildThreads + sibling - b0;
+      for (int a = 0; a < 6; ++a) other[a] = shared_box[slot][a];
+    } else {
+      for (int a = 0; a < 6; ++a)
+        other[a] = __ldcg(boxes + 6 * static_cast<long long>(sibling) + a);
+    }
+    float l[6], r[6];
+    for (int a = 0; a < 6; ++a) {
+      l[a] = is_left ? box[a] : other[a];
+      r[a] = is_left ? other[a] : box[a];
+    }
+    record[0] = make_float4(l[0], l[1], l[2], l[3]);
+    record[1] = make_float4(l[4], l[5], r[0], r[1]);
+    record[2] = make_float4(r[2], r[3], r[4], r[5]);
+    record[3] = make_float4(__int_as_float(left), __int_as_float(right), 0.0f,
+                            0.0f);
+    record_at = 4 * static_cast<long long>(p);
+    for (int a = 0; a < 3; ++a) {
+      box[a] = nan_min(l[a], r[a]);
+      box[3 + a] = nan_max(l[3 + a], r[3 + a]);
+    }
+    for (int a = 0; a < 6; ++a) {
+      boxes[6 * static_cast<long long>(p) + a] = box[a];
+      if (own) shared_box[kBuildThreads + p - b0][a] = box[a];
+    }
+    node = p;
+    p = up;
+    left = next_left;
+    right = next_right;
+    j = next_j;
+    up = next_up;
+  }
+  if (kWriteRecords && record_at >= 0)  // the root's
+    for (int a = 0; a < 4; ++a) records[record_at + a] = record[a];
+}
+#endif
 
 // ---- the pair tests, in the plain version's order ---------------------------
 
@@ -225,8 +450,8 @@ __device__ __forceinline__ float safe_div(float x, float y) {
 // precedence (a later case there overrides an earlier one: vertex a, b, c,
 // then edges AB, AC, BC, then the interior); the squared distance
 // (mesh_queries._closest_dist2)
-__device__ __forceinline__ float closest_dist2(V3 p, const float* tri) {
-  const V3 a = load3(tri), b = load3(tri + 3), c = load3(tri + 6);
+template <bool kSelect>
+__device__ __forceinline__ float closest_dist2(V3 p, V3 a, V3 b, V3 c) {
   const V3 ab = vsub(b, a);
   const V3 ac = vsub(c, a);
   const V3 ap = vsub(p, a);
@@ -244,7 +469,22 @@ __device__ __forceinline__ float closest_dist2(V3 p, const float* tri) {
   const float d43 = __fsub_rn(d4, d3);
   const float d56 = __fsub_rn(d5, d6);
   V3 q;
-  if (d1 <= 0.0f && d2 <= 0.0f) {
+  if (kSelect) {
+    // every case computed, the one that holds picked in the plain version's
+    // order: the same operations on the picked case, and no branch for the
+    // lanes of a warp to part on
+    const float denom = safe_div(1.0f, __fadd_rn(__fadd_rn(va, vb), vc));
+    q = vaxpy(vaxpy(a, ab, __fmul_rn(vb, denom)), ac, __fmul_rn(vc, denom));
+    const V3 on_bc = vaxpy(b, vsub(c, b), safe_div(d43, __fadd_rn(d43, d56)));
+    const V3 on_ac = vaxpy(a, ac, safe_div(d2, __fsub_rn(d2, d6)));
+    const V3 on_ab = vaxpy(a, ab, safe_div(d1, __fsub_rn(d1, d3)));
+    if (va <= 0.0f && d43 >= 0.0f && d56 >= 0.0f) q = on_bc;
+    if (vb <= 0.0f && d2 >= 0.0f && d6 <= 0.0f) q = on_ac;
+    if (vc <= 0.0f && d1 >= 0.0f && d3 <= 0.0f) q = on_ab;
+    if (d6 >= 0.0f && d5 <= d6) q = c;
+    if (d3 >= 0.0f && d4 <= d3) q = b;
+    if (d1 <= 0.0f && d2 <= 0.0f) q = a;
+  } else if (d1 <= 0.0f && d2 <= 0.0f) {
     q = a;
   } else if (d3 >= 0.0f && d4 <= d3) {
     q = b;
@@ -299,6 +539,62 @@ __device__ __forceinline__ float box_dist2(const float* box, V3 p) {
   return dx * dx + dy * dy + dz * dz;
 }
 
+// the tree as the closest-point query reads it: a node's children and their
+// boxes, a leaf's triangle
+struct Tree {
+  const float* __restrict__ boxes;
+  const int* __restrict__ children;
+  const float* __restrict__ tris;
+  const float4* __restrict__ records;
+  const float4* __restrict__ tris_padded;
+  int n;
+};
+
+struct Children {
+  int left, right;
+  float lbox[6], rbox[6];
+};
+
+// internal node `node`'s children and their boxes: its record, four
+// independent 16-byte loads; or its children, then their boxes
+__device__ __forceinline__ Children read_children(const Tree& t, int node) {
+  Children c;
+  if (kRecords) {
+    const float4* rec = t.records + 4 * static_cast<long long>(node);
+    const float4 r0 = __ldg(rec), r1 = __ldg(rec + 1), r2 = __ldg(rec + 2),
+                 r3 = __ldg(rec + 3);
+    c.left = __float_as_int(r3.x);
+    c.right = __float_as_int(r3.y);
+    const float l[6] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y};
+    const float r[6] = {r1.z, r1.w, r2.x, r2.y, r2.z, r2.w};
+    for (int a = 0; a < 6; ++a) {
+      c.lbox[a] = l[a];
+      c.rbox[a] = r[a];
+    }
+  } else {
+    c.left = t.children[2 * node];
+    c.right = t.children[2 * node + 1];
+    for (int a = 0; a < 6; ++a) {
+      c.lbox[a] = t.boxes[6 * static_cast<long long>(c.left) + a];
+      c.rbox[a] = t.boxes[6 * static_cast<long long>(c.right) + a];
+    }
+  }
+  return c;
+}
+
+// the squared distance from p to leaf k's triangle
+__device__ __forceinline__ float leaf_dist2(const Tree& t, int k, V3 p) {
+  if (kRecords) {
+    const float4* v = t.tris_padded + 3 * static_cast<long long>(k);
+    const float4 v0 = __ldg(v), v1 = __ldg(v + 1), v2 = __ldg(v + 2);
+    return closest_dist2<kSelectCase>(p, V3{v0.x, v0.y, v0.z},
+                                      V3{v0.w, v1.x, v1.y},
+                                      V3{v1.z, v1.w, v2.x});
+  }
+  const float* v = t.tris + 9 * static_cast<long long>(k);
+  return closest_dist2<kSelectCase>(p, load3(v), load3(v + 3), load3(v + 6));
+}
+
 // the instrumented build marks a read of the tree (g_touched); a no-op
 // otherwise
 __device__ __forceinline__ void touch(int kind, int n, int node) {
@@ -321,6 +617,23 @@ __device__ __forceinline__ void count_tests(int r, unsigned box_tests,
   if (g_query_tests) {
     g_query_tests[2 * static_cast<long long>(r)] = box_tests;
     g_query_tests[2 * static_cast<long long>(r) + 1] = tri_tests;
+  }
+#else
+  (void)r;
+  (void)box_tests;
+  (void)tri_tests;
+#endif
+}
+
+// ... or adds them (pass 2's lanes, after pass 1's)
+__device__ __forceinline__ void add_tests(int r, unsigned box_tests,
+                                          unsigned tri_tests) {
+#ifdef BVH_COUNT_VISITS
+  atomicAdd(&g_visits[0], static_cast<unsigned long long>(box_tests));
+  atomicAdd(&g_visits[1], static_cast<unsigned long long>(tri_tests));
+  if (g_query_tests) {
+    atomicAdd(g_query_tests + 2 * static_cast<long long>(r), box_tests);
+    atomicAdd(g_query_tests + 2 * static_cast<long long>(r) + 1, tri_tests);
   }
 #else
   (void)r;
@@ -422,73 +735,270 @@ __global__ void __launch_bounds__(kQueryThreads)
   count_tests(r, box_tests, tri_tests);
 }
 
+// one point's depth-first walk: the node to visit, the stack of far
+// children (a ring: stack[base .. top - 1], indices mod kStack; pass 2 hands
+// its bottom entry, the largest subtree, to an idle lane), the best squared
+// distance so far and the tests made
+struct Walk {
+  Entry stack[kStack];
+  unsigned base, top;
+  int node;
+  float best;
+  unsigned box_tests, tri_tests;
+  bool full;
+};
+static_assert((kStack & (kStack - 1)) == 0, "the ring's size is a power of 2");
+
+// Visits w.node (a leaf's triangle, or an internal node's two child boxes)
+// and moves to the next node: the nearer child whose box is not beyond the
+// best, else the next stacked node that is not.  False once none is left,
+// or the stack overflowed (w.full).
+__device__ __forceinline__ bool closest_visit(Walk& w, V3 p, const Tree& t) {
+  const int node = w.node;
+  const int n = t.n;
+  if (node >= n - 1) {
+    const float d2 = leaf_dist2(t, node - (n - 1), p);
+    ++w.tri_tests;
+    touch(1, n, node);
+    // NaN-propagating, as the plain version's amin and minimum
+    if (d2 < w.best || d2 != d2) w.best = d2;
+  } else {
+    const Children c = read_children(t, node);
+    const int left = c.left;
+    const int right = c.right;
+    const float dl = box_dist2(c.lbox, p);
+    const float dr = box_dist2(c.rbox, p);
+    w.box_tests += 2;
+    touch(1, n, node);
+    touch(0, n, left);
+    touch(0, n, right);
+    const bool in_l = dl <= w.best;
+    const bool in_r = dr <= w.best;
+    if (in_l && in_r) {
+      const bool l_first = dl <= dr;
+      if (w.top - w.base == kStack) {
+        w.full = true;
+        return false;
+      }
+      w.stack[w.top++ % kStack] = l_first ? Entry{right, dr} : Entry{left, dl};
+      w.node = l_first ? left : right;
+      return true;
+    }
+    if (in_l || in_r) {
+      w.node = in_l ? left : right;
+      return true;
+    }
+  }
+  while (w.top != w.base) {
+    const Entry e = w.stack[--w.top % kStack];
+    if (e.key <= w.best) {
+      w.node = e.node;
+      return true;
+    }
+  }
+  return false;
+}
+
+// Pass 1: one thread a point, from the root, until done or `budget` box
+// tests are spent.  A point not done joins the queue (queue[2q] its index,
+// queue[2q + 1] its best's bits; state[1] the queue's length) and pass 2
+// writes its distance.  With no budget this is the one-thread design.
 __global__ void __launch_bounds__(kQueryThreads)
-    closest_kernel(const float* __restrict__ boxes,
-                   const int* __restrict__ children,
-                   const float* __restrict__ tris, int n,
-                   const float* __restrict__ points, int count,
-                   float* __restrict__ out_d2, int* overflow) {
+    closest_kernel(const Tree t, const float* __restrict__ points, int count,
+                   unsigned budget, float* __restrict__ out_d2,
+                   int* __restrict__ queue, int* state) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= count) return;
   const V3 p = load3(points + 3 * static_cast<long long>(r));
-  float best = INFINITY;
-  unsigned box_tests = 0, tri_tests = 0;
-  Entry stack[kStack];
-  int sp = 0;
-  int node = 0;
-  bool full = false;
-  while (true) {
-    if (node >= n - 1) {
-      const float d2 = closest_dist2(
-          p, tris + 9 * static_cast<long long>(node - (n - 1)));
-      ++tri_tests;
-      touch(1, n, node);
-      // NaN-propagating, as the plain version's amin and minimum
-      if (d2 < best || d2 != d2) best = d2;
-    } else {
-      const int left = children[2 * node];
-      const int right = children[2 * node + 1];
-      const float dl = box_dist2(boxes + 6 * static_cast<long long>(left), p);
-      const float dr = box_dist2(boxes + 6 * static_cast<long long>(right), p);
-      box_tests += 2;
-      touch(1, n, node);
-      touch(0, n, left);
-      touch(0, n, right);
-      const bool in_l = dl <= best;
-      const bool in_r = dr <= best;
-      if (in_l && in_r) {
-        const bool l_first = dl <= dr;
-        if (sp == kStack) {
-          full = true;
-          break;
+  Walk w;
+  w.base = w.top = 0;
+  w.node = 0;  // the root: internal node 0, or leaf 0 of a 1-triangle mesh
+  w.best = INFINITY;
+  w.box_tests = w.tri_tests = 0;
+  w.full = false;
+  bool alive = true;
+  while (alive && w.box_tests < budget) alive = closest_visit(w, p, t);
+  count_tests(r, w.box_tests, w.tri_tests);
+  if (w.full) {
+    state[0] = 1;
+  } else if (alive) {
+    const int q = atomicAdd(state + 1, 1);
+    if (q >= count) {
+      state[0] = 2;
+      return;
+    }
+    queue[2 * q] = r;
+    queue[2 * q + 1] = __float_as_int(w.best);
+    return;
+  }
+  out_d2[r] = w.best;
+}
+
+// Pairs the warp's idle lanes with its lanes that hold stacked subtrees,
+// the k-th with the k-th: each such holder hands over its bottom entry (the
+// shallowest, so the largest), which the idle lane walks if its box is not
+// beyond the best.  Every lane calls it.
+__device__ __forceinline__ void donate(Walk& w, bool& alive, int lane) {
+  const unsigned idle = __ballot_sync(kFull, !alive);
+  const unsigned holders = __ballot_sync(kFull, w.top != w.base);
+  const int pairs = min(__popc(idle), __popc(holders));
+  if (pairs == 0) return;
+  const unsigned below = (1u << lane) - 1u;
+  const Entry bottom = w.stack[w.base % kStack];
+  if (((holders >> lane) & 1u) && __popc(holders & below) < pairs) ++w.base;
+  const int rank = __popc(idle & below);
+  unsigned from = holders;  // the holder of this lane's rank
+  for (int k = 0; k < rank && from; ++k) from &= from - 1u;
+  const int src = from ? __ffs(from) - 1 : 0;
+  const int node = __shfl_sync(kFull, bottom.node, src);
+  const float key = __shfl_sync(kFull, bottom.key, src);
+  if (!alive && rank < pairs && key <= w.best) {
+    w.node = node;
+    alive = true;
+  }
+}
+
+// The breadth-first start of pass 2, by one warp: from the root, every
+// internal node of the frontier replaced by its children whose boxes are not
+// beyond the best (a leaf kept), until the frontier holds at least
+// kPointLanes subtrees or no internal node.  buf[0] and buf[1] take turns;
+// returns (the frontier's buffer << 16) | its size.  Every lane calls it.
+__device__ __forceinline__ int expand(Walk& w, V3 p, const Tree& t,
+                                      Entry (*buf)[kFrontier], int lane) {
+  const int n = t.n;
+  const unsigned below = (1u << lane) - 1u;
+  int cur = 0, total = 1;
+  if (lane == 0) buf[0][0] = Entry{0, 0.0f};
+  __syncwarp();
+  while (total < kPointLanes) {
+    int size = 0;
+    unsigned expanded = 0;
+    for (int j = 0; j < kFrontier / 32; ++j) {
+      const int m = lane + 32 * j;
+      Entry e{0, 0.0f}, e2{0, 0.0f};
+      int outs = 0;
+      bool internal = false;
+      if (m < total) {
+        e = buf[cur][m];
+        outs = 1;
+        internal = e.node < n - 1;
+        if (internal) {
+          const Children c = read_children(t, e.node);
+          const float dl = box_dist2(c.lbox, p);
+          const float dr = box_dist2(c.rbox, p);
+          w.box_tests += 2;
+          touch(1, n, e.node);
+          touch(0, n, c.left);
+          touch(0, n, c.right);
+          const bool in_l = dl <= w.best;
+          const bool in_r = dr <= w.best;
+          outs = in_l + in_r;
+          e = in_l ? Entry{c.left, dl} : Entry{c.right, dr};
+          e2 = Entry{c.right, dr};
         }
-        stack[sp++] = l_first ? Entry{right, dr} : Entry{left, dl};
-        node = l_first ? left : right;
-        continue;
       }
-      if (in_l || in_r) {
-        node = in_l ? left : right;
-        continue;
+      expanded |= __ballot_sync(kFull, internal);
+      const unsigned one = __ballot_sync(kFull, outs >= 1);
+      const unsigned two = __ballot_sync(kFull, outs == 2);
+      const int at = size + __popc(one & below) + __popc(two & below);
+      if (outs >= 1) buf[cur ^ 1][at] = e;
+      if (outs == 2) buf[cur ^ 1][at + 1] = e2;
+      size += __popc(one) + __popc(two);
+    }
+    __syncwarp();
+    if (!expanded) break;
+    cur ^= 1;
+    total = size;
+  }
+  return (cur << 16) | total;
+}
+
+// Pass 2: a block of kPointWarps warps a queued point, blocks striding over
+// the queue, whose length it reads here.  The first warp expands the tree;
+// thread g takes subtrees g and g + kPointLanes.  Each warp shares its best
+// by __reduce_min_sync and, across the block, by atomicMin on the bits in
+// shared memory; a NaN sets a flag there that ends every warp.
+__global__ void __launch_bounds__(kPointLanes)
+    closest_warp_kernel(const Tree t, const float* __restrict__ points,
+                        float* __restrict__ out_d2,
+                        const int* __restrict__ queue, int* state) {
+  __shared__ Entry frontier[2][kFrontier];
+  __shared__ int frontier_made;
+  __shared__ unsigned best_bits;
+  __shared__ int nan_seen;
+  __shared__ float nan_value;
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x;
+  const int queued = state[1];
+  for (int q = blockIdx.x; q < queued; q += gridDim.x) {
+    const int r = queue[2 * q];
+    const V3 p = load3(points + 3 * static_cast<long long>(r));
+    Walk w;
+    w.base = w.top = 0;
+    w.best = __int_as_float(queue[2 * q + 1]);
+    w.box_tests = w.tri_tests = 0;
+    w.full = false;
+    if (g < 32) {
+      const int made = expand(w, p, t, frontier, lane);
+      if (lane == 0) {
+        frontier_made = made;
+        best_bits = __float_as_uint(w.best);
+        nan_seen = 0;
       }
     }
-    bool found = false;
-    while (sp > 0) {
-      const Entry e = stack[--sp];
-      if (e.key <= best) {
-        node = e.node;
-        found = true;
+    __syncthreads();
+    const Entry* f = frontier[frontier_made >> 16];
+    const int total = frontier_made & 0xffff;
+    bool alive = g < total;
+    if (alive) w.node = f[g].node;
+    if (g + kPointLanes < total) w.stack[w.top++] = f[g + kPointLanes];
+    while (true) {
+      for (int v = 0; alive && v < kSyncVisits; ++v)
+        alive = closest_visit(w, p, t);
+      const unsigned nan = __ballot_sync(kFull, w.best != w.best);
+      if (nan) {
+        if (lane == __ffs(nan) - 1) {
+          nan_value = w.best;
+          cuda::atomic_ref<int, cuda::thread_scope_block>(nan_seen).store(
+              1, cuda::std::memory_order_relaxed);
+        }
         break;
       }
+      unsigned bits = __reduce_min_sync(kFull, __float_as_uint(w.best));
+      int stop = 0;
+      if (lane == 0) {
+        bits = min(bits, atomicMin(&best_bits, bits));
+        stop = cuda::atomic_ref<int, cuda::thread_scope_block>(nan_seen).load(
+            cuda::std::memory_order_relaxed);
+      }
+      if (__shfl_sync(kFull, stop, 0)) break;
+      w.best = __uint_as_float(__shfl_sync(kFull, bits, 0));
+      if (kDonate) donate(w, alive, lane);
+      if (!__ballot_sync(kFull, alive)) break;
     }
-    if (!found) break;
+    __syncthreads();
+    if (g == 0) out_d2[r] = nan_seen ? nan_value : __uint_as_float(best_bits);
+    if (w.full) state[0] = 1;
+    add_tests(r, w.box_tests, w.tri_tests);
   }
-  if (full) *overflow = 1;
-  out_d2[r] = best;
-  count_tests(r, box_tests, tri_tests);
 }
 
 int blocks(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
+}
+
+// pass 2's blocks: one a point, at most the card's resident blocks
+int point_blocks(int count) {
+  static int resident = 0;
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, closest_warp_kernel,
+                                                  kPointLanes, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return count < resident ? count : resident;
 }
 
 }  // namespace
@@ -496,24 +1006,28 @@ int blocks(long long n, int threads) {
 extern "C" {
 
 // children [n-1, 2] int32, parents [2n-1] int32 (the root's, -1, set by the
-// caller) of n >= 2 sorted unique keys
+// caller) and far [n-1] int32 (each internal node's far end j) of n >= 2
+// sorted unique keys
 int bvh_hierarchy_launch(const void* keys, int n, void* children, void* parents,
-                         cudaStream_t stream) {
+                         void* far, cudaStream_t stream) {
   hierarchy_kernel<<<blocks(n - 1, kBuildThreads), kBuildThreads, 0, stream>>>(
       static_cast<const long long*>(keys), n, static_cast<int*>(children),
-      static_cast<int*>(parents));
+      static_cast<int*>(parents), static_cast<int*>(far));
   return static_cast<int>(cudaGetLastError());
 }
 
 // boxes [2n-1, 6] f32 (lo xyz, hi xyz) of the tree over tris [n, 9] f32 in
-// leaf order; arrivals [max(n-1, 1)] int32 zeroed by the caller
+// leaf order, with records [n-1, 16] f32 and tris_padded [n, 12] f32 (but in
+// the first design); arrivals [max(n-1, 1)] int32 zeroed by the caller
 int bvh_refit_launch(const void* tris, const void* parents, const void* children,
-                     int n, float pad, void* arrivals, void* boxes,
+                     const void* far, int n, float pad, void* arrivals,
+                     void* boxes, void* records, void* tris_padded,
                      cudaStream_t stream) {
   refit_kernel<<<blocks(n, kBuildThreads), kBuildThreads, 0, stream>>>(
       static_cast<const float*>(tris), static_cast<const int*>(parents),
-      static_cast<const int*>(children), n, pad, static_cast<int*>(arrivals),
-      static_cast<float*>(boxes));
+      static_cast<const int*>(children), static_cast<const int*>(far), n, pad,
+      static_cast<int*>(arrivals), static_cast<float*>(boxes),
+      static_cast<float4*>(records), static_cast<float4*>(tris_padded));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -544,14 +1058,33 @@ int bvh_ray_launch(const void* boxes, const void* children, const void* tris,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the least squared distance out_d2 [count] f32 from each point
+// the least squared distance out_d2 [count] f32 from each point: pass 1,
+// then (but in the one-thread design) pass 2 on the points it queued.
+// state [2] int32: [0] set if a stack (1) or the queue (2) overflowed,
+// zeroed by the caller; [1] the queue's length, zeroed here.  queue [count,
+// 2] int32 scratch.
 int bvh_closest_launch(const void* boxes, const void* children, const void* tris,
-                       int n, const void* points, int count, void* out_d2,
-                       void* overflow, cudaStream_t stream) {
+                       const void* records, const void* tris_padded, int n,
+                       const void* points, int count, void* out_d2,
+                       void* state, void* queue, cudaStream_t stream) {
+  int* flags = static_cast<int*>(state);
+  cudaError_t rc = cudaMemsetAsync(flags + 1, 0, sizeof(int), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const Tree t{static_cast<const float*>(boxes),
+               static_cast<const int*>(children),
+               static_cast<const float*>(tris),
+               static_cast<const float4*>(records),
+               static_cast<const float4*>(tris_padded), n};
   closest_kernel<<<blocks(count, kQueryThreads), kQueryThreads, 0, stream>>>(
-      static_cast<const float*>(boxes), static_cast<const int*>(children),
-      static_cast<const float*>(tris), n, static_cast<const float*>(points),
-      count, static_cast<float*>(out_d2), static_cast<int*>(overflow));
+      t, static_cast<const float*>(points), count, kClosestBudget,
+      static_cast<float*>(out_d2), static_cast<int*>(queue), flags);
+  if (kTwoPass) {
+    rc = cudaGetLastError();
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+    closest_warp_kernel<<<point_blocks(count), kPointLanes, 0, stream>>>(
+        t, static_cast<const float*>(points), static_cast<float*>(out_d2),
+        static_cast<const int*>(queue), flags);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,23 +6,28 @@ The kernels are ``csrc/bvh.cu`` (its header comment gives the design):
 
 - ``bvh_hierarchy``: Karras's hierarchy over the sorted keys, one thread an
   internal node;
-- ``bvh_refit``: the boxes, bottom-up with an arrival counter a node;
+- ``bvh_refit``: the boxes, bottom-up with an arrival count a node, in
+  shared memory for the nodes within a block's leaves; and for the
+  closest-point query each internal node's 64-byte record (both
+  children's boxes and ids) and the triangles padded to 48 bytes;
 - ``bvh_ray``: first hits (``first_hits``), or crossing counts
   (``crossings``, the parity ray of a signed distance);
 - ``bvh_closest``: the least squared distance to a triangle
-  (``min_dist2``).
+  (``min_dist2``): a thread a point on a budget, then a block of warps for
+  each point the budget did not finish.
 
 The build's plain versions live here (``hierarchy_plain``, a vectorised
 Karras build whose common-prefix length is a 6-step bit search on int64,
-and ``refit_plain``, level by level); the queries' plain versions are the
-brute-force tiles of :mod:`tropical_torch.ops.mesh_queries`, which the
-kernels are bitwise equal to on every mesh ``chip_smoke.py`` traces.
+``refit_plain``, level by level, and ``records_plain``); the queries'
+plain versions are the brute-force tiles of
+:mod:`tropical_torch.ops.mesh_queries`, which the kernels are bitwise
+equal to on every mesh ``chip_smoke.py`` traces.
 ``build`` takes the plain versions for a mesh on the CPU and the kernels
 for any other, which must be on a CUDA device; the queries take only a
 tree built on the card.  Each kernel has a raw launch (``launch_*``, into
 outputs the caller allocates) and, for the build and the queries, a
 checking wrapper (``run_*``) that allocates them and raises on a stack
-overflow.
+(or pass 2's queue) overflow.
 
 The Morton keys are made and sorted in plain torch (``morton_keys``): that
 orders the leaves, and is glue, not the port of a kernel.
@@ -58,7 +63,12 @@ class Bvh:
     order: torch.Tensor     # [n] int32, the face id of each leaf
     children: torch.Tensor  # [n - 1, 2] int32
     parents: torch.Tensor   # [2n - 1] int32, -1 at the root
+    far: torch.Tensor       # [n - 1] int32, the far end j of internal node
+                            # i's leaves [min(i, j), max(i, j)]
     boxes: torch.Tensor     # [2n - 1, 6] f32, lo xyz then hi xyz
+    records: torch.Tensor   # [n - 1, 16] f32, node i's children's boxes
+                            # (left, right), their ids' int32 bits, 0, 0
+    tris_padded: torch.Tensor  # [n, 12] f32, tris with three zeros a row
     pad: float
 
     @property
@@ -117,17 +127,20 @@ def _delta(keys: torch.Tensor, i: torch.Tensor, j: torch.Tensor) -> torch.Tensor
     return torch.where(valid, clz64(keys[i] ^ keys[j.clamp(0, n - 1)]), -1)
 
 
-def hierarchy_plain(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(children [n-1, 2] int32, parents [2n-1] int32) of Karras's
-    hierarchy over ``n`` sorted unique int64 keys, every internal node at
-    once: the same searches as ``csrc/bvh.cu``'s, each step of a loop taken
-    by all nodes, a node whose own loop has ended masked out."""
+def hierarchy_plain(keys: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(children [n-1, 2] int32, parents [2n-1] int32, far [n-1] int32) of
+    Karras's hierarchy over ``n`` sorted unique int64 keys, every internal
+    node at once: the same searches as ``csrc/bvh.cu``'s, each step of a
+    loop taken by all nodes, a node whose own loop has ended masked out.
+    ``far[i]`` is j, the other end of node i's leaves."""
     n = keys.shape[0]
     dev = keys.device
     parents = torch.full((max(2 * n - 1, 0),), -1, dtype=torch.int32,
                          device=dev)
     if n < 2:
-        return torch.zeros((0, 2), dtype=torch.int32, device=dev), parents
+        return (torch.zeros((0, 2), dtype=torch.int32, device=dev), parents,
+                torch.zeros(0, dtype=torch.int32, device=dev))
     i = torch.arange(n - 1, dtype=torch.int64, device=dev)
     d = torch.where(_delta(keys, i, i + 1) - _delta(keys, i, i - 1) > 0, 1, -1)
     dmin = _delta(keys, i, i - d)
@@ -160,7 +173,19 @@ def hierarchy_plain(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     children = torch.stack([left, right], dim=1).to(torch.int32)
     parents[left] = i.to(torch.int32)
     parents[right] = i.to(torch.int32)
-    return children, parents
+    return children, parents, j.to(torch.int32)
+
+
+def records_plain(children: torch.Tensor, boxes: torch.Tensor
+                  ) -> torch.Tensor:
+    """The [n-1, 16] f32 node records of a tree: each internal node's left
+    and right child's boxes, then the two children's int32 ids as their
+    bits, then two zeros (the 64 bytes the closest-point query loads a
+    visit)."""
+    ids = children.contiguous().view(torch.float32)
+    ch = children.long()
+    return torch.cat([boxes[ch[:, 0]], boxes[ch[:, 1]], ids,
+                      torch.zeros_like(ids)], dim=1)
 
 
 def refit_plain(tris: torch.Tensor, children: torch.Tensor, pad: float
@@ -193,10 +218,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the library's C signatures, once a library."""
     if id(lib) not in _BOUND:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bvh_hierarchy_launch.argtypes = [p, i, p, p, p]
-        lib.bvh_refit_launch.argtypes = [p, p, p, i, f, p, p, p]
+        lib.bvh_hierarchy_launch.argtypes = [p, i, p, p, p, p]
+        lib.bvh_refit_launch.argtypes = [p, p, p, p, i, f, p, p, p, p, p]
         lib.bvh_ray_launch.argtypes = [p, p, p, p, i, p, p, i, i, i, p, p, p, p]
-        lib.bvh_closest_launch.argtypes = [p, p, p, i, p, i, p, p, p]
+        lib.bvh_closest_launch.argtypes = [p, p, p, p, p, i, p, i, p, p, p, p]
         for fn in (lib.bvh_hierarchy_launch, lib.bvh_refit_launch,
                    lib.bvh_ray_launch, lib.bvh_closest_launch):
             fn.restype = ctypes.c_int
@@ -215,44 +240,57 @@ def _raise_on(rc: int, name: str) -> None:
 
 
 def launch_hierarchy(lib: ctypes.CDLL, keys: torch.Tensor,
-                     children: torch.Tensor, parents: torch.Tensor) -> None:
+                     children: torch.Tensor, parents: torch.Tensor,
+                     far: torch.Tensor) -> None:
     """One ``bvh_hierarchy`` launch over n >= 2 keys into ``children`` [n-1,
-    2] and ``parents`` [2n-1] (the root's -1 set by the caller)."""
+    2], ``parents`` [2n-1] (the root's -1 set by the caller) and ``far``
+    [n-1]."""
     _raise_on(_bind(lib).bvh_hierarchy_launch(
         keys.data_ptr(), keys.shape[0], children.data_ptr(),
-        parents.data_ptr(), _stream(keys.device)), "bvh_hierarchy")
+        parents.data_ptr(), far.data_ptr(), _stream(keys.device)),
+        "bvh_hierarchy")
 
 
 def run_hierarchy(lib: ctypes.CDLL, keys: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``hierarchy_plain`` by the kernel in ``lib`` (n >= 2 keys)."""
     n = keys.shape[0]
     children = torch.empty((n - 1, 2), dtype=torch.int32, device=keys.device)
     parents = torch.full((2 * n - 1,), -1, dtype=torch.int32,
                          device=keys.device)
-    launch_hierarchy(lib, keys, children, parents)
-    return children, parents
+    far = torch.empty(n - 1, dtype=torch.int32, device=keys.device)
+    launch_hierarchy(lib, keys, children, parents, far)
+    return children, parents, far
 
 
 def launch_refit(lib: ctypes.CDLL, tris: torch.Tensor, children: torch.Tensor,
-                 parents: torch.Tensor, pad: float, arrivals: torch.Tensor,
-                 boxes: torch.Tensor) -> None:
+                 parents: torch.Tensor, far: torch.Tensor, pad: float,
+                 arrivals: torch.Tensor, boxes: torch.Tensor,
+                 records: torch.Tensor, tris_padded: torch.Tensor) -> None:
     """One ``bvh_refit`` launch over n >= 1 triangles into ``boxes`` [2n-1,
-    6], with ``arrivals`` [max(n-1, 1)] zeroed by the caller."""
+    6], ``records`` [n-1, 16] and ``tris_padded`` [n, 12] (the last two
+    left as they were by the first design, -DBVH_REFIT_FENCES), with
+    ``arrivals`` [max(n-1, 1)] zeroed by the caller."""
     _raise_on(_bind(lib).bvh_refit_launch(
         tris.data_ptr(), parents.data_ptr(), children.data_ptr(),
-        tris.shape[0], pad, arrivals.data_ptr(), boxes.data_ptr(),
+        far.data_ptr(), tris.shape[0], pad, arrivals.data_ptr(),
+        boxes.data_ptr(), records.data_ptr(), tris_padded.data_ptr(),
         _stream(tris.device)), "bvh_refit")
 
 
 def run_refit(lib: ctypes.CDLL, tris: torch.Tensor, children: torch.Tensor,
-              parents: torch.Tensor, pad: float) -> torch.Tensor:
-    """``refit_plain`` by the kernel in ``lib`` (n >= 1 triangles)."""
-    n = tris.shape[0]
-    arrivals = torch.zeros(max(n - 1, 1), dtype=torch.int32, device=tris.device)
-    boxes = torch.empty((2 * n - 1, 6), dtype=torch.float32, device=tris.device)
-    launch_refit(lib, tris, children, parents, pad, arrivals, boxes)
-    return boxes
+              parents: torch.Tensor, far: torch.Tensor, pad: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(``refit_plain``, ``records_plain``, ``tris`` padded) by the kernel
+    in ``lib`` (n >= 1 triangles)."""
+    n, dev = tris.shape[0], tris.device
+    arrivals = torch.zeros(max(n - 1, 1), dtype=torch.int32, device=dev)
+    boxes = torch.empty((2 * n - 1, 6), dtype=torch.float32, device=dev)
+    records = torch.empty((n - 1, 16), dtype=torch.float32, device=dev)
+    tris_padded = torch.empty((n, 12), dtype=torch.float32, device=dev)
+    launch_refit(lib, tris, children, parents, far, pad, arrivals, boxes,
+                 records, tris_padded)
+    return boxes, records, tris_padded
 
 
 def _check(t: torch.Tensor, name: str, dtype=torch.float32, cols=3) -> None:
@@ -278,28 +316,33 @@ def build(tris: torch.Tensor) -> Bvh:
     if dev.type != "cpu":
         _check(flat, "tris", cols=9)
     if n == 0:
-        return Bvh(flat, torch.empty(0, dtype=torch.int32, device=dev),
-                   torch.empty((0, 2), dtype=torch.int32, device=dev),
-                   torch.empty(0, dtype=torch.int32, device=dev),
-                   torch.empty((0, 6), dtype=torch.float32, device=dev), PAD)
+        none = torch.empty(0, dtype=torch.int32, device=dev)
+        return Bvh(flat, none, torch.empty((0, 2), dtype=torch.int32,
+                                           device=dev), none, none,
+                   torch.empty((0, 6), dtype=torch.float32, device=dev),
+                   torch.empty((0, 16), dtype=torch.float32, device=dev),
+                   torch.empty((0, 12), dtype=torch.float32, device=dev), PAD)
     keys = morton_keys(tris)
     order = (keys & 0xFFFFFFFF).to(torch.int32)
     leaf_tris = flat[order.to(torch.int64)].contiguous()
     pad = box_pad(tris)
     if dev.type == "cpu":
-        children, parents = hierarchy_plain(keys)
+        children, parents, far = hierarchy_plain(keys)
         boxes = refit_plain(leaf_tris, children, pad)
-        return Bvh(leaf_tris, order, children, parents, boxes, pad)
+        return Bvh(leaf_tris, order, children, parents, far, boxes,
+                   records_plain(children, boxes),
+                   torch.nn.functional.pad(leaf_tris, (0, 3)), pad)
     lib = cuda_build.load("bvh")
     if n >= 2:
-        children, parents = run_hierarchy(lib, keys)
+        children, parents, far = run_hierarchy(lib, keys)
         launches.record("bvh_hierarchy", (n,))
     else:  # the root is the one leaf: no internal node
-        children = torch.empty((0, 2), dtype=torch.int32, device=dev)
-        parents = torch.full((1,), -1, dtype=torch.int32, device=dev)
-    boxes = run_refit(lib, leaf_tris, children, parents, pad)
+        children, parents, far = hierarchy_plain(keys)
+    boxes, records, tris_padded = run_refit(lib, leaf_tris, children, parents,
+                                            far, pad)
     launches.record("bvh_refit", (n,))
-    return Bvh(leaf_tris, order, children, parents, boxes, pad)
+    return Bvh(leaf_tris, order, children, parents, far, boxes, records,
+               tris_padded, pad)
 
 
 def launch_ray(lib: ctypes.CDLL, bvh: Bvh, o: torch.Tensor, d: torch.Tensor,
@@ -318,18 +361,24 @@ def launch_ray(lib: ctypes.CDLL, bvh: Bvh, o: torch.Tensor, d: torch.Tensor,
 
 
 def launch_closest(lib: ctypes.CDLL, bvh: Bvh, p: torch.Tensor,
-                   d2: torch.Tensor, overflow: torch.Tensor) -> None:
-    """One ``bvh_closest`` launch on n >= 1 triangles and checked points
-    ``p`` [N, 3] into ``d2`` [N] f32; sets ``overflow`` as ``launch_ray``
-    does."""
+                   d2: torch.Tensor, state: torch.Tensor,
+                   queue: torch.Tensor) -> None:
+    """One ``bvh_closest`` call (its two passes) on n >= 1 triangles and
+    checked points ``p`` [N, 3] into ``d2`` [N] f32.  ``state`` [2] int32:
+    [0], zeroed by the caller, set to 1 if a stack overflowed (2 the
+    queue); [1] the number of points pass 1 queued for pass 2, zeroed by the
+    call.  ``queue`` [N, 2] int32 is scratch."""
     _raise_on(_bind(lib).bvh_closest_launch(
         bvh.boxes.data_ptr(), bvh.children.data_ptr(), bvh.tris.data_ptr(),
-        bvh.n, p.data_ptr(), p.shape[0], d2.data_ptr(), overflow.data_ptr(),
-        _stream(p.device)), "bvh_closest")
+        bvh.records.data_ptr(), bvh.tris_padded.data_ptr(), bvh.n,
+        p.data_ptr(), p.shape[0], d2.data_ptr(), state.data_ptr(),
+        queue.data_ptr(), _stream(p.device)), "bvh_closest")
 
 
-def _raise_on_overflow(overflow: torch.Tensor, name: str) -> None:
-    if int(overflow):
+def _raise_on_overflow(flag: int, name: str) -> None:
+    if flag == 2:
+        raise RuntimeError(f"{name}: the queue of pass 2 overflowed")
+    if flag:
         raise RuntimeError(f"{name}: a traversal stack overflowed")
 
 
@@ -341,18 +390,21 @@ def run_ray(lib: ctypes.CDLL, bvh: Bvh, o: torch.Tensor, d: torch.Tensor,
     ids = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
     overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
     launch_ray(lib, bvh, o, d, count, t, ids, overflow)
-    _raise_on_overflow(overflow, "bvh_ray")
+    _raise_on_overflow(int(overflow), "bvh_ray")
     return t, ids
 
 
-def run_closest(lib: ctypes.CDLL, bvh: Bvh, p: torch.Tensor) -> torch.Tensor:
-    """The squared distances of one ``launch_closest``.  Raises if a stack
-    overflowed."""
+def run_closest(lib: ctypes.CDLL, bvh: Bvh, p: torch.Tensor
+                ) -> Tuple[torch.Tensor, int]:
+    """(the squared distances, the points that took pass 2) of one
+    ``launch_closest``.  Raises if a stack or the queue overflowed."""
     d2 = torch.empty(p.shape[0], dtype=torch.float32, device=p.device)
-    overflow = torch.zeros(1, dtype=torch.int32, device=p.device)
-    launch_closest(lib, bvh, p, d2, overflow)
-    _raise_on_overflow(overflow, "bvh_closest")
-    return d2
+    state = torch.zeros(2, dtype=torch.int32, device=p.device)
+    queue = torch.empty((p.shape[0], 2), dtype=torch.int32, device=p.device)
+    launch_closest(lib, bvh, p, d2, state, queue)
+    flag, queued = state.tolist()
+    _raise_on_overflow(flag, "bvh_closest")
+    return d2, queued
 
 
 def _query_rows(bvh: Bvh, x: torch.Tensor, name: str) -> None:
@@ -403,6 +455,6 @@ def min_dist2(bvh: Bvh, points: torch.Tensor) -> torch.Tensor:
     n = points.shape[0]
     if bvh.n == 0 or n == 0:
         return torch.full((n,), torch.inf, device=points.device)
-    d2 = run_closest(cuda_build.load("bvh"), bvh, points)
+    d2, _ = run_closest(cuda_build.load("bvh"), bvh, points)
     launches.record("bvh_closest", (n, bvh.n))
     return d2

@@ -93,9 +93,12 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    parts of the tree the queries read (an instrumented build, with the
    first one-thread ``bvh_closest``), and the two-pass query's own tests;
    each kernel's device time (a CUDA graph of raw launches) beside its
-   bound and its plain version's time, ``bvh_closest`` and ``bvh_refit``
-   also beside their first designs' (``BVH_FIRST``) and on the centre sets
-   and the flat ladder's largest mesh;
+   bound, its plain version's time and its first design's (``BVH_FIRST``:
+   both ``bvh_ray`` modes and ``bvh_hierarchy`` bitwise the designs while
+   timed), the nodes ``bvh_hierarchy`` gave its warp pass, ``bvh_closest`` and ``bvh_refit`` also on the centre sets
+   and the flat ladder's largest mesh; and one build call split into its
+   parts (Morton keys, sort, leaf gather, ``box_pad``'s read to the host,
+   hierarchy and refit calls);
 11. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
@@ -229,8 +232,9 @@ BVH = ("bvh_hierarchy", "bvh_refit", "bvh_ray", "bvh_closest")
 # the bound), and the one that counts the two-pass bvh_closest's own
 BVH_COUNT = ("bvh", ("BVH_COUNT_VISITS",))
 BVH_COUNT_DESIGN = ("bvh", ("BVH_COUNT_VISITS", "BVH_COUNT_DESIGN"))
-# the first designs of bvh_closest and bvh_refit, timed beside the redesign
-BVH_FIRST = ("bvh", ("BVH_CLOSEST_ONE_THREAD", "BVH_REFIT_FENCES"))
+# the first designs of the four BVH kernels, timed beside the redesigns
+BVH_FIRST = ("bvh", ("BVH_CLOSEST_ONE_THREAD", "BVH_REFIT_FENCES",
+                     "BVH_RAY_ONE_THREAD", "BVH_HIERARCHY_ONE_THREAD"))
 # closest-point sets (tests/bvh_cases.py): points within 0.05 of the
 # centre of the labels' icosphere (with vertices, edge midpoints, duplicates
 # and a NaN point, as many each) and of the 256 pseudo-GT; their seed
@@ -1975,14 +1979,27 @@ def bvh_kernel_times(tree, keys, o, d, labels_tree, points, direction,
         "bvh_closest_centre_gt": closest_runner(lib, tree, gt_centre),
         "bvh_closest_centre_gt_first": closest_runner(first, tree,
                                                       gt_centre)}
+    first_tree = (torch.empty_like(tree.children),
+                  torch.full_like(tree.parents, -1), torch.empty_like(tree.far))
+    queue = torch.empty(tree.n, dtype=torch.int32, device=dev)
+    first_queue = torch.empty_like(queue)
+    first_t, first_id = torch.empty_like(out_t), torch.empty_like(out_id)
+    first_hits = torch.empty_like(hits)
     times = {
         "bvh_hierarchy": graph_ms(lambda: bvh.launch_hierarchy(
-            lib, keys, children, parents, far)),
+            lib, keys, children, parents, far, queue)),
+        "bvh_hierarchy_first": graph_ms(lambda: bvh.launch_hierarchy(
+            first, keys, *first_tree, first_queue)),
         **{k: graph_ms(run) for k, run in refits.items()},
         "bvh_ray": graph_ms(lambda: bvh.launch_ray(
             lib, tree, o, d, False, out_t, out_id, overflow)),
+        "bvh_ray_first": graph_ms(lambda: bvh.launch_ray(
+            first, tree, o, d, False, first_t, first_id, overflow)),
         "bvh_ray_labels_parity": graph_ms(lambda: bvh.launch_ray(
             lib, labels_tree, points, direction, True, out_t, hits,
+            overflow)),
+        "bvh_ray_labels_parity_first": graph_ms(lambda: bvh.launch_ray(
+            first, labels_tree, points, direction, True, out_t, first_hits,
             overflow))}
     for k, run in closests.items():
         times[k] = (cuda_ms(run, iters=3) if k == "bvh_closest_centre_gt_first"
@@ -1991,6 +2008,15 @@ def bvh_kernel_times(tree, keys, o, d, labels_tree, points, direction,
     check(int(overflow) == 0, "a BVH stack overflowed while timed")
     check(all(run.state[0] == 0 for run in closests.values()),
           "a bvh_closest stack or queue overflowed while timed")
+    want_t, want_id = bvh.first_hits(tree, o, d)
+    check(all(torch.equal(a, b) for a, b in zip(
+              first_tree, (tree.children, tree.parents, tree.far)))
+          and bits_equal(first_t, want_t) and bits_equal(out_t, want_t)
+          and torch.equal(first_id.long(), want_id)
+          and torch.equal(out_id.long(), want_id)
+          and torch.equal(first_hits, hits),
+          "the first designs of bvh_hierarchy and bvh_ray differ from the "
+          "designs while timed")
     check(torch.equal(children, tree.children)
           and torch.equal(parents, tree.parents)
           and torch.equal(far, tree.far)
@@ -2004,7 +2030,39 @@ def bvh_kernel_times(tree, keys, o, d, labels_tree, points, direction,
                                  (refits["bvh_refit_ladder"], ladder_tree))),
           "the timed build differs from the wrapper's")
     times["queued"] = {k: int(run.state[1]) for k, run in closests.items()}
+    times["hierarchy_queued"] = int(queue[0])
     return times
+
+
+def build_parts_ms(tris) -> dict:
+    """One ``bvh.build`` call on ``tris`` [n, 3, 3] split into its parts,
+    each timed alone as the whole call is (CUDA events over 20 calls: the
+    host's time where the host sets it): the Morton keys, their sort, the
+    leaf order and gather, ``box_pad`` (a read back to the host), and the
+    hierarchy and refit wrappers (allocation and launch)."""
+    from tropical_torch.ops import bvh, cuda_build
+
+    lib = cuda_build.load("bvh")
+    n = tris.shape[0]
+    flat = tris.reshape(n, 9)
+    codes = bvh.morton_codes(tris)
+    keys = torch.sort(codes).values
+    pad = bvh.box_pad(tris)
+
+    def gather():
+        return flat[(keys & 0xFFFFFFFF).to(torch.int32).to(torch.int64)
+                    ].contiguous()
+
+    leaf = gather()
+    children, parents, far = bvh.run_hierarchy(lib, keys)
+    return {"Morton keys": cuda_ms(lambda: bvh.morton_codes(tris), 20),
+            "sort": cuda_ms(lambda: torch.sort(codes), 20),
+            "leaf order and gather": cuda_ms(gather, 20),
+            "box_pad (a host read)": cuda_ms(lambda: bvh.box_pad(tris), 20),
+            "hierarchy call": cuda_ms(lambda: bvh.run_hierarchy(lib, keys),
+                                      20),
+            "refit call": cuda_ms(lambda: bvh.run_refit(
+                lib, leaf, children, parents, far, pad), 20)}
 
 
 def closest_bound_ms(c, npts) -> tuple[float, str]:
@@ -2164,6 +2222,10 @@ def bvh_phase(traced, gt_mesh, records):
                              direction.reshape(1, 3), ladder.bvh,
                              sets["centre"], gt_centre)
     build_call_ms = cuda_ms(lambda: bvh.build(q.tris), iters=10)
+    build_parts = build_parts_ms(q.tris)
+    print(json.dumps({"bvh_build_call_ms": build_call_ms,
+                      "parts_ms": build_parts,
+                      "parts_sum_ms": sum(build_parts.values())}))
     ray_call_ms = cuda_ms(lambda: bvh.first_hits(tree, o, d), iters=10)
     label_call_ms = cuda_ms(lambda: lq.signed_distance(points), iters=10)
     plain = {"bvh_hierarchy": cuda_ms(lambda: bvh.hierarchy_plain(keys), 3),
@@ -2233,7 +2295,13 @@ def bvh_phase(traced, gt_mesh, records):
           f"{times['bvh_refit_ladder_first']:.4f} ms, bound "
           f"{ladder_bound[0]:.5f} ms ({ladder_bound[1]}); kernel at "
           f"{ladder_bound[0] / times['bvh_refit_ladder']:.1%} of the bound")
+    print(f"bvh_ray labels parity [{npts}, {lq.bvh.n}]: kernel "
+          f"{times['bvh_ray_labels_parity']:.4f} ms, first design "
+          f"{times['bvh_ray_labels_parity_first']:.4f} ms, bound "
+          f"{parity_bound[0]:.5f} ms ({parity_bound[1]})")
     records["bvh_ray"].update(
+        first_design_ms=times["bvh_ray_first"],
+        labels_parity_first_design_ms=times["bvh_ray_labels_parity_first"],
         labels_parity_ms=times["bvh_ray_labels_parity"],
         labels_parity_plain_ms=plain_parity_ms,
         labels_parity_bound_ms=parity_bound[0],
@@ -2253,8 +2321,12 @@ def bvh_phase(traced, gt_mesh, records):
         queued=times["queued"]["bvh_closest"],
         tree_bytes_read=closest_c["tree_bytes"], labels_call_ms=label_call_ms,
         sets_queued=queued, **centre)
+    records["bvh_hierarchy"].update(
+        first_design_ms=times["bvh_hierarchy_first"],
+        queued=times["hierarchy_queued"])
     records["bvh_refit"].update(
         first_design_ms=times["bvh_refit_first"], build_call_ms=build_call_ms,
+        build_call_parts_ms=build_parts,
         depth=depth - 1, ladder_shape=[ladder.bvh.n],
         ladder_ms=times["bvh_refit_ladder"],
         ladder_first_design_ms=times["bvh_refit_ladder_first"],

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Time variants of the BVH's ``bvh_closest`` and ``bvh_refit`` kernels on
-one card.
+"""Time variants of the BVH's kernels on one card.
 
     python3 scripts/bvh_variants.py [--variants design,first,...] [--json PATH]
 
 Each variant is ``tropical_torch/csrc/bvh.cu`` built by ``ops/cuda_build``
 with other ``-D`` macros:
 
-- ``design``: as committed (pass 1 on a budget of 256 box tests, pass 2
-  four warps a queued point, node records, the closest point's case by
-  selects, idle lanes handed subtrees; the refit's block levels in shared
-  memory);
+- ``design``: as committed (``bvh_closest``: pass 1 on a budget of 256 box
+  tests, pass 2 four warps a queued point, node records, the closest
+  point's case by selects, idle lanes handed subtrees; ``bvh_refit``: the
+  block's levels in shared memory; ``bvh_ray``: node records and padded
+  triangles, one lane a ray, the stack in local memory with its top in
+  registers, the slab test's NaN told by a sum; ``bvh_hierarchy``: pass 1
+  from the block's
+  window of keys, in 32 bits, a node whose range passes 256 keys queued
+  for a warp in pass 2);
 - ``first``: the first designs (``-DBVH_CLOSEST_ONE_THREAD``, one thread a
   point to the end; ``-DBVH_REFIT_FENCES``, every level in device memory
-  between two ``__threadfence``);
+  between two ``__threadfence``; ``-DBVH_RAY_ONE_THREAD``, one thread a
+  ray, children then boxes, its stack in local memory;
+  ``-DBVH_HIERARCHY_ONE_THREAD``, one kernel, every search on the node's
+  thread, in 64 bits);
 - ``split``: ``-DBVH_CLOSEST_SPLIT_LOADS``, the two passes reading a
   node's children and then their boxes, and a triangle, a float at a time
   (the first design's layout), instead of the 64-byte node records and the
@@ -30,23 +37,34 @@ with other ``-D`` macros:
   acquire-release fetch_add a level, every level in device memory;
 - ``no_records``: ``-DBVH_REFIT_NO_RECORDS``, the refit without the node
   records and padded triangles that the two-pass query reads (its boxes
-  checked only).
+  checked only);
+- ``ray_split``: ``-DBVH_RAY_SPLIT_LOADS``, ``bvh_ray`` reading children
+  and then boxes, and a triangle a float at a time;
+- ``ray_lanes2``, ``ray_lanes4``: ``-DBVH_RAY_LANES=k``, k lanes a ray
+  (the design's 1) sharing the best by shuffles;
+- ``hier_warp4`` .. ``hier_warp11``: ``-DBVH_HIERARCHY_WARP_LOG=k``, the
+  warp pass's threshold 2^k (the design's 2^8).
 
 ``design`` is also timed on the label points sorted by the Morton code of
 their cell in their box (``sorted``; the sort's own time apart): whether
-neighbouring lanes that walk the same part of the tree are worth a sort.
+neighbouring lanes that walk the same part of the tree are worth a sort;
+and ``bvh_ray`` on the rays sorted by a key of origin and direction
+(``ray_order``), the key, the sort, the gathers and the scatter of the
+results counted in the call.
 
 Inputs: the training labels' resample (50,000 points on the 5,120-triangle
 icosphere, ``StanfordDataset("sphere")``, seed 1), 2,000 points within
 0.05 of that icosphere's centre, and 256 within 0.05 of the centre of the
 256 marching-cubes pseudo-GT of the committed sphere-small checkpoint
-(``tests/bvh_cases.py``); for the refit, that pseudo-GT and the flat
-run's largest ladder mesh (marching cubes at 128).  For each variant it
-prints whether it returns the plain versions' bits on every input, each
-kernel's registers and shared memory (``-Xptxas -v``), the points queued
-for pass 2, and device times (``graph_ms``: 100 calls in one CUDA graph;
-the first design on the pseudo-GT's centre points, CUDA events over 3
-calls).  ``--json`` writes the whole result to a file.
+(``tests/bvh_cases.py``); for the build, that pseudo-GT and the flat
+run's largest ladder mesh (marching cubes at 128); for ``bvh_ray``, the
+100,000 evaluation rays on the pseudo-GT and the labels' parity rays.  For
+each variant it prints whether it returns the plain versions' bits on
+every input, each kernel's registers, shared memory and stack frame
+(``-Xptxas -v``), the points queued for pass 2, the nodes queued for
+the hierarchy's warp pass, and device times (``graph_ms``: 100 calls in one CUDA graph; the first design
+on the pseudo-GT's centre points, CUDA events over 3 calls).  ``--json``
+writes the whole result to a file.
 
 A measurement tool: the port never loads these builds.
 """
@@ -75,7 +93,8 @@ from tropical_torch.ops import bvh, cuda_build  # noqa: E402
 from tropical_torch.ops import mesh_queries as mq  # noqa: E402
 
 VARIANTS = {"design": (), "first": ("BVH_CLOSEST_ONE_THREAD",
-                                    "BVH_REFIT_FENCES"),
+                                    "BVH_REFIT_FENCES", "BVH_RAY_ONE_THREAD",
+                                    "BVH_HIERARCHY_ONE_THREAD"),
             "split": ("BVH_CLOSEST_SPLIT_LOADS",),
             "branches": ("BVH_CLOSEST_BRANCHES",),
             "no_donate": ("BVH_CLOSEST_NO_DONATE",),
@@ -85,10 +104,29 @@ VARIANTS = {"design": (), "first": ("BVH_CLOSEST_ONE_THREAD",
             "no_records": ("BVH_REFIT_NO_RECORDS",)}
 VARIANTS.update({f"budget{k}": (f"BVH_CLOSEST_BUDGET={k}",)
                  for k in (0, 64, 1024)})
+VARIANTS["ray_split"] = ("BVH_RAY_SPLIT_LOADS",)
+VARIANTS.update({f"ray_lanes{k}": (f"BVH_RAY_LANES={k}",) for k in (2, 4)})
+VARIANTS.update({f"hier_warp{k}": (f"BVH_HIERARCHY_WARP_LOG={k}",)
+                 for k in (4, 6, 7, 9, 10, 11)})
+# the hierarchy's sizes of the sweep (the pseudo-GT's keys cut short)
+HIERARCHY_SWEEP = (2_000, 20_000, 50_000, 200_000)
 # the variants that change only one kernel, and are timed only on it
 REFIT_ONLY = {"device_only", "no_records"}
 CLOSEST_ONLY = {"split", "branches", "no_donate", "warps1", "warps2",
                 "budget0", "budget64", "budget1024"}
+
+
+def kernels_of(name):
+    """The kernels a variant is timed on."""
+    if name in REFIT_ONLY:
+        return ("refit",)
+    if name in CLOSEST_ONLY:
+        return ("closest",)
+    if name.startswith("ray_"):
+        return ("ray",)
+    if name.startswith("hier_"):
+        return ("hierarchy",)
+    return ("closest", "refit", "ray", "hierarchy")
 
 
 def cuda_ms(fn, iters: int = 10) -> float:
@@ -128,9 +166,9 @@ def build(names):
         kernel = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '_Z\w*?N\d+_GLOBAL__N_\w*?"
-                          r"(\d+)(\w+?_kernel)", line)
-            if m:
-                kernel = m.group(2)
+                          r"(\d+)(\w+?_kernel)(I(?:L\w+?E)+E)?", line)
+            if m:  # a template's instance keeps its mangled arguments
+                kernel = m.group(2) + (m.group(3) or "")
             frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                               r"stores", line)
             if kernel and frame:
@@ -187,6 +225,138 @@ def inputs():
     return (ds.query, ds.X,
             bvh_cases.centre_points(ds.query.tris, 2000, 11), meshes[256],
             bvh_cases.centre_points(meshes[256].tris, 256, 11), meshes[128])
+
+
+def ray_keys(o: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """int64 keys [N] of rays: the Morton code of the origin's cell in the
+    origins' box, then that of the direction's cell in [-1, 1]^3 (10 bits
+    an axis each)."""
+    def code(x, lo, ext):
+        cell = ((x - lo) / ext * 1024).floor().clamp(0, 1023).to(torch.int64)
+        return ((bvh._spread(cell[:, 0]) << 2) | (bvh._spread(cell[:, 1]) << 1)
+                | bvh._spread(cell[:, 2]))
+
+    lo = o.amin(dim=0)
+    ext = (o.amax(dim=0) - lo).clamp_min(1e-30)
+    return (code(o, lo, ext) << 30) | code(d.expand_as(o), -1.0, 2.0)
+
+
+def ordered_ray(lib, tree, o, d, count, t, ids, overflow):
+    """``launch_ray`` on the rays sorted by ``ray_keys``, the results
+    scattered back into ``t`` and ``ids``: the ray-order variant, whole."""
+    perm = torch.sort(ray_keys(o, d)).indices
+    so = o[perm]
+    sd = d[perm] if d.shape[0] == o.shape[0] else d
+    st, sid = torch.empty_like(t), torch.empty_like(ids)
+    bvh.launch_ray(lib, tree, so, sd, count, st, sid, overflow)
+    t[perm] = st
+    ids[perm] = sid
+
+
+def time_ray(lib, sets, plain):
+    """Device ms of ``bvh_ray`` on each (tree, o, d, count) of ``sets``, and
+    whether it returns the plain tiles' bits."""
+    out = {}
+    for label, (tree, o, d, count) in sets.items():
+        n = o.shape[0]
+        t = torch.empty(n, dtype=torch.float32, device=o.device)
+        ids = torch.empty(n, dtype=torch.int32, device=o.device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+
+        def run():
+            bvh.launch_ray(lib, tree, o, d, count, t, ids, overflow)
+
+        run()
+        torch.cuda.synchronize()
+        out[label] = {"bitwise": ray_same(t, ids, plain[label], count)
+                      and int(overflow) == 0,
+                      "ms": graph_ms(run), "rays": n, "triangles": tree.n}
+    return out
+
+
+def ray_same(t, ids, want, count) -> bool:
+    if count:
+        return torch.equal(ids.long(), want)
+    return (torch.equal(t.view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(ids.long(), want[1]))
+
+
+def time_ray_order(lib, sets, plain):
+    """``ordered_ray`` on each set: bitwise, its device ms (a CUDA graph,
+    None where the sort will not capture) and one call's ms (CUDA events
+    over 20 calls) beside the unsorted launch's call."""
+    out = {}
+    for label, (tree, o, d, count) in sets.items():
+        n = o.shape[0]
+        t = torch.empty(n, dtype=torch.float32, device=o.device)
+        ids = torch.empty(n, dtype=torch.int32, device=o.device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+
+        def run():
+            ordered_ray(lib, tree, o, d, count, t, ids, overflow)
+
+        def plain_call():
+            bvh.launch_ray(lib, tree, o, d, count, t, ids, overflow)
+
+        run()
+        torch.cuda.synchronize()
+        ok = ray_same(t, ids, plain[label], count) and int(overflow) == 0
+        try:
+            ms = graph_ms(run)
+        except RuntimeError:
+            ms = None
+        out[label] = {"bitwise": ok, "ms": ms, "call_ms": cuda_ms(run, 20),
+                      "unsorted_call_ms": cuda_ms(plain_call, 20),
+                      "sort_keys_ms": cuda_ms(
+                          lambda: torch.sort(ray_keys(o, d)), 20)}
+    return out
+
+
+def time_hierarchy(lib, trees):
+    """Device ms of ``bvh_hierarchy`` at each (keys, its children, parents
+    and far ends), and whether it returns them."""
+    out = {}
+    for label, (keys, want) in trees.items():
+        got = (torch.empty_like(want[0]), torch.full_like(want[1], -1),
+               torch.empty_like(want[2]))
+        # zeroed once: the first design leaves it so
+        queue = torch.zeros(keys.shape[0], dtype=torch.int32,
+                            device=keys.device)
+
+        def run():
+            bvh.launch_hierarchy(lib, keys, *got, queue)
+
+        ms = graph_ms(run)
+        torch.cuda.synchronize()
+        out[label] = {"bitwise": all(torch.equal(a, b)
+                                     for a, b in zip(got, want)),
+                      "ms": ms, "keys": keys.shape[0],
+                      "queued": int(queue[0])}
+    return out
+
+
+def time_presorted(lib, sets, plain):
+    """``bvh_ray``'s device ms on the rays sorted by ``ray_keys`` ahead of
+    the timing: what the order alone is worth to the kernel."""
+    out = {}
+    for label, (tree, o, d, count) in sets.items():
+        perm = torch.sort(ray_keys(o, d)).indices
+        so = o[perm].contiguous()
+        sd = d[perm].contiguous() if d.shape[0] == o.shape[0] else d
+        t = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
+        ids = torch.empty(o.shape[0], dtype=torch.int32, device=o.device)
+        overflow = torch.zeros(1, dtype=torch.int32, device=o.device)
+
+        def run():
+            bvh.launch_ray(lib, tree, so, sd, count, t, ids, overflow)
+
+        ms = graph_ms(run)
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        out[label] = {"bitwise": ray_same(t[inv], ids[inv], plain[label],
+                                          count),
+                      "ms": ms}
+    return out
 
 
 def closest_run(lib, tree, p):
@@ -268,6 +438,21 @@ def main() -> int:
     print(smi)
     libs, usage = build(names)
     lq, points, centre, gt, gt_centre, ladder = inputs()
+    from tropical_torch.utils.chamfer import get_rays
+
+    o, d = get_rays(100_000, device="cuda")
+    direction = torch.from_numpy(mq._PARITY_DIR).cuda().reshape(1, 3)
+    ray_sets = {"first hits": (gt.bvh, o, d, False),
+                "labels parity": (lq.bvh, points, direction, True)}
+    ray_plain = {"first hits": mq.first_hits_plain(gt.tris, o, d),
+                 "labels parity": mq.crossings_plain(lq.tris, points,
+                                                     direction[0])}
+    hier_trees = {label: (bvh.morton_keys(q.tris),
+                          (q.bvh.children, q.bvh.parents, q.bvh.far))
+                  for label, q in (("pseudo-GT", gt), ("ladder", ladder))}
+    gt_keys = hier_trees["pseudo-GT"][0]
+    sweep = {f"first {m}": (gt_keys[:m], bvh.hierarchy_plain(gt_keys[:m]))
+             for m in HIERARCHY_SWEEP}
     order = morton_order(points)
     sort_ms = cuda_ms(lambda: points[morton_order(points)])
     sorted_points = points[order].contiguous()
@@ -286,18 +471,30 @@ def main() -> int:
         lib = libs[name]
         rec = {"variant": name, "defines": VARIANTS[name],
                "kernels": usage[name]}
-        if name not in REFIT_ONLY:
+        timed = kernels_of(name)
+        if "closest" in timed:
             rec["closest"] = time_closest(name, lib, sets, plain)
             if name == "design":
                 rec["closest"]["labels sorted"] = time_closest(
                     name, lib, {"labels": (lq.bvh, sorted_points)},
                     {"labels": plain["labels"][order]})["labels"]
-        if name not in CLOSEST_ONLY:
+        if "refit" in timed:
             rec["refit"] = time_refit(name, lib, trees)
+        if "ray" in timed:
+            rec["ray"] = time_ray(lib, ray_sets, ray_plain)
+            if name == "design":
+                rec["ray_order"] = time_ray_order(lib, ray_sets, ray_plain)
+                rec["ray_presorted"] = time_presorted(lib, ray_sets, ray_plain)
+        if "hierarchy" in timed:
+            rec["hierarchy"] = time_hierarchy(lib, hier_trees)
+            if name in ("design", "first"):
+                rec["hierarchy_sweep"] = time_hierarchy(lib, sweep)
         results.append(rec)
         print(json.dumps(rec), flush=True)
+    kinds = ("closest", "refit", "ray", "ray_order", "ray_presorted",
+             "hierarchy", "hierarchy_sweep")
     ok = all(r["bitwise"] for rec in results
-             for kind in ("closest", "refit") for r in rec.get(kind, {}).values())
+             for kind in kinds for r in rec.get(kind, {}).values())
     summary = {"device": smi, "sort_ms": sort_ms, "variants": results,
                "bitwise": ok}
     if args.json is not None:
@@ -306,10 +503,21 @@ def main() -> int:
     for rec in results:
         c = rec.get("closest", {})
         r = rec.get("refit", {})
-        print(f"{rec['variant']:12s} " + "; ".join(
+        print(f"{rec['variant']:14s} " + "; ".join(
             [f"{k} {v['ms']:.4f} ms (queued {v['queued']})"
              for k, v in c.items()]
-            + [f"refit {k} {v['ms']:.4f} ms" for k, v in r.items()]))
+            + [f"refit {k} {v['ms']:.4f} ms" for k, v in r.items()]
+            + [f"ray {k} {v['ms']:.4f} ms"
+               for k, v in rec.get("ray", {}).items()]
+            + [f"ordered rays {k} {v['ms']} ms, a call {v['call_ms']:.4f} "
+               f"(unsorted {v['unsorted_call_ms']:.4f}, key and sort "
+               f"{v['sort_keys_ms']:.4f})"
+               for k, v in rec.get("ray_order", {}).items()]
+            + [f"presorted rays {k} {v['ms']:.4f} ms"
+               for k, v in rec.get("ray_presorted", {}).items()]
+            + [f"hierarchy {k} {v['ms']:.4f} ms"
+               for k, v in {**rec.get("hierarchy", {}),
+                            **rec.get("hierarchy_sweep", {})}.items()]))
     print(f"all bitwise: {ok}")
     return 0 if ok else 1
 

@@ -79,3 +79,36 @@ def closest_sets(tris, n, seed):
                     ("nan", nan)):
         sets[name] = torch.from_numpy(p.astype(np.float32)).to(tris.device)
     return sets
+
+
+def caterpillar(copies=8, span=600.0):
+    """[34 + copies, 3, 3] f32 triangles on the CPU whose Morton codes are
+    0 (``copies`` equal triangles at the origin) and, but for the three
+    that set each axis's extent, one bit each: a tree 33 deep.  Each lies
+    in a plane x = const and spans ``span`` in y and z, so that a ray along
+    x enters every box: counting its crossings stacks 33 far children."""
+    qs = [(0.0, 0.0, 0.0)] * copies
+    for axis in range(3):
+        for v in [(2 ** i + 0.25) / 3 for i in range(10)] + [1024 / 3]:
+            q = [0.0, 0.0, 0.0]
+            q[axis] = v
+            qs.append(tuple(q))
+    q = np.asarray(qs)[:, None, :]
+    corners = np.array([[0, 2, -1], [0, -1, 2], [0, -1, -1]]) * span
+    return torch.from_numpy((q + corners).astype(np.float32))
+
+
+def caterpillar_rays(n, seed):
+    """(o, d) [2n, 3] f32 on the CPU for ``caterpillar``: n rays along +x
+    from x = -10 and n along -x from x = 400, at y, z in [0, 1), a third of
+    them tilted a little."""
+    rng = np.random.default_rng(seed)
+    yz = rng.random((2 * n, 2))
+    o = np.concatenate([np.full((2 * n, 1), -10.0), yz], axis=1)
+    o[n:, 0] = 400.0
+    d = np.zeros((2 * n, 3))
+    d[:n, 0], d[n:, 0] = 1.0, -1.0
+    d[::3, 1:] = rng.normal(scale=1e-3, size=(len(d[::3]), 2))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.from_numpy(o.astype(np.float32)),
+            torch.from_numpy(d.astype(np.float32)))

@@ -116,6 +116,9 @@ inline float __uint_as_float(unsigned x) {
 inline int __float_as_int(float x) { return static_cast<int>(__float_as_uint(x)); }
 inline float __int_as_float(int x) { return __uint_as_float(static_cast<unsigned>(x)); }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __clz(int x) {
+  return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
+}
 
 // <cuda/atomic>'s atomic_ref and memory orders; every scope is the process
 namespace cuda {
@@ -161,6 +164,13 @@ inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   std::memcpy(&r, &emu_warp->buf[(lane & ~(width - 1)) + src % width], sizeof r);
   emu_warp->bar.arrive_and_wait();
   return r;
+}
+
+// each lane's value in, lane (lane ^ mask)'s out
+template <typename T>
+inline T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
+  return __shfl_sync(0xffffffffu, v, ((threadIdx.x & 31) ^ mask) & (width - 1),
+                     width);
 }
 
 // every lane's value in, f(all 32 values) out, in every lane

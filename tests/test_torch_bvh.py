@@ -14,7 +14,13 @@
   passes also with a budget of 2 box tests (nearly every point through the
   warp pass), from the centre of a closed mesh, on vertices, edge
   midpoints, duplicates and a NaN point; the refit's designs on meshes of
-  1, 2 and 3 triangles and across blocks;
+  1, 2 and 3 triangles and across blocks; the ray query at 1, 4 and 2
+  lanes a ray (1 with and without the records) and in its first design on
+  rays from the origin in shuffled order, repeated faces (equal t), a
+  33-deep tree (``bvh_cases.caterpillar``, whose count overflows a
+  32-entry stack) and 1 and 2 triangles; the
+  hierarchy's two passes with low thresholds and in its first design on
+  key sets up to 5,000 keys, pass 2 given exactly the long nodes;
 - the port's ``MeshQuery`` against the JAX package's ``HostBVH`` and its
   ``MeshQuery`` on ``icosphere(3)`` and on a marching-cubes mesh of
   sphere-small at 32: face ids equal but at edge ties, t within 1e-6, the
@@ -198,21 +204,36 @@ def test_plain_tree_invariants(name, tris):
 
 # --- the CUDA source under the emulation ---------------------------------------
 
-# the emulated builds: the design (4 warps a point in pass 2); pass 1 on a
-# budget of 2 box tests, 2 warps a point (and the refit without the block's
-# shared levels); the same at 1 warp a point without the node records (the
-# refit writing none), the selects and the handing over of subtrees; the
-# first design of both kernels; and the instrumented builds of the bound
-# (one thread a point) and of the design's own tests
+# the emulated builds: the design (4 warps a point in pass 2; one lane a
+# ray; the hierarchy's warp pass past 256 keys); pass 1 on a budget of 2 box
+# tests, 2 warps a point, the refit without the block's shared levels, 4
+# lanes a ray, the warp pass past 8 keys; 1 warp a point without the node
+# records (the refit writing none), the selects and the handing over of
+# subtrees, one lane a ray without the records and with a 32-entry stack,
+# the warp pass past 16 keys; 2 lanes a ray, every node past 2 keys through
+# the warp pass; the first design of the four kernels; and the instrumented
+# builds of the bound (one thread a point or ray) and of the design's own
+# tests
 BUILDS = {"design": (), "budget2": ("BVH_CLOSEST_BUDGET=2",
                                     "BVH_CLOSEST_WARPS=2",
-                                    "BVH_REFIT_DEVICE_ONLY"),
+                                    "BVH_REFIT_DEVICE_ONLY", "BVH_RAY_LANES=4",
+                                    "BVH_HIERARCHY_WARP_LOG=3"),
           "ablated": ("BVH_CLOSEST_BUDGET=2", "BVH_CLOSEST_WARPS=1",
                       "BVH_CLOSEST_SPLIT_LOADS", "BVH_CLOSEST_BRANCHES",
-                      "BVH_CLOSEST_NO_DONATE", "BVH_REFIT_NO_RECORDS"),
-          "first": ("BVH_CLOSEST_ONE_THREAD", "BVH_REFIT_FENCES"),
+                      "BVH_CLOSEST_NO_DONATE", "BVH_REFIT_NO_RECORDS",
+                      "BVH_RAY_SPLIT_LOADS", "BVH_STACK=32",
+                      "BVH_HIERARCHY_WARP_LOG=4"),
+          "lanes2": ("BVH_RAY_LANES=2", "BVH_HIERARCHY_WARP_LOG=1"),
+          "first": ("BVH_CLOSEST_ONE_THREAD", "BVH_REFIT_FENCES",
+                    "BVH_RAY_ONE_THREAD", "BVH_HIERARCHY_ONE_THREAD"),
           "count": ("BVH_COUNT_VISITS",),
           "count_design": ("BVH_COUNT_VISITS", "BVH_COUNT_DESIGN")}
+# the lanes a ray of each build, and the hierarchy's warp threshold (a
+# node whose far end lies this many keys away or more takes pass 2)
+RAY_LANES = {"design": 1, "budget2": 4, "ablated": 1, "lanes2": 2,
+             "first": 1}
+WARP_SPAN = {"design": 256, "budget2": 8, "ablated": 16, "lanes2": 2,
+             "first": None}
 
 
 @pytest.fixture(scope="module")
@@ -291,6 +312,145 @@ def test_emulated_kernels_bitwise_plain(emulated, name, tris):
     assert float(want_d2[200:230].max()) == 0.0  # on vertices
     if name == "icosphere3":  # a closed mesh: points inside cross it oddly
         assert (want_hits % 2 == 1).any() and (want_hits % 2 == 0).any()
+
+
+def _ray_cases():
+    """(name, triangles, first-hit rays (o, d), count points, their one
+    direction): rays from the origin in shuffled order (and adversarial
+    ones) over the closed icosphere(3); icosphere(2) with 100 of its faces
+    repeated under higher ids (equal t: the lower id wins); the 33-deep
+    caterpillar along x, its count stacking 33 far children; 1 and 2
+    triangles."""
+    rng = np.random.default_rng(12)
+    direction = torch.from_numpy(mq._PARITY_DIR)
+    ico = MESHES[0][1]
+    o, d = adversarial_rays(ico, 400, 12)
+    perm = torch.from_numpy(rng.permutation(o.shape[0]))
+    yield "origin_shuffled", ico, o[perm], d[perm], near_points(ico, 200, 12), \
+        direction
+    ico2 = _tris(icosphere(2))
+    twice = torch.cat([ico2, ico2[:100]])
+    o, d = adversarial_rays(twice, 300, 13)
+    yield "repeated_faces", twice, o, d, near_points(twice, 100, 13), direction
+    cat = bvh_cases.caterpillar()
+    o, d = bvh_cases.caterpillar_rays(60, 14)
+    yield "caterpillar", cat, o, d, o[:60], torch.tensor([1.0, 0.0, 0.0])
+    for name, tris in SMALL_MESHES[:2]:
+        o, d = adversarial_rays(tris, 100, 15)
+        yield name, tris, o, d, near_points(tris, 50, 15), direction
+
+
+@pytest.mark.parametrize("build", list(RAY_LANES))
+def test_emulated_ray_designs_bitwise_plain(libs, build):
+    """``bvh_ray`` at 1, 4, 1 and 2 lanes a ray (``RAY_LANES``; the design
+    as the card runs it: node records, the stack's top in registers, the
+    rest in local memory, the slab test's NaN by a sum; the ablated build
+    without the records, with a 32-entry stack) and in its first design,
+    bitwise the plain tiles on every case of ``_ray_cases``: first hits and
+    counts.  The 32-entry stack of the ablated build overflows on the
+    caterpillar, and the wrapper raises."""
+    lib = libs[build]
+    for name, tris, o, d, p, direction in RAY_CASES:
+        tree = bvh.build(tris)
+        one = direction.reshape(1, 3)
+        if build == "ablated" and name == "caterpillar":
+            for rays, count in (((o, d), False), ((p, one), True)):
+                with pytest.raises(RuntimeError, match="stack overflowed"):
+                    bvh.run_ray(lib, tree, *rays, count)
+            continue
+        t, fid = bvh.run_ray(lib, tree, o, d, False)
+        want_t, want_id = mq.first_hits_plain(tris, o, d)
+        assert torch.equal(_bits(t), _bits(want_t)), (build, name)
+        assert torch.equal(fid.long(), want_id), (build, name)
+        assert (want_id >= 0).any(), name
+        if name == "repeated_faces":  # hits of a repeated face
+            assert (want_id[(want_id >= 0) & (want_id < 100)] >= 0).any()
+        _, hits = bvh.run_ray(lib, tree, p, one, True)
+        want_hits = mq.crossings_plain(tris, p, direction)
+        assert torch.equal(hits.long(), want_hits), (build, name)
+        if name == "caterpillar":
+            assert int(want_hits.max()) == tris.shape[0]
+
+
+def test_caterpillar_is_deep():
+    """The caterpillar's tree is 33 deep, and a ray along x crosses every
+    triangle, those in x = 0 at one t (the least id wins)."""
+    tris = bvh_cases.caterpillar()
+    tree = bvh.build(tris)
+    n = tree.n
+    node, depth = torch.arange(n - 1, 2 * n - 1), 0
+    while bool((node >= 0).any()):
+        node = torch.where(node >= 0, tree.parents[node.clamp_min(0)], node)
+        depth += 1
+    assert depth - 1 == 33
+    o, d = bvh_cases.caterpillar_rays(4, 1)
+    t, fid = mq.first_hits_plain(tris, o[:4], d[:4])
+    # every triangle of the y and z axes lies in x = 0 too: 30 at one t
+    assert fid.tolist() == [0] * 4
+    assert (t[1:3] == 10.0).all() and (t - 10.0).abs().max() < 1e-5
+
+
+def _deep_key_sets():
+    """The key sets of the plain hierarchy's test, and two deep enough for
+    the warp's searches: 5,000 random codes and the caterpillar's."""
+    yield from _key_sets()
+    rng = np.random.default_rng(3)
+    yield "random_5000", _keys(rng.integers(0, 1 << 30, 5000))
+    yield "caterpillar", bvh.morton_keys(bvh_cases.caterpillar()).numpy()
+
+
+DEEP_KEY_SETS = list(_deep_key_sets())
+
+
+@pytest.mark.parametrize("build", list(RAY_LANES))
+def test_emulated_hierarchy_designs_bitwise_plain(libs, build):
+    """``bvh_hierarchy``: the design (a node whose far end lies 256 keys
+    away or more through the warp pass, the rest from the block's window
+    of keys in shared memory), the same past 8, 16 and 2 keys, and the
+    first design, bitwise ``hierarchy_plain`` on every key set of
+    ``_deep_key_sets``, twice into one scratch queue that starts with
+    garbage: each call zeroes the queue's length itself, and pass 2 gets
+    exactly the nodes past the threshold."""
+    lib, span_at = libs[build], WARP_SPAN[build]
+    reached = False
+    for name, keys in DEEP_KEY_SETS:
+        keys = torch.from_numpy(keys)
+        n = keys.shape[0]
+        want = bvh.hierarchy_plain(keys)
+        queue = torch.full((n,), n + 7, dtype=torch.int32)
+        span = (want[2].long() - torch.arange(n - 1)).abs()
+        for _ in range(2):
+            got = (torch.empty_like(want[0]), torch.full_like(want[1], -1),
+                   torch.empty_like(want[2]))
+            bvh.launch_hierarchy(lib, keys, *got, queue)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (build, name)
+            if span_at is not None:
+                assert int(queue[0]) == int((span >= span_at).sum()), \
+                    (build, name)
+        reached |= span_at is not None and int(queue[0]) > 0
+    assert reached or span_at is None  # the warp pass ran
+
+
+def test_emulated_count_design_of_rays(libs):
+    """The rays' instrumented design build (one lane a ray): results the
+    plain tiles', each ray's tests adding up to the totals."""
+    lib = libs["count_design"]
+    name, tris, o, d, p, direction = RAY_CASES[0]
+    tree = bvh.build(tris)
+    for count, rays in ((False, (o, d)), (True, (p, direction.reshape(1, 3)))):
+        out, _, per_query, totals = _counted(
+            lib, tree, rays[0].shape[0],
+            lambda: bvh.run_ray(lib, tree, *rays, count))
+        if count:
+            assert torch.equal(out[1].long(),
+                               mq.crossings_plain(tris, p, direction))
+        else:
+            want_t, want_id = mq.first_hits_plain(tris, o, d)
+            assert torch.equal(_bits(out[0]), _bits(want_t))
+            assert torch.equal(out[1].long(), want_id)
+        assert per_query.sum(dim=0).tolist() == totals
+        assert (per_query[:, 0] % 2 == 0).all()
 
 
 def test_emulated_one_triangle(emulated):
@@ -421,6 +581,7 @@ def _small_meshes():
 
 
 SMALL_MESHES = list(_small_meshes())
+RAY_CASES = list(_ray_cases())
 
 
 @pytest.mark.parametrize("name,tris", SMALL_MESHES,

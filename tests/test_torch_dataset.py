@@ -8,7 +8,9 @@
 - ``StanfordDataset("sphere", n_samples=2000)``: the points and the batch
   order equal bit for bit (one generator, its calls in one order), labels
   within 2e-7;
-- the PLY path, on a torus written with ``utils/ply``.
+- the PLY path, on a torus written with ``utils/ply``;
+- ``bunny_npy``: the mesh marching tetrahedra rebuild from a synthetic
+  density grid bitwise JAX's, points bitwise, labels within 2e-7.
 """
 
 import os
@@ -116,8 +118,41 @@ def test_ply_dataset_path(tmp_path, monkeypatch):
                                atol=DIST_ATOL)
 
 
+def _sphere_density(n=16, radius=5.0):
+    """An n^3 density grid, positive inside a sphere of ``radius`` cells
+    about the grid's centre."""
+    g = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1)
+    return (radius - np.linalg.norm(g - (n - 1) / 2, axis=-1)).astype(
+        np.float32)
+
+
+def test_bunny_npy_dataset_against_jax(tmp_path, monkeypatch):
+    """``bunny_npy`` on a synthetic 16^3 density grid written where both
+    packages read ``models/bunny.npy``: the mesh marching tetrahedra
+    rebuild from it bitwise JAX's (vertices in [-R, R], not renormalised),
+    the points bitwise, the labels within DIST_ATOL."""
+    models = tmp_path / "models"
+    models.mkdir()
+    np.save(models / "bunny.npy", _sphere_density())
+    monkeypatch.setattr(jds, "BASE_DIR", str(tmp_path))
+    monkeypatch.setattr(tds, "SCANS_DIR", str(tmp_path))
+    jdata = jds.StanfordDataset("bunny_npy", rng=np.random.default_rng(3),
+                                n_samples=1000)
+    tdata = tds.StanfordDataset("bunny_npy", rng=np.random.default_rng(3),
+                                n_samples=1000, device="cpu")
+    assert jdata.mesh.faces.shape[0] > 100
+    np.testing.assert_array_equal(tdata.mesh.vertices, jdata.mesh.vertices)
+    np.testing.assert_array_equal(tdata.mesh.faces, jdata.mesh.faces)
+    assert tdata.mesh.vertices.dtype == jdata.mesh.vertices.dtype
+    assert np.abs(tdata.mesh.vertices).max() <= tdata.R
+    np.testing.assert_array_equal(tdata.X.numpy(), jdata.X)
+    np.testing.assert_allclose(tdata.Y.numpy(), jdata.Y, rtol=0,
+                               atol=DIST_ATOL)
+    assert (jdata.Y > 0).any() and (jdata.Y < 0).any()
+
+
 def test_dataset_names():
-    with pytest.raises(NotImplementedError, match="marching tetrahedra"):
+    with pytest.raises(FileNotFoundError, match="bunny.npy"):
         tds.StanfordDataset("bunny_npy", device="cpu")
     with pytest.raises(ValueError, match="unknown dataset"):
         tds.StanfordDataset("teapot", device="cpu")

@@ -222,7 +222,7 @@ def emulated_source(src: str) -> str:
     emulation, and the dynamic shared buffer a namespace-scope array."""
     src = re.sub(r"#include <cuda_runtime.h>|#include <cuda/atomic>", "", src)
     src = src.replace("extern __shared__", "extern")
-    src = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\(\s*", r"EmuLaunch(\2).run(\1, ",
+    src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(\s*", r"EmuLaunch(\2).run(\1, ",
                  src, flags=re.S)
     return src + "\nnamespace { float2 smem[1]; }\n"
 

@@ -640,3 +640,116 @@ def test_bvh_refit_bitwise_on_small_meshes(faces):
     boxes, _, _ = bvh.run_refit(first, got.tris, got.children, got.parents,
                                 got.far, got.pad)
     assert torch.equal(boxes.view(torch.int32), got.boxes.view(torch.int32))
+
+
+# bvh_ray at 2 and 4 lanes a ray (the design takes 1), and the first
+# designs of bvh_ray and bvh_hierarchy; the hierarchy with every node past
+# 2 keys, or only those past 2^11, through its warp pass
+BVH_RAY_BUILDS = {"lanes2": ("BVH_RAY_LANES=2",),
+                  "lanes4": ("BVH_RAY_LANES=4",),
+                  "first": ("BVH_RAY_ONE_THREAD", "BVH_HIERARCHY_ONE_THREAD")}
+BVH_HIERARCHY_BUILDS = {"warp2": ("BVH_HIERARCHY_WARP_LOG=1",),
+                        "warp2048": ("BVH_HIERARCHY_WARP_LOG=11",),
+                        "first": BVH_RAY_BUILDS["first"]}
+
+
+def _bvh_libs(builds):
+    from tropical_torch.ops import cuda_build
+
+    targets = {k: ("bvh", v) for k, v in builds.items()}
+    cuda_build.build(["bvh", *targets.values()])
+    return {"design": cuda_build.load("bvh"),
+            **{k: cuda_build.load(t) for k, t in targets.items()}}
+
+
+@pytest.mark.gpu
+def test_bvh_ray_designs_bitwise_on_hard_cases():
+    """``bvh_ray`` as built (one lane a ray), at 2 and 4 lanes a ray and in
+    its first design, bitwise the plain tiles:
+    100,000 rays from the origin in shuffled order and adversarial ones
+    over the closed icosphere(4); icosphere(2) with 100 of its faces
+    repeated under higher ids (equal t); the 33-deep caterpillar along x;
+    1 and 2 triangles; first hits and counts along one direction."""
+    _need_cuda()
+    import bvh_cases
+    from tropical_torch.ops import bvh
+    from tropical_torch.ops import mesh_queries as mq
+    from tropical_torch.utils.chamfer import get_rays
+    from tropical_torch.utils.procedural import icosphere
+
+    libs = _bvh_libs(BVH_RAY_BUILDS)
+    parity = torch.from_numpy(mq._PARITY_DIR).cuda()
+
+    def tris_of(mesh):
+        v = torch.from_numpy(np.asarray(mesh.vertices, np.float32))
+        return v[torch.from_numpy(np.asarray(mesh.faces, np.int64))].cuda()
+
+    ico = tris_of(icosphere(4))
+    o, d = get_rays(100_000, device="cuda")
+    o2, d2 = bvh_cases.adversarial_rays(ico, 0, 21)
+    perm = torch.from_numpy(np.random.default_rng(21).permutation(
+        100_000 + o2.shape[0])).cuda()
+    ico2 = tris_of(icosphere(2))
+    twice = torch.cat([ico2, ico2[:100]])
+    cat = bvh_cases.caterpillar().cuda()
+    co, cd = (t.cuda() for t in bvh_cases.caterpillar_rays(500, 22))
+    cases = [("origin_shuffled", ico, torch.cat([o, o2])[perm],
+              torch.cat([d, d2])[perm], bvh_cases.near_points(ico, 20_000, 21),
+              parity),
+             ("repeated_faces", twice,
+              *bvh_cases.adversarial_rays(twice, 5000, 23),
+              bvh_cases.near_points(twice, 5000, 23), parity),
+             ("caterpillar", cat, co, cd, co[:500],
+              torch.tensor([1.0, 0.0, 0.0], device="cuda"))]
+    for k in (1, 2):
+        small = ico[:k]
+        cases.append((f"{k} triangle(s)", small,
+                      *bvh_cases.adversarial_rays(small, 1000, 24),
+                      bvh_cases.near_points(small, 1000, 24), parity))
+    for name, tris, ro, rd, p, direction in cases:
+        tree = bvh.build(tris)
+        want_t, want_id = mq.first_hits_plain(tris, ro, rd)
+        want_hits = mq.crossings_plain(tris, p, direction)
+        assert (want_id >= 0).any(), name
+        for build, lib in libs.items():
+            t, fid = bvh.run_ray(lib, tree, ro, rd, False)
+            assert torch.equal(t.view(torch.int32),
+                               want_t.view(torch.int32)), (name, build)
+            assert torch.equal(fid.long(), want_id), (name, build)
+            _, hits = bvh.run_ray(lib, tree, p, direction.reshape(1, 3), True)
+            assert torch.equal(hits.long(), want_hits), (name, build)
+
+
+@pytest.mark.gpu
+def test_bvh_hierarchy_designs_bitwise_on_deep_keys():
+    """``bvh_hierarchy`` as built, with every node past 2 keys or past
+    2,048 through its warp pass, and in its first design, bitwise
+    ``hierarchy_plain`` on 300,000 random codes (repeats among them), 4
+    codes over 100,000 keys (the ids' bits split them), the caterpillar and
+    the labels' icosphere."""
+    _need_cuda()
+    import bvh_cases
+    from tropical_torch.ops import bvh
+    from tropical_torch.utils.procedural import icosphere
+
+    libs = _bvh_libs(BVH_HIERARCHY_BUILDS)
+    rng = np.random.default_rng(25)
+
+    def keys_of(codes):
+        codes = torch.from_numpy(np.asarray(codes, np.int64))
+        return torch.sort((codes << 32) | torch.arange(codes.shape[0])
+                          ).values.cuda()
+
+    ico = icosphere(4)
+    v = torch.from_numpy(np.asarray(ico.vertices, np.float32))
+    sets = {"random": keys_of(rng.integers(0, 1 << 20, 300_000)),
+            "four_codes": keys_of(rng.integers(0, 4, 100_000)),
+            "caterpillar": bvh.morton_keys(bvh_cases.caterpillar().cuda()),
+            "icosphere": bvh.morton_keys(
+                v[torch.from_numpy(np.asarray(ico.faces))].cuda())}
+    for name, keys in sets.items():
+        want = bvh.hierarchy_plain(keys)
+        for build, lib in libs.items():
+            got = bvh.run_hierarchy(lib, keys)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (name, build)

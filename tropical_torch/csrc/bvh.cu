@@ -12,10 +12,21 @@
 // Node numbering: internal nodes 0 .. n-2 (the root is 0), leaf k is node
 // n - 1 + k; a mesh of one triangle is its root leaf.  Internal node i
 // covers the leaves [min(i, j), max(i, j)], j its far end.
-//   - bvh_hierarchy: one thread an internal node.  Its range's direction
-//     from the sign of delta, its far end j by an exponential then a binary
-//     search, the split by a binary search on __clzll of the XOR of keys;
-//     writes the children, the parents and j.
+//   - bvh_hierarchy: each internal node's range's direction from the sign
+//     of delta, its far end j by an exponential then a binary search, the
+//     split by a binary search on __clzll of the XOR of keys; writes the
+//     children, the parents and j.  In two passes: pass 1, one thread a
+//     node, reads the block's keys and 2^BVH_HIERARCHY_WARP_LOG (256) on
+//     each side from a window in shared memory and counts in 32 bits (the
+//     split's ceil(l / 2^m) a shift); a node whose exponential search
+//     reaches 256 keys joins a queue in device memory instead, and pass 2
+//     gives it a warp, which probes 32 keys a round and takes the last that
+//     holds by __ballot_sync (the far end, then the split: the largest m
+//     whose key shares more than dmin, or dnode, leading bits with key i,
+//     one place whatever the search).  The launch zeroes the queue's
+//     length.  -DBVH_HIERARCHY_ONE_THREAD builds the first design (one
+//     kernel, one thread a node, every search on it, in 64 bits with a
+//     division a step of the split).
 //   - bvh_refit: one thread a leaf.  The leaf box from its triangle's
 //     vertices, widened by `pad` a face; then up the tree, with an arrival
 //     count on each internal node: the second thread to arrive merges the
@@ -38,12 +49,21 @@
 //     -DBVH_REFIT_NO_RECORDS the design without the records.
 //
 // Queries: a stack of at most kStack far children, the nearer child first.
-//   - bvh_ray: one thread a ray.  The first hit of each ray, the
-//     lexicographic least (t, face id) over the triangles that
-//     Moller-Trumbore hits (the plain tiles' `min` takes the first, lowest,
-//     id on an equal t); or, in count mode, how many triangles the ray
-//     crosses (the parity ray of a signed distance), which visits every box
-//     the ray meets.
+//   - bvh_ray: the first hit of each ray, the lexicographic least (t, face
+//     id) over the triangles that Moller-Trumbore hits (the plain tiles'
+//     `min` takes the first, lowest, id on an equal t); or, in count mode,
+//     how many triangles the ray crosses (the parity ray of a signed
+//     distance), which visits every box the ray meets.  A visit reads the
+//     node's 64-byte record (four 16-byte loads) or the leaf's padded
+//     triangle (three); the stack's top entry is held in registers, the
+//     rest in local memory; the slab test tells a NaN end by the ends' sum.
+//     One lane a ray.  For the ablation, -DBVH_RAY_LANES=2 or 4 walks a
+//     ray on that many lanes: they split at the first nodes whose both
+//     boxes the ray enters, then share the least (t bits, id) by shuffles
+//     every kSyncVisits visits (first hits) or sum their subtrees'
+//     crossings (count).  -DBVH_RAY_ONE_THREAD builds the first design
+//     (one thread a ray, children then boxes, its whole stack in local
+//     memory).
 //   - bvh_closest: the least squared distance from each point to a triangle
 //     (Ericson's closest point), in two passes.  Pass 1, one thread a
 //     point, stops after a budget of box tests (BVH_CLOSEST_BUDGET, 256); a
@@ -89,7 +109,9 @@
 //
 // What bounds it on this card: the traversal is latency-bound pointer
 // chasing (a node's record, or its children and then their boxes), some
-// tens of box tests and a few triangle tests a ray; the bound chip_smoke.py
+// tens of box tests and a few triangle tests a ray, with a warp's lanes on
+// unrelated paths (scripts/bvh_variants.py: more lanes a ray only add
+// work); the bound chip_smoke.py
 // states counts those tests at the f32 rate and, once each, the bytes of
 // the inputs, the outputs and the boxes, children, triangles and face ids
 // that the queries read (an instrumented build, -DBVH_COUNT_VISITS, counts
@@ -102,7 +124,10 @@
 // the lanes' divergent paths (leaf or node, push or pop) set the time,
 // not the bytes or the operations (scripts/bvh_variants.py).  The refit's
 // climb is a chain of atomics, one a level, as deep as the tree: the
-// block's levels take the chain's bottom out of device memory.
+// block's levels take the chain's bottom out of device memory.  The
+// hierarchy is two waves of threads each waiting on its own chain of
+// dependent key loads: the window, the 32-bit counts and the queue shorten
+// the chains without adding registers, which would add a wave.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -118,13 +143,20 @@
 #define BVH_CLOSEST_WARPS 4
 #endif
 
+// a traversal stack's entries (a power of 2; the tests shrink it to reach
+// an overflow)
+#ifndef BVH_STACK
+#define BVH_STACK 64
+#endif
+
 namespace {
 
-constexpr int kStack = 64;
+constexpr int kStack = BVH_STACK;
 constexpr int kBuildThreads = 256;
 constexpr int kQueryThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
-// pass 2's visits a lane between two shares of the best
+// visits a lane between two shares of the best (bvh_closest's pass 2, and
+// bvh_ray's lanes)
 constexpr int kSyncVisits = 8;
 // The closest-point query's design: two passes, node records, the case of
 // the closest point picked by selects, pass 2's idle lanes given subtrees.
@@ -173,6 +205,50 @@ constexpr bool kWriteRecords = false;
 #else
 constexpr bool kWriteRecords = true;
 #endif
+// bvh_hierarchy's design: two passes.  Pass 1 (hierarchy_kernel) one
+// thread an internal node, as the first design, but a node whose
+// exponential search reaches kWarpSpan = 2^BVH_HIERARCHY_WARP_LOG keys joins
+// a queue in device memory; pass 2 (hierarchy_warp_kernel) gives each
+// queued node a warp.  -DBVH_HIERARCHY_ONE_THREAD builds the first design
+// (pass 1 with no threshold).
+#ifndef BVH_HIERARCHY_WARP_LOG
+#define BVH_HIERARCHY_WARP_LOG 8
+#endif
+#ifdef BVH_HIERARCHY_ONE_THREAD
+constexpr bool kWarpSearch = false;
+#else
+constexpr bool kWarpSearch = true;
+#endif
+constexpr long long kWarpSpan =
+    kWarpSearch ? 1LL << BVH_HIERARCHY_WARP_LOG : 1LL << 62;
+static_assert(BVH_HIERARCHY_WARP_LOG >= 1 && BVH_HIERARCHY_WARP_LOG <= 11,
+              "a warp threshold of 2^1 .. 2^11 keys");
+static_assert(8 * (kBuildThreads + (2LL << BVH_HIERARCHY_WARP_LOG)) <= 48 * 1024,
+              "pass 1's window of keys fits 48 KB of shared memory");
+// bvh_ray's design: one lane a ray (BVH_RAY_LANES, 2 or 4 for the
+// ablation, splits a ray over lanes); node records and padded triangles
+// (but with -DBVH_RAY_SPLIT_LOADS); a lane's stack in local memory, its top
+// entry in registers (RayStack).  The first design (-DBVH_RAY_ONE_THREAD,
+// and the instrumented build's yardstick unless -DBVH_COUNT_DESIGN) walks
+// a ray on one thread, reading a node's children and then their boxes,
+// with its whole stack in local memory.
+#if defined(BVH_RAY_ONE_THREAD) || \
+    (defined(BVH_COUNT_VISITS) && !defined(BVH_COUNT_DESIGN))
+constexpr bool kRayDesign = false;
+#else
+constexpr bool kRayDesign = true;
+#endif
+#ifdef BVH_RAY_SPLIT_LOADS
+constexpr bool kRayRecords = false;
+#else
+constexpr bool kRayRecords = true;
+#endif
+#ifndef BVH_RAY_LANES
+#define BVH_RAY_LANES 1
+#endif
+constexpr int kRayLanes = BVH_RAY_LANES;
+static_assert(kRayLanes == 1 || kRayLanes == 2 || kRayLanes == 4,
+              "1, 2 or 4 lanes a ray");
 // 2^-20, above 2 gamma_3 = 6u / (1 - 3u) with u = 2^-24
 constexpr float kSlack = 9.5367431640625e-07f;
 // the plain version's Moller-Trumbore and Ericson constants
@@ -236,10 +312,104 @@ __device__ __forceinline__ int delta(const long long* keys, int n, int i,
   return __clzll(keys[i] ^ keys[j]);
 }
 
+// node i's children, parents and far end j from its direction d, far end
+// offset l and split offset s
+__device__ __forceinline__ void write_node(int n, long long i, int d,
+                                           long long l, long long s,
+                                           int* __restrict__ children,
+                                           int* __restrict__ parents,
+                                           int* __restrict__ far) {
+  const long long j = i + l * d;
+  const long long split = i + s * d + (d < 0 ? -1 : 0);
+  const long long first = i < j ? i : j;
+  const long long last = i < j ? j : i;
+  const int left = static_cast<int>(first == split ? n - 1 + split : split);
+  const int right =
+      static_cast<int>(last == split + 1 ? n - 1 + split + 1 : split + 1);
+  children[2 * i] = left;
+  children[2 * i + 1] = right;
+  parents[left] = static_cast<int>(i);
+  parents[right] = static_cast<int>(i);
+  far[i] = static_cast<int>(j);
+}
+
+// The largest m in [lo, hi) whose key i + m d shares more than `above`
+// leading bits with key i (`ki`), given that m = lo does; the common prefix
+// shrinks as m grows, so the answer is one place whatever the search.  The
+// warp probes 32 evenly spaced m a round and keeps the last that holds:
+// about log32 of the range in rounds, each one load a lane.  Every lane
+// calls it with the same arguments.
+__device__ __forceinline__ long long warp_last_above(
+    const long long* __restrict__ keys, long long ki, long long i, int d,
+    int above, long long lo, long long hi, int lane) {
+  while (hi - lo > 1) {
+    const long long step = (hi - lo + 31) / 32;
+    const long long m = lo + lane * step;
+    const bool holds = m < hi && __clzll(ki ^ __ldg(keys + i + m * d)) > above;
+    const unsigned ballot = __ballot_sync(kFull, holds);
+    lo += (31 - __clz(ballot)) * step;  // lane 0's m = lo holds
+    hi = min(lo + step, hi);
+  }
+  return lo;
+}
+
+// Pass 1: one thread an internal node: its direction, its far end by an
+// exponential then a binary search, its split by a binary search, as the
+// first design, but counting in 32 bits (every range is below 2^30 keys)
+// with key i held in a register and the split's ceil(l / 2^m) a shift, not
+// a 64-bit division.  A node whose exponential search reaches kWarpSpan (a
+// range of more than kWarpSpan keys) joins the queue (queue[*queued]) for
+// pass 2 instead.  The first design (-DBVH_HIERARCHY_ONE_THREAD) is
+// hierarchy_one_thread_kernel.
 __global__ void __launch_bounds__(kBuildThreads)
     hierarchy_kernel(const long long* __restrict__ keys, int n,
                      int* __restrict__ children, int* __restrict__ parents,
-                     int* __restrict__ far) {
+                     int* __restrict__ far, int* __restrict__ queue,
+                     int* queued) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  // the block's keys and kWarpSpan on each side, read once into shared
+  // memory: every key pass 1 reads
+  constexpr int kSide = static_cast<int>(kWarpSpan);
+  __shared__ long long window[kBuildThreads + 2 * kSide];
+  const int w0 = blockIdx.x * kBuildThreads - kSide;
+  for (int k = threadIdx.x; k < kBuildThreads + 2 * kSide; k += kBuildThreads)
+    if (w0 + k >= 0 && w0 + k < n) window[k] = __ldg(keys + w0 + k);
+  __syncthreads();
+  const auto delta_of = [&](long long ki, long long j) {
+    return j < 0 || j >= n ? -1 : __clzll(ki ^ window[j - w0]);
+  };
+  if (i >= n - 1) return;
+  const long long ki = window[i - w0];
+  const int d = delta_of(ki, i + 1) - delta_of(ki, i - 1) > 0 ? 1 : -1;
+  const int dmin = delta_of(ki, i - d);
+  // the key m places from i in the node's direction
+  const auto at = [&](int m) { return static_cast<long long>(i) + m * d; };
+  int lmax = 2;
+  while (lmax < kWarpSpan && delta_of(ki, at(lmax)) > dmin) lmax *= 2;
+  if (lmax == kWarpSpan && delta_of(ki, at(lmax)) > dmin) {
+    queue[atomicAdd(queued, 1)] = i;
+    return;
+  }
+  int l = 0;
+  for (int t = lmax / 2; t >= 1; t /= 2)
+    if (delta_of(ki, at(l + t)) > dmin) l += t;
+  const int dnode = delta_of(ki, at(l));
+  int s = 0;
+  for (int m = 1;; ++m) {
+    const int t = (l + (1 << m) - 1) >> m;
+    if (delta_of(ki, at(s + t)) > dnode) s += t;
+    if (t <= 1) break;
+  }
+  write_node(n, i, d, l, s, children, parents, far);
+}
+
+// The first design: one thread an internal node, every search on it, in
+// 64 bits with a division a step of the split.
+__global__ void __launch_bounds__(kBuildThreads)
+    hierarchy_one_thread_kernel(const long long* __restrict__ keys, int n,
+                                int* __restrict__ children,
+                                int* __restrict__ parents,
+                                int* __restrict__ far) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n - 1) return;
   const int d = delta(keys, n, i, i + 1) - delta(keys, n, i, i - 1) > 0 ? 1 : -1;
@@ -259,17 +429,41 @@ __global__ void __launch_bounds__(kBuildThreads)
     if (delta(keys, n, i, i + (s + t) * d) > dnode) s += t;
     div *= 2;
   } while (t > 1);
-  const long long split = i + s * d + (d < 0 ? -1 : 0);
-  const long long first = i < j ? i : j;
-  const long long last = i < j ? j : i;
-  const int left = static_cast<int>(first == split ? n - 1 + split : split);
-  const int right =
-      static_cast<int>(last == split + 1 ? n - 1 + split + 1 : split + 1);
-  children[2 * i] = left;
-  children[2 * i + 1] = right;
-  parents[left] = i;
-  parents[right] = i;
-  far[i] = static_cast<int>(j);
+  write_node(n, i, d, l, s, children, parents, far);
+}
+
+// Pass 2: a warp a queued node, warps striding over the queue, whose length
+// it reads here: one round of the exponential search (lane k probes
+// kWarpSpan 2^k), then warp_last_above for the far end within that
+// doubling and for the split.
+__global__ void __launch_bounds__(kBuildThreads)
+    hierarchy_warp_kernel(const long long* __restrict__ keys, int n,
+                          int* __restrict__ children, int* __restrict__ parents,
+                          int* __restrict__ far, const int* __restrict__ queue,
+                          const int* __restrict__ queued) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kBuildThreads / 32);
+  const int length = *queued;
+  for (int q = blockIdx.x * (kBuildThreads / 32) + threadIdx.x / 32; q < length;
+       q += warps) {
+    const int i = queue[q];
+    const long long ki = __ldg(keys + i);
+    const int d =
+        delta(keys, n, i, i + 1) - delta(keys, n, i, i - 1) > 0 ? 1 : -1;
+    const int dmin = delta(keys, n, i, i - d);
+    // the far end lies in [kWarpSpan 2^a, kWarpSpan 2^(a+1)), a the last
+    // lane whose probe holds (lane 0's, kWarpSpan, does)
+    const long long end = (d > 0 ? n - 1 - static_cast<long long>(i) : i) + 1;
+    const long long probe = kWarpSpan << lane;
+    const unsigned grows = __ballot_sync(
+        kFull, probe < end && __clzll(ki ^ __ldg(keys + i + probe * d)) > dmin);
+    const long long lo = kWarpSpan << (31 - __clz(grows));
+    const long long l =
+        warp_last_above(keys, ki, i, d, dmin, lo, min(2 * lo, end), lane);
+    const int dnode = __clzll(ki ^ __ldg(keys + i + l * d));
+    const long long s = warp_last_above(keys, ki, i, d, dnode, 0, l, lane);
+    if (lane == 0) write_node(n, i, d, l, s, children, parents, far);
+  }
 }
 
 // the leaf box of triangle v (9 floats), widened by pad
@@ -425,8 +619,7 @@ __global__ void __launch_bounds__(kBuildThreads)
 // ---- the pair tests, in the plain version's order ---------------------------
 
 // Moller-Trumbore: the hit's t, or +inf (mesh_queries._ray_tri_t)
-__device__ __forceinline__ float ray_tri_t(V3 o, V3 d, const float* tri) {
-  const V3 a = load3(tri), b = load3(tri + 3), c = load3(tri + 6);
+__device__ __forceinline__ float ray_tri_t(V3 o, V3 d, V3 a, V3 b, V3 c) {
   const V3 e1 = vsub(b, a);
   const V3 e2 = vsub(c, a);
   const V3 h = cross(d, e2);
@@ -507,21 +700,33 @@ __device__ __forceinline__ float closest_dist2(V3 p, V3 a, V3 b, V3 c) {
 // ---- traversal ----------------------------------------------------------------
 
 // one axis of the slab test: (near, far); a NaN (0 * inf: a zero direction
-// component and the origin on the box's face) opens the slab
+// component and the origin on the box's face) opens the slab.  kSum tells a
+// NaN by the sum of the two ends, which is NaN also for +inf and -inf (a
+// zero component and the origin inside the slab), whose (near, far) is the
+// open slab's anyway: the same (near, far), fewer operations.
+template <bool kSum>
 __device__ __forceinline__ void slab_axis(float lo, float hi, float o, float inv,
                                           float& near, float& far) {
   const float t0 = __fmul_rn(__fsub_rn(lo, o), inv);
   const float t1 = __fmul_rn(__fsub_rn(hi, o), inv);
-  near = fminf(t0 != t0 ? -INFINITY : t0, t1 != t1 ? -INFINITY : t1);
-  far = fmaxf(t0 != t0 ? INFINITY : t0, t1 != t1 ? INFINITY : t1);
+  if (kSum) {
+    const float sum = __fadd_rn(t0, t1);
+    const bool open = sum != sum;
+    near = open ? -INFINITY : fminf(t0, t1);
+    far = open ? INFINITY : fmaxf(t0, t1);
+  } else {
+    near = fminf(t0 != t0 ? -INFINITY : t0, t1 != t1 ? -INFINITY : t1);
+    far = fmaxf(t0 != t0 ? INFINITY : t0, t1 != t1 ? INFINITY : t1);
+  }
 }
 
 // the conservative entry t of the ray into the box, or +inf on a miss
+template <bool kSum = false>
 __device__ __forceinline__ float box_entry(const float* box, V3 o, V3 inv) {
   float nx, fx, ny, fy, nz, fz;
-  slab_axis(box[0], box[3], o.x, inv.x, nx, fx);
-  slab_axis(box[1], box[4], o.y, inv.y, ny, fy);
-  slab_axis(box[2], box[5], o.z, inv.z, nz, fz);
+  slab_axis<kSum>(box[0], box[3], o.x, inv.x, nx, fx);
+  slab_axis<kSum>(box[1], box[4], o.y, inv.y, ny, fy);
+  slab_axis<kSum>(box[2], box[5], o.z, inv.z, nz, fz);
   float near = fmaxf(fmaxf(nx, ny), nz);
   float far = fminf(fminf(fx, fy), fz);
   near = near - fabsf(near) * kSlack;
@@ -557,9 +762,10 @@ struct Children {
 
 // internal node `node`'s children and their boxes: its record, four
 // independent 16-byte loads; or its children, then their boxes
+template <bool kRec>
 __device__ __forceinline__ Children read_children(const Tree& t, int node) {
   Children c;
-  if (kRecords) {
+  if (kRec) {
     const float4* rec = t.records + 4 * static_cast<long long>(node);
     const float4 r0 = __ldg(rec), r1 = __ldg(rec + 1), r2 = __ldg(rec + 2),
                  r3 = __ldg(rec + 3);
@@ -647,11 +853,12 @@ struct Entry {
   float key;  // the node's entry t, or its box's squared distance
 };
 
+// The first design of bvh_ray: one thread a ray, its stack in local memory.
 // kCount: count every crossing (no culling by the best hit); else the first
 // hit.  d_stride 0 gives every ray the one direction d[0..2].
 template <bool kCount>
 __global__ void __launch_bounds__(kQueryThreads)
-    ray_kernel(const float* __restrict__ boxes, const int* __restrict__ children,
+    ray_one_thread_kernel(const float* __restrict__ boxes, const int* __restrict__ children,
                const float* __restrict__ tris, const int* __restrict__ order,
                int n, const float* __restrict__ rays_o,
                const float* __restrict__ rays_d, int d_stride, int rays,
@@ -673,7 +880,8 @@ __global__ void __launch_bounds__(kQueryThreads)
   while (true) {
     if (node >= n - 1) {  // a leaf: its triangle
       const int k = node - (n - 1);
-      const float t = ray_tri_t(o, d, tris + 9 * static_cast<long long>(k));
+      const float* v = tris + 9 * static_cast<long long>(k);
+      const float t = ray_tri_t(o, d, load3(v), load3(v + 3), load3(v + 6));
       ++tri_tests;
       touch(1, n, node);
       if (kCount) {
@@ -735,6 +943,207 @@ __global__ void __launch_bounds__(kQueryThreads)
   count_tests(r, box_tests, tri_tests);
 }
 
+// A lane's stack of far children: its top entry in registers, the rest in
+// local memory.  sp counts them all.
+struct RayStack {
+  Entry below[kStack];
+  Entry top;
+  int sp;
+  __device__ __forceinline__ void push(Entry e) {
+    if (sp > 0) below[sp - 1] = top;
+    top = e;
+    ++sp;
+  }
+  __device__ __forceinline__ Entry pop() {
+    --sp;
+    const Entry e = top;
+    if (sp > 0) top = below[sp - 1];
+    return e;
+  }
+};
+
+// one lane's walk of a ray: the node to visit, the best hit (t, face id) or
+// the crossings so far, the tests made
+struct RayWalk {
+  int node;
+  float best;
+  int best_id;
+  int hits;
+  unsigned box_tests, tri_tests;
+  bool full;
+};
+
+// the ray's t at leaf k's triangle: its padded row (three 16-byte loads)
+// or its nine floats
+template <bool kRec>
+__device__ __forceinline__ float leaf_t(const Tree& t, int k, V3 o, V3 d) {
+  if (kRec) {
+    const float4* v = t.tris_padded + 3 * static_cast<long long>(k);
+    const float4 v0 = __ldg(v), v1 = __ldg(v + 1), v2 = __ldg(v + 2);
+    return ray_tri_t(o, d, V3{v0.x, v0.y, v0.z}, V3{v0.w, v1.x, v1.y},
+                     V3{v1.z, v1.w, v2.x});
+  }
+  const float* v = t.tris + 9 * static_cast<long long>(k);
+  return ray_tri_t(o, d, load3(v), load3(v + 3), load3(v + 6));
+}
+
+// Visits w.node (a leaf's triangle, or an internal node's two child boxes)
+// and moves to the next node: the nearer child the ray enters not beyond
+// the best, else the next stacked node that is not.  False once none is
+// left, or the stack overflowed (w.full).  The face id is read only for a
+// hit that may become the best.
+template <bool kCount>
+__device__ __forceinline__ bool ray_visit(RayWalk& w, RayStack& s, V3 o, V3 d,
+                                          V3 inv, const Tree& t,
+                                          const int* __restrict__ order) {
+  const int node = w.node;
+  const int n = t.n;
+  if (node >= n - 1) {
+    const int k = node - (n - 1);
+    const float hit = leaf_t<kRayRecords>(t, k, o, d);
+    ++w.tri_tests;
+    touch(1, n, node);
+    if (kCount) {
+      w.hits += hit < INFINITY;
+    } else if (hit <= w.best && hit < INFINITY) {
+      const int id = __ldg(order + k);
+      touch(2, n, node);
+      if (hit < w.best || id < w.best_id) {
+        w.best = hit;
+        w.best_id = id;
+      }
+    }
+  } else {
+    const Children c = read_children<kRayRecords>(t, node);
+    const float tl = box_entry<true>(c.lbox, o, inv);
+    const float tr = box_entry<true>(c.rbox, o, inv);
+    w.box_tests += 2;
+    touch(1, n, node);
+    touch(0, n, c.left);
+    touch(0, n, c.right);
+    // a miss enters at +inf, which a best of +inf must not take
+    const bool in_l = tl < INFINITY && tl <= w.best;
+    const bool in_r = tr < INFINITY && tr <= w.best;
+    if (in_l && in_r) {
+      const bool l_first = tl <= tr;
+      if (s.sp == kStack) {
+        w.full = true;
+        return false;
+      }
+      s.push(l_first ? Entry{c.right, tr} : Entry{c.left, tl});
+      w.node = l_first ? c.left : c.right;
+      return true;
+    }
+    if (in_l || in_r) {
+      w.node = in_l ? c.left : c.right;
+      return true;
+    }
+  }
+  while (s.sp > 0) {
+    const Entry e = s.pop();
+    if (e.key <= w.best) {
+      w.node = e.node;
+      return true;
+    }
+  }
+  return false;
+}
+
+// a first hit as one 64-bit key, least first: t (> 0, or +inf on a miss)
+// orders as its bits, then the face id (a miss's -1 as the largest)
+__device__ __forceinline__ unsigned long long hit_key(float t, int id) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(id);
+}
+
+// The design of bvh_ray: one lane a ray, or for the ablation kLanes
+// consecutive lanes a ray (BVH_RAY_LANES).  The ray's lanes
+// walk down from the root together (the same loads, made once by the
+// memory system), splitting their lanes between the two children at each
+// node whose both boxes the ray enters, until each lane holds a subtree of
+// its own (a leaf or a dead end reached first leaves its spare lanes idle).
+// Each lane then walks its subtree depth-first.  First hits: every
+// kSyncVisits visits the warp's lanes share their ray's least (t, id) by
+// shuffles, so that a lane culls by the best any of the ray's lanes has
+// found; the least of exact values is the same in any order and under any
+// such culling.  Count mode: the lanes sum the crossings of their disjoint
+// subtrees.  kCount and d_stride as ray_one_thread_kernel's.
+template <bool kCount, int kLanes>
+__global__ void __launch_bounds__(kQueryThreads)
+    ray_kernel(const Tree t, const int* __restrict__ order,
+               const float* __restrict__ rays_o,
+               const float* __restrict__ rays_d, int d_stride, int rays,
+               float* __restrict__ out_t, int* __restrict__ out_id,
+               int* overflow) {
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int r = static_cast<int>(g / kLanes);
+  const bool valid = r < rays;
+  const int n = t.n;
+  V3 o{0.0f, 0.0f, 0.0f}, d{1.0f, 1.0f, 1.0f};
+  if (valid) {
+    o = load3(rays_o + 3 * static_cast<long long>(r));
+    d = load3(rays_d + d_stride * static_cast<long long>(r));
+  }
+  const V3 inv{__fdiv_rn(1.0f, d.x), __fdiv_rn(1.0f, d.y), __fdiv_rn(1.0f, d.z)};
+  RayStack s;
+  s.sp = 0;
+  RayWalk w{0, INFINITY, -1, 0, 0, 0, false};
+  // the start: `span` lanes share the walk to w.node, this one `rel`-th;
+  // the first of them counts the tests
+  bool alive = valid;
+  int span = kLanes, rel = static_cast<int>(threadIdx.x % kLanes);
+  while (alive && span > 1 && w.node < n - 1) {
+    const Children c = read_children<kRayRecords>(t, w.node);
+    const float tl = box_entry<true>(c.lbox, o, inv);
+    const float tr = box_entry<true>(c.rbox, o, inv);
+    if (rel == 0) w.box_tests += 2;
+    touch(1, n, w.node);
+    touch(0, n, c.left);
+    touch(0, n, c.right);
+    const bool in_l = tl < INFINITY, in_r = tr < INFINITY;
+    if (in_l && in_r) {
+      const bool l_first = tl <= tr;
+      span /= 2;
+      w.node = (rel < span) == l_first ? c.left : c.right;
+      rel %= span;
+    } else if (in_l || in_r) {
+      w.node = in_l ? c.left : c.right;
+    } else {
+      alive = false;
+    }
+  }
+  alive = alive && rel == 0;
+  if (kCount || kLanes == 1) {
+    while (alive) alive = ray_visit<kCount>(w, s, o, d, inv, t, order);
+  } else {
+    while (true) {
+      for (int v = 0; alive && v < kSyncVisits; ++v)
+        alive = ray_visit<kCount>(w, s, o, d, inv, t, order);
+      unsigned long long best = hit_key(w.best, w.best_id);
+      for (int m = 1; m < kLanes; m *= 2)
+        best = min(best, __shfl_xor_sync(kFull, best, m));
+      w.best = __uint_as_float(static_cast<unsigned>(best >> 32));
+      w.best_id = static_cast<int>(static_cast<unsigned>(best));
+      if (!__ballot_sync(kFull, alive)) break;
+    }
+  }
+  if (kCount)
+    for (int m = 1; m < kLanes; m *= 2)
+      w.hits += __shfl_xor_sync(kFull, w.hits, m);
+  if (w.full) *overflow = 1;
+  if (valid) {
+    add_tests(r, w.box_tests, w.tri_tests);
+    if (threadIdx.x % kLanes == 0) {
+      if (kCount) {
+        out_id[r] = w.hits;
+      } else {
+        out_t[r] = w.best;
+        out_id[r] = w.best_id;
+      }
+    }
+  }
+}
+
 // one point's depth-first walk: the node to visit, the stack of far
 // children (a ring: stack[base .. top - 1], indices mod kStack; pass 2 hands
 // its bottom entry, the largest subtree, to an idle lane), the best squared
@@ -763,7 +1172,7 @@ __device__ __forceinline__ bool closest_visit(Walk& w, V3 p, const Tree& t) {
     // NaN-propagating, as the plain version's amin and minimum
     if (d2 < w.best || d2 != d2) w.best = d2;
   } else {
-    const Children c = read_children(t, node);
+    const Children c = read_children<kRecords>(t, node);
     const int left = c.left;
     const int right = c.right;
     const float dl = box_dist2(c.lbox, p);
@@ -883,7 +1292,7 @@ __device__ __forceinline__ int expand(Walk& w, V3 p, const Tree& t,
         outs = 1;
         internal = e.node < n - 1;
         if (internal) {
-          const Children c = read_children(t, e.node);
+          const Children c = read_children<kRecords>(t, e.node);
           const float dl = box_dist2(c.lbox, p);
           const float dr = box_dist2(c.rbox, p);
           w.box_tests += 2;
@@ -987,6 +1396,24 @@ int blocks(long long n, int threads) {
   return static_cast<int>((n + threads - 1) / threads);
 }
 
+// bvh_hierarchy's pass 2 blocks: a warp for each node that can have more
+// than kWarpSpan keys (at most 2 n / kWarpSpan of them), at most the card's
+// resident blocks
+int hierarchy_warp_blocks(int n) {
+  static int resident = 0;
+  if (resident == 0) {
+    int device = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, hierarchy_warp_kernel,
+                                                  kBuildThreads, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long warps = 2LL * n / kWarpSpan + 1;
+  const int wanted = blocks(warps, kBuildThreads / 32);
+  return wanted < resident ? wanted : resident;
+}
+
 // pass 2's blocks: one a point, at most the card's resident blocks
 int point_blocks(int count) {
   static int resident = 0;
@@ -1001,18 +1428,53 @@ int point_blocks(int count) {
   return count < resident ? count : resident;
 }
 
+template <bool kCount>
+void launch_rays(const Tree& t, const int* order, const float* rays_o,
+                 const float* rays_d, int d_stride, int rays, float* out_t,
+                 int* out_id, int* overflow, cudaStream_t stream) {
+  if constexpr (!kRayDesign) {
+    ray_one_thread_kernel<kCount><<<blocks(rays, kQueryThreads), kQueryThreads,
+                                    0, stream>>>(
+        t.boxes, t.children, t.tris, order, t.n, rays_o, rays_d, d_stride, rays,
+        out_t, out_id, overflow);
+  } else {
+    ray_kernel<kCount, kRayLanes><<<blocks(static_cast<long long>(rays) *
+                                               kRayLanes,
+                                           kQueryThreads),
+                                    kQueryThreads, 0, stream>>>(
+        t, order, rays_o, rays_d, d_stride, rays, out_t, out_id, overflow);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // children [n-1, 2] int32, parents [2n-1] int32 (the root's, -1, set by the
 // caller) and far [n-1] int32 (each internal node's far end j) of n >= 2
-// sorted unique keys
+// sorted unique keys: pass 1, then pass 2 on the nodes it queued (the first
+// design: one kernel).  queue [n] int32 scratch: [0] the queue's length,
+// zeroed here, then the queued nodes (untouched by the first design).
 int bvh_hierarchy_launch(const void* keys, int n, void* children, void* parents,
-                         void* far, cudaStream_t stream) {
+                         void* far, void* queue, cudaStream_t stream) {
+  const long long* k = static_cast<const long long*>(keys);
+  int* c = static_cast<int*>(children);
+  int* p = static_cast<int*>(parents);
+  int* f = static_cast<int*>(far);
+  if (!kWarpSearch) {
+    hierarchy_one_thread_kernel<<<blocks(n - 1, kBuildThreads), kBuildThreads,
+                                  0, stream>>>(k, n, c, p, f);
+    return static_cast<int>(cudaGetLastError());
+  }
+  int* q = static_cast<int*>(queue);
+  cudaError_t rc = cudaMemsetAsync(q, 0, sizeof(int), stream);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   hierarchy_kernel<<<blocks(n - 1, kBuildThreads), kBuildThreads, 0, stream>>>(
-      static_cast<const long long*>(keys), n, static_cast<int*>(children),
-      static_cast<int*>(parents), static_cast<int*>(far));
+      k, n, c, p, f, q + 1, q);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  hierarchy_warp_kernel<<<hierarchy_warp_blocks(n), kBuildThreads, 0, stream>>>(
+      k, n, c, p, f, q + 1, q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1032,29 +1494,32 @@ int bvh_refit_launch(const void* tris, const void* parents, const void* children
 }
 
 // first hits (out_t f32, out_id int32 face id, -1 and +inf on a miss), or in
-// count mode the crossings in out_id; *overflow (zeroed by the caller) set
-// if a stack overflowed
+// count mode the crossings in out_id, of the tree's boxes, children,
+// triangles, node records and padded triangles (the first design reads the
+// first three, the design the last two); *overflow (zeroed by the caller)
+// set if a stack overflowed
 int bvh_ray_launch(const void* boxes, const void* children, const void* tris,
+                   const void* records, const void* tris_padded,
                    const void* order, int n, const void* rays_o,
                    const void* rays_d, int d_stride, int rays, int count_mode,
                    void* out_t, void* out_id, void* overflow,
                    cudaStream_t stream) {
-  const int grid = blocks(rays, kQueryThreads);
-  if (count_mode) {
-    ray_kernel<true><<<grid, kQueryThreads, 0, stream>>>(
-        static_cast<const float*>(boxes), static_cast<const int*>(children),
-        static_cast<const float*>(tris), static_cast<const int*>(order), n,
-        static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
-        d_stride, rays, static_cast<float*>(out_t), static_cast<int*>(out_id),
-        static_cast<int*>(overflow));
-  } else {
-    ray_kernel<false><<<grid, kQueryThreads, 0, stream>>>(
-        static_cast<const float*>(boxes), static_cast<const int*>(children),
-        static_cast<const float*>(tris), static_cast<const int*>(order), n,
-        static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
-        d_stride, rays, static_cast<float*>(out_t), static_cast<int*>(out_id),
-        static_cast<int*>(overflow));
-  }
+  const Tree t{static_cast<const float*>(boxes),
+               static_cast<const int*>(children),
+               static_cast<const float*>(tris),
+               static_cast<const float4*>(records),
+               static_cast<const float4*>(tris_padded), n};
+  const int* ids = static_cast<const int*>(order);
+  const float* o = static_cast<const float*>(rays_o);
+  const float* d = static_cast<const float*>(rays_d);
+  if (count_mode)
+    launch_rays<true>(t, ids, o, d, d_stride, rays, static_cast<float*>(out_t),
+                      static_cast<int*>(out_id), static_cast<int*>(overflow),
+                      stream);
+  else
+    launch_rays<false>(t, ids, o, d, d_stride, rays, static_cast<float*>(out_t),
+                       static_cast<int*>(out_id), static_cast<int*>(overflow),
+                       stream);
   return static_cast<int>(cudaGetLastError());
 }
 

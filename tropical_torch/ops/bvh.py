@@ -5,13 +5,15 @@ Counterpart of ``tropical/csrc/bvh.cpp`` and ``tropical/utils/bvh_host.py``
 The kernels are ``csrc/bvh.cu`` (its header comment gives the design):
 
 - ``bvh_hierarchy``: Karras's hierarchy over the sorted keys, one thread an
-  internal node;
+  internal node, each node whose range passes 256 keys finished by a warp
+  in a second pass (a queue in the scratch ``launch_hierarchy`` takes);
 - ``bvh_refit``: the boxes, bottom-up with an arrival count a node, in
   shared memory for the nodes within a block's leaves; and for the
-  closest-point query each internal node's 64-byte record (both
-  children's boxes and ids) and the triangles padded to 48 bytes;
+  queries each internal node's 64-byte record (both children's boxes and
+  ids) and the triangles padded to 48 bytes;
 - ``bvh_ray``: first hits (``first_hits``), or crossing counts
-  (``crossings``, the parity ray of a signed distance);
+  (``crossings``, the parity ray of a signed distance), one thread a ray
+  reading the node records;
 - ``bvh_closest``: the least squared distance to a triangle
   (``min_dist2``): a thread a point on a budget, then a block of warps for
   each point the budget did not finish.
@@ -89,6 +91,11 @@ def morton_keys(tris: torch.Tensor) -> torch.Tensor:
     ``code`` interleaves 10 bits an axis of the centroid's cell in the
     centroids' box.  The ids make every key unique, so the order is the
     same on every run."""
+    return torch.sort(morton_codes(tris)).values
+
+
+def morton_codes(tris: torch.Tensor) -> torch.Tensor:
+    """``morton_keys`` before the sort, in triangle order."""
     c = tris[:, 0] + tris[:, 1] + tris[:, 2]  # 3x the centroid: no division
     lo = c.amin(dim=0)
     ext = (c.amax(dim=0) - lo).clamp_min(1e-30)
@@ -97,7 +104,7 @@ def morton_keys(tris: torch.Tensor) -> torch.Tensor:
     code = ((_spread(cell[:, 0]) << 2) | (_spread(cell[:, 1]) << 1)
             | _spread(cell[:, 2]))
     ids = torch.arange(tris.shape[0], dtype=torch.int64, device=tris.device)
-    return torch.sort((code << 32) | ids).values
+    return (code << 32) | ids
 
 
 def box_pad(tris: torch.Tensor) -> float:
@@ -218,9 +225,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the library's C signatures, once a library."""
     if id(lib) not in _BOUND:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.bvh_hierarchy_launch.argtypes = [p, i, p, p, p, p]
+        lib.bvh_hierarchy_launch.argtypes = [p, i, p, p, p, p, p]
         lib.bvh_refit_launch.argtypes = [p, p, p, p, i, f, p, p, p, p, p]
-        lib.bvh_ray_launch.argtypes = [p, p, p, p, i, p, p, i, i, i, p, p, p, p]
+        lib.bvh_ray_launch.argtypes = [p, p, p, p, p, p, i, p, p, i, i, i, p,
+                                       p, p, p]
         lib.bvh_closest_launch.argtypes = [p, p, p, p, p, i, p, i, p, p, p, p]
         for fn in (lib.bvh_hierarchy_launch, lib.bvh_refit_launch,
                    lib.bvh_ray_launch, lib.bvh_closest_launch):
@@ -241,14 +249,16 @@ def _raise_on(rc: int, name: str) -> None:
 
 def launch_hierarchy(lib: ctypes.CDLL, keys: torch.Tensor,
                      children: torch.Tensor, parents: torch.Tensor,
-                     far: torch.Tensor) -> None:
-    """One ``bvh_hierarchy`` launch over n >= 2 keys into ``children`` [n-1,
-    2], ``parents`` [2n-1] (the root's -1 set by the caller) and ``far``
-    [n-1]."""
+                     far: torch.Tensor, queue: torch.Tensor) -> None:
+    """One ``bvh_hierarchy`` call (its two passes) over n >= 2 keys into
+    ``children`` [n-1, 2], ``parents`` [2n-1] (the root's -1 set by the
+    caller) and ``far`` [n-1].  ``queue`` [n] int32 is scratch; after a
+    call [0] holds the number of nodes pass 1 gave pass 2 (the first design
+    leaves it as it was)."""
     _raise_on(_bind(lib).bvh_hierarchy_launch(
         keys.data_ptr(), keys.shape[0], children.data_ptr(),
-        parents.data_ptr(), far.data_ptr(), _stream(keys.device)),
-        "bvh_hierarchy")
+        parents.data_ptr(), far.data_ptr(), queue.data_ptr(),
+        _stream(keys.device)), "bvh_hierarchy")
 
 
 def run_hierarchy(lib: ctypes.CDLL, keys: torch.Tensor
@@ -259,7 +269,8 @@ def run_hierarchy(lib: ctypes.CDLL, keys: torch.Tensor
     parents = torch.full((2 * n - 1,), -1, dtype=torch.int32,
                          device=keys.device)
     far = torch.empty(n - 1, dtype=torch.int32, device=keys.device)
-    launch_hierarchy(lib, keys, children, parents, far)
+    queue = torch.empty(n, dtype=torch.int32, device=keys.device)
+    launch_hierarchy(lib, keys, children, parents, far, queue)
     return children, parents, far
 
 
@@ -355,6 +366,7 @@ def launch_ray(lib: ctypes.CDLL, bvh: Bvh, o: torch.Tensor, d: torch.Tensor,
     rays = o.shape[0]
     _raise_on(_bind(lib).bvh_ray_launch(
         bvh.boxes.data_ptr(), bvh.children.data_ptr(), bvh.tris.data_ptr(),
+        bvh.records.data_ptr(), bvh.tris_padded.data_ptr(),
         bvh.order.data_ptr(), bvh.n, o.data_ptr(), d.data_ptr(),
         3 if d.shape[0] == rays else 0, rays, int(count), t.data_ptr(),
         ids.data_ptr(), overflow.data_ptr(), _stream(o.device)), "bvh_ray")

@@ -8,8 +8,10 @@ package's bit for bit; the labels are computed on the device
 device tensors.
 
 ``sphere`` and ``torus`` are procedural; the Stanford scans load from the
-same PLY paths under ``tropical/stanford/`` when they are there (they are
-not in the repository).
+same PLY paths under ``tropical/stanford/`` when they are there, and
+``bunny_npy`` rebuilds its mesh from the density grid
+``tropical/stanford/models/bunny.npy`` by marching tetrahedra, as the JAX
+package does (none of them is in the repository).
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 
 from tropical_torch import resolve_device
 from tropical_torch.ops.mesh_queries import MeshQuery
+from tropical_torch.utils.isosurface import (grid_tetrahedra,
+                                             marching_tetrahedra)
 from tropical_torch.utils.ply import Mesh, read_ply
 from tropical_torch.utils.procedural import icosphere, torus
 
@@ -68,10 +72,19 @@ class StanfordDataset:
             print(f"Building procedural {name} mesh ...")
             self.mesh = _PROCEDURAL[name]()
         elif name == "bunny_npy":
-            raise NotImplementedError(
-                "bunny_npy rebuilds its mesh with marching tetrahedra "
-                "(utils/isosurface.py), which is not ported yet (ROADMAP.md, "
-                "Queue 1)")
+            # the density-grid variant: the mesh rebuilt from models/bunny.npy
+            # (read by path, as the committed checkpoints are) by marching
+            # tetrahedra over the grid, already in [-R, R]
+            print("Loading bunny.npy ...")
+            density = np.load(os.path.join(SCANS_DIR, "models", "bunny.npy"))
+            n = density.shape[0]
+            g = np.stack(np.meshgrid(*[np.arange(n)] * 3, indexing="ij"), -1)
+            points = (g.reshape(-1, 3) / 32.0 - 1.0) * self.R
+            verts, tris = marching_tetrahedra(
+                torch.from_numpy(points).to(self.device),
+                grid_tetrahedra(n, n, self.device),
+                torch.from_numpy(density.reshape(-1)).to(self.device))
+            self.mesh = Mesh(verts.cpu().numpy(), tris.cpu().numpy())
         else:
             rel = _PLY_PATHS.get(name)
             if rel is None:
@@ -86,12 +99,14 @@ class StanfordDataset:
             self.mesh = read_ply(path)
         print("Done.", flush=True)
 
-        # the longest side of the bounding box to 2, centred
-        vertices = np.asarray(self.mesh.vertices, np.float64)
-        scale = (vertices.max(0) - vertices.min(0)).max()
-        vertices = vertices / scale * 2
-        vertices -= (vertices.max(0) + vertices.min(0)) / 2
-        self.mesh = Mesh(vertices, self.mesh.faces)
+        # the longest side of the bounding box to 2, centred (bunny_npy is
+        # in [-R, R] already)
+        if name != "bunny_npy":
+            vertices = np.asarray(self.mesh.vertices, np.float64)
+            scale = (vertices.max(0) - vertices.min(0)).max()
+            vertices = vertices / scale * 2
+            vertices -= (vertices.max(0) + vertices.min(0)) / 2
+            self.mesh = Mesh(vertices, self.mesh.faces)
 
         self.query = MeshQuery(self.mesh.vertices, self.mesh.faces,
                                self.device)

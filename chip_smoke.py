@@ -26,11 +26,20 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    corner indices wrap past the int64 limit, the scatters' spread printed;
    timed at B = 1,000, beside a CUDA graph's cost of one node;
 4. flat main path: the CLI ``-e -m small -d sphere -s 1 --gt_res 128`` on
-   ``cuda``, held to the golden funnel, the committed mesh and the kernel
-   launch counts (the encode's forward on every net evaluation, its
-   backward for the faces' normals, in x alone: no backward of the flat or
-   the curved run scatters a table gradient; on every path, a BVH build and
-   one ``bvh_ray`` trace a traced mesh);
+   ``cuda``, through the device extraction engine (``extract/device.py``:
+   the distance skeleton, the busy insertions, K2-K5), held to the JAX
+   CLI's funnel of the same route (``tests/golden/sphere_flat_presets.json``,
+   22862/41055 => 10138/20396, 20336: the golden's post-filter counts), the
+   committed mesh and the kernel launch counts (the encode's forward on
+   every net evaluation, its backward for the faces' normals, in x alone:
+   no backward of the flat or the curved run scatters a table gradient;
+   the device engine's kernels on the extraction; on every path, a BVH
+   build and one ``bvh_ray`` trace a traced mesh);
+4b. both engines on sphere-small in one call: the device engine and the
+   host engine (``engine="host"``, held to the golden 51455/69581 =>
+   10138/20396, 20336), each extraction's warm ``take``, and its host syncs,
+   device-to-host copies and kernel launches counted by torch.profiler; the
+   device engine makes one read a busy insertion;
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
    128`` on ``cuda``, held to the golden funnel (or, where only eps-boundary
    flips move it, to the committed JAX vertex set), |sdf| < 2e-4 on every
@@ -99,7 +108,18 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    and the flat ladder's largest mesh; and one build call split into its
    parts (Morton keys, sort, leaf gather, ``box_pad``'s read to the host,
    hierarchy and refit calls);
-11. one JSON line of kernel records, the card's line, and the result line.
+11. the device engine's kernels against their plain versions, bit for
+   bit, at sphere-small's and sphere-large's shapes: the lattice encode
+   (K2) at the M^3 skeleton lattice with its derivatives, and every stage
+   call of the skeleton (K3), of the final insertion and of the busiest
+   hidden one (K4, K5), recorded from a run of the engine; each kernel's
+   device time (CUDA graphs), its plain version's and its bound (bytes at
+   3.35 TB/s, or K2's operations at 33.5 TFLOP/s);
+12. sphere-medium and sphere-large, flat, at full width from the committed
+   checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
+   vertex set from the dist and sign skeletons, the loop bitwise the host
+   engine's from the device skeleton, the skeleton / loop / faces split;
+13. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
 package is missing.
@@ -141,9 +161,16 @@ CURVED_ARGV = ["-e", "-m", "medium", "-d", "sphere", "-s", "1", "-f",
                "--gt_res", "128"]
 # the JAX host engine's vertices of that extraction (scripts/curved_golden.py)
 CURVED_VERTICES = "tests/golden/sphere_medium_curved_vertices.npy"
+# the JAX CLI's flat funnels through its own device engine (dist skeleton),
+# the route the CLI takes (scripts/flat_golden.py); sphere-small's
+# post-filter counts are GOLDEN's, its "A/B" those of the distance skeleton
+FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 # "Ours" plus the seven MC rows 16..64 below the 128 pseudo-GT, two
-# nearest-neighbour searches each
-MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0}
+# nearest-neighbour searches each; the device engine's kernels on the flat
+# extraction (4 busy insertions on sphere-small): the lattice encode a
+# level, the skeleton's 6 launches, then K4's and K5's a busy insertion
+MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 4,
+                 "skeleton_mark": 6, "split_step": 17, "connect_step": 48}
 # each kernel's time before its redesign, for the printed comparison only
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
@@ -180,13 +207,14 @@ ENCODE_OPS = {"hashgrid_encode_fwd": 61, "hashgrid_encode_bwd": 150,
 SCATTER_ULPS = 4.0
 # encode launches of the flat and curved CLI runs, one a net evaluation
 # with rows and one backward a normal() call (counted on the CPU with the
-# plain versions): flat, 17 forwards in the extraction (the largest
-# 117,649 rows) and 27 in the MC ladder (the largest, 278,528 rows, a
-# slab at 128), the faces' normals once; curved, 46 forwards in the
+# plain versions): flat, 5 forwards in the extraction (4 busy insertions'
+# new vertices and the faces' normals; the skeleton takes the lattice
+# encode) and 27 in the MC ladder (the largest, 278,528 rows, a slab at
+# 128), the faces' normals once; curved, 46 forwards in the
 # extraction and 27 in the ladder, the faces' normals once, and one forward
 # and one backward a step of the GD rescue (``failover.COUNTERS``; 3 steps
 # on the CPU)
-FLAT_ENCODE = {"hashgrid_encode_fwd": 44, "hashgrid_encode_bwd": 1,
+FLAT_ENCODE = {"hashgrid_encode_fwd": 32, "hashgrid_encode_bwd": 1,
                "hashgrid_encode_bwd_bwd": 0}
 CURVED_ENCODE = {"hashgrid_encode_fwd": 73, "hashgrid_encode_bwd": 1,
                  "hashgrid_encode_bwd_bwd": 0}
@@ -249,6 +277,31 @@ BVH_REPLACES = {"bvh_hierarchy": "tropical/csrc/bvh.cpp:207",
 # branch, the interior)
 BVH_RAY_OPS = (45, 60)
 BVH_CLOSEST_OPS = (18, 97)
+# the device extraction engine's kernels (csrc/lattice_encode.cu,
+# csrc/device_engine.cu), the JAX programs each replaces, and the stage
+# functions of tropical_torch/extract/device.py that launch each
+DEVICE_ENGINE = ("lattice_encode", "skeleton_mark", "split_step",
+                 "connect_step")
+DEVICE_ENGINE_SOURCE = {"lattice_encode": "tropical_torch/csrc/lattice_encode.cu"}
+DEVICE_ENGINE_REPLACES = {
+    "lattice_encode": "tropical/core/hashgrid.py:232",
+    "skeleton_mark": "tropical/extract/device.py:2092",
+    "split_step": "tropical/extract/device.py:506",
+    "connect_step": "tropical/extract/device.py:858"}
+DEVICE_STAGES = {
+    "skeleton_pool": "skeleton_mark", "skeleton_points": "skeleton_mark",
+    "skeleton_edges": "skeleton_mark", "skeleton_squeeze": "skeleton_mark",
+    "pack_words": "split_step", "edge_words": "split_step",
+    "split_mark": "split_step", "split_lerp": "split_step",
+    "split_override": "split_step", "split_append": "split_step",
+    "hit_mark": "connect_step", "candidates": "connect_step",
+    "connect_count": "connect_step", "connect_fill": "connect_step",
+    "census_edges": "connect_step", "census_vertices": "connect_step",
+    "compact_rows": "connect_step", "compact_edges": "connect_step"}
+# the float operations of a lattice point and level of the lattice encode
+# (csrc/lattice_encode.cu: 3 axes' weights of 4, then 7 two-term
+# contractions of 3 a feature; with the derivatives 11 more contractions)
+LATTICE_OPS = (12 + 7 * 3 * 2, 12 + 18 * 3 * 2)
 # the evaluation's rays a mesh (get_rays' default generator)
 EVAL_RAYS = 100_000
 # the adversarial icosphere: its subdivisions, and the seeds of the
@@ -327,7 +380,8 @@ def build_phase():
 
     t = time.time()
     targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode",
-               "bvh", BVH_COUNT, BVH_COUNT_DESIGN, BVH_FIRST]
+               "bvh", BVH_COUNT, BVH_COUNT_DESIGN, BVH_FIRST, "lattice_encode",
+               "device_engine"]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -1409,7 +1463,11 @@ def main_path_phase():
     from tropical_torch.utils.ply import read_ply
 
     text, launches, largest, wall, meshes = run_cli(MAIN_ARGV)
-    check(stats.LAST == GOLDEN, f"funnel {stats.LAST} != golden {GOLDEN}")
+    want = preset_funnel("small")
+    check(stats.LAST == want, f"funnel {stats.LAST} != the JAX CLI's {want}")
+    check({k: stats.LAST[k] for k in ("post_v", "post_e", "n_faces")}
+          == {k: GOLDEN[k] for k in ("post_v", "post_e", "n_faces")},
+          f"funnel {stats.LAST} != golden {GOLDEN} after the filter")
     for k, want in {**MAIN_LAUNCHES, **FLAT_ENCODE}.items():
         check(launches[k] == want, f"{k}: {launches[k]} launches, want {want}")
 
@@ -1433,6 +1491,84 @@ def main_path_phase():
     fan_contract(ref.vertices, idx.cpu().numpy()[ours.faces], ref.faces)
     _, cd = summary(text, wall)
     return launches, largest, cd, meshes
+
+
+def preset_funnel(size):
+    """The JAX CLI's funnel of a sphere preset, flat (``FLAT_PRESETS``)."""
+    g = json.load(open(FLAT_PRESETS))[f"sphere_{size}_flat"]
+    return {"pre_v": g["pre_v"], "pre_e": g["pre_e"], "post_v": g["post_v"],
+            "post_e": g["post_e"], "n_faces": g["n_tris"]}
+
+
+def sphere_net(size):
+    """A sphere preset's committed checkpoint, on the card."""
+    from tropical_torch.stanford.model import net_for_size
+    from tropical_torch.utils import checkpoint as ckpt
+
+    return ckpt.load_into(net_for_size(size, seed=1, device="cuda"),
+                          ckpt.find_checkpoint(
+                              f"tropical/stanford/models/sphere/"
+                              f"sphere_sdf_{size}_1.pth"))
+
+
+def extraction_counts(net, engine):
+    """One flat extraction under torch.profiler: (host syncs, device-to-host
+    copies, kernel launches).  Syncs: cudaStreamSynchronize,
+    cudaDeviceSynchronize and cudaEventSynchronize calls, less the one that
+    ends the profiled window; copies: the device's DtoH memcpys; launches:
+    the runtime's kernel launch calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tropical_torch.extract.subdivide import subpoly
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        subpoly(net, 3, 1.2, force=True, verbose=False, engine=engine)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                      "cudaEventSynchronize") for n in names) - 1
+    d2h = sum(n.startswith("Memcpy DtoH") for n in names)
+    kernels = sum(n in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx") for n in names)
+    return syncs, d2h, kernels
+
+
+def engines_phase():
+    """Both engines on sphere-small in one call: the device engine (the
+    CLI's) and the host engine (``engine="host"``), each held to its
+    funnel, their ``take`` (warm, host clock) and their syncs, copies and
+    launches.  Returns the device engine's numbers."""
+    phase("4b. the device engine against the host engine, sphere-small flat")
+    from tropical_torch.extract import device as dv
+    from tropical_torch.extract import stats
+    from tropical_torch.extract.subdivide import subpoly
+
+    net = sphere_net("small")
+    out = {}
+    for engine, want in (("auto", preset_funnel("small")), ("host", GOLDEN)):
+        takes = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            subpoly(net, 3, 1.2, force=True, verbose=False, engine=engine)
+            torch.cuda.synchronize()
+            takes.append(time.perf_counter() - t)
+            check(stats.LAST == want, f"{engine}: funnel {stats.LAST} != "
+                  f"{want}")
+        syncs, d2h, kernels = extraction_counts(net, engine)
+        out[engine] = {"take_s": takes[1:], "syncs": syncs, "d2h": d2h,
+                       "launches": kernels}
+        if engine == "auto":
+            out[engine].update(
+                reads=dv.LAST.reads, busy=dv.LAST.busy,
+                split_s=[dv.LAST.t_skeleton, dv.LAST.t_loop, dv.LAST.t_faces])
+            check(dv.LAST.reads == len(dv.LAST.busy) + 2,
+                  f"{dv.LAST.reads} reads for {len(dv.LAST.busy)} busy "
+                  "insertions: one each, and one each for the skeleton and "
+                  "the starting pools")
+    print(json.dumps({"device_engine": out["auto"], "host_engine": out["host"]}))
+    return out
 
 
 def curved_path_phase():
@@ -2340,6 +2476,342 @@ def bvh_phase(traced, gt_mesh, records):
                           "bound_ms": parity_bound[0],
                           "bound_by": parity_bound[1]}}))
 
+# --- the device extraction engine's kernels (K2-K5) --------------------------
+
+class StageLog:
+    """Records the device engine's stage calls while ``on`` (each tensor
+    argument cloned: the inputs as the engine gave them), by wrapping the
+    stage functions of tropical_torch/extract/device.py."""
+
+    def __init__(self):
+        from tropical_torch.extract import device as dv
+
+        self.dv, self.calls, self.on = dv, [], False
+        self.orig = {name: getattr(dv, name) for name in DEVICE_STAGES}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.dv, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.dv, name, fn)
+
+    def _wrap(self, name, fn):
+        def stage(*args, **kw):
+            if self.on:
+                self.calls.append((name, clones(args), kw))
+            return fn(*args, **kw)
+        return stage
+
+
+def clones(args):
+    return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+
+def _nb(t):
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def stage_bytes(name, a):
+    """The bytes a stage call must move: each input read once, each output
+    written once; of a pool the call gathers from, the rows it reads."""
+    if name == "skeleton_pool":
+        return 2 * _nb(a[0])
+    if name == "skeleton_points":
+        n = a[0].shape[0]
+        return _nb(a[0]) + _nb(a[1]) + _nb(a[2]) + 28 * n
+    if name == "skeleton_edges":
+        M = a[3]
+        return _nb(a[0]) + _nb(a[1]) + 2 * _nb(a[2]) + 12 * (M - 1) * M * M
+    if name == "skeleton_squeeze":
+        ne, nu = a[9], a[10]
+        return _nb(a[0]) + _nb(a[1]) + nu * (2 * 132 + 12 + 48) + 8 * ne
+    if name == "pack_words":
+        return _nb(a[0]) + 24 * a[0].shape[0]
+    if name == "edge_words":
+        return _nb(a[0]) + 12 * a[0].shape[0] + min(
+            _nb(a[1]) + _nb(a[2]), 32 * a[0].shape[0])
+    if name in ("split_mark", "hit_mark"):
+        return _nb(a[0]) + 4 * a[0].shape[0]
+    if name == "split_lerp":
+        S = a[6]
+        return _nb(a[0]) + _nb(a[1]) + 2 * S * 24 + S * 32
+    if name == "split_override":
+        return _nb(a[0]) + _nb(a[1]) + 4
+    if name == "split_append":
+        S = a[0].shape[0]
+        return 2 * _nb(a[0]) + _nb(a[1]) + _nb(a[3]) + _nb(a[4]) + S * (
+            32 + 24 + 16 + 20)
+    if name == "candidates":
+        n = a[5] + a[6]
+        return _nb(a[3]) + n * (12 + 16 + 20)
+    if name in ("connect_count", "connect_fill"):
+        n = a[0].shape[0]
+        extra = (_nb(a[8]) + 8 * a[9]) if name == "connect_fill" else 4 * n
+        return _nb(a[0]) + _nb(a[1]) + _nb(a[2]) + 16 * n + extra
+    if name == "census_edges":
+        return sum(_nb(t) for t in a[:6]) + _nb(a[7])
+    if name == "census_vertices":
+        return _nb(a[0]) + _nb(a[1])
+    if name == "compact_rows":
+        row = _nb(a[0]) // max(a[0].shape[0], 1)
+        return _nb(a[1]) + 2 * a[2] * row
+    if name == "compact_edges":
+        return _nb(a[1]) + 24 * a[3]
+    raise KeyError(name)
+
+
+def _outputs(result, args):
+    """A stage call's results, then its tensor arguments (the in-place
+    ones changed)."""
+    res = result if isinstance(result, tuple) else (result,)
+    return [t for t in (*res, *args) if torch.is_tensor(t)]
+
+
+def _max_err(a, b):
+    if a.dtype.is_floating_point:
+        d = (a.double() - b.double()).abs()
+        return float(d[~d.isnan()].max()) if d.numel() else 0.0
+    return float((a != b).any())
+
+
+def stage_check(log, name, args, kw, reps):
+    """One recorded stage call, by the kernel and by its plain version on
+    the card: held bitwise (every result and every argument after the
+    call); the kernel's device time (``graph_ms``), the plain version's
+    (CUDA events), the call's bound.  Returns (max |kernel - plain|, ms,
+    plain ms, bound ms)."""
+    dv = log.dv
+    fn = log.orig[name]
+    runs = []
+    for kern in (None, dv.PLAIN):
+        a = clones(args)
+        runs.append(_outputs(fn(*a, **{**kw, "kern": kern}), a))
+    err = 0.0
+    for x, y in zip(*runs):
+        same = x.shape == y.shape and bits_equal(x, y)
+        check(same, f"{name}: kernel != plain ({tuple(x.shape)})")
+        err = max(err, _max_err(x, y))
+    fixed, pfixed = clones(args), clones(args)
+    ms = graph_ms(lambda: fn(*fixed, **{**kw, "kern": None}), reps=reps)
+    plain_ms = cuda_ms(lambda: fn(*pfixed, **{**kw, "kern": dv.PLAIN}),
+                       iters=2)
+    return err, ms, plain_ms, stage_bytes(name, args) / PEAK_BYTES * 1e3
+
+
+def lattice_times(net, reps):
+    """K2 at the net's skeleton lattice (M^3 points, the three derivatives):
+    bitwise ``lattice_level_plain`` level by level; the four launches'
+    device time, the plain version's, the bound (bytes at 3.35 TB/s against
+    ``LATTICE_OPS`` at PEAK_F32_UNFUSED_OPS)."""
+    from tropical_torch.core import hashgrid as thg
+
+    spec = net.spec.grid
+    M = net.marks.shape[0]
+    xs = net.preprocess(net.marks * (net.spec.scale * 2) - net.spec.scale)
+    tables = thg.lattice_tables(spec, net.enc.table.detach(), M ** 3)
+    n, LF = M ** 3, spec.levels * 2
+    feat = torch.empty((n, LF), device="cuda")
+    grad = torch.empty((3, n, LF), device="cuda")
+
+    def run():
+        for l in range(spec.levels):
+            thg.lattice_encode(spec, tables[l], l, xs, xs, xs, feat, grad)
+
+    def plain():
+        return [thg.lattice_level_plain(spec, tables[l], l, xs, xs, xs, True)
+                for l in range(spec.levels)]
+
+    run()
+    err = 0.0
+    for l, (f, g) in enumerate(plain()):
+        cols = slice(2 * l, 2 * l + 2)
+        for x, y in ((feat[:, cols], f), (grad[:, :, cols], g)):
+            check(bits_equal(x.contiguous(), y), f"lattice_encode level {l}: "
+                  "kernel != plain")
+            err = max(err, _max_err(x, y))
+    ms = graph_ms(run, reps=reps)
+    plain_ms = cuda_ms(plain, iters=2)
+    nbytes = 4 * n * LF * 4 + sum(_nb(t) for t in tables) + 12 * M
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = n * spec.levels * LATTICE_OPS[1] / PEAK_F32_UNFUSED_OPS
+    return err, ms, plain_ms, max(t_bytes, t_ops) * 1e3, (
+        "bytes" if t_bytes >= t_ops else "operations")
+
+
+def engine_stage_times(net, reps):
+    """K3-K5 at a net's shapes: the skeleton's stage calls, and those of
+    the final insertion and of the busiest hidden one (the most split
+    edges), recorded from a run of the engine, each held bitwise to its
+    plain version and timed.  Returns {kernel: [max err, ms, plain ms,
+    bound ms]} summed over the kernel's calls, and the run's busy list."""
+    from tropical_torch.extract import device as dv
+
+    busy = dv.Engine(net)
+    sk = busy.skeleton("dist")
+    busy.loop(*busy.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    hidden = [b for b in busy.stats.busy if b[0] < busy.n_hidden]
+    planes = {busy.n_hidden, max(hidden, key=lambda b: b[1])[0]}
+    with StageLog() as log:
+        class Logged(dv.Engine):
+            def step(self, P, idx, *a, **k):
+                log.on = idx in planes
+                try:
+                    return super().step(P, idx, *a, **k)
+                finally:
+                    log.on = False
+
+        eng = Logged(net)
+        log.on = True
+        sk = eng.skeleton("dist")
+        log.on = False
+        eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+        out = {k: [0.0, 0.0, 0.0, 0.0] for k in DEVICE_ENGINE[1:]}
+        for name, args, kw in log.calls:
+            err, ms, pms, bms = stage_check(log, name, args, kw, reps)
+            rec = out[DEVICE_STAGES[name]]
+            rec[0] = max(rec[0], err)
+            rec[1] += ms
+            rec[2] += pms
+            rec[3] += bms
+            print(f"  {name}: kernel {ms:.5f} ms, plain {pms:.3f} ms, bound "
+                  f"{bms:.5f} ms")
+    return out, busy.stats.busy, sorted(planes)
+
+
+def device_kernels_phase(records, flat_launches):
+    """K2-K5 against their plain versions on the card, bit for bit, at the
+    sphere-small (the main path) and sphere-large lattices and insertions;
+    their device times, plain times and bounds in the kernel records."""
+    phase("11. the device engine's kernels against their plain versions, "
+          "sphere-small and sphere-large")
+    for size, reps in (("small", 50), ("large", 10)):
+        net = sphere_net(size)
+        k2 = lattice_times(net, reps)
+        print(f"{size}: lattice_encode kernel {k2[1]:.4f} ms, plain "
+              f"{k2[2]:.3f} ms, bound {k2[3]:.4f} ms ({k2[4]}), "
+              f"M = {net.marks.shape[0]}")
+        stages, busy, planes = engine_stage_times(net, reps)
+        print(f"{size}: busy insertions (plane, splits, hits, connecting "
+              f"edges) {busy}; recorded planes {planes}")
+        tag = "" if size == "small" else f"_{size}"
+        for name in DEVICE_ENGINE:
+            err, ms, pms, bms = (k2[:4] if name == "lattice_encode"
+                                 else stages[name])
+            rec = records.setdefault(name, {
+                "name": name, "route": "cuda",
+                "source": DEVICE_ENGINE_SOURCE.get(
+                    name, "tropical_torch/csrc/device_engine.cu"),
+                "replaces": DEVICE_ENGINE_REPLACES[name],
+                "launches": flat_launches[name], "library_ms": None})
+            rec.update({f"max_abs_err{tag}": err, f"ms{tag}": ms,
+                        f"plain_ms{tag}": pms, f"bound_ms{tag}": bms,
+                        f"bound_by{tag}": (k2[4] if name == "lattice_encode"
+                                           else "bytes")})
+            print(f"{size}: {name}: kernel {ms:.4f} ms ({bms / ms:.1%} of "
+                  f"its bound {bms:.4f} ms), plain {pms:.3f} ms, max err "
+                  f"{err}")
+        del net
+        torch.cuda.empty_cache()
+
+
+def host_loop(net, V, E):
+    """The host engine from (V, E) through the final insertion."""
+    from tropical_torch.extract import subdivide as sp
+
+    outputs = None
+    for l in range(net.num_layers - 1):
+        for h in range(net.num_hidden):
+            V, E, outputs = sp.subpoly_(V, E, net, l, h, 1e-4, outputs,
+                                        force=True)
+    return sp.subpoly_(V, E, net, net.num_layers - 2, net.num_hidden, 1e-4,
+                       outputs, force=True)
+
+
+def same_sets(size, a, b):
+    """The final vertex sets of the dist and sign runs: the same count and
+    a one-to-one nearest-neighbour match within 5e-6, the port's flat
+    bound against JAX (the MLP's summation order: cuBLAS rounds the new
+    vertices' forward by the batch's size, and the two skeletons give the
+    insertions other batches; on the CPU the sets are equal bit for bit,
+    tests/test_torch_device_engine.py); the vertices not bitwise in the
+    other set counted."""
+    from tropical_torch.ops.chamfer import min_nn_distance
+
+    check(a.shape == b.shape, f"{size}: dist {tuple(a.shape)} != sign "
+          f"{tuple(b.shape)} vertices")
+    d2, idx = min_nn_distance(a.contiguous(), b.contiguous())
+    far = math.sqrt(float(d2.max()))
+    one_to_one = int(torch.unique(idx).numel()) == b.shape[0]
+    exact = int((d2 > 0).sum())
+    print(f"{size}: dist and sign skeletons, {a.shape[0]} final vertices "
+          f"each, {exact} not bitwise in the other set, the farthest "
+          f"{far:.3e} from its twin, one to one: {one_to_one}")
+    check(one_to_one and far <= 5e-6, f"{size}: dist != sign")
+
+
+def presets_phase():
+    """Sphere-medium and sphere-large, flat, at full width from their
+    committed checkpoints: the funnel within 0.5 % of the JAX CLI's, the
+    same final vertex set from the dist and sign skeletons, the loop equal
+    to the host engine's (bit for bit, vertices, outputs and edges in order)
+    when both start from the device's skeleton, the time split."""
+    phase("12. sphere-medium and sphere-large, flat, through the device engine")
+    from tropical_torch.extract import device as dv
+    from tropical_torch.extract import stats
+    from tropical_torch.extract.subdivide import subpoly
+
+    out = {}
+    for size in ("medium", "large"):
+        net = sphere_net(size)
+        takes = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, vd, td = subpoly(net, 3, 1.2, force=True, verbose=False)
+            torch.cuda.synchronize()
+            takes.append(time.perf_counter() - t)
+        got, want = dict(stats.LAST), preset_funnel(size)
+        worst = max(abs(got[k] - want[k]) / want[k] for k in want)
+        print(f"{size}: funnel {got}, the JAX CLI's {want} "
+              f"({'exact' if got == want else f'within {worst:.3%}'}); "
+              f"take {takes}; skeleton / loop / faces "
+              f"{[dv.LAST.t_skeleton, dv.LAST.t_loop, dv.LAST.t_faces]} s; "
+              f"busy {dv.LAST.busy}; reads {dv.LAST.reads}")
+        check(worst <= 0.005, f"{size}: funnel {got} off the JAX CLI's {want}")
+        _, vs, ts = dv.subpoly_device(net, verbose=False, skeleton_mode="sign")
+        same_sets(size, vd, vs)
+        check(td.shape == ts.shape, f"{size}: dist and sign triangles "
+              f"{td.shape} / {ts.shape}")
+        eng = dv.Engine(net)
+        sk = eng.skeleton("dist")
+        V, E = sk[0], sk[5]
+        t = time.perf_counter()
+        Vd, Od, Ed = eng.loop(*eng.pools(V, net.outputs(V), E))
+        torch.cuda.synchronize()
+        t_dev = time.perf_counter() - t
+        t = time.perf_counter()
+        Vh, Eh, Oh = host_loop(net, V, E.long())
+        torch.cuda.synchronize()
+        t_host = time.perf_counter() - t
+        same = (Vd.shape == Vh.shape and Ed.shape == Eh.shape
+                and bits_equal(Vd, Vh) and bits_equal(Od, Oh)
+                and torch.equal(Ed.long(), Eh))
+        print(f"{size}: the loop from the device skeleton ({V.shape[0]} "
+              f"vertices, {E.shape[0]} edges): {Vd.shape[0]}/{Ed.shape[0]}, "
+              f"the host engine's {Vh.shape[0]}/{Eh.shape[0]}, bitwise "
+              f"{same}; loop {t_dev:.4f} s, host engine {t_host:.4f} s")
+        check(same, f"{size}: the device loop != the host engine")
+        out[size] = {"funnel": got, "take_s": takes,
+                     "split_s": [dv.LAST.t_skeleton, dv.LAST.t_loop,
+                                 dv.LAST.t_faces]}
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2354,6 +2826,7 @@ def main() -> int:
     records = {r["name"]: r for r in kernel_phase()}
     flat_launches, flat_largest, flat_cd, flat_meshes = main_path_phase()
     mesh_digest = file_digest("meshes_torch/sphere/our_mesh_small_1.ply")
+    engines_phase()
     curved_launches, curved_inputs, curved_take, curved_meshes = \
         curved_path_phase()
     records["min_dist"]["launches"] = flat_launches["min_dist"]
@@ -2389,7 +2862,10 @@ def main() -> int:
             **{f"launches_evaluate_{m}": c[k]
                for m, c in eval_launches.items()})
 
-    phase("11. result")
+    device_kernels_phase(records, flat_launches)
+    presets_phase()
+
+    phase("13. result")
     print(json.dumps({"kernels": list(records.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

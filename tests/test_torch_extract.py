@@ -1,14 +1,17 @@
 """Parity of the port's flat-path extraction with the JAX host engine.
 
 - torus-small: the JAX host engine (``engine="host"``, the oracle its own
-  tests use) against the port on the CPU.  Funnel counts exact; vertices in
+  tests use) against the port's host engine on the CPU.  Funnel counts exact; vertices in
   the same order within 5e-6.  The MLP's matrix products round in another
   order (outputs differ by <= 2e-7), and the lerp weight |d0|/|d1-d0|
   magnifies that on short edges: measured up to 1.6e-6 on 5 of 7983
   vertices.  Triangles follow the fan-diagonal contract of
   tests/test_device_faces.py: only rows of polygons whose angular order
   flips on rounding may differ, with the same vertex set and area.
-- sphere-small through the port alone against the golden funnel.
+- sphere-small through the port's host engine alone against the golden
+  funnel (the host engine's: its sign skeleton gives the "A/B" counts; the
+  device engine's distance skeleton gives JAX's CLI funnel,
+  ``test_torch_device_engine.py``).
 - The curved path (``force=False``) is held in ``test_torch_curved.py``.
 - The bookkeeping units against their JAX counterparts on seeded inputs.
 """
@@ -63,7 +66,8 @@ def test_torus_small_matches_jax_host_engine():
         os.path.join(ROOT, g["checkpoint"])))
     f1, v1, t1 = jsubpoly(jnet, 3, 1.2, force=True, verbose=False,
                           engine="host")
-    f2, v2, t2 = subpoly(_torch_net(g), 3, 1.2, force=True, verbose=False)
+    f2, v2, t2 = subpoly(_torch_net(g), 3, 1.2, force=True, verbose=False,
+                         engine="host")
     assert tstats.LAST == jstats.LAST
     _assert_golden(tstats.LAST, t2, g)
 
@@ -93,7 +97,7 @@ def test_sphere_small_golden_funnel():
 
     g = GOLDEN["sphere"]
     faces, vertices, tris = subpoly(_torch_net(g), 3, 1.2, force=True,
-                                    verbose=False)
+                                    verbose=False, engine="host")
     _assert_golden(stats.LAST, tris, g)
     assert tris.min() >= 0 and tris.max() < vertices.shape[0]
 

@@ -132,7 +132,8 @@ def test_sphere_small_golden_funnel_on_cuda():
     golden = json.load(open(os.path.join(ROOT, "tests/golden/self_golden.json")))
     net = ckpt.load_into(Net(r_min=2, r_max=32, device="cuda"), os.path.join(
         ROOT, "tropical/stanford/models/sphere/sphere_sdf_small_1.pth.npz"))
-    faces, vertices, tris = subpoly(net, 3, 1.2, force=True, verbose=False)
+    faces, vertices, tris = subpoly(net, 3, 1.2, force=True, verbose=False,
+                                    engine="host")
     g = golden["sphere"]
     assert stats.LAST == {"pre_v": g["pre_v"], "pre_e": g["pre_e"],
                           "post_v": g["post_v"], "post_e": g["post_e"],
@@ -753,3 +754,60 @@ def test_bvh_hierarchy_designs_bitwise_on_deep_keys():
             got = bvh.run_hierarchy(lib, keys)
             for a, b in zip(got, want):
                 assert torch.equal(a, b), (name, build)
+
+
+def _sphere_net(size):
+    from tropical_torch.stanford.model import net_for_size
+    from tropical_torch.utils import checkpoint as ckpt
+
+    net = net_for_size(size, seed=1, device="cuda")
+    return ckpt.load_into(net, ckpt.find_checkpoint(os.path.join(
+        ROOT, f"tropical/stanford/models/sphere/sphere_sdf_{size}_1.pth")))
+
+
+@pytest.mark.gpu
+def test_device_engine_funnel_on_cuda():
+    """The flat path through the device engine (the CLI's route): JAX's own
+    funnel of the same route (``tests/golden/sphere_flat_presets.json``),
+    with the four device-engine kernels launched and one host read a busy
+    insertion."""
+    _need_cuda()
+    from tropical_torch.extract import device as dv
+    from tropical_torch.extract import stats
+    from tropical_torch.extract.subdivide import subpoly
+
+    golden = json.load(open(os.path.join(
+        ROOT, "tests/golden/sphere_flat_presets.json")))["sphere_small_flat"]
+    before = dict(LAUNCHES)
+    _, vertices, tris = subpoly(_sphere_net("small"), 3, 1.2, force=True,
+                                verbose=False)
+    assert stats.LAST == {k: golden[k] for k in ("pre_v", "pre_e", "post_v",
+                                                 "post_e")} | {
+        "n_faces": golden["n_tris"]}
+    assert vertices.is_cuda and tris.shape == (golden["n_tris"], 3)
+    for k in ("lattice_encode", "skeleton_mark", "split_step",
+              "connect_step"):
+        assert LAUNCHES[k] > before[k], k
+    assert dv.LAST.reads == len(dv.LAST.busy) + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dist", "sign"])
+def test_device_engine_kernels_match_plain_on_cuda(mode):
+    """K2-K5 against their plain versions on the card, through the whole
+    engine on sphere-small: the skeleton and the complex after the final
+    insertion, bit for bit."""
+    _need_cuda()
+    from tropical_torch.extract import device as dv
+
+    net = _sphere_net("small")
+    runs = []
+    for kern in (None, dv.PLAIN):
+        eng = dv.Engine(net, kern=kern)
+        sk = eng.skeleton(mode)
+        P, counts = eng.pools(sk[0], sk[1], sk[5], sk[2:5])
+        runs.append(list(sk) + list(eng.loop(P, counts)))
+    for a, b in zip(*runs):
+        a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in (a, b))
+        assert a.shape == b.shape and torch.equal(a, b)

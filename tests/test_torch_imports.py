@@ -73,6 +73,7 @@ def test_scan_sees_every_module():
         assert os.path.join("tropical_torch", "utils", name) in rel
     assert os.path.join("tropical_torch", "stanford", "evaluate.py") in rel
     assert os.path.join("tropical_torch", "ops", "mesh_queries.py") in rel
+    assert os.path.join("tropical_torch", "extract", "device.py") in rel
 
 
 @pytest.mark.parametrize("call", ["get_rays", "get_hypercube"])

@@ -602,6 +602,201 @@ def encode(spec: HashGridSpec, table: torch.Tensor, x: torch.Tensor) -> torch.Te
     return HashGridEncode.apply(x, table, spec)
 
 
+# --- the separable lattice encode (K2: csrc/lattice_encode.cu) -----------------
+
+def corner_bins(spec: HashGridSpec, l: int) -> int:
+    """Corner coordinates a level's unit-cube queries touch, per axis:
+    pos = x s + 0.5 with x <= 1 floors to at most s + 0.5 <= res, so the
+    corners 0..res + 1 cover every query."""
+    return spec.level_resolution(l) + 2
+
+
+def corner_table(spec: HashGridSpec, table: torch.Tensor,
+                 l: int) -> torch.Tensor:
+    """Level ``l``'s corner-value grid, [K^3, F] in (x, y, z) order with z
+    fastest: every table row the separable interpolation can read, gathered
+    once through ``_level_indices`` (dense or hashed alike)."""
+    K = corner_bins(spec, l)
+    ax = torch.arange(K, device=table.device)
+    grid = torch.meshgrid(ax, ax, ax, indexing="ij")
+    idx = _level_indices(spec, l, [g.reshape(-1) for g in grid])
+    return table[spec.level_offsets[l] + idx]
+
+
+def _factored(spec: HashGridSpec, l: int, n_points: int) -> bool:
+    """Whether the lattice encode of ``n_points`` points factors level
+    ``l``: not when its corner grid has more than 8 entries a point (the
+    pointwise encode's gathers) or passes 512 MB."""
+    K3 = corner_bins(spec, l) ** 3
+    return not (K3 > 8 * n_points or K3 * spec.features * 4 > 2 ** 29)
+
+
+def lattice_tables(spec: HashGridSpec, table: torch.Tensor,
+                   n_points: int) -> list:
+    """Each level's ``corner_table`` for a lattice of ``n_points`` points,
+    None where the level takes the pointwise encode."""
+    return [corner_table(spec, table, l) if _factored(spec, l, n_points)
+            else None for l in range(spec.levels)]
+
+
+def _tangent(spec: HashGridSpec, l: int, world_scale: float) -> np.float32:
+    """d pos / d x_world of level ``l``: 1 / (2 scale) times s_l, in f32 (an
+    exact product for scale 1)."""
+    return np.float32(np.float32(1.0 / (2.0 * world_scale))
+                      * np.float32(spec.level_scale(l)))
+
+
+def _axis(a: torch.Tensor, s: float):
+    """One axis of a level: (corner 0 index [N] int64, weights 1 - frac and
+    frac [N]), with ``_level_grid``'s two roundings."""
+    pos = a * s + 0.5
+    g = torch.floor(pos)
+    frac = pos - g
+    return g.to(torch.int64), 1.0 - frac, frac
+
+
+def _contract(A: torch.Tensor, dim: int, g: torch.Tensor, w0, w1):
+    """sum over ``dim`` of A against a weight matrix with two nonzeros a
+    row: A[g] * w0 + A[g + 1] * w1, the products rounded, then the sum."""
+    shape = [1] * A.ndim
+    shape[dim] = -1
+    w0 = w0.reshape(shape) if torch.is_tensor(w0) else w0
+    w1 = w1.reshape(shape) if torch.is_tensor(w1) else w1
+    return (A.index_select(dim, g) * w0) + (A.index_select(dim, g + 1) * w1)
+
+
+def lattice_level_plain(spec: HashGridSpec, G: torch.Tensor, l: int,
+                        xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor,
+                        need_grad: bool = False, world_scale: float = 1.0):
+    """Plain version of the lattice encode of one level: features [N, F]
+    of the lattice {xs} x {ys} x {zs} (unit-cube axis coordinates, x-major
+    point order), and with ``need_grad`` their derivatives along the three
+    world axes [3, N, F].
+
+    ``G`` [K^3, F] is the level's ``corner_table``.  The interpolation
+    contracts z, then y, then x, each as ``_contract``; a derivative swaps
+    its axis's weights (1 - frac, frac) for (-t, t), t = ``_tangent``."""
+    K, F = corner_bins(spec, l), spec.features
+    s = spec.level_scale(l)
+    G = G.reshape(K, K, K, F)
+    (gx, x0, x1), (gy, y0, y1), (gz, z0, z1) = (_axis(a, s)
+                                                 for a in (xs, ys, zs))
+    t1 = _contract(G, 2, gz, z0, z1)
+    t2 = _contract(t1, 1, gy, y0, y1)
+    feat = _contract(t2, 0, gx, x0, x1).reshape(-1, F)
+    if not need_grad:
+        return feat, None
+    t = float(_tangent(spec, l, world_scale))
+    dx = _contract(t2, 0, gx, -t, t)
+    dy = _contract(_contract(t1, 1, gy, -t, t), 0, gx, x0, x1)
+    dz = _contract(_contract(_contract(G, 2, gz, -t, t), 1, gy, y0, y1),
+                   0, gx, x0, x1)
+    return feat, torch.stack([d.reshape(-1, F) for d in (dx, dy, dz)])
+
+
+def _lattice_fn(lib: ctypes.CDLL):
+    fn = lib.lattice_encode_launch
+    if fn.argtypes is None:
+        p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [p, p, p, i32, i32, i32, p, i32, f32, f32, p, p, i32,
+                       ctypes.c_longlong, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def lattice_encode(spec: HashGridSpec, G: torch.Tensor, l: int,
+                   xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor,
+                   feat: torch.Tensor, grad: torch.Tensor | None = None,
+                   world_scale: float = 1.0,
+                   lib: ctypes.CDLL | None = None) -> None:
+    """``lattice_level_plain`` by the CUDA kernel, bitwise: writes level
+    ``l``'s columns of ``feat`` [N, L*F] (and of ``grad`` [3, N, L*F])."""
+    F, LF = spec.features, spec.levels * spec.features
+    K = corner_bins(spec, l)
+    n = xs.shape[0] * ys.shape[0] * zs.shape[0]
+    dev = feat.device
+    for name, t, shape in (("G", G, (K ** 3, F)), ("xs", xs, xs.shape),
+                           ("ys", ys, ys.shape), ("zs", zs, zs.shape),
+                           ("feat", feat, (n, LF))):
+        if (t.device != dev or t.device.type != "cuda"
+                or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous() or t.ndim != len(shape)):
+            raise ValueError(f"lattice_encode: {name} must be a contiguous "
+                             f"float32 CUDA tensor of shape {tuple(shape)} "
+                             f"on {dev}, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    if F != 2:
+        raise ValueError(f"the kernel takes F = 2, not {F}")
+    if grad is not None and (grad.shape != (3, n, LF) or grad.device != dev
+                             or not grad.is_contiguous()):
+        raise ValueError(f"lattice_encode: grad must be [3, {n}, {LF}] on "
+                         f"{dev}")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} lattice points overflow the kernel's int32")
+    if not n:
+        return
+    fn = _lattice_fn(lib or cuda_build.load("lattice_encode"))
+    with torch.cuda.device(dev):
+        rc = fn(xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), xs.shape[0],
+                ys.shape[0], zs.shape[0], G.data_ptr(), K,
+                np.float32(spec.level_scale(l)).item(),
+                float(_tangent(spec, l, world_scale)),
+                feat.data_ptr() + 4 * F * l,
+                None if grad is None else grad.data_ptr() + 4 * F * l, LF,
+                n * LF, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"lattice_encode kernel launch failed: CUDA error "
+                           f"{rc}")
+    launches.record("lattice_encode", (n, 1))
+
+
+def encode_lattice(spec: HashGridSpec, table: torch.Tensor, xs: torch.Tensor,
+                   ys: torch.Tensor, zs: torch.Tensor, tables=None,
+                   need_grad: bool = False, world_scale: float = 1.0,
+                   plain: bool = False):
+    """Encode the separable lattice {xs} x {ys} x {zs} (unit-cube axis
+    coordinates) -> features [Nx*Ny*Nz, L*F], x-major point order; with
+    ``need_grad`` also their derivatives along the world axes
+    [3, N, L*F].
+
+    A factored level (``_factored``) interpolates against its corner grid
+    (``tables[l]``, or gathered here): on the CPU by
+    ``lattice_level_plain``, on the card by the ``lattice_encode`` kernel
+    (``plain``: the plain version there too).
+    Another level takes the pointwise ``encode`` of the lattice's points;
+    the skeleton's lattices (M >= the finest resolution) never do, and
+    that path has no derivatives."""
+    n = xs.shape[0] * ys.shape[0] * zs.shape[0]
+    F, LF = spec.features, spec.levels * spec.features
+    feat = xs.new_empty((n, LF))
+    grad = xs.new_empty((3, n, LF)) if need_grad else None
+    pointwise = None
+    for l in range(spec.levels):
+        cols = slice(F * l, F * (l + 1))
+        G = tables[l] if tables is not None else None
+        if G is None and _factored(spec, l, n):
+            G = corner_table(spec, table, l)
+        if G is None:
+            if need_grad:
+                raise NotImplementedError(
+                    f"level {l} of a {n}-point lattice takes the pointwise "
+                    "encode, which has no lattice derivatives")
+            if pointwise is None:
+                pts = torch.stack(torch.meshgrid(xs, ys, zs, indexing="ij"),
+                                  dim=-1).reshape(-1, 3)
+                pointwise = encode(spec, table, pts)
+            feat[:, cols] = pointwise[:, cols]
+        elif plain or xs.device.type == "cpu":
+            f, g = lattice_level_plain(spec, G, l, xs, ys, zs, need_grad,
+                                       world_scale)
+            feat[:, cols] = f
+            if need_grad:
+                grad[:, :, cols] = g
+        else:
+            lattice_encode(spec, G, l, xs, ys, zs, feat, grad, world_scale)
+    return (feat, grad) if need_grad else feat
+
+
 def compute_marks(spec: HashGridSpec) -> np.ndarray:
     """Sorted, eps-deduplicated union of all levels' grid-plane coordinates.
 

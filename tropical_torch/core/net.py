@@ -26,7 +26,8 @@ import torch
 from torch import nn
 
 from tropical_torch import resolve_device
-from tropical_torch.core.hashgrid import HashGridSpec, TropicalHashGrid
+from tropical_torch.core.hashgrid import (HashGridSpec, TropicalHashGrid,
+                                          encode_lattice)
 from tropical_torch.core.mlp import mlp_forward
 
 
@@ -69,6 +70,39 @@ def preprocess(spec: NetSpec, x):
 
 def preprocess_inverse(spec: NetSpec, x):
     return x * (spec.scale * 2) - spec.scale
+
+
+def lattice_features(net, xw, yw, zw, tables=None, need_grad: bool = False,
+                     plain: bool = False):
+    """The hash-grid features of the separable world-coordinate lattice
+    {xw} x {yw} x {zw} (x-major point order), and with ``need_grad`` their
+    derivatives along the world axes (``encode_lattice``; ``plain``: its
+    plain version on any device)."""
+    spec = net.spec
+    xs, ys, zs = (preprocess(spec, a) for a in (xw, yw, zw))
+    return encode_lattice(spec.grid, net.enc.table.detach(), xs, ys, zs,
+                          tables, need_grad, world_scale=spec.scale,
+                          plain=plain)
+
+
+@torch.no_grad()
+def net_outputs_lattice(net, xw, yw, zw, tables=None) -> torch.Tensor:
+    """The R gathered columns over the separable world-coordinate lattice
+    {xw} x {yw} x {zw} -> [Nx*Ny*Nz, R], x-major point order: the forward
+    of ``outputs`` over the meshgrid, the encode factored
+    (``encode_lattice``), equal to it to f32 rounding."""
+    feats = lattice_features(net, xw, yw, zw, tables)
+    return mlp_forward([l.weight for l in net.fc], [l.bias for l in net.fc],
+                       feats, gather=True, eps=net.spec.eps)[1]
+
+
+@torch.no_grad()
+def net_sdf_lattice(net, xw, yw, zw, tables=None) -> torch.Tensor:
+    """The sdf over the separable world-coordinate lattice -> [N]."""
+    feats = lattice_features(net, xw, yw, zw, tables)
+    out, _ = mlp_forward([l.weight for l in net.fc],
+                         [l.bias for l in net.fc], feats)
+    return torch.tanh(out[:, 1] - out[:, 0])
 
 
 class TorchNet(nn.Module):
@@ -164,6 +198,15 @@ class TorchNet(nn.Module):
         mark_at = marks[torch.remainder(offset, marks.shape[0])]
         grid_mask = ((mark_at - xu).abs() > eps).to(torch.int32)
         return torch.cat([grid_mask, m], dim=-1), offset.to(torch.int32), output
+
+    def sdf_and_grad(self, x: torch.Tensor):
+        """(sdf [B, 1], its gradient in x [B, 3]); the table detached, so
+        the encode's backward computes dx alone."""
+        with torch.enable_grad():
+            xx = x.detach().requires_grad_(True)
+            s = self._sdf(xx, table_grad=False)
+            (g,) = torch.autograd.grad(s.sum(), xx)
+        return s.detach(), g
 
     def normal(self, x: torch.Tensor, l: int | None = None,
                h: int | None = None) -> torch.Tensor:

@@ -1,10 +1,13 @@
 """Initial edge skeleton on the hash-grid mark lattice.
 
-Counterpart of ``tropical/extract/skeleton.py`` in its default ``"sign"``
-mode: sweep the marks^3 lattice in chunks, evaluate the neuron sign vectors,
-and keep the lattice edges whose endpoint sign vectors differ.  An edge whose
-endpoints share every neuron sign is never split and is pruned by the
-subdivision loop, so it can never reach the final skeleton.
+Counterpart of ``tropical/extract/skeleton.py``: sweep the marks^3 lattice
+in chunks and keep, in ``"sign"`` mode, the lattice edges whose endpoint
+sign vectors differ (an edge whose endpoints share every neuron sign is
+never split and is pruned by the subdivision loop, so it can never reach
+the final skeleton); in ``"distance"`` mode, the edges whose endpoints both
+lie within the Lipschitz bound sqrt(3) * 2 * max_cell * max_grad of the
+surface, max_grad the largest |grad sdf| of the chunk.  The device engine
+(``extract/device.py``) builds its skeleton on the card in one block.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ def get_hypercube(d: int, size: float, device: torch.device | str):
             torch.tensor(edges, dtype=torch.int64, device=device), faces)
 
 
-def grid_skeleton(net) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sign-pruned initial skeleton.
+def grid_skeleton(net, mode: str = "sign"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pruned initial skeleton, ``mode`` "sign" or "distance".
 
     Returns (vertices [V,3] world coords float32, edges [E,2] int64 with
     compacted vertex ids), on the net's device.  Chunks overlap by one
@@ -53,6 +57,9 @@ def grid_skeleton(net) -> Tuple[torch.Tensor, torch.Tensor]:
     marks = net.marks
     L = marks.shape[0]
     eps = net.eps
+    if mode not in ("sign", "distance"):
+        raise ValueError(f"unknown pruning mode {mode!r}")
+    max_len = float((marks[1:] - marks[:-1]).max())
 
     edge_chunks = []
     for i0 in range(0, L, UNIT - 1):
@@ -67,6 +74,19 @@ def grid_skeleton(net) -> Tuple[torch.Tensor, torch.Tensor]:
                 serial = (indices[..., 0] * L * L + indices[..., 1] * L
                           + indices[..., 2])
 
+                if mode == "distance":
+                    sdf, grad = net.sdf_and_grad(x)
+                    max_grad = float(torch.linalg.vector_norm(
+                        grad, dim=-1).max())
+                    # the bound in float64, as the JAX package's numpy
+                    bound = np.sqrt(3.0) * 2 * max_len * max_grad
+                    near = (sdf.abs()[:, 0].double() <= bound).reshape(
+                        indices.shape[:-1])
+                    for sl_a, sl_b in AXIS_SLICES:
+                        m = near[sl_a] & near[sl_b]
+                        edge_chunks.append(torch.stack(
+                            [serial[sl_a][m], serial[sl_b][m]], dim=-1))
+                    continue
                 out = net.outputs(x)
                 sgn = torch.where(out > 0, 1, -1).to(torch.int8)
                 sgn[out.abs() <= eps] = 0

@@ -8,8 +8,9 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 1. device: the card's name and power limit;
 2. build: every kernel of the main paths from ``tropical_torch/csrc/`` (one
    ``nvcc`` per source, all started together, with the instrumented builds
-   of ``min_dist`` and ``bvh``), with the ``-Xptxas -v`` register and
-   shared-memory summary; no spills;
+   of ``min_dist`` and ``bvh`` and the first designs of ``bvh``,
+   ``lattice_encode`` and ``device_engine``), with the ``-Xptxas -v``
+   register and shared-memory summary; no spills;
 3. kernels vs plain: each kernel against its plain PyTorch version, bit for
    bit (the encode's table gradients, scattered by atomicAdd, to a stated
    tolerance), on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
@@ -110,11 +111,22 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    hierarchy and refit calls);
 11. the device engine's kernels against their plain versions, bit for
    bit, at sphere-small's and sphere-large's shapes: the lattice encode
-   (K2) at the M^3 skeleton lattice with its derivatives, and every stage
-   call of the skeleton (K3), of the final insertion and of the busiest
-   hidden one (K4, K5), recorded from a run of the engine; each kernel's
-   device time (CUDA graphs), its plain version's and its bound (bytes at
-   3.35 TB/s, or K2's operations at 33.5 TFLOP/s);
+   (K2, one launch for every level) at the M^3 skeleton lattice with its
+   derivatives, and every stage call of the skeleton (K3), of the final
+   insertion and of the busiest hidden one (K4, K5), recorded from a run
+   of the engine; each kernel's device time (CUDA graphs), its plain
+   version's and its bound (bytes at 3.35 TB/s, or K2's operations at
+   33.5 TFLOP/s: the bytes the function needs, not the traffic of K5's
+   column table and counts, which is printed apart); the redesigned K2 and
+   K5 calls (the column table, the pair scan's two passes, the row
+   compaction) also held bitwise and timed in their first designs' builds
+   (``cuda_build.LATTICE_FIRST``, ``DEVICE_ENGINE_FIRST``) in the same
+   call, and the compaction beside ``index_select`` on the same rows
+   (K5's ``compact_rows_library_ms``, against its ``compact_rows_ms``:
+   one library call computes the compaction, none the whole of K5, whose
+   ``library_ms`` stays null); sphere-large's
+   distance skeleton split by CUDA events (the corner tables, K2, the MLP
+   and its tangents, the sdf and |grad|, K3 with the read);
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
@@ -167,10 +179,11 @@ CURVED_VERTICES = "tests/golden/sphere_medium_curved_vertices.npy"
 FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 # "Ours" plus the seven MC rows 16..64 below the 128 pseudo-GT, two
 # nearest-neighbour searches each; the device engine's kernels on the flat
-# extraction (4 busy insertions on sphere-small): the lattice encode a
-# level, the skeleton's 6 launches, then K4's and K5's a busy insertion
-MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 4,
-                 "skeleton_mark": 6, "split_step": 17, "connect_step": 48}
+# extraction (4 busy insertions on sphere-small): the lattice encode once
+# for every level, the skeleton's 6 launches, then K4's and K5's a busy
+# insertion (K5: 15 a hidden one, 5 the final, 2 for the starting pools)
+MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
+                 "skeleton_mark": 6, "split_step": 17, "connect_step": 52}
 # each kernel's time before its redesign, for the printed comparison only
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
@@ -288,6 +301,10 @@ DEVICE_ENGINE_REPLACES = {
     "skeleton_mark": "tropical/extract/device.py:2092",
     "split_step": "tropical/extract/device.py:506",
     "connect_step": "tropical/extract/device.py:858"}
+# the redesigned K5 stages, timed beside their first designs (which build no
+# column table)
+REDESIGNED_STAGES = ("connect_table", "connect_count", "connect_fill",
+                     "compact_rows")
 DEVICE_STAGES = {
     "skeleton_pool": "skeleton_mark", "skeleton_points": "skeleton_mark",
     "skeleton_edges": "skeleton_mark", "skeleton_squeeze": "skeleton_mark",
@@ -295,7 +312,8 @@ DEVICE_STAGES = {
     "split_mark": "split_step", "split_lerp": "split_step",
     "split_override": "split_step", "split_append": "split_step",
     "hit_mark": "connect_step", "candidates": "connect_step",
-    "connect_count": "connect_step", "connect_fill": "connect_step",
+    "connect_table": "connect_step", "connect_count": "connect_step",
+    "connect_fill": "connect_step",
     "census_edges": "connect_step", "census_vertices": "connect_step",
     "compact_rows": "connect_step", "compact_edges": "connect_step"}
 # the float operations of a lattice point and level of the lattice encode
@@ -381,7 +399,8 @@ def build_phase():
     t = time.time()
     targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode",
                "bvh", BVH_COUNT, BVH_COUNT_DESIGN, BVH_FIRST, "lattice_encode",
-               "device_engine"]
+               "device_engine", cuda_build.LATTICE_FIRST,
+               cuda_build.DEVICE_ENGINE_FIRST]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -2486,7 +2505,7 @@ class StageLog:
     def __init__(self):
         from tropical_torch.extract import device as dv
 
-        self.dv, self.calls, self.on = dv, [], False
+        self.dv, self.calls, self.on, self.plane = dv, [], False, None
         self.orig = {name: getattr(dv, name) for name in DEVICE_STAGES}
 
     def __enter__(self):
@@ -2501,7 +2520,7 @@ class StageLog:
     def _wrap(self, name, fn):
         def stage(*args, **kw):
             if self.on:
-                self.calls.append((name, clones(args), kw))
+                self.calls.append((name, clones(args), kw, self.plane))
             return fn(*args, **kw)
         return stage
 
@@ -2516,7 +2535,10 @@ def _nb(t):
 
 def stage_bytes(name, a):
     """The bytes a stage call must move: each input read once, each output
-    written once; of a pool the call gathers from, the rows it reads."""
+    written once; of a pool the call gathers from, the rows it reads.  K5's
+    pair scan needs the rows, keys and permutation, a candidate's words, a
+    count a candidate and the pairs: its column table, gathered rows and
+    [n, 9] counts are the design's own traffic (``design_bytes``)."""
     if name == "skeleton_pool":
         return 2 * _nb(a[0])
     if name == "skeleton_points":
@@ -2547,9 +2569,11 @@ def stage_bytes(name, a):
     if name == "candidates":
         n = a[5] + a[6]
         return _nb(a[3]) + n * (12 + 16 + 20)
+    if name == "connect_table":
+        return 0
     if name in ("connect_count", "connect_fill"):
         n = a[0].shape[0]
-        extra = (_nb(a[8]) + 8 * a[9]) if name == "connect_fill" else 4 * n
+        extra = 4 * n + (8 * a[11] if name == "connect_fill" else 0)
         return _nb(a[0]) + _nb(a[1]) + _nb(a[2]) + 16 * n + extra
     if name == "census_edges":
         return sum(_nb(t) for t in a[:6]) + _nb(a[7])
@@ -2561,6 +2585,19 @@ def stage_bytes(name, a):
     if name == "compact_edges":
         return _nb(a[1]) + 24 * a[3]
     raise KeyError(name)
+
+
+def design_bytes(name, a):
+    """The bytes K5's design moves past ``stage_bytes``: the column table's
+    (the rows and keys read, the sorted rows and the table written), and
+    the pair scan's counts a candidate and column where the function needs
+    a count a candidate."""
+    if name == "connect_table":
+        W = a[3] + 1
+        return 2 * _nb(a[0]) + _nb(a[1]) + _nb(a[2]) + 8 * W * W
+    if name in ("connect_count", "connect_fill"):
+        return 32 * a[0].shape[0]
+    return 0
 
 
 def _outputs(result, args):
@@ -2577,35 +2614,63 @@ def _max_err(a, b):
     return float((a != b).any())
 
 
-def stage_check(log, name, args, kw, reps):
+def stage_check(log, name, args, kw, reps, first):
     """One recorded stage call, by the kernel and by its plain version on
-    the card: held bitwise (every result and every argument after the
-    call); the kernel's device time (``graph_ms``), the plain version's
-    (CUDA events), the call's bound.  Returns (max |kernel - plain|, ms,
-    plain ms, bound ms)."""
+    the card, and a redesigned stage also by its first design (``first``:
+    the first designs' ``Kernels``): held bitwise (every result and every
+    argument after the call; K5's first design builds no column table);
+    the kernel's device time (``graph_ms``), the first design's, the plain
+    version's (CUDA events), the call's bound, and for ``compact_rows``
+    the time of ``index_select`` on the same rows (the library call).
+    Returns {err, ms, first_ms, plain_ms, bound_ms, design_ms,
+    library_ms}, ``design_ms`` the design's own traffic
+    (``design_bytes``) at the card's memory rate."""
     dv = log.dv
     fn = log.orig[name]
+    redesigned = name in REDESIGNED_STAGES
+    kerns = [None, dv.PLAIN]
+    if redesigned and name != "connect_table":
+        kerns.append(first)
     runs = []
-    for kern in (None, dv.PLAIN):
+    for kern in kerns:
         a = clones(args)
         runs.append(_outputs(fn(*a, **{**kw, "kern": kern}), a))
     err = 0.0
-    for x, y in zip(*runs):
-        same = x.shape == y.shape and bits_equal(x, y)
-        check(same, f"{name}: kernel != plain ({tuple(x.shape)})")
-        err = max(err, _max_err(x, y))
-    fixed, pfixed = clones(args), clones(args)
-    ms = graph_ms(lambda: fn(*fixed, **{**kw, "kern": None}), reps=reps)
-    plain_ms = cuda_ms(lambda: fn(*pfixed, **{**kw, "kern": dv.PLAIN}),
-                       iters=2)
-    return err, ms, plain_ms, stage_bytes(name, args) / PEAK_BYTES * 1e3
+    for other in runs[1:]:
+        for x, y in zip(runs[0], other):
+            same = x.shape == y.shape and bits_equal(x, y)
+            check(same, f"{name}: kernel != plain or first design "
+                  f"({tuple(x.shape)})")
+            err = max(err, _max_err(x, y))
+    fixed, ffixed, pfixed = clones(args), clones(args), clones(args)
+    out = {"err": err, "bound_ms": stage_bytes(name, args) / PEAK_BYTES * 1e3,
+           "design_ms": design_bytes(name, args) / PEAK_BYTES * 1e3,
+           "ms": graph_ms(lambda: fn(*fixed, **{**kw, "kern": None}),
+                          reps=reps),
+           "plain_ms": cuda_ms(lambda: fn(*pfixed, **{**kw,
+                                                      "kern": dv.PLAIN}),
+                               iters=2),
+           "first_ms": None, "library_ms": None}
+    if redesigned:
+        out["first_ms"] = 0.0 if name == "connect_table" else graph_ms(
+            lambda: fn(*ffixed, **{**kw, "kern": first}), reps=reps)
+    if name == "compact_rows":
+        src, cum = args[0], args[1]
+        rows = torch.nonzero(torch.diff(cum, prepend=cum.new_zeros(1)) > 0
+                             )[:, 0]
+        check(bits_equal(src.index_select(0, rows), runs[0][0]),
+              "compact_rows != index_select")
+        out["library_ms"] = graph_ms(lambda: src.index_select(0, rows),
+                                     reps=reps)
+    return out
 
 
-def lattice_times(net, reps):
+def lattice_times(net, reps, first_lib):
     """K2 at the net's skeleton lattice (M^3 points, the three derivatives):
-    bitwise ``lattice_level_plain`` level by level; the four launches'
-    device time, the plain version's, the bound (bytes at 3.35 TB/s against
-    ``LATTICE_OPS`` at PEAK_F32_UNFUSED_OPS)."""
+    the one launch for every level, and its first design (a launch a
+    level), each bitwise ``lattice_level_plain`` level by level; their
+    device times, the plain version's, the bound (bytes at 3.35 TB/s
+    against ``LATTICE_OPS`` at PEAK_F32_UNFUSED_OPS)."""
     from tropical_torch.core import hashgrid as thg
 
     spec = net.spec.grid
@@ -2616,37 +2681,95 @@ def lattice_times(net, reps):
     feat = torch.empty((n, LF), device="cuda")
     grad = torch.empty((3, n, LF), device="cuda")
 
-    def run():
-        for l in range(spec.levels):
-            thg.lattice_encode(spec, tables[l], l, xs, xs, xs, feat, grad)
+    def run(lib=None):
+        thg.lattice_encode(spec, tables, xs, xs, xs, feat, grad, lib=lib)
 
     def plain():
         return [thg.lattice_level_plain(spec, tables[l], l, xs, xs, xs, True)
                 for l in range(spec.levels)]
 
-    run()
+    want = plain()
     err = 0.0
-    for l, (f, g) in enumerate(plain()):
-        cols = slice(2 * l, 2 * l + 2)
-        for x, y in ((feat[:, cols], f), (grad[:, :, cols], g)):
-            check(bits_equal(x.contiguous(), y), f"lattice_encode level {l}: "
-                  "kernel != plain")
-            err = max(err, _max_err(x, y))
+    for lib in (None, first_lib):
+        feat.fill_(float("nan"))
+        grad.fill_(float("nan"))
+        run(lib)
+        for l, (f, g) in enumerate(want):
+            cols = slice(2 * l, 2 * l + 2)
+            for x, y in ((feat[:, cols], f), (grad[:, :, cols], g)):
+                check(bits_equal(x.contiguous(), y), f"lattice_encode level "
+                      f"{l} ({'first design' if lib else 'design'}): kernel "
+                      "!= plain")
+                err = max(err, _max_err(x, y))
     ms = graph_ms(run, reps=reps)
+    first_ms = graph_ms(lambda: run(first_lib), reps=reps)
     plain_ms = cuda_ms(plain, iters=2)
     nbytes = 4 * n * LF * 4 + sum(_nb(t) for t in tables) + 12 * M
     t_bytes = nbytes / PEAK_BYTES
     t_ops = n * spec.levels * LATTICE_OPS[1] / PEAK_F32_UNFUSED_OPS
-    return err, ms, plain_ms, max(t_bytes, t_ops) * 1e3, (
-        "bytes" if t_bytes >= t_ops else "operations")
+    return {"err": err, "ms": ms, "first_ms": first_ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def engine_stage_times(net, reps):
+def skeleton_split(net, runs=3):
+    """The dist skeleton's device time split by CUDA events (the last of
+    ``runs`` warm runs, ms): the corner tables, K2 (``lattice_features``
+    with the derivatives), the MLP and its three tangents
+    (``_mlp_tangents``), the sdf and |grad| in torch, then K3 with its
+    prefix sums, the skeleton's host read and the compaction."""
+    from tropical_torch.extract import device as dv
+
+    names = ("lattice_features", "_mlp_tangents", "skeleton_pool",
+             "skeleton_points")
+    orig = {k: getattr(dv, k) for k in names}
+    marks = {}
+
+    def mark(key):
+        if key not in marks:
+            marks[key] = torch.cuda.Event(enable_timing=True)
+            marks[key].record()
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            mark(f"{name}<")
+            r = fn(*a, **kw)
+            mark(f"{name}>")
+            return r
+        return call
+
+    eng = dv.Engine(net)
+    try:
+        for k, fn in orig.items():
+            setattr(dv, k, wrap(k, fn))
+        for _ in range(runs):
+            marks.clear()
+            mark("start")
+            eng.skeleton("dist")
+            mark("end")
+            torch.cuda.synchronize()
+    finally:
+        for k, fn in orig.items():
+            setattr(dv, k, fn)
+    k3 = "skeleton_pool<" if "skeleton_pool<" in marks else "skeleton_points<"
+    bounds = [("corner tables", "start", "lattice_features<"),
+              ("K2 lattice_encode", "lattice_features<", "lattice_features>"),
+              ("_mlp_tangents", "_mlp_tangents<", "_mlp_tangents>"),
+              ("sdf and |grad|", "_mlp_tangents>", k3),
+              ("K3, prefix sums, read, squeeze", k3, "end"),
+              ("skeleton", "start", "end")]
+    return {label: marks[a].elapsed_time(marks[b]) for label, a, b in bounds}
+
+
+def engine_stage_times(net, reps, first):
     """K3-K5 at a net's shapes: the skeleton's stage calls, and those of
     the final insertion and of the busiest hidden one (the most split
     edges), recorded from a run of the engine, each held bitwise to its
-    plain version and timed.  Returns {kernel: [max err, ms, plain ms,
-    bound ms]} summed over the kernel's calls, and the run's busy list."""
+    plain version (and a redesigned one to its first design) and timed.
+    Returns {kernel: {err, ms, first_ms, plain_ms, bound_ms, ...}} summed
+    over the kernel's calls (a kernel's first-design time: its redesigned
+    calls' first designs and its other calls' own times), the run's busy
+    list and the recorded planes."""
     from tropical_torch.extract import device as dv
 
     busy = dv.Engine(net)
@@ -2658,61 +2781,113 @@ def engine_stage_times(net, reps):
         class Logged(dv.Engine):
             def step(self, P, idx, *a, **k):
                 log.on = idx in planes
+                log.plane = idx
                 try:
                     return super().step(P, idx, *a, **k)
                 finally:
                     log.on = False
 
         eng = Logged(net)
-        log.on = True
+        log.on, log.plane = True, "skeleton"
         sk = eng.skeleton("dist")
         log.on = False
         eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
-        out = {k: [0.0, 0.0, 0.0, 0.0] for k in DEVICE_ENGINE[1:]}
-        for name, args, kw in log.calls:
-            err, ms, pms, bms = stage_check(log, name, args, kw, reps)
+        out = {k: {"err": 0.0, "ms": 0.0, "first_ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0, "design_ms": 0.0}
+               for k in DEVICE_ENGINE[1:]}
+        redesigned = {}
+        for name, args, kw, plane in log.calls:
+            r = stage_check(log, name, args, kw, reps, first)
             rec = out[DEVICE_STAGES[name]]
-            rec[0] = max(rec[0], err)
-            rec[1] += ms
-            rec[2] += pms
-            rec[3] += bms
-            print(f"  {name}: kernel {ms:.5f} ms, plain {pms:.3f} ms, bound "
-                  f"{bms:.5f} ms")
+            rec["err"] = max(rec["err"], r["err"])
+            for key in ("ms", "plain_ms", "bound_ms", "design_ms"):
+                rec[key] += r[key]
+            rec["first_ms"] += r["ms"] if r["first_ms"] is None \
+                else r["first_ms"]
+            if r["library_ms"] is not None:
+                rec["compact_rows_library_ms"] = rec.get(
+                    "compact_rows_library_ms", 0.0) + r["library_ms"]
+            if name in REDESIGNED_STAGES:
+                agg = redesigned.setdefault(name, [0.0, 0.0])
+                agg[0] += r["ms"]
+                agg[1] += r["first_ms"]
+            first_txt = "" if r["first_ms"] is None else (
+                f", first design {r['first_ms']:.5f} ms")
+            lib_txt = "" if r["library_ms"] is None else (
+                f", index_select {r['library_ms']:.5f} ms")
+            design_txt = "" if not r["design_ms"] else (
+                f" (the design's own traffic {r['design_ms']:.5f} ms more)")
+            print(f"  plane {plane}: {name}: kernel {r['ms']:.5f} ms"
+                  f"{first_txt}{lib_txt}, plain {r['plain_ms']:.3f} ms, "
+                  f"bound {r['bound_ms']:.5f} ms{design_txt}")
+        for name, (ms, fms) in redesigned.items():
+            print(f"  {name}, summed: kernel {ms:.5f} ms, first design "
+                  f"{fms:.5f} ms")
+        rows = out["connect_step"]
+        rows["compact_rows_ms"] = redesigned.get("compact_rows", [0, 0])[0]
+        rows["compact_rows_first_ms"] = redesigned.get("compact_rows",
+                                                       [0, 0])[1]
     return out, busy.stats.busy, sorted(planes)
 
 
 def device_kernels_phase(records, flat_launches):
     """K2-K5 against their plain versions on the card, bit for bit, at the
-    sphere-small (the main path) and sphere-large lattices and insertions;
-    their device times, plain times and bounds in the kernel records."""
+    sphere-small (the main path) and sphere-large lattices and insertions,
+    the redesigned K2 and K5 calls also against their first designs; their
+    device times (and the first designs'), plain times and bounds in the
+    kernel records; sphere-large's skeleton split."""
     phase("11. the device engine's kernels against their plain versions, "
           "sphere-small and sphere-large")
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import cuda_build
+
+    first = dv.Kernels(cuda_build.load(cuda_build.DEVICE_ENGINE_FIRST),
+                       torch.device("cuda", 0))
+    lattice_first = cuda_build.load(cuda_build.LATTICE_FIRST)
     for size, reps in (("small", 50), ("large", 10)):
         net = sphere_net(size)
-        k2 = lattice_times(net, reps)
-        print(f"{size}: lattice_encode kernel {k2[1]:.4f} ms, plain "
-              f"{k2[2]:.3f} ms, bound {k2[3]:.4f} ms ({k2[4]}), "
+        k2 = lattice_times(net, reps, lattice_first)
+        print(f"{size}: lattice_encode kernel {k2['ms']:.4f} ms (first "
+              f"design {k2['first_ms']:.4f} ms), plain {k2['plain_ms']:.3f} "
+              f"ms, bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}), "
               f"M = {net.marks.shape[0]}")
-        stages, busy, planes = engine_stage_times(net, reps)
+        stages, busy, planes = engine_stage_times(net, reps, first)
         print(f"{size}: busy insertions (plane, splits, hits, connecting "
               f"edges) {busy}; recorded planes {planes}")
+        if size == "large":
+            split = skeleton_split(net)
+            print(f"{size}: the dist skeleton's split (ms, CUDA events): "
+                  f"{json.dumps(split)}")
+            records["skeleton_mark"]["skeleton_split_ms_large"] = split
         tag = "" if size == "small" else f"_{size}"
         for name in DEVICE_ENGINE:
-            err, ms, pms, bms = (k2[:4] if name == "lattice_encode"
-                                 else stages[name])
+            r = k2 if name == "lattice_encode" else stages[name]
             rec = records.setdefault(name, {
                 "name": name, "route": "cuda",
                 "source": DEVICE_ENGINE_SOURCE.get(
                     name, "tropical_torch/csrc/device_engine.cu"),
                 "replaces": DEVICE_ENGINE_REPLACES[name],
                 "launches": flat_launches[name], "library_ms": None})
-            rec.update({f"max_abs_err{tag}": err, f"ms{tag}": ms,
-                        f"plain_ms{tag}": pms, f"bound_ms{tag}": bms,
-                        f"bound_by{tag}": (k2[4] if name == "lattice_encode"
-                                           else "bytes")})
-            print(f"{size}: {name}: kernel {ms:.4f} ms ({bms / ms:.1%} of "
-                  f"its bound {bms:.4f} ms), plain {pms:.3f} ms, max err "
-                  f"{err}")
+            rec.update({f"max_abs_err{tag}": r["err"], f"ms{tag}": r["ms"],
+                        f"first_ms{tag}": r["first_ms"],
+                        f"plain_ms{tag}": r["plain_ms"],
+                        f"bound_ms{tag}": r["bound_ms"],
+                        f"bound_by{tag}": r.get("bound_by", "bytes")})
+            if "compact_rows_library_ms" in r:
+                rec[f"compact_rows_library_ms{tag}"] = r[
+                    "compact_rows_library_ms"]
+                rec[f"compact_rows_ms{tag}"] = r["compact_rows_ms"]
+                rec[f"compact_rows_first_ms{tag}"] = r[
+                    "compact_rows_first_ms"]
+            print(f"{size}: {name}: kernel {r['ms']:.4f} ms "
+                  f"({r['bound_ms'] / r['ms']:.1%} of its bound "
+                  f"{r['bound_ms']:.4f} ms), first design "
+                  f"{r['first_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+                  f"max err {r['err']}")
+            if r.get("design_ms"):
+                print(f"{size}: {name}: the design's own traffic (column "
+                      f"table, sorted rows, [n, 9] counts), not in its bound: "
+                      f"{r['design_ms']:.4f} ms at the memory rate")
         del net
         torch.cuda.empty_cache()
 

@@ -43,6 +43,14 @@ struct alignas(8) float2 {
   float x, y;
 };
 inline float2 make_float2(float a, float b) { return float2{a, b}; }
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int a, int b) { return int2{a, b}; }
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int a, int b, int c, int d) { return int4{a, b, c, d}; }
 struct alignas(16) float4 {
   float x, y, z, w;
 };

@@ -3,13 +3,21 @@
 ``tests/cuda_emulation.h`` (one thread a lane, a barrier in each
 ``__syncthreads``) and held bitwise to their plain versions.
 
-- K2 at the three presets' grids (large's finest level hashes), with and
-  without the derivatives, on lattices of marks and of uniform draws.
+- K2's one launch for every level, at the three presets' grids (large's
+  finest level hashes), with and without the derivatives, on a lattice
+  whose point count is not a multiple of the block; also its first design
+  (a level a launch), and a launch that leaves a level alone on a grid of
+  an odd count of levels; the kernels each build's launch reports.
 - K3-K5 through the whole engine: a seeded 11-mark net (its table scaled so
   that its zero set crosses the cube, the final bias shifted onto it) from
   the dist skeleton to the final insertion, and its sign skeleton; every
   output of the emulated kernels equals the plain versions' and every
   kernel launched.
+- K5's column table and pair scan (the design and the first design) on
+  synthetic candidates: empty columns, columns at x and y = 0 and W - 1, a
+  cell of more candidates than a warp, one candidate, none; the launches
+  each build records; ``compact_rows`` at widths 1, 2 and 33 with no rows
+  kept, some and all, and its refusal of an outputs' pool of 2^31 words.
 - Stage edge cases: the max-pool with a NaN, empty compactions.
 """
 
@@ -25,9 +33,12 @@ import torch
 from test_torch_encode_forward import emulated_source
 from tropical_torch.core import hashgrid as thg
 from tropical_torch.extract import device as dv
-from tropical_torch.ops import launches
+from tropical_torch.ops import cuda_build, launches
 
 ROOT = Path(__file__).resolve().parents[1]
+# the builds held here: the designs and the first designs
+LATTICE_BUILDS = {"design": (), "first": cuda_build.LATTICE_FIRST[1]}
+ENGINE_BUILDS = {"design": (), "first": cuda_build.DEVICE_ENGINE_FIRST[1]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -40,7 +51,9 @@ def _one_thread():
     torch.set_num_threads(threads)
 
 
-def _build(tmp_path_factory, name):
+def _build(tmp_path_factory, name, builds):
+    """{build: library} of ``csrc/<name>.cu`` with each build's macros,
+    one g++ a build, all started together."""
     compiler = shutil.which("g++")
     if compiler is None:
         pytest.skip("needs g++ to emulate the CUDA source")
@@ -48,69 +61,107 @@ def _build(tmp_path_factory, name):
     cpp = out / f"{name}.cpp"
     cpp.write_text(emulated_source(
         (ROOT / "tropical_torch" / "csrc" / f"{name}.cu").read_text()))
-    so = out / f"lib{name}.so"
-    proc = subprocess.run([compiler, "-std=c++20", "-O1", "-ffp-contract=off",
-                           "-fPIC", "-shared", "-pthread",
-                           f"-I{ROOT / 'tests'}", "-include", "cuda_emulation.h",
-                           "-o", str(so), str(cpp)],
-                          capture_output=True, text=True)
-    assert proc.returncode == 0, f"g++ failed for {name}:\n{proc.stderr}"
-    return ctypes.CDLL(str(so))
+    procs = {}
+    for build, defines in builds.items():
+        so = out / f"lib{name}_{build}.so"
+        procs[build] = (so, subprocess.Popen(
+            [compiler, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+             "-shared", "-pthread", f"-I{ROOT / 'tests'}", "-include",
+             "cuda_emulation.h", *(f"-D{d}" for d in defines), "-o", str(so),
+             str(cpp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for build, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"g++ failed for {name} {build}:\n{log}"
+        libs[build] = ctypes.CDLL(str(so))
+    return libs
 
 
 @pytest.fixture(scope="module")
-def lattice_lib(tmp_path_factory):
-    return _build(tmp_path_factory, "lattice_encode")
+def lattice_libs(tmp_path_factory):
+    return _build(tmp_path_factory, "lattice_encode", LATTICE_BUILDS)
 
 
 @pytest.fixture(scope="module")
-def engine_kernels(tmp_path_factory):
-    return dv.Kernels(_build(tmp_path_factory, "device_engine"),
-                      torch.device("cpu"))
+def engine_libs(tmp_path_factory):
+    return {k: dv.Kernels(lib, torch.device("cpu")) for k, lib in
+            _build(tmp_path_factory, "device_engine", ENGINE_BUILDS).items()}
 
 
-def _emulated_level(lib, spec, G, l, xs, ys, zs, need_grad):
-    """The K2 launch of the emulated build on CPU tensors."""
+@pytest.fixture(scope="module")
+def engine_kernels(engine_libs):
+    return engine_libs["design"]
+
+
+def _emulated_encode(lib, spec, tables, xs, ys, zs, need_grad):
+    """The K2 launch of an emulated build on CPU tensors (the columns of a
+    level without a table stay NaN): (feat, grad), and the kernels the
+    launch reports."""
     n = xs.shape[0] * ys.shape[0] * zs.shape[0]
     LF = spec.levels * 2
     feat = torch.full((n, LF), float("nan"))
     grad = torch.full((3, n, LF), float("nan")) if need_grad else None
-    fn = thg._lattice_fn(lib)
-    rc = fn(xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), xs.shape[0],
-            ys.shape[0], zs.shape[0], G.data_ptr(), thg.corner_bins(spec, l),
-            np.float32(spec.level_scale(l)).item(),
-            float(thg._tangent(spec, l, 1.0)), feat.data_ptr() + 8 * l,
-            None if grad is None else grad.data_ptr() + 8 * l, LF, n * LF,
-            None)
-    assert rc == 0
-    cols = slice(2 * l, 2 * l + 2)
-    return feat[:, cols], None if grad is None else grad[:, :, cols]
+    lv = thg.lattice_levels(spec, tables)
+    rc = thg._lattice_fn(lib)(xs.data_ptr(), ys.data_ptr(), zs.data_ptr(),
+                              xs.shape[0], ys.shape[0], zs.shape[0],
+                              ctypes.byref(lv), feat.data_ptr(),
+                              None if grad is None else grad.data_ptr(), None)
+    return feat, grad, rc
 
 
+def _held_to_plain(lib, spec, tables, xs, ys, zs, launched):
+    for need_grad in (False, True):
+        f, g, rc = _emulated_encode(lib, spec, tables, xs, ys, zs, need_grad)
+        assert rc == launched
+        for l, G in enumerate(tables):
+            cols = slice(2 * l, 2 * l + 2)
+            if G is None:
+                assert f[:, cols].isnan().all()
+                continue
+            pf, pg = thg.lattice_level_plain(spec, G, l, xs, ys, zs,
+                                             need_grad)
+            assert torch.equal(f[:, cols].contiguous().view(torch.int32),
+                               pf.view(torch.int32))
+            if need_grad:
+                assert torch.equal(g[:, :, cols].contiguous().view(
+                    torch.int32), pg.view(torch.int32))
+
+
+@pytest.mark.parametrize("build", LATTICE_BUILDS)
 @pytest.mark.parametrize("r_max", [32, 64, 128])
-def test_emulated_lattice_encode_is_bitwise_plain(lattice_lib, r_max):
+def test_emulated_lattice_encode_is_bitwise_plain(lattice_libs, r_max, build):
+    """Every level in one launch, on a 7 x 5 x 9 lattice (315 points: a
+    block and a partial one)."""
     spec = thg.HashGridSpec(levels=4, n_min=r_max // 16, n_max=r_max,
                             log2_table=19)
     rng = np.random.default_rng(r_max)
     table = torch.from_numpy(
         rng.normal(size=(spec.n_entries, 2)).astype(np.float32))
     marks = thg.compute_marks(spec)
-    axes = [np.sort(rng.choice(marks, n, replace=False)) for n in (5, 4, 6)]
-    axes[1] = np.sort(rng.uniform(0, 1, 4)).astype(np.float32)
+    axes = [np.sort(rng.choice(marks, n, replace=False)) for n in (7, 5, 9)]
+    axes[1] = np.sort(rng.uniform(0, 1, 5)).astype(np.float32)
     xs, ys, zs = (torch.from_numpy(a.astype(np.float32)) for a in axes)
-    for l in range(spec.levels):
-        G = thg.corner_table(spec, table, l)
-        for need_grad in (False, True):
-            f, g = _emulated_level(lattice_lib, spec, G, l, xs, ys, zs,
-                                   need_grad)
-            pf, pg = thg.lattice_level_plain(spec, G, l, xs, ys, zs,
-                                             need_grad)
-            assert torch.equal(f.contiguous().view(torch.int32),
-                               pf.view(torch.int32))
-            if need_grad:
-                assert torch.equal(g.contiguous().view(torch.int32),
-                                   pg.view(torch.int32))
+    tables = [thg.corner_table(spec, table, l) for l in range(spec.levels)]
+    _held_to_plain(lattice_libs[build], spec, tables, xs, ys, zs,
+                   1 if build == "design" else spec.levels)
     assert spec.level_uses_hash(3) == (r_max == 128)
+
+
+@pytest.mark.parametrize("build", ["design", "first"])
+def test_emulated_lattice_encode_leaves_a_level_alone(lattice_libs, build):
+    """Five levels (rows of 10 floats: no staging, no float4 stores) with
+    level 1 left alone (as a level that takes the pointwise encode)."""
+    spec = thg.HashGridSpec(levels=5, n_min=2, n_max=32, log2_table=19)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(
+        rng.normal(size=(spec.n_entries, 2)).astype(np.float32))
+    xs, ys, zs = (torch.from_numpy(np.sort(rng.uniform(0, 1, n)).astype(
+        np.float32)) for n in (3, 11, 8))
+    tables = [None if l == 1 else thg.corner_table(spec, table, l)
+              for l in range(spec.levels)]
+    _held_to_plain(lattice_libs[build], spec, tables, xs, ys, zs,
+                   1 if build == "design" else spec.levels - 1)
 
 
 @pytest.fixture(scope="module")
@@ -189,5 +240,149 @@ def test_emulated_stage_edge_cases(engine_kernels):
     before = launches.LAUNCHES["connect_step"]
     C = torch.zeros((0, 4), dtype=torch.int32)
     e = torch.zeros(0, dtype=torch.int32)
-    cnt = dv.connect_count(C, e, e, e, e, 3, M, True, None, None, kern=k)
-    assert cnt.shape == (0,) and launches.LAUNCHES["connect_step"] == before
+    cols, Cs = dv.connect_table(C, e, e, M, kern=k)
+    cnt = dv.connect_count(C, e, e, cols, Cs, e, e, 3, M, True, None, None,
+                           kern=k)
+    assert cnt.shape == (0, 9) and launches.LAUNCHES["connect_step"] == before
+
+
+# synthetic insertions for K5's pair scan: (M, cells), each cell (x, y, z
+# offsets + 1 in [0, M], candidates in it); "crowded" adds 200 candidates
+# in random cells to a cell of 40 and its neighbours
+PAIR_CASES = {
+    "edges": (9, [(0, 0, 0, 6), (0, 0, 1, 4), (0, 9, 9, 6), (9, 0, 5, 6),
+                  (9, 9, 9, 6), (1, 1, 0, 4), (0, 4, 3, 6), (1, 4, 2, 4),
+                  (4, 9, 1, 6), (4, 8, 2, 4), (8, 8, 8, 4), (5, 5, 1, 6),
+                  (5, 5, 7, 6), (5, 6, 6, 4), (6, 5, 2, 4)]),
+    "crowded": (9, [(4, 4, 4, 40), (4, 4, 5, 20), (4, 5, 4, 20),
+                    (5, 4, 4, 20)]),
+    "single": (9, [(3, 4, 5, 1)]),
+    "empty": (9, []),
+}
+
+
+def _pair_inputs(name):
+    """Candidate rows [n, 4] (vertex id; zero and sign bits of the 5
+    active columns; cell offsets + 1 and on-plane flags) of ``PAIR_CASES``
+    and their vertices' words [nV, 2], drawn from small pools so that many
+    pairs are compatible and some fail the future-sign pre-filter."""
+    rng = np.random.default_rng(len(name))
+    M, cells = PAIR_CASES[name]
+    if name == "crowded":
+        cells = cells + [(*rng.integers(0, M + 1, 3), 1) for _ in range(200)]
+    offs = np.array([c[:3] for c in cells for _ in range(c[3])],
+                    np.int64).reshape(-1, 3)
+    n = offs.shape[0]
+    nV = n + 7
+    on = rng.random((n, 3)) < 0.5
+    zs = rng.choice([0, 2, 4, 6], n)
+    sb = rng.choice([0b01001, 0b01011, 0b11001], n) & ~zs & 0x1F
+    go = offs[:, 0] | offs[:, 1] << 9 | offs[:, 2] << 18
+    for d in range(3):
+        go |= on[:, d].astype(np.int64) << (27 + d)
+    C = np.stack([rng.permutation(nV)[:n], zs, sb, go], 1).astype(np.int32)
+    words = rng.integers(-2 ** 31, 2 ** 31, (4, 2))
+    SBx = words[rng.integers(0, 2, nV)].astype(np.int32)
+    ZBx = words[rng.integers(2, 4, nV)].astype(np.int32)
+    return M, *(torch.from_numpy(a) for a in (C, SBx, ZBx))
+
+
+def _pair_run(kern, M, C, SBx, ZBx, idx=5):
+    """The column table, then for a hidden and the final insertion the
+    counts, used marks, split histogram and pairs."""
+    skey, perm = torch.sort(dv._cell_key(C[:, 3], M), stable=True)
+    perm = perm.to(torch.int32)
+    cols, Cs = dv.connect_table(C, skey, perm, M, kern=kern)
+    out = {"cols": cols, "Cs": Cs}
+    for final in (False, True):
+        used = torch.zeros(SBx.shape[0], dtype=torch.int32)
+        meta = torch.zeros(dv.META, dtype=torch.int32)
+        cnt = dv.connect_count(C, skey, perm, cols, Cs, SBx, ZBx, idx, M,
+                               final, None if final else used, meta,
+                               kern=kern)
+        ccum = torch.cumsum(cnt.reshape(-1), 0, dtype=torch.int32)
+        n_conn = int(ccum[-1]) if ccum.numel() else 0
+        pairs = dv.connect_fill(C, skey, perm, cols, Cs, SBx, ZBx, idx, M,
+                                final, ccum, n_conn, kern=kern)
+        out.update({f"cnt{final}": cnt, f"used{final}": used,
+                    f"meta{final}": meta, f"pairs{final}": pairs})
+    return out
+
+
+@pytest.mark.parametrize("build", ENGINE_BUILDS)
+@pytest.mark.parametrize("case", PAIR_CASES)
+def test_emulated_pair_scan_is_bitwise_plain(engine_libs, case, build):
+    """K5's column table (but for the first design, which builds none)
+    and its two passes, bitwise the plain versions, in scan order."""
+    M, C, SBx, ZBx = _pair_inputs(case)
+    want = _pair_run(None, M, C, SBx, ZBx)
+    got = _pair_run(engine_libs[build], M, C, SBx, ZBx)
+    for key, w in want.items():
+        if build == "first" and key in ("cols", "Cs"):
+            continue
+        assert got[key].shape == w.shape and torch.equal(got[key], w), key
+    n_pairs = want["pairsTrue"].shape[0]
+    assert want["pairsFalse"].shape[0] < n_pairs or case in ("single",
+                                                              "empty")
+    if case == "crowded":
+        assert n_pairs > 1000 and want["Cs"].shape[0] > 256
+    if case == "edges":  # columns on every side of the grid hold pairs
+        ends = torch.stack([want["pairsTrue"].min(1).values,
+                            want["pairsTrue"].max(1).values])
+        cells = C[:, 3][torch.isin(C[:, 0], ends.reshape(-1))]
+        x, y = cells & 511, (cells >> 9) & 511
+        assert {0, M} <= set(x.tolist()) and {0, M} <= set(y.tolist())
+
+
+@pytest.mark.parametrize("build", ["design", "first"])
+@pytest.mark.parametrize("width", [1, 2, 33])
+def test_emulated_compact_rows_is_bitwise_plain(engine_libs, width, build):
+    """``compact_rows`` of 300 rows (float32 at width 33, as the outputs'
+    pool; int32 otherwise) with none kept, some and all."""
+    rng = np.random.default_rng(width)
+    if width == 33:
+        src = torch.from_numpy(rng.normal(size=(300, 33)).astype(np.float32))
+        src[7, 3] = float("nan")
+    else:
+        src = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (300, width),
+                                            dtype=np.int64).astype(np.int32))
+    if width == 1:
+        src = src[:, 0].contiguous()
+    for keep in (np.zeros(300), rng.random(300) < 0.3, np.ones(300)):
+        cum = torch.cumsum(torch.from_numpy(keep.astype(np.int32)), 0,
+                           dtype=torch.int32)
+        n = int(cum[-1])
+        got = dv.compact_rows(src, cum, n, kern=engine_libs[build])
+        want = dv.compact_rows(src, cum, n)
+        assert got.shape == want.shape and torch.equal(
+            _bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("build", ENGINE_BUILDS)
+def test_emulated_connect_stages_record_their_launches(engine_libs, build):
+    """The launches K5's stages record are those their builds make: the
+    column table one in the design and none in the first design, then a
+    launch a pass and a compaction."""
+    M, C, SBx, ZBx = _pair_inputs("crowded")
+    launches.reset()
+    _pair_run(engine_libs[build], M, C, SBx, ZBx)
+    table = 1 if build == "design" else 0
+    assert launches.LAUNCHES["connect_step"] == table + 4
+    src = torch.zeros((5, 33), dtype=torch.float32)
+    cum = torch.arange(1, 6, dtype=torch.int32)
+    dv.compact_rows(src, cum, 5, kern=engine_libs[build])
+    assert launches.LAUNCHES["connect_step"] == table + 5
+
+
+def test_emulated_compact_rows_refuses_a_pool_past_int32(engine_kernels):
+    """The outputs' pool's word kernel indexes in 32 bits: a pool of 2^31
+    words or more is refused before any launch."""
+    n = 2 ** 31 // 33 + 1
+    src = torch.zeros((2, 33), dtype=torch.int32)
+    cum = torch.zeros(2, dtype=torch.int32)
+    launches.reset()
+    with pytest.raises(RuntimeError, match="compact_rows kernel launch "
+                                           "failed: CUDA error 1"):
+        engine_kernels("connect_step", "compact_rows", n, src, cum, n, 33,
+                       src)
+    assert launches.LAUNCHES["connect_step"] == 0

@@ -811,3 +811,89 @@ def test_device_engine_kernels_match_plain_on_cuda(mode):
         a, b = (t.view(torch.int32) if t.dtype == torch.float32 else t
                 for t in (a, b))
         assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_lattice_encode_designs_bitwise_on_cuda():
+    """K2 at sphere-small's skeleton lattice (49^3 points), in one launch and
+    in its first design (a launch a level), with and without the
+    derivatives, bitwise ``lattice_level_plain`` level by level; each
+    build records the launches it makes (1, or one a level)."""
+    _need_cuda()
+    from tropical_torch.core import hashgrid as thg
+    from tropical_torch.ops import cuda_build
+
+    net = _sphere_net("small")
+    spec = net.spec.grid
+    xs = net.preprocess(net.marks * (net.spec.scale * 2) - net.spec.scale)
+    n, LF = xs.shape[0] ** 3, spec.levels * 2
+    tables = thg.lattice_tables(spec, net.enc.table.detach(), n)
+    libs = {"design": cuda_build.load("lattice_encode"),
+            "first": cuda_build.load(cuda_build.LATTICE_FIRST)}
+    for need_grad in (False, True):
+        want = [thg.lattice_level_plain(spec, tables[l], l, xs, xs, xs,
+                                        need_grad)
+                for l in range(spec.levels)]
+        for build, lib in libs.items():
+            feat = torch.full((n, LF), float("nan"), device="cuda")
+            grad = (torch.full((3, n, LF), float("nan"), device="cuda")
+                    if need_grad else None)
+            before = LAUNCHES["lattice_encode"]
+            thg.lattice_encode(spec, tables, xs, xs, xs, feat, grad, lib=lib)
+            torch.cuda.synchronize()
+            assert LAUNCHES["lattice_encode"] == before + (
+                1 if build == "design" else
+                sum(G is not None for G in tables))
+            for l, (f, g) in enumerate(want):
+                cols = slice(2 * l, 2 * l + 2)
+                assert torch.equal(feat[:, cols].contiguous().view(
+                    torch.int32), f.view(torch.int32)), (build, l)
+                if need_grad:
+                    assert torch.equal(grad[:, :, cols].contiguous().view(
+                        torch.int32), g.view(torch.int32)), (build, l)
+
+
+@pytest.mark.gpu
+def test_connect_stages_designs_bitwise_on_cuda(monkeypatch):
+    """Every call of K5's column table, pair scan and row compaction in a
+    flat extraction of sphere-small, recorded, then replayed by the kernels,
+    by their first designs and by the plain versions: bitwise (every result
+    and every argument after the call; the first design builds no column
+    table)."""
+    _need_cuda()
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import cuda_build
+
+    first = dv.Kernels(cuda_build.load(cuda_build.DEVICE_ENGINE_FIRST),
+                       torch.device("cuda", 0))
+    calls = []
+    names = ("connect_table", "connect_count", "connect_fill", "compact_rows")
+    orig = {k: getattr(dv, k) for k in names}
+
+    def recorder(name):
+        def stage(*args, **kw):
+            calls.append((name, [a.clone() if torch.is_tensor(a) else a
+                                 for a in args], kw))
+            return orig[name](*args, **kw)
+        return stage
+
+    for k in names:
+        monkeypatch.setattr(dv, k, recorder(k))
+    eng = dv.Engine(_sphere_net("small"))
+    sk = eng.skeleton("dist")
+    eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    assert {c[0] for c in calls} == set(names)
+    for name, args, kw in calls:
+        runs = {}
+        for build, kern in (("design", None), ("first", first),
+                            ("plain", dv.PLAIN)):
+            if build == "first" and name == "connect_table":
+                continue
+            a = [x.clone() if torch.is_tensor(x) else x for x in args]
+            res = orig[name](*a, **{**kw, "kern": kern})
+            res = res if isinstance(res, tuple) else (res,)
+            runs[build] = [t for t in (*res, *a) if torch.is_tensor(t)]
+        for build, out in runs.items():
+            for x, y in zip(runs["plain"], out):
+                assert x.shape == y.shape and torch.equal(
+                    x.view(torch.int32), y.view(torch.int32)), (name, build)

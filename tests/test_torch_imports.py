@@ -20,6 +20,8 @@ def _sources():
              os.path.join(ROOT, "scripts", "trilinear_roots_variants.py"),
              os.path.join(ROOT, "scripts", "hashgrid_encode_variants.py"),
              os.path.join(ROOT, "scripts", "hashgrid_encode_compare.py"),
+             os.path.join(ROOT, "scripts", "bvh_variants.py"),
+             os.path.join(ROOT, "scripts", "device_engine_variants.py"),
              os.path.join(ROOT, "tests", "trilinear_cases.py"),
              os.path.join(ROOT, "tests", "encode_cases.py"),
              os.path.join(ROOT, "tests", "evaluate_table.py"),
@@ -64,6 +66,8 @@ def test_scan_sees_every_module():
     assert os.path.join("tests", "bvh_cases.py") in rel
     assert os.path.join("scripts", "hashgrid_encode_variants.py") in rel
     assert os.path.join("scripts", "hashgrid_encode_compare.py") in rel
+    assert os.path.join("scripts", "bvh_variants.py") in rel
+    assert os.path.join("scripts", "device_engine_variants.py") in rel
     for name in ("roots.py", "trilinear.py", "hashgrid.py"):
         assert os.path.join("tropical_torch", "core", name) in rel
     for name in ("train.py", "training.py", "dataset.py"):

@@ -694,30 +694,65 @@ def lattice_level_plain(spec: HashGridSpec, G: torch.Tensor, l: int,
     return feat, torch.stack([d.reshape(-1, F) for d in (dx, dy, dz)])
 
 
+# the most levels one lattice_encode launch takes (csrc/lattice_encode.cu)
+LATTICE_MAX_LEVELS = 16
+
+
+class _LatticeLevels(ctypes.Structure):
+    """``LatticeLevels`` of csrc/lattice_encode.cu: each level's corner grid
+    (null: a level the launch leaves alone), K, scale and tangent, and the
+    levels of a row."""
+
+    _fields_ = [("G", ctypes.c_void_p * LATTICE_MAX_LEVELS),
+                ("K", ctypes.c_int * LATTICE_MAX_LEVELS),
+                ("scale", ctypes.c_float * LATTICE_MAX_LEVELS),
+                ("t", ctypes.c_float * LATTICE_MAX_LEVELS),
+                ("count", ctypes.c_int)]
+
+
+def lattice_levels(spec: HashGridSpec, tables, world_scale: float = 1.0
+                   ) -> _LatticeLevels:
+    """The launch's level descriptors: every level whose ``tables`` entry
+    is a corner grid."""
+    lv = _LatticeLevels()
+    lv.count = spec.levels
+    for l, G in enumerate(tables):
+        if G is None:
+            continue
+        lv.G[l] = G.data_ptr()
+        lv.K[l] = corner_bins(spec, l)
+        lv.scale[l] = np.float32(spec.level_scale(l)).item()
+        lv.t[l] = float(_tangent(spec, l, world_scale))
+    return lv
+
+
 def _lattice_fn(lib: ctypes.CDLL):
     fn = lib.lattice_encode_launch
     if fn.argtypes is None:
-        p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, i32, i32, i32, p, i32, f32, f32, p, p, i32,
-                       ctypes.c_longlong, p]
+        p, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i32, i32, i32, ctypes.POINTER(_LatticeLevels),
+                       p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def lattice_encode(spec: HashGridSpec, G: torch.Tensor, l: int,
-                   xs: torch.Tensor, ys: torch.Tensor, zs: torch.Tensor,
-                   feat: torch.Tensor, grad: torch.Tensor | None = None,
-                   world_scale: float = 1.0,
+def lattice_encode(spec: HashGridSpec, tables, xs: torch.Tensor,
+                   ys: torch.Tensor, zs: torch.Tensor, feat: torch.Tensor,
+                   grad: torch.Tensor | None = None, world_scale: float = 1.0,
                    lib: ctypes.CDLL | None = None) -> None:
-    """``lattice_level_plain`` by the CUDA kernel, bitwise: writes level
-    ``l``'s columns of ``feat`` [N, L*F] (and of ``grad`` [3, N, L*F])."""
+    """``lattice_level_plain`` of every level with a corner grid in
+    ``tables`` (None: a level left alone), bitwise, in one launch of the
+    CUDA kernel: writes those levels' columns of ``feat`` [N, L*F] (and of
+    ``grad`` [3, N, L*F])."""
     F, LF = spec.features, spec.levels * spec.features
-    K = corner_bins(spec, l)
     n = xs.shape[0] * ys.shape[0] * zs.shape[0]
     dev = feat.device
-    for name, t, shape in (("G", G, (K ** 3, F)), ("xs", xs, xs.shape),
-                           ("ys", ys, ys.shape), ("zs", zs, zs.shape),
-                           ("feat", feat, (n, LF))):
+    levels = [l for l, G in enumerate(tables) if G is not None]
+    checked = [(f"G[{l}]", tables[l], (corner_bins(spec, l) ** 3, F))
+               for l in levels]
+    for name, t, shape in checked + [("xs", xs, xs.shape), ("ys", ys, ys.shape),
+                                     ("zs", zs, zs.shape),
+                                     ("feat", feat, (n, LF))]:
         if (t.device != dev or t.device.type != "cuda"
                 or t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
                 or not t.is_contiguous() or t.ndim != len(shape)):
@@ -727,27 +762,30 @@ def lattice_encode(spec: HashGridSpec, G: torch.Tensor, l: int,
                              f"{t.device}")
     if F != 2:
         raise ValueError(f"the kernel takes F = 2, not {F}")
+    if len(tables) != spec.levels or spec.levels > LATTICE_MAX_LEVELS:
+        raise ValueError(f"lattice_encode takes {spec.levels} tables of at "
+                         f"most {LATTICE_MAX_LEVELS} levels, got "
+                         f"{len(tables)}")
     if grad is not None and (grad.shape != (3, n, LF) or grad.device != dev
+                             or grad.dtype != torch.float32
                              or not grad.is_contiguous()):
-        raise ValueError(f"lattice_encode: grad must be [3, {n}, {LF}] on "
-                         f"{dev}")
+        raise ValueError(f"lattice_encode: grad must be [3, {n}, {LF}] "
+                         f"float32 on {dev}")
     if n >= 2 ** 31:
         raise ValueError(f"{n} lattice points overflow the kernel's int32")
-    if not n:
+    if not n or not levels:
         return
     fn = _lattice_fn(lib or cuda_build.load("lattice_encode"))
+    lv = lattice_levels(spec, tables, world_scale)
     with torch.cuda.device(dev):
         rc = fn(xs.data_ptr(), ys.data_ptr(), zs.data_ptr(), xs.shape[0],
-                ys.shape[0], zs.shape[0], G.data_ptr(), K,
-                np.float32(spec.level_scale(l)).item(),
-                float(_tangent(spec, l, world_scale)),
-                feat.data_ptr() + 4 * F * l,
-                None if grad is None else grad.data_ptr() + 4 * F * l, LF,
-                n * LF, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
+                ys.shape[0], zs.shape[0], ctypes.byref(lv), feat.data_ptr(),
+                None if grad is None else grad.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc < 0:
         raise RuntimeError(f"lattice_encode kernel launch failed: CUDA error "
-                           f"{rc}")
-    launches.record("lattice_encode", (n, 1))
+                           f"{-rc}")
+    launches.record("lattice_encode", (n, len(levels)), count=rc)
 
 
 def encode_lattice(spec: HashGridSpec, table: torch.Tensor, xs: torch.Tensor,
@@ -761,8 +799,9 @@ def encode_lattice(spec: HashGridSpec, table: torch.Tensor, xs: torch.Tensor,
 
     A factored level (``_factored``) interpolates against its corner grid
     (``tables[l]``, or gathered here): on the CPU by
-    ``lattice_level_plain``, on the card by the ``lattice_encode`` kernel
-    (``plain``: the plain version there too).
+    ``lattice_level_plain``, on the card by one launch of the
+    ``lattice_encode`` kernel for every factored level (``plain``: the
+    plain version there too).
     Another level takes the pointwise ``encode`` of the lattice's points;
     the skeleton's lattices (M >= the finest resolution) never do, and
     that path has no derivatives."""
@@ -770,30 +809,34 @@ def encode_lattice(spec: HashGridSpec, table: torch.Tensor, xs: torch.Tensor,
     F, LF = spec.features, spec.levels * spec.features
     feat = xs.new_empty((n, LF))
     grad = xs.new_empty((3, n, LF)) if need_grad else None
-    pointwise = None
+    grids = []
     for l in range(spec.levels):
-        cols = slice(F * l, F * (l + 1))
         G = tables[l] if tables is not None else None
         if G is None and _factored(spec, l, n):
             G = corner_table(spec, table, l)
-        if G is None:
-            if need_grad:
-                raise NotImplementedError(
-                    f"level {l} of a {n}-point lattice takes the pointwise "
-                    "encode, which has no lattice derivatives")
-            if pointwise is None:
-                pts = torch.stack(torch.meshgrid(xs, ys, zs, indexing="ij"),
-                                  dim=-1).reshape(-1, 3)
-                pointwise = encode(spec, table, pts)
-            feat[:, cols] = pointwise[:, cols]
-        elif plain or xs.device.type == "cpu":
+        grids.append(G)
+    pointwise = [l for l, G in enumerate(grids) if G is None]
+    if pointwise:
+        if need_grad:
+            raise NotImplementedError(
+                f"level {pointwise[0]} of a {n}-point lattice takes the "
+                "pointwise encode, which has no lattice derivatives")
+        pts = torch.stack(torch.meshgrid(xs, ys, zs, indexing="ij"),
+                          dim=-1).reshape(-1, 3)
+        enc = encode(spec, table, pts)
+        for l in pointwise:
+            feat[:, F * l:F * (l + 1)] = enc[:, F * l:F * (l + 1)]
+    if plain or xs.device.type == "cpu":
+        for l, G in enumerate(grids):
+            if G is None:
+                continue
             f, g = lattice_level_plain(spec, G, l, xs, ys, zs, need_grad,
                                        world_scale)
-            feat[:, cols] = f
+            feat[:, F * l:F * (l + 1)] = f
             if need_grad:
-                grad[:, :, cols] = g
-        else:
-            lattice_encode(spec, G, l, xs, ys, zs, feat, grad, world_scale)
+                grad[:, :, F * l:F * (l + 1)] = g
+    else:
+        lattice_encode(spec, grids, xs, ys, zs, feat, grad, world_scale)
     return (feat, grad) if need_grad else feat
 
 

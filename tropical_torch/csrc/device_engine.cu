@@ -9,8 +9,10 @@
 // :254 and _prune :1121).  Each launch function is one kernel; the caller
 // (tropical_torch/extract/device.py) passes device pointers, long long
 // integers and float scalars in the declared order, then the stream, and
-// reads back cudaGetLastError().  Each has its plain PyTorch version in
-// that module, which it equals bit for bit.
+// gets back the count of kernels it launched, or minus a CUDA error
+// (cudaGetLastError(), or cudaErrorInvalidValue for arguments it refuses).
+// Each has its plain PyTorch version in that module, which it equals bit
+// for bit.
 //
 // Words: a vertex's 33 columns as 2 32-bit words (bit j of word w is
 // column 32 w + j): sign (out > 0), zero (|out| <= eps), strict
@@ -25,6 +27,34 @@
 // pair search is the exception: each candidate scans the candidates of
 // the 27 cells around its own, a data-dependent loop (about the cells'
 // occupancy squared).
+//
+// K5's pair scan (connect_pairs) is bound by latency: chains of dependent loads
+// and long instruction streams on few warps (a few hundred candidates at the
+// small insertions).  It reads a column table that connect_table builds once an
+// insertion: for each (x, y) column of the (M + 1)^2 cell grid, the [start,
+// end) of its candidates in sorted order ((0, 0) for an empty column: the table
+// comes zeroed and the kernel scatters each run's ends, with no search), and
+// the candidate rows gathered into sorted order.  A block takes 32 candidates,
+// a warp for each of the 9 neighbour columns and a lane for each candidate, so
+// that a candidate's columns run side by side on 9 warps: a lane loads its
+// column's table entry, searches inside the column for both ends of its z
+// window in lockstep, then reads the window's rows one at a time (a row, then
+// the words of a row that pairs).  The count pass writes a count for each
+// candidate and column, so that their prefix sum gives each column its first
+// slot in scan order (candidate, column, position): the fill pass scans a
+// column once, and skips a column of no pairs.  No array is indexed by a value
+// the compiler cannot fold, so nothing lives in local memory.  The first design
+// (-DCONNECT_SEARCHES: connect_table launches nothing) took a thread a
+// candidate and ran a lower and an upper bound over the whole sorted key array
+// for each neighbour column, up to 18 chains of log2 n dependent loads, then
+// the column's rows through the sort's permutation, a row at a time.
+//
+// compact_rows copies the outputs' pool (rows of R words) a word a thread,
+// with 32-bit index arithmetic and the width fixed at compile time, so that a
+// warp's loads and stores are contiguous; a row of any other width (at most 4
+// words: the words, the vertices, the edges) a thread, which a warp reads
+// contiguously.  Its first design (-DCOMPACT_ROW_THREAD) copied a row a thread at every width,
+// a warp's loads 4 width bytes apart.
 
 #include <cuda_runtime.h>
 
@@ -36,6 +66,20 @@ constexpr int NW = 2;      // words a row
 constexpr int kThreads = 256;
 // the count vector (tropical_torch/extract/device.py META)
 constexpr int N_LIVE = 1, N_USED = 2, SPLIT = 3, HIT = 3 + R;
+
+#ifdef CONNECT_SEARCHES
+constexpr bool kColumns = false;
+#else
+constexpr bool kColumns = true;
+#endif
+#ifdef COMPACT_ROW_THREAD
+constexpr bool kCompactWords = false;
+#else
+constexpr bool kCompactWords = true;
+#endif
+// the pair scan's block: kPairLanes candidates, a warp a neighbour column
+constexpr int kPairLanes = 32;
+constexpr int kPairThreads = 9 * kPairLanes;
 
 __device__ __forceinline__ unsigned bit_of(const int* w, int col) {
   return (static_cast<unsigned>(w[col >> 5]) >> (col & 31)) & 1u;
@@ -121,7 +165,11 @@ __device__ __forceinline__ void hist_flush(Hist& h, int* meta, int first0,
 
 int blocks(ll n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
 
-int done() { return static_cast<int>(cudaGetLastError()); }
+// a launch function's result: the kernels it launched, or minus the error
+int done(int launched = 1) {
+  const int rc = static_cast<int>(cudaGetLastError());
+  return rc ? -rc : launched;
+}
 
 // --- K3 skeleton_mark --------------------------------------------------------
 
@@ -375,8 +423,9 @@ __global__ void candidates_kernel(
   key[row] = (o1[0] * W + o1[1]) * W + o1[2];
 }
 
-__device__ __forceinline__ int lower_bound(const int* a, int n, int key) {
-  int lo = 0, hi = n;
+// the first position in [lo, hi) of the sorted a whose value is >= key
+__device__ __forceinline__ int lower_bound(const int* a, int lo, int hi,
+                                           int key) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (a[mid] < key) lo = mid + 1; else hi = mid;
@@ -395,11 +444,11 @@ __device__ __forceinline__ int upper_bound(const int* a, int n, int key) {
 
 // rows a, b in a common region (every active neuron column equal or zero in
 // one; each axis's cell sets meet) sharing a zero plane
-__device__ __forceinline__ bool pair_test(const int* a, const int* b) {
-  const unsigned za = a[1], zb = b[1];
-  if ((static_cast<unsigned>(a[2]) ^ static_cast<unsigned>(b[2])) & ~za & ~zb)
+__device__ __forceinline__ bool pair_test(int4 a, int4 b) {
+  const unsigned za = a.y, zb = b.y;
+  if ((static_cast<unsigned>(a.z) ^ static_cast<unsigned>(b.z)) & ~za & ~zb)
     return false;
-  const unsigned ga = a[3], gb = b[3];
+  const unsigned ga = a.w, gb = b.w;
   int shared = __popc(za & zb);
   for (int d = 0; d < 3; ++d) {
     const int oa = (ga >> (9 * d)) & 511, ob = (gb >> (9 * d)) & 511;
@@ -410,53 +459,188 @@ __device__ __forceinline__ bool pair_test(const int* a, const int* b) {
   return shared >= 1;
 }
 
-__global__ void __launch_bounds__(kThreads) connect_pairs_kernel(
+__device__ __forceinline__ int4 row_of(const int* C, ll r) {
+  return make_int4(C[4 * r], C[4 * r + 1], C[4 * r + 2], C[4 * r + 3]);
+}
+
+// The column table and the sorted rows: thread t < n gathers row perm[t]
+// to Cs[t] and, at the first (last) candidate of a column, writes the
+// column's start (end); cols was zeroed.
+__global__ void connect_table_kernel(const int* __restrict__ C,
+                                     const int* __restrict__ skey,
+                                     const int* __restrict__ perm, int n,
+                                     int W, int2* cols, int4* Cs) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n) return;
+  Cs[t] = row_of(C, perm[t]);
+  const int col = skey[t] / W;
+  if (t == 0 || skey[t - 1] / W != col) cols[col].x = t;
+  if (t == n - 1 || skey[t + 1] / W != col) cols[col].y = t + 1;
+}
+
+// A connecting pair found by a candidate's scan: the pair at slot *at (the
+// fill pass), or its ends in used and its split bits in the block's
+// histogram (the count pass, but for the final insertion)
+__device__ __forceinline__ void keep_pair(ll va, ll vb, const unsigned* w,
+                                          ll* at, int* pairs, int* used,
+                                          Hist& hist, bool histogram) {
+  if (at != nullptr) {
+    pairs[2 * *at] = static_cast<int>(min(va, vb));
+    pairs[2 * *at + 1] = static_cast<int>(max(va, vb));
+    ++*at;
+  }
+  if (used != nullptr) {
+    used[va] = 1;
+    used[vb] = 1;
+  }
+  if (histogram) hist_bits(hist, 0, w);
+}
+
+// The first design's scan of one candidate: for each neighbour column a
+// lower and an upper bound over the whole sorted key array, then its rows
+// through the permutation; each column's count to cnt (if given)
+__device__ __forceinline__ void scan_searches(
+    const int* C, const int* skey, const int* perm, int n, int p, int4 a,
+    int W, const int* SBx, const int* ZBx, int idx, bool final_step,
+    ll slot, int* cnt, int* pairs, int* used, Hist& hist, bool histogram) {
+  const unsigned ga = a.w;
+  const int o0 = ga & 511, o1 = (ga >> 9) & 511, o2 = (ga >> 18) & 511;
+  const ll va = a.x;
+  for (int c = 0; c < 9; ++c) {
+    const int nx = o0 + c / 3 - 1, ny = o1 + c % 3 - 1;
+    int found = 0;
+    if (nx < 0 || nx >= W || ny < 0 || ny >= W) {
+      if (cnt != nullptr) cnt[9 * p + c] = 0;
+      continue;
+    }
+    const int col = (nx * W + ny) * W;
+    const int lo = max(lower_bound(skey, 0, n, col + max(o2 - 1, 0)), p + 1);
+    const int hi = upper_bound(skey, n, col + min(o2 + 1, W - 1));
+    for (int q = lo; q < hi; ++q) {
+      const int4 b = row_of(C, perm[q]);
+      if (!pair_test(a, b)) continue;
+      const ll vb = b.x;
+      unsigned w[NW];
+      const int ld = edge_bits(SBx + NW * va, ZBx + NW * va, SBx + NW * vb,
+                               ZBx + NW * vb, w);
+      if (!final_step && ld < idx) continue;
+      ++found;
+      keep_pair(va, vb, w, pairs != nullptr ? &slot : nullptr, pairs, used,
+                hist, histogram);
+    }
+    if (cnt != nullptr) cnt[9 * p + c] = found;
+  }
+}
+
+// The design's window of a candidate in cell (o0, o1, o2) in neighbour
+// column c (0..8: dx, then dy): the sorted positions [lo, hi) of the
+// column's candidates with z in [o2 - 1, o2 + 1], from the table entry and
+// two searches inside the column in lockstep.  lo is not yet clamped to
+// the candidate's own position.
+__device__ __forceinline__ void column_window(
+    const int2* __restrict__ cols, const int* __restrict__ skey, int c,
+    int o0, int o1, int o2, int W, int* lo, int* hi) {
+  const int nx = o0 + c / 3 - 1, ny = o1 + c % 3 - 1;
+  if (nx < 0 || nx >= W || ny < 0 || ny >= W) {
+    *lo = *hi = 0;
+    return;
+  }
+  const int col = nx * W + ny;
+  const int2 se = cols[col];
+  // the first position with z >= o2 - 1, and the first with z > o2 + 1
+  int l0 = se.x, h0 = se.y, l1 = se.x, h1 = se.y;
+  const int k0 = col * W + o2 - 1, k1 = col * W + o2 + 2;
+  while (l0 < h0 || l1 < h1) {
+    const int m0 = (l0 + h0) >> 1, m1 = (l1 + h1) >> 1;
+    const int v0 = l0 < h0 ? skey[m0] : 0, v1 = l1 < h1 ? skey[m1] : 0;
+    if (l0 < h0) {
+      if (v0 < k0) l0 = m0 + 1; else h0 = m0;
+    }
+    if (l1 < h1) {
+      if (v1 < k1) l1 = m1 + 1; else h1 = m1;
+    }
+  }
+  *lo = l0;
+  *hi = l1;
+}
+
+// The design's scan of one window [q, hi) of a candidate: a row at a time,
+// and the words of a row that pairs; the pairs kept in order (keep_pair, at
+// *at if at is given).  Returns the pairs kept.
+__device__ __forceinline__ int scan_window(
+    int q, int hi, int4 a, const int* sa, const int* za,
+    const int4* __restrict__ Cs, const int2* __restrict__ SB2,
+    const int2* __restrict__ ZB2, int idx, bool final_step, ll* at,
+    int* pairs, int* used, Hist& hist, bool histogram) {
+  int found = 0;
+  for (; q < hi; ++q) {
+    const int4 b = Cs[q];
+    if (!pair_test(a, b)) continue;
+    const int2 sb = SB2[b.x], zb = ZB2[b.x];
+    const int sq[NW] = {sb.x, sb.y}, zq[NW] = {zb.x, zb.y};
+    unsigned w[NW];
+    const int ld = edge_bits(sa, za, sq, zq, w);
+    if (!final_step && ld < idx) continue;
+    ++found;
+    keep_pair(a.x, b.x, w, at, pairs, used, hist, histogram);
+  }
+  return found;
+}
+
+// The pair scan: cnt [n, 9] the pairs of each candidate and neighbour
+// column (the count pass), or the pairs written at the slots of ccum, the
+// inclusive prefix sum of those counts (the fill pass: scan order is
+// candidate, column, position).  The design: a block of kPairLanes
+// candidates, a warp a neighbour column, a lane a candidate; the fill pass
+// skips a (candidate, column) of no pairs.  The first design: a thread a
+// candidate, its 9 columns one after another.
+__global__ void __launch_bounds__(kPairThreads) connect_pairs_kernel(
     const int* __restrict__ C, const int* __restrict__ skey,
-    const int* __restrict__ perm, int n, const int* __restrict__ SBx,
+    const int* __restrict__ perm, const int2* __restrict__ cols,
+    const int4* __restrict__ Cs, int n, const int* __restrict__ SBx,
     const int* __restrict__ ZBx, int idx, int M, int final_step, int* cnt,
     const int* __restrict__ ccum, int* used, int* meta, int* pairs) {
   __shared__ Hist hist;
-  if (meta != nullptr) hist_zero(hist);
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < n) {
-    const int* a = C + 4 * perm[p];
-    const unsigned ga = a[3];
-    const int o0 = ga & 511, o1 = (ga >> 9) & 511, o2 = (ga >> 18) & 511;
-    const int W = M + 1;
-    const ll va = a[0];
-    int found = 0;
-    ll slot = ccum != nullptr ? (p ? ccum[p - 1] : 0) : 0;
-    for (int dx = -1; dx <= 1; ++dx)
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int nx = o0 + dx, ny = o1 + dy;
-        if (nx < 0 || nx >= W || ny < 0 || ny >= W) continue;
-        const int col = (nx * W + ny) * W;
-        const int lo = max(lower_bound(skey, n, col + max(o2 - 1, 0)), p + 1);
-        const int hi = upper_bound(skey, n, col + min(o2 + 1, W - 1));
-        for (int q = lo; q < hi; ++q) {
-          const int* b = C + 4 * perm[q];
-          if (!pair_test(a, b)) continue;
-          const ll vb = b[0];
-          unsigned w[NW];
-          const int ld = edge_bits(SBx + NW * va, ZBx + NW * va,
-                                   SBx + NW * vb, ZBx + NW * vb, w);
-          if (!final_step && ld < idx) continue;
-          ++found;
-          if (pairs != nullptr) {
-            pairs[2 * slot] = static_cast<int>(min(va, vb));
-            pairs[2 * slot + 1] = static_cast<int>(max(va, vb));
-            ++slot;
-          }
-          if (used != nullptr) {
-            used[va] = 1;
-            used[vb] = 1;
-          }
-          if (meta != nullptr) hist_bits(hist, 0, w);
-        }
-      }
-    if (cnt != nullptr) cnt[p] = found;
+  const bool histogram = meta != nullptr;
+  if (histogram) hist_zero(hist);
+  const int W = M + 1;
+  if (!kColumns) {
+    const int p = blockIdx.x * blockDim.x + threadIdx.x;
+    if (p < n) {
+      const ll slot = ccum != nullptr ? (p ? ccum[9 * p - 1] : 0) : 0;
+      scan_searches(C, skey, perm, n, p, row_of(C, perm[p]), W, SBx, ZBx,
+                    idx, final_step, slot, cnt, pairs, used, hist, histogram);
+    }
+    if (histogram) hist_flush(hist, meta, SPLIT, -1, -1);
+    return;
   }
-  if (meta != nullptr) hist_flush(hist, meta, SPLIT, -1, -1);
+  const int lane = threadIdx.x & 31, c = threadIdx.x >> 5;
+  const int p = blockIdx.x * kPairLanes + lane;
+  bool live = p < n;
+  ll slot = 0;
+  if (live && ccum != nullptr) {
+    const ll at = 9LL * p + c;
+    slot = at ? ccum[at - 1] : 0;
+    // the fill pass: a column of no pairs scans nothing
+    if (slot == ccum[at]) live = false;
+  }
+  if (live) {
+    const int4 a = Cs[p];
+    const unsigned ga = a.w;
+    int lo, hi;
+    column_window(cols, skey, c, ga & 511, (ga >> 9) & 511, (ga >> 18) & 511,
+                  W, &lo, &hi);
+    const ll va = a.x;
+    const int sa[NW] = {SBx[NW * va], SBx[NW * va + 1]};
+    const int za[NW] = {ZBx[NW * va], ZBx[NW * va + 1]};
+    const int found = scan_window(
+        max(lo, p + 1), hi, a, sa, za, Cs,
+        reinterpret_cast<const int2*>(SBx), reinterpret_cast<const int2*>(ZBx),
+        idx, final_step, pairs != nullptr ? &slot : nullptr, pairs, used,
+        hist, histogram);
+    if (cnt != nullptr) cnt[9 * p + c] = found;
+  }
+  if (histogram) hist_flush(hist, meta, SPLIT, -1, -1);
 }
 
 __global__ void census_edges_kernel(const int* __restrict__ E,
@@ -501,6 +685,20 @@ __global__ void census_vertices_kernel(const int* __restrict__ used,
   hist_flush(hist, meta, -1, HIT, N_USED);
 }
 
+// a thread a word of the n rows of R words (the outputs' pool: the width
+// fixed at compile time, a multiply for the division), stored at its row's
+// slot; n R < 2^31
+__global__ void compact_words_kernel(const int* __restrict__ src,
+                                     const int* __restrict__ cum, int n,
+                                     int* dst) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n * R) return;
+  const int v = src[t];
+  const int r = t / R;
+  if (flag_of(cum, r)) dst[(cum[r] - 1) * R + (t - r * R)] = v;
+}
+
+// a thread a row (the first design; the design's for rows of other widths)
 __global__ void compact_rows_kernel(const int* __restrict__ src,
                                     const int* __restrict__ cum, ll n,
                                     int width, int* dst) {
@@ -627,14 +825,31 @@ int candidates_launch(const float* Vx, const int* SBx, const int* ZBx,
   return done();
 }
 
-int connect_pairs_launch(const int* C, const int* skey, const int* perm, ll n,
-                         const int* SBx, const int* ZBx, ll idx, ll M,
-                         ll final_step, int* cnt, const int* ccum, int* used,
-                         int* meta, int* pairs, cudaStream_t stream) {
-  connect_pairs_kernel<<<blocks(n), kThreads, 0, stream>>>(
-      C, skey, perm, static_cast<int>(n), SBx, ZBx, static_cast<int>(idx),
-      static_cast<int>(M), static_cast<int>(final_step), cnt, ccum, used,
-      meta, pairs);
+// cols: [(M + 1)^2] (start, end) pairs, zeroed by the caller; the first
+// design leaves it and Cs as they are, and launches nothing
+int connect_table_launch(const int* C, const int* skey, const int* perm,
+                         ll n, ll M, int* cols, int* Cs, cudaStream_t stream) {
+  if (!kColumns) return 0;
+  const ll W = M + 1;
+  connect_table_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      C, skey, perm, static_cast<int>(n), static_cast<int>(W),
+      reinterpret_cast<int2*>(cols), reinterpret_cast<int4*>(Cs));
+  return done();
+}
+
+int connect_pairs_launch(const int* C, const int* skey, const int* perm,
+                         const int* cols, const int* Cs, ll n, const int* SBx,
+                         const int* ZBx, ll idx, ll M, ll final_step,
+                         int* cnt, const int* ccum, int* used, int* meta,
+                         int* pairs, cudaStream_t stream) {
+  const int grid = kColumns ? static_cast<int>((n + kPairLanes - 1) / kPairLanes)
+                            : blocks(n);
+  connect_pairs_kernel<<<grid, kColumns ? kPairThreads : kThreads, 0,
+                         stream>>>(
+      C, skey, perm, reinterpret_cast<const int2*>(cols),
+      reinterpret_cast<const int4*>(Cs), static_cast<int>(n), SBx, ZBx,
+      static_cast<int>(idx), static_cast<int>(M),
+      static_cast<int>(final_step), cnt, ccum, used, meta, pairs);
   return done();
 }
 
@@ -653,10 +868,17 @@ int census_vertices_launch(const int* used, const int* SZx, ll n, int* meta,
   return done();
 }
 
+// the outputs' pool takes 32-bit word indices: n R < 2^31
 int compact_rows_launch(const int* src, const int* cum, ll n, ll width,
                         int* dst, cudaStream_t stream) {
-  compact_rows_kernel<<<blocks(n), kThreads, 0, stream>>>(
-      src, cum, n, static_cast<int>(width), dst);
+  if (kCompactWords && width == R) {
+    if (n * R >= (1LL << 31)) return -static_cast<int>(cudaErrorInvalidValue);
+    compact_words_kernel<<<blocks(n * R), kThreads, 0, stream>>>(
+        src, cum, static_cast<int>(n), dst);
+  } else {
+    compact_rows_kernel<<<blocks(n), kThreads, 0, stream>>>(
+        src, cum, n, static_cast<int>(width), dst);
+  }
   return done();
 }
 

@@ -49,11 +49,13 @@ tensor takes the plain version, a CUDA tensor the kernel.
   ``split_override`` and ``split_append`` (the sign override, the new
   vertices' words, the left-edge rewrite and the right-edge append);
 - K5 ``connect_step``: ``hit_mark``, ``candidates`` (region words through
-  ``_grid_region_lut``, cell keys), ``connect_count`` / ``connect_fill``
-  (the pairs: compatible, sharing a zero plane (``__popc``), past the
-  future-sign pre-filter), ``census_edges`` / ``census_vertices`` (the
-  prune's survivors and the per-plane histograms) and ``compact_rows`` /
-  ``compact_edges`` (the prune's compaction).
+  ``_grid_region_lut``, cell keys), ``connect_table`` (each cell column's
+  range of sorted positions, and the rows in sorted order),
+  ``connect_count`` / ``connect_fill`` (the pairs: compatible, sharing a
+  zero plane (``__popc``), past the future-sign pre-filter),
+  ``census_edges`` / ``census_vertices`` (the prune's survivors and the
+  per-plane histograms) and ``compact_rows`` / ``compact_edges`` (the
+  prune's compaction).
 
 K2 (the lattice encode) is ``core/hashgrid.lattice_encode``.
 """
@@ -296,9 +298,9 @@ class Kernels:
     """``csrc/device_engine.cu``'s launch functions on one device.  Every
     launch function takes device pointers, ``long long`` integers and
     ``float`` scalars in its declared order, then the stream, and returns
-    ``cudaGetLastError()``; each call counts one launch of its kernel (K3,
-    K4 or K5).  ``device`` may be the CPU for a library built against the
-    tests' CUDA emulation."""
+    the count of kernels it launched (K3, K4 or K5), which the call
+    records, or minus a CUDA error, which it raises.  ``device`` may be the
+    CPU for a library built against the tests' CUDA emulation."""
 
     def __init__(self, lib: ctypes.CDLL, device: torch.device):
         self.lib = lib
@@ -328,9 +330,10 @@ class Kernels:
                 rc = fn(*conv, ctypes.c_void_p(stream))
         else:
             rc = fn(*conv, ctypes.c_void_p(None))
-        if rc != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-        launches.record(kernel, (int(n),))
+        if rc < 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{-rc}")
+        launches.record(kernel, (int(n),), count=rc)
 
 
 # ``kern=PLAIN``: the plain versions on any device (the card's comparisons)
@@ -710,7 +713,8 @@ def _shares_plane(a, b):
 
 def _pairs_plain(C, skey, perm, SBx, ZBx, idx: int, M: int, final: bool):
     """Every tested pair in the kernels' scan order, and whether it is
-    kept: (sorted position p of the first row, vertex ids a, b, kept)."""
+    kept: (sorted position p of the first row, its neighbour column (0..8,
+    ``NEIGHBOURS``' order), vertex ids a, b, kept)."""
     dev = C.device
     n = C.shape[0]
     rows = C[perm.long()]
@@ -738,19 +742,46 @@ def _pairs_plain(C, skey, perm, SBx, ZBx, idx: int, M: int, final: bool):
     ps, qs = torch.cat(ps), torch.cat(qs)
     order = torch.argsort(ps * (len(NEIGHBOURS) * (n + 1)) + k * (n + 1) + qs,
                           stable=True)
-    ps, qs = ps[order], qs[order]
+    ps, qs, k = ps[order], qs[order], k[order]
     a, b = rows[ps], rows[qs]
     keep = _compatible(a, b, idx) & _shares_plane(a, b)
     va, vb = a[:, 0].long(), b[:, 0].long()
     if not final:
         _, ld = _edge_bits(SBx[va], ZBx[va], SBx[vb], ZBx[vb])
         keep &= ld >= idx
-    return ps, va, vb, keep
+    return ps, k, va, vb, keep
+
+
+def connect_table_plain(C, skey, perm, M: int):
+    W = M + 1
+    base = torch.arange(W * W, device=C.device, dtype=skey.dtype) * W
+    start = torch.searchsorted(skey, base).to(torch.int32)
+    end = torch.searchsorted(skey, base + W).to(torch.int32)
+    cols = torch.stack([start, end], 1)
+    return torch.where((start == end)[:, None], 0, cols), C[perm.long()]
+
+
+def connect_table(C, skey, perm, M: int, kern: Kernels | None = None):
+    """The pair scan's column table: for each (x, y) column of the
+    (M + 1)^2 cell grid, the [start, end) of its candidates' sorted
+    positions ([(M + 1)^2, 2] int32, (0, 0) for an empty column), and the
+    candidate rows in sorted order ``C[perm]`` [n, 4]."""
+    run = _run(kern, C.device)
+    if run is None:
+        return connect_table_plain(C, skey, perm, M)
+    n, W = C.shape[0], M + 1
+    cols = _zeros32(W * W, 2, device=C.device)
+    Cs = _i32(n, 4, device=C.device)
+    run("connect_step", "connect_table", n, C, skey, perm, n, M, cols, Cs)
+    return cols, Cs
 
 
 def connect_count_plain(C, skey, perm, SBx, ZBx, idx, M, final, used, meta):
-    ps, va, vb, keep = _pairs_plain(C, skey, perm, SBx, ZBx, idx, M, final)
-    cnt = torch.bincount(ps[keep], minlength=C.shape[0]).to(torch.int32)
+    ps, k, va, vb, keep = _pairs_plain(C, skey, perm, SBx, ZBx, idx, M,
+                                       final)
+    nc = len(NEIGHBOURS)
+    cnt = torch.bincount((ps * nc + k)[keep], minlength=C.shape[0] * nc).to(
+        torch.int32).reshape(-1, nc)
     if not final:
         used[va[keep]] = 1
         used[vb[keep]] = 1
@@ -761,40 +792,44 @@ def connect_count_plain(C, skey, perm, SBx, ZBx, idx, M, final, used, meta):
     return cnt
 
 
-def connect_count(C, skey, perm, SBx, ZBx, idx: int, M: int, final: bool,
-                  used, meta, kern: Kernels | None = None):
-    """The connecting edges each candidate row finds, int32 [n] by sorted
-    position: the rows after it in the cells around its own that are
+def connect_count(C, skey, perm, cols, Cs, SBx, ZBx, idx: int, M: int,
+                  final: bool, used, meta, kern: Kernels | None = None):
+    """The connecting edges each candidate row finds in each of its 9
+    neighbour columns, int32 [n, 9] by sorted position (row-major: scan
+    order): the rows after it in the cells around its own that are
     compatible, share a zero plane and (but for the final insertion) pass
     the future-sign pre-filter.  But for the final insertion, also marks
     their ends in ``used`` and adds their split bits to ``meta``'s
-    per-plane histogram."""
+    per-plane histogram.  The kernel reads ``connect_table``'s ``cols`` and
+    ``Cs``; the plain version searches ``skey``."""
     run = _run(kern, C.device)
     if run is None:
         return connect_count_plain(C, skey, perm, SBx, ZBx, idx, M, final,
                                    used, meta)
     n = C.shape[0]
-    cnt = _i32(n, device=C.device)
-    run("connect_step", "connect_pairs", n, C, skey, perm, n, SBx, ZBx, idx,
-        M, int(final), cnt, None, None if final else used,
+    cnt = _i32(n, len(NEIGHBOURS), device=C.device)
+    run("connect_step", "connect_pairs", n, C, skey, perm, cols, Cs, n, SBx,
+        ZBx, idx, M, int(final), cnt, None, None if final else used,
         None if final else meta, None)
     return cnt
 
 
-def connect_fill(C, skey, perm, SBx, ZBx, idx: int, M: int, final: bool,
-                 ccum, n_conn: int, kern: Kernels | None = None):
+def connect_fill(C, skey, perm, cols, Cs, SBx, ZBx, idx: int, M: int,
+                 final: bool, ccum, n_conn: int,
+                 kern: Kernels | None = None):
     """The connecting edges (lo, hi) [n_conn, 2] int32, in scan order at
-    the slots of ``ccum`` (the inclusive prefix sum of ``connect_count``)."""
+    the slots of ``ccum`` (the inclusive prefix sum of ``connect_count``'s
+    [n, 9] counts, flattened)."""
     run = _run(kern, C.device)
     if run is None:
-        ps, va, vb, keep = _pairs_plain(C, skey, perm, SBx, ZBx, idx, M,
-                                        final)
+        _, _, va, vb, keep = _pairs_plain(C, skey, perm, SBx, ZBx, idx, M,
+                                          final)
         lo, hi = torch.minimum(va, vb)[keep], torch.maximum(va, vb)[keep]
         return torch.stack([lo, hi], 1).to(torch.int32)
     n = C.shape[0]
     pairs = _i32(n_conn, 2, device=C.device)
-    run("connect_step", "connect_pairs", n, C, skey, perm, n, SBx, ZBx, idx,
-        M, int(final), None, ccum, None, None, pairs)
+    run("connect_step", "connect_pairs", n, C, skey, perm, cols, Cs, n, SBx,
+        ZBx, idx, M, int(final), None, ccum, None, None, pairs)
     return pairs
 
 
@@ -839,7 +874,8 @@ def census_vertices(used, SZx, meta, kern: Kernels | None = None) -> None:
 def compact_rows(src: torch.Tensor, cum: torch.Tensor, n_out: int,
                  kern: Kernels | None = None) -> torch.Tensor:
     """The rows of ``src`` [n, ...] (any 4-byte type) whose flag is set,
-    in order; ``cum`` the flags' inclusive prefix sum."""
+    in order; ``cum`` the flags' inclusive prefix sum.  The kernel takes
+    the outputs' pool (rows of 33 words) below 2^31 words."""
     run = _run(kern, src.device)
     if run is None:
         return src[torch.diff(cum, prepend=cum.new_zeros(1)) > 0]
@@ -1023,11 +1059,12 @@ class Engine:
                             self.net.spec.scale, kern=k)
         skey, perm = torch.sort(key, stable=True)
         perm = perm.to(torch.int32)
+        cols, Cs = connect_table(C, skey, perm, self.M, kern=k)
         meta = _zeros32(META, device=dev)
         used = None if final else _zeros32(nV + n_split, device=dev)
-        cnt = connect_count(C, skey, perm, SBx, ZBx, idx, self.M, final,
-                            used, meta, kern=k)
-        ccum = torch.cumsum(cnt, 0, dtype=torch.int32)
+        cnt = connect_count(C, skey, perm, cols, Cs, SBx, ZBx, idx, self.M,
+                            final, used, meta, kern=k)
+        ccum = torch.cumsum(cnt.reshape(-1), 0, dtype=torch.int32)
         if not final:
             census_edges(E, EB, LD, Er, EBr, LDr, idx, used, meta, kern=k)
             SZx = torch.cat([P.SZ, szn])
@@ -1036,8 +1073,8 @@ class Engine:
             meta[N_CONN] = ccum[-1]
         counts = self.read(meta)
         n_conn = int(counts[N_CONN])
-        pairs = connect_fill(C, skey, perm, SBx, ZBx, idx, self.M, final,
-                             ccum, n_conn, kern=k)
+        pairs = connect_fill(C, skey, perm, cols, Cs, SBx, ZBx, idx, self.M,
+                             final, ccum, n_conn, kern=k)
         order = torch.sort(pairs[:, 0].long() << 32 | pairs[:, 1].long(),
                            stable=True).indices
         Ec = pairs[order]

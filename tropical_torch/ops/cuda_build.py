@@ -1,7 +1,9 @@
 """Build the package's CUDA sources into plain-C shared libraries.
 
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launch functions that take
-device pointers and a stream and return ``cudaGetLastError()``.  They are
+device pointers and a stream and return ``cudaGetLastError()`` (those of
+``lattice_encode`` and ``device_engine``: the count of kernels launched, or
+minus a CUDA error).  They are
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
 in ``.gitignore``) and loaded with ``ctypes``; a library is named by a hash
 of its source and flags, so an edited source is rebuilt.  A variant built
@@ -30,6 +32,14 @@ _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 # a source: the name of csrc/<name>.cu or the path of another .cu file; or
 # (source, macros to define) for an instrumented variant
 Target = Union[str, Tuple[str, Tuple[str, ...]]]
+
+# the first designs of K2 (a launch a level) and of K5's pair scan (whole-array
+# searches, no column table) and row compaction (a thread a row), which the
+# port never loads: chip_smoke.py, scripts/device_engine_variants.py and the
+# tests time or hold them beside the designs
+LATTICE_FIRST = ("lattice_encode", ("LATTICE_LEVEL_LAUNCH",))
+DEVICE_ENGINE_FIRST = ("device_engine", ("CONNECT_SEARCHES",
+                                         "COMPACT_ROW_THREAD"))
 
 
 def _nvcc() -> str:

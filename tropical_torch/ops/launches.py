@@ -22,9 +22,9 @@ LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
 # the largest problem shape each kernel was launched on since the last reset:
 # (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
 # hash-grid encode kernel, (T,) triangles of a BVH build kernel, (N, T) rays
-# or points by triangles of a BVH query; (N, 1) lattice points of a level of
-# the lattice encode, (n,) items of a device-engine kernel (lattice points,
-# edges, candidates)
+# or points by triangles of a BVH query; (N, L) lattice points by the levels
+# of a lattice encode launch, (n,) items of a device-engine kernel (lattice
+# points, edges, candidates)
 LARGEST: Dict[str, Optional[Tuple[int, ...]]] = {k: None for k in LAUNCHES}
 # the product of each LARGEST shape (0 for none)
 _LARGEST_SIZE: Dict[str, int] = {k: 0 for k in LAUNCHES}
@@ -43,12 +43,15 @@ def reset() -> None:
         SCATTERS[k] = 0
 
 
-def record(name: str, shape: Tuple[int, ...], scatter: bool = False) -> None:
-    """Count one launch of kernel ``name`` on a problem of ``shape``, and
-    whether it scattered a table gradient."""
-    LAUNCHES[name] += 1
+def record(name: str, shape: Tuple[int, ...], scatter: bool = False,
+           count: int = 1) -> None:
+    """Count ``count`` launches of kernel ``name`` on a problem of
+    ``shape``, and whether they scattered a table gradient."""
+    if count <= 0:
+        return
+    LAUNCHES[name] += count
     if scatter:
-        SCATTERS[name] += 1
+        SCATTERS[name] += count
     size = math.prod(shape)
     if size > _LARGEST_SIZE[name]:
         _LARGEST_SIZE[name] = size

@@ -117,16 +117,22 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    of the engine; each kernel's device time (CUDA graphs), its plain
    version's and its bound (bytes at 3.35 TB/s, or K2's operations at
    33.5 TFLOP/s: the bytes the function needs, not the traffic of K5's
-   column table and counts, which is printed apart); the redesigned K2 and
-   K5 calls (the column table, the pair scan's two passes, the row
-   compaction) also held bitwise and timed in their first designs' builds
-   (``cuda_build.LATTICE_FIRST``, ``DEVICE_ENGINE_FIRST``) in the same
-   call, and the compaction beside ``index_select`` on the same rows
-   (K5's ``compact_rows_library_ms``, against its ``compact_rows_ms``:
-   one library call computes the compaction, none the whole of K5, whose
-   ``library_ms`` stays null); sphere-large's
-   distance skeleton split by CUDA events (the corner tables, K2, the MLP
-   and its tangents, the sdf and |grad|, K3 with the read);
+   column table and counts, which is printed apart; K3's the whole
+   skeleton's, ``k3_bytes``, with the first design's stage-sum figure on
+   a line of its own); the redesigned K2 and K5 calls (the column table, the pair
+   scan's two passes, the row compaction) also held bitwise and timed in
+   their first designs' builds (``cuda_build.LATTICE_FIRST``,
+   ``DEVICE_ENGINE_FIRST``) in the same call, and the compaction beside
+   ``index_select`` on the same rows (K5's ``compact_rows_library_ms``,
+   against its ``compact_rows_ms``: one library call computes the
+   compaction, none the whole of K5, whose ``library_ms`` stays null);
+   K3's whole skeleton, dist and sign, bitwise in both designs and the
+   plain versions, its first design's stage calls (the two torch.cumsum
+   calls among them) recorded from its own run and timed, its launches,
+   and the three-axis pool beside ``max_pool3d`` (``pool_library_ms``;
+   K3's ``library_ms`` stays null); the distance skeleton split by CUDA
+   events in both designs (the corner tables, K2, the MLP and its
+   tangents, the sdf and |grad|, K3 with the read);
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
@@ -180,8 +186,10 @@ FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 # "Ours" plus the seven MC rows 16..64 below the 128 pseudo-GT, two
 # nearest-neighbour searches each; the device engine's kernels on the flat
 # extraction (4 busy insertions on sphere-small): the lattice encode once
-# for every level, the skeleton's 6 launches, then K4's and K5's a busy
-# insertion (K5: 15 a hidden one, 5 the final, 2 for the starting pools)
+# for every level, the skeleton's 6 launches (2 pools, the words with the
+# third axis's max, the flags, the scan, the compaction), then K4's and K5's
+# a busy insertion (K5: 15 a hidden one, 5 the final, 2 for the starting
+# pools)
 MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
                  "skeleton_mark": 6, "split_step": 17, "connect_step": 52}
 # each kernel's time before its redesign, for the printed comparison only
@@ -305,9 +313,17 @@ DEVICE_ENGINE_REPLACES = {
 # column table)
 REDESIGNED_STAGES = ("connect_table", "connect_count", "connect_fill",
                      "compact_rows")
+# K3's stages, and its first design's (cuda_build.DEVICE_ENGINE_FIRST: no
+# plain versions of their own, their whole skeleton held to the design's)
+K3_STAGES = ("skeleton_pool", "skeleton_words", "skeleton_flags",
+             "skeleton_scan", "skeleton_compact")
+K3_FIRST_STAGES = ("skeleton_pool", "skeleton_points", "skeleton_edges",
+                   "skeleton_cumsum", "skeleton_squeeze")
+# the first design's skeleton launches, dist mode (3 pools, the points, the
+# edges, the squeeze; the design's are MAIN_LAUNCHES')
+K3_FIRST_LAUNCHES = 6
 DEVICE_STAGES = {
-    "skeleton_pool": "skeleton_mark", "skeleton_points": "skeleton_mark",
-    "skeleton_edges": "skeleton_mark", "skeleton_squeeze": "skeleton_mark",
+    **{name: "skeleton_mark" for name in K3_STAGES + K3_FIRST_STAGES},
     "pack_words": "split_step", "edge_words": "split_step",
     "split_mark": "split_step", "split_lerp": "split_step",
     "split_override": "split_step", "split_append": "split_step",
@@ -1920,8 +1936,10 @@ def evaluate_phase(mesh_digest, records):
 # ---- 10. the BVH tracer ---------------------------------------------------------
 
 def bits_equal(a, b) -> bool:
-    return a.shape == b.shape and torch.equal(a.view(torch.int32),
-                                              b.view(torch.int32))
+    """The same shape and bits (floats by their bit patterns)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
 
 
 def bvh_bound_ms(nbytes, tests, ops) -> tuple[float, str]:
@@ -2538,18 +2556,10 @@ def stage_bytes(name, a):
     written once; of a pool the call gathers from, the rows it reads.  K5's
     pair scan needs the rows, keys and permutation, a candidate's words, a
     count a candidate and the pairs: its column table, gathered rows and
-    [n, 9] counts are the design's own traffic (``design_bytes``)."""
-    if name == "skeleton_pool":
-        return 2 * _nb(a[0])
-    if name == "skeleton_points":
-        n = a[0].shape[0]
-        return _nb(a[0]) + _nb(a[1]) + _nb(a[2]) + 28 * n
-    if name == "skeleton_edges":
-        M = a[3]
-        return _nb(a[0]) + _nb(a[1]) + 2 * _nb(a[2]) + 12 * (M - 1) * M * M
-    if name == "skeleton_squeeze":
-        ne, nu = a[9], a[10]
-        return _nb(a[0]) + _nb(a[1]) + nu * (2 * 132 + 12 + 48) + 8 * ne
+    [n, 9] counts are the design's own traffic (``design_bytes``).  K3's
+    bound is its whole skeleton's (``k3_bytes``), none a stage's."""
+    if name in K3_STAGES:
+        return 0
     if name == "pack_words":
         return _nb(a[0]) + 24 * a[0].shape[0]
     if name == "edge_words":
@@ -2585,6 +2595,23 @@ def stage_bytes(name, a):
     if name == "compact_edges":
         return _nb(a[1]) + 24 * a[3]
     raise KeyError(name)
+
+
+def k3_bytes(N, M, n_used, n_edges, dist=True):
+    """The bytes K3 must move: out [N, 33] read once, and in dist mode dq
+    and |grad sdf| (the pool's input); the marks; the skeleton written once:
+    168 bytes a vertex (V, OUT, SB, ZB, SZ), 8 an edge."""
+    return (132 + (8 if dist else 0)) * N + 4 * M + 168 * n_used + 8 * n_edges
+
+
+def stage_sum_bytes(N, M, n_used, n_edges):
+    """K3's earlier bound, dist mode: the sum over the first design's
+    stages of each stage's inputs and outputs (three pools, the points'
+    words and keep flags, the edges' int32 flags and used flags, the
+    squeeze's reads of their prefix sums), for the comparison with the
+    figures recorded against it."""
+    edges = 3 * (M - 1) * M * M
+    return 220 * N + 8 * edges + 324 * n_used + 8 * n_edges
 
 
 def design_bytes(name, a):
@@ -2712,16 +2739,17 @@ def lattice_times(net, reps, first_lib):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def skeleton_split(net, runs=3):
+def skeleton_split(net, kern=None, runs=3):
     """The dist skeleton's device time split by CUDA events (the last of
-    ``runs`` warm runs, ms): the corner tables, K2 (``lattice_features``
-    with the derivatives), the MLP and its three tangents
-    (``_mlp_tangents``), the sdf and |grad| in torch, then K3 with its
-    prefix sums, the skeleton's host read and the compaction."""
+    ``runs`` warm runs, ms; ``kern`` the first designs' kernels, or None for
+    the design): the corner tables, K2 (``lattice_features`` with the
+    derivatives), the MLP and its three tangents (``_mlp_tangents``), the
+    sdf and |grad| in torch, then K3 with its prefix sums, the skeleton's
+    host read and the compaction."""
     from tropical_torch.extract import device as dv
 
     names = ("lattice_features", "_mlp_tangents", "skeleton_pool",
-             "skeleton_points")
+             "skeleton_words", "skeleton_points")
     orig = {k: getattr(dv, k) for k in names}
     marks = {}
 
@@ -2738,7 +2766,7 @@ def skeleton_split(net, runs=3):
             return r
         return call
 
-    eng = dv.Engine(net)
+    eng = dv.Engine(net, kern=kern)
     try:
         for k, fn in orig.items():
             setattr(dv, k, wrap(k, fn))
@@ -2751,7 +2779,7 @@ def skeleton_split(net, runs=3):
     finally:
         for k, fn in orig.items():
             setattr(dv, k, fn)
-    k3 = "skeleton_pool<" if "skeleton_pool<" in marks else "skeleton_points<"
+    k3 = next(f"{k}<" for k in names[2:] if f"{k}<" in marks)
     bounds = [("corner tables", "start", "lattice_features<"),
               ("K2 lattice_encode", "lattice_features<", "lattice_features>"),
               ("_mlp_tangents", "_mlp_tangents<", "_mlp_tangents>"),
@@ -2761,14 +2789,88 @@ def skeleton_split(net, runs=3):
     return {label: marks[a].elapsed_time(marks[b]) for label, a, b in bounds}
 
 
+def k3_whole(net, first):
+    """K3's whole skeleton, dist and sign, by the design, by the first
+    design and by the plain versions on the card, held bitwise (every
+    result).  Returns {mode: (vertices, edges)}."""
+    from tropical_torch.extract import device as dv
+
+    sizes = {}
+    for mode in ("dist", "sign"):
+        want = dv.Engine(net, kern=dv.PLAIN).skeleton(mode)
+        for label, kern in (("design", None), ("first design", first)):
+            got = dv.Engine(net, kern=kern).skeleton(mode)
+            check(len(got) == len(want) and all(
+                bits_equal(x, y) for x, y in zip(got, want)),
+                f"K3 {mode} skeleton: {label} != plain")
+        sizes[mode] = (want[0].shape[0], want[5].shape[0])
+    return sizes
+
+
+def k3_stage_times(net, reps, kern, label="first design"):
+    """K3 in the build of ``kern`` at a net's shapes: the stage calls of its
+    dist skeleton (the first design's ``K3_FIRST_STAGES``, where the two
+    torch.cumsum calls are a stage), recorded from a run of that build's
+    engine and replayed as recorded, each in a CUDA graph.  Returns ({stage:
+    ms}, the launches the run recorded)."""
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import launches
+
+    with StageLog() as log:
+        before = launches.LAUNCHES["skeleton_mark"]
+        log.on, log.plane = True, "skeleton"
+        dv.Engine(net, kern=kern).skeleton("dist")
+        log.on = False
+        count = launches.LAUNCHES["skeleton_mark"] - before
+    times = {}
+    for name, args, kw, _ in log.calls:
+        fixed = clones(args)
+        ms = graph_ms(lambda: log.orig[name](*fixed, **kw), reps=reps)
+        times[name] = times.get(name, 0.0) + ms
+        print(f"  {label}: {name}: {ms:.5f} ms")
+    return times, count
+
+
+def pool_library(log, pool_calls, reps):
+    """The three-axis max-pool of |grad sdf| by the pool kernel (the
+    design's two launches, and a third along axis 2, which K3 leaves to
+    ``skeleton_words``) against ``max_pool3d`` (kernel 2k + 1, stride 1,
+    padding k) on the same values: NaN where the kernels give NaN, the same
+    bits elsewhere.  Returns (max_pool3d's device time, the three
+    launches'), ``graph_ms``."""
+    import torch.nn.functional as F
+
+    g, M, k, _ = pool_calls[0][1][:4]
+    kw = {**pool_calls[0][2], "kern": None}
+    pool = log.orig["skeleton_pool"]
+
+    def kernels():
+        out = g
+        for axis in range(3):
+            out = pool(out, M, k, axis, **kw)
+        return out
+
+    def library():
+        return F.max_pool3d(g.view(1, 1, M, M, M), 2 * k + 1, stride=1,
+                            padding=k).view(-1)
+
+    got, want = kernels(), library()
+    nan = got.isnan()
+    check(torch.equal(nan, want.isnan()) and bits_equal(got[~nan], want[~nan]),
+          "skeleton_pool != max_pool3d")
+    return graph_ms(library, reps=reps), graph_ms(kernels, reps=reps)
+
+
 def engine_stage_times(net, reps, first):
     """K3-K5 at a net's shapes: the skeleton's stage calls, and those of
     the final insertion and of the busiest hidden one (the most split
     edges), recorded from a run of the engine, each held bitwise to its
-    plain version (and a redesigned one to its first design) and timed.
-    Returns {kernel: {err, ms, first_ms, plain_ms, bound_ms, ...}} summed
-    over the kernel's calls (a kernel's first-design time: its redesigned
-    calls' first designs and its other calls' own times), the run's busy
+    plain version (and a redesigned one to its first design) and timed;
+    K3's first design from its own run (``k3_stage_times``), its whole
+    skeleton held by ``k3_whole``.  Returns {kernel: {err, ms, first_ms,
+    plain_ms, bound_ms, ...}} summed over the kernel's calls (a kernel's
+    first-design time: its redesigned calls' first designs and its other
+    calls' own times; K3's: its first design's stages), the run's busy
     list and the recorded planes."""
     from tropical_torch.extract import device as dv
 
@@ -2796,6 +2898,7 @@ def engine_stage_times(net, reps, first):
                    "bound_ms": 0.0, "design_ms": 0.0}
                for k in DEVICE_ENGINE[1:]}
         redesigned = {}
+        pool_ms = 0.0
         for name, args, kw, plane in log.calls:
             r = stage_check(log, name, args, kw, reps, first)
             rec = out[DEVICE_STAGES[name]]
@@ -2811,15 +2914,19 @@ def engine_stage_times(net, reps, first):
                 agg = redesigned.setdefault(name, [0.0, 0.0])
                 agg[0] += r["ms"]
                 agg[1] += r["first_ms"]
+            if name == "skeleton_pool":
+                pool_ms += r["ms"]
             first_txt = "" if r["first_ms"] is None else (
                 f", first design {r['first_ms']:.5f} ms")
             lib_txt = "" if r["library_ms"] is None else (
                 f", index_select {r['library_ms']:.5f} ms")
             design_txt = "" if not r["design_ms"] else (
                 f" (the design's own traffic {r['design_ms']:.5f} ms more)")
+            bound_txt = "" if name in K3_STAGES else (
+                f", bound {r['bound_ms']:.5f} ms{design_txt}")
             print(f"  plane {plane}: {name}: kernel {r['ms']:.5f} ms"
-                  f"{first_txt}{lib_txt}, plain {r['plain_ms']:.3f} ms, "
-                  f"bound {r['bound_ms']:.5f} ms{design_txt}")
+                  f"{first_txt}{lib_txt}, plain {r['plain_ms']:.3f} ms"
+                  f"{bound_txt}")
         for name, (ms, fms) in redesigned.items():
             print(f"  {name}, summed: kernel {ms:.5f} ms, first design "
                   f"{fms:.5f} ms")
@@ -2827,15 +2934,32 @@ def engine_stage_times(net, reps, first):
         rows["compact_rows_ms"] = redesigned.get("compact_rows", [0, 0])[0]
         rows["compact_rows_first_ms"] = redesigned.get("compact_rows",
                                                        [0, 0])[1]
+        k3_calls = [c for c in log.calls if c[3] == "skeleton"]
+        pools = [c for c in k3_calls if c[0] == "skeleton_pool"]
+        library_ms, pool3_ms = pool_library(log, pools, reps)
+    first_times, first_launches = k3_stage_times(net, reps, first)
+    compact = next(c[1] for c in k3_calls if c[0] == "skeleton_compact")
+    M, n_edges, n_used = compact[5], compact[8], compact[9]
+    N = M ** 3
+    k3 = out["skeleton_mark"]
+    k3.update(first_ms=sum(first_times.values()),
+              bound_ms=k3_bytes(N, M, n_used, n_edges) / PEAK_BYTES * 1e3,
+              stage_sum_bound_ms=stage_sum_bytes(N, M, n_used, n_edges)
+              / PEAK_BYTES * 1e3,
+              pool_ms=pool_ms, pool3_ms=pool3_ms,
+              pool_first_ms=first_times["skeleton_pool"],
+              pool_library_ms=library_ms, first_launches=first_launches,
+              first_stage_ms=first_times, skeleton=(n_used, n_edges))
     return out, busy.stats.busy, sorted(planes)
 
 
 def device_kernels_phase(records, flat_launches):
     """K2-K5 against their plain versions on the card, bit for bit, at the
     sphere-small (the main path) and sphere-large lattices and insertions,
-    the redesigned K2 and K5 calls also against their first designs; their
+    the redesigned K2, K3 and K5 also against their first designs; their
     device times (and the first designs'), plain times and bounds in the
-    kernel records; sphere-large's skeleton split."""
+    kernel records; K3's pool beside max_pool3d; the skeleton split by CUDA
+    events in both designs."""
     phase("11. the device engine's kernels against their plain versions, "
           "sphere-small and sphere-large")
     from tropical_torch.extract import device as dv
@@ -2851,15 +2975,31 @@ def device_kernels_phase(records, flat_launches):
               f"design {k2['first_ms']:.4f} ms), plain {k2['plain_ms']:.3f} "
               f"ms, bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}), "
               f"M = {net.marks.shape[0]}")
+        whole = k3_whole(net, first)
+        print(f"{size}: K3's whole skeleton bitwise in both designs and the "
+              f"plain versions, dist and sign: (vertices, edges) {whole}")
         stages, busy, planes = engine_stage_times(net, reps, first)
         print(f"{size}: busy insertions (plane, splits, hits, connecting "
               f"edges) {busy}; recorded planes {planes}")
-        if size == "large":
-            split = skeleton_split(net)
-            print(f"{size}: the dist skeleton's split (ms, CUDA events): "
-                  f"{json.dumps(split)}")
-            records["skeleton_mark"]["skeleton_split_ms_large"] = split
         tag = "" if size == "small" else f"_{size}"
+        k3 = stages["skeleton_mark"]
+        check(k3["first_launches"] == K3_FIRST_LAUNCHES,
+              f"K3's first design launched {k3['first_launches']} kernels")
+        print(f"{size}: skeleton_mark: bound {k3['bound_ms']:.4f} ms (the "
+              f"function's bytes: out, dq, |grad|, marks read once, "
+              f"{k3['skeleton'][0]} vertices and {k3['skeleton'][1]} edges "
+              f"written once)")
+        print(f"{size}: skeleton_mark: the first design's stage-sum bound "
+              f"(its stages' inputs and outputs summed), for comparison "
+              f"only: {k3['stage_sum_bound_ms']:.4f} ms")
+        print(f"{size}: skeleton_pool: K3's two launches {k3['pool_ms']:.5f} "
+              f"ms; three axes: kernel {k3['pool3_ms']:.5f} ms, first "
+              f"design {k3['pool_first_ms']:.5f} ms, max_pool3d "
+              f"{k3['pool_library_ms']:.5f} ms")
+        split = {label: skeleton_split(net, kern) for label, kern in
+                 (("design", None), ("first", first))}
+        print(f"{size}: the dist skeleton's split (ms, CUDA events): "
+              f"{json.dumps(split)}")
         for name in DEVICE_ENGINE:
             r = k2 if name == "lattice_encode" else stages[name]
             rec = records.setdefault(name, {
@@ -2879,11 +3019,17 @@ def device_kernels_phase(records, flat_launches):
                 rec[f"compact_rows_ms{tag}"] = r["compact_rows_ms"]
                 rec[f"compact_rows_first_ms{tag}"] = r[
                     "compact_rows_first_ms"]
+            if name == "skeleton_mark":
+                rec.update({f"{key}{tag}": r[key] for key in (
+                    "stage_sum_bound_ms", "pool_ms", "pool3_ms",
+                    "pool_first_ms", "pool_library_ms", "first_launches")})
+                rec[f"skeleton_split_ms{tag}"] = split
             print(f"{size}: {name}: kernel {r['ms']:.4f} ms "
                   f"({r['bound_ms'] / r['ms']:.1%} of its bound "
                   f"{r['bound_ms']:.4f} ms), first design "
-                  f"{r['first_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-                  f"max err {r['err']}")
+                  f"{r['first_ms']:.4f} ms"
+                  f"{'' if name != 'skeleton_mark' else ' (%.1f%% of it)' % (100 * r['bound_ms'] / r['first_ms'])}"
+                  f", plain {r['plain_ms']:.3f} ms, max err {r['err']}")
             if r.get("design_ms"):
                 print(f"{size}: {name}: the design's own traffic (column "
                       f"table, sorted rows, [n, 9] counts), not in its bound: "

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time variants of the device engine's K2 and K5 kernels on one card.
+"""Time variants of the device engine's K2, K3 and K5 kernels on one card.
 
     python3 scripts/device_engine_variants.py [--variants design,first,...]
-        [--sizes small,large] [--json PATH]
+        [--parts k2,k3,k5] [--sizes small,large] [--json PATH]
 
-Each variant is ``tropical_torch/csrc/device_engine.cu`` (K5) or
+Each variant is ``tropical_torch/csrc/device_engine.cu`` (K3, K5) or
 ``csrc/lattice_encode.cu`` (K2) built by ``ops/cuda_build`` with other
 ``-D`` macros:
 
@@ -16,11 +16,17 @@ Each variant is ``tropical_torch/csrc/device_engine.cu`` (K5) or
   skipping a column that found nothing; ``compact_rows`` a word a thread
   for the outputs' pool (33 words a row), a row a thread otherwise; K2:
   one launch for every level, a thread a point, its rows staged in shared
-  memory and copied out a float4 a thread);
+  memory and copied out a float4 a thread; K3: two pools, a warp a line
+  by doubling runs, a point's canonical words (9 bytes) and the third
+  axis's max from its block's rows and values staged in shared memory,
+  the edges and used points as bit masks by ballot with block counts, one
+  block's scan of the counts, the compaction ranking by popcounts);
 - ``first``: the first designs (``cuda_build.DEVICE_ENGINE_FIRST``,
   ``-DCONNECT_SEARCHES``: no table, a lower and an upper bound over the
   whole sorted key array for each of the 9 columns, rows through the
-  permutation, and ``-DCOMPACT_ROW_THREAD``: a thread a row;
+  permutation, ``-DCOMPACT_ROW_THREAD``: a thread a row, and
+  ``-DSKELETON_CUMSUM``: K3 a thread a value, row or edge with int32
+  flags and two torch.cumsum calls;
   ``cuda_build.LATTICE_FIRST``, ``-DLATTICE_LEVEL_LAUNCH``: a launch a
   level, 8 bytes a thread at the row's stride);
 - ``row_thread``: ``-DCOMPACT_ROW_THREAD`` alone, ``compact_rows`` a
@@ -29,10 +35,19 @@ Each variant is ``tropical_torch/csrc/device_engine.cu`` (K5) or
 The ablations this script once also timed (a window's rows read k a round,
 column windows shared across a warp by shuffles, the block's rows staged
 in shared memory, the fill pass over every column, 4 words a thread in the
-compaction, K2's rows stored straight to device memory) measured no better
-than the design and were deleted; PERF.md keeps their readings.
+compaction, K2's rows stored straight to device memory; K3's earlier
+iterations: the pool's window read from a tile a value at a time, its
+groups of lines pipelined in a block, a third pool launch, 16-byte
+canonical words, the scan a tile of 1,024 or a chunk a thread, the
+compaction a warp a row, a thread a point, or its rows copied coalesced
+through shared memory) measured no better than the design and were
+deleted; PERF.md keeps their readings.
 
-Inputs: the committed sphere-small and sphere-large checkpoints.  K5's
+Inputs: the committed sphere-small and sphere-large checkpoints.  K3:
+each variant's whole skeleton, dist and sign, bitwise the plain versions,
+the launches of its dist skeleton, and that skeleton's stage calls,
+recorded from the variant's own run and replayed as recorded
+(``chip_smoke.k3_stage_times``).  K5's
 calls (``connect_table``, ``connect_count``, ``connect_fill``,
 ``compact_rows``) are recorded from a run of the engine at the busiest
 hidden insertion and the final one (``chip_smoke.StageLog``); K2 runs at
@@ -69,6 +84,7 @@ ENGINE = {"design": (), "first": cuda_build.DEVICE_ENGINE_FIRST[1],
           "row_thread": ("COMPACT_ROW_THREAD",)}
 LATTICE = {"design": (), "first": cuda_build.LATTICE_FIRST[1]}
 STAGES = ("connect_table", "connect_count", "connect_fill", "compact_rows")
+PARTS = ("k2", "k3", "k5")
 
 
 def build(source, variants):
@@ -155,6 +171,23 @@ def time_engine(libs, calls, orig, reps):
     return out, library
 
 
+def time_skeleton(libs, net, reps):
+    """{variant: {"bitwise", "launches", "ms": {stage: ms}}} of K3."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for variant, lib in libs.items():
+        kern = dv.Kernels(lib, dev)
+        same = True
+        for mode in ("dist", "sign"):
+            want = dv.Engine(net, kern=dv.PLAIN).skeleton(mode)
+            got = dv.Engine(net, kern=kern).skeleton(mode)
+            same &= len(got) == len(want) and all(
+                cs.bits_equal(x, y) for x, y in zip(got, want))
+        ms, count = cs.k3_stage_times(net, reps, kern, variant)
+        out[variant] = {"bitwise": bool(same), "launches": count, "ms": ms}
+    return out
+
+
 def time_lattice(libs, net, reps):
     """{variant: {"bitwise", "ms"}} of K2 at the net's skeleton lattice."""
     spec = net.spec.grid
@@ -188,6 +221,8 @@ def main() -> int:
     parser.add_argument("--variants",
                         default=",".join(dict.fromkeys([*ENGINE, *LATTICE])),
                         help="comma-separated variants")
+    parser.add_argument("--parts", default=",".join(PARTS),
+                        help="comma-separated kernels: k2, k3, k5")
     parser.add_argument("--sizes", default="small,large")
     parser.add_argument("--json", type=Path, default=None,
                         help="write the whole result here")
@@ -197,6 +232,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     wanted = args.variants.split(",")
+    parts = args.parts.split(",")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -204,7 +240,8 @@ def main() -> int:
     engine_libs, engine_usage = build(
         "device_engine", {k: v for k, v in ENGINE.items() if k in wanted})
     lattice_libs, lattice_usage = build(
-        "lattice_encode", {k: v for k, v in LATTICE.items() if k in wanted})
+        "lattice_encode", {k: v for k, v in LATTICE.items()
+                           if k in wanted and "k2" in parts})
     print(json.dumps({"registers": {"device_engine": engine_usage,
                                     "lattice_encode": lattice_usage}}))
     result = {"device": smi, "usage": {"device_engine": engine_usage,
@@ -212,29 +249,40 @@ def main() -> int:
     for size in args.sizes.split(","):
         reps = 50 if size == "small" else 10
         net = cs.sphere_net(size)
-        k2 = time_lattice(lattice_libs, net, reps)
-        calls, orig, planes = record(net)
-        k5, library = time_engine(engine_libs, calls, orig, reps)
-        print(f"\n{size} (planes {planes}):")
-        for variant, r in k2.items():
-            print(f"  K2 {variant}: {r['ms']:.4f} ms, bitwise {r['bitwise']}")
-        for variant, r in k5.items():
-            total = sum(r["ms"].values())
-            parts = ", ".join(f"{k} {v:.5f}" for k, v in r["ms"].items())
-            print(f"  K5 {variant}: {total:.5f} ms ({parts}), bitwise "
-                  f"{r['bitwise']}")
-        print(f"  index_select: {sum(library.values()):.5f} ms "
-              f"({', '.join(f'{k} {v:.5f}' for k, v in library.items())})")
-        result[size] = {"planes": planes, "lattice_encode": k2,
-                        "connect_step": k5, "index_select": library}
+        res = result[size] = {}
+        print(f"\n{size}:")
+        if "k2" in parts:
+            k2 = res["lattice_encode"] = time_lattice(lattice_libs, net, reps)
+            for variant, r in k2.items():
+                print(f"  K2 {variant}: {r['ms']:.4f} ms, bitwise "
+                      f"{r['bitwise']}")
+        if "k3" in parts:
+            k3 = res["skeleton_mark"] = time_skeleton(engine_libs, net, reps)
+            for variant, r in k3.items():
+                total = sum(r["ms"].values())
+                stages = ", ".join(f"{k} {v:.5f}" for k, v in r["ms"].items())
+                print(f"  K3 {variant}: {total:.5f} ms ({stages}), "
+                      f"{r['launches']} launches, bitwise {r['bitwise']}")
+        if "k5" in parts:
+            calls, orig, planes = record(net)
+            k5, library = time_engine(engine_libs, calls, orig, reps)
+            res.update(planes=planes, connect_step=k5, index_select=library)
+            print(f"  K5 planes {planes}")
+            for variant, r in k5.items():
+                total = sum(r["ms"].values())
+                stages = ", ".join(f"{k} {v:.5f}" for k, v in r["ms"].items())
+                print(f"  K5 {variant}: {total:.5f} ms ({stages}), bitwise "
+                      f"{r['bitwise']}")
+            print(f"  index_select: {sum(library.values()):.5f} ms "
+                  f"({', '.join(f'{k} {v:.5f}' for k, v in library.items())})")
         del net
         torch.cuda.empty_cache()
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(result, indent=1))
     ok = all(r["bitwise"] for size in args.sizes.split(",")
-             for part in ("lattice_encode", "connect_step")
-             for r in result[size][part].values())
+             for part in ("lattice_encode", "skeleton_mark", "connect_step")
+             for r in result[size].get(part, {}).values())
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1
 

@@ -8,11 +8,18 @@
   whose point count is not a multiple of the block; also its first design
   (a level a launch), and a launch that leaves a level alone on a grid of
   an odd count of levels; the kernels each build's launch reports.
-- K3-K5 through the whole engine: a seeded 11-mark net (its table scaled so
-  that its zero set crosses the cube, the final bias shifted onto it) from
-  the dist skeleton to the final insertion, and its sign skeleton; every
-  output of the emulated kernels equals the plain versions' and every
-  kernel launched.
+- K3-K5 through the whole engine, in the designs and the first designs: a
+  seeded 11-mark net (its table scaled so that its zero set crosses the
+  cube, the final bias shifted onto it) from the dist skeleton to the final
+  insertion, and its sign skeleton; every output of the emulated kernels
+  equals the plain versions' and every kernel launched, as many as each
+  build records.
+- K3 alone (``Engine.mark``) in both designs on synthetic 11^3 lattices
+  (1,331 points and 3,630 edges: no multiple of a 32-bit word or of a
+  block): random outputs with a band of near-zero ones, a pool radius of 2
+  and a NaN in |grad sdf|; the global max (radius 0); the sign skeleton;
+  no edge (``mark`` returns None); edges whose lower end is the last bit
+  of a mask word and of a block.
 - K5's column table and pair scan (the design and the first design) on
   synthetic candidates: empty columns, columns at x and y = 0 and W - 1, a
   cell of more candidates than a warp, one candidate, none; the launches
@@ -185,36 +192,101 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def _engine_run(net, kern, mode):
+    """The skeleton and, in dist mode, the complex after the final
+    insertion; the busy insertions; the launches."""
+    launches.reset()
+    eng = dv.Engine(net, kern=kern)
+    sk = eng.skeleton(mode)
+    out = []
+    if mode == "dist":
+        out = list(eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5])))
+    return list(sk) + out, eng.stats.busy, dict(launches.LAUNCHES)
+
+
 @pytest.mark.parametrize("mode", ["dist", "sign"])
-def test_emulated_engine_is_bitwise_plain(engine_kernels, net11, mode):
+def test_emulated_engine_is_bitwise_plain(engine_libs, net11, mode):
     """The dist run through the loop; the sign run's skeleton (its loop is
-    the same run here: the distance bound prunes nothing at 11 marks)."""
-    runs = {}
-    for name, kern in (("plain", None), ("kernels", engine_kernels)):
-        launches.reset()
-        eng = dv.Engine(net11, kern=kern)
-        sk = eng.skeleton(mode)
-        out = []
-        if mode == "dist":
-            P, counts = eng.pools(sk[0], sk[1], sk[5], sk[2:5])
-            out = list(eng.loop(P, counts))
-        runs[name] = (list(sk) + out, eng.stats.busy,
-                      dict(launches.LAUNCHES))
-    if mode == "sign":
-        for x, y in zip(runs["plain"][0], runs["kernels"][0]):
+    the same run here: the distance bound prunes nothing at 11 marks); in
+    the design and in the first design."""
+    a, busy_a, _ = _engine_run(net11, None, mode)
+    for build, kern in engine_libs.items():
+        b, busy_b, count = _engine_run(net11, kern, mode)
+        assert busy_a == busy_b
+        for x, y in zip(a, b):
             assert x.shape == y.shape and torch.equal(_bits(x), _bits(y))
-        assert runs["kernels"][2]["skeleton_mark"] == 3
+        if mode == "sign":
+            # the words, flags, scan and compaction; the first design's
+            # points, edges and squeeze
+            assert count["skeleton_mark"] == (4 if build == "design" else 3)
+            continue
+        assert len(busy_a) >= 6 and any(c for *_, c in busy_a[:-1])
+        assert any(h for _, _, h, _ in busy_a)
+        # every stage launched: the skeleton's 6 (2 pools and 4, or the
+        # first design's 3 pools and 3), then per busy insertion 4 of K4
+        # and at least 6 of K5
+        assert count["skeleton_mark"] == 6
+        assert count["split_step"] >= 4 * len(busy_a) + 2
+        assert count["connect_step"] >= 6 * len(busy_a)
+
+
+# K3's synthetic lattices: (pool radius, dist mode); the outputs by case in
+# _mark_inputs
+MARK_CASES = {"ragged": (2, True), "global_max": (0, True),
+              "sign": (0, False), "no_edges": (2, True),
+              "last_bits": (2, True)}
+
+
+def _mark_inputs(case, M, eps=1e-4):
+    """(out [M^3, 33], dq, gn) of a ``MARK_CASES`` lattice."""
+    rng = np.random.default_rng(len(case))
+    n = M ** 3
+    if case in ("no_edges", "last_bits"):
+        out = np.full((n, 33), 0.5, np.float32)
+        # column 0's sign flipped at the last bit of word 0 and of block 0
+        out[[31, 1023] if case == "last_bits" else [], 0] = -0.5
+    else:
+        out = rng.normal(size=(n, 33)).astype(np.float32)
+        band = rng.random((n, 33)) < 0.2
+        out[band] = rng.choice([0.0, eps / 2, -eps / 2, eps, -eps],
+                               band.sum()).astype(np.float32)
+    dq = rng.uniform(0, 0.25, n).astype(np.float32)
+    gn = rng.uniform(0, 0.4, n).astype(np.float32)
+    if case == "ragged":  # NaN wins the pool (the global max would be NaN)
+        gn[rng.integers(0, n)] = np.nan
+    return (torch.from_numpy(out), torch.from_numpy(dq),
+            torch.from_numpy(gn))
+
+
+@pytest.mark.parametrize("build", ENGINE_BUILDS)
+@pytest.mark.parametrize("case", MARK_CASES)
+def test_emulated_skeleton_mark_cases(engine_libs, net11, case, build):
+    """K3 (``Engine.mark``) on a synthetic lattice of the 11-mark net, by
+    the build's kernels and by the plain versions: every result bitwise,
+    or both None."""
+    k, dist = MARK_CASES[case]
+    out, dq, gn = _mark_inputs(case, int(net11.marks.shape[0]))
+    got = []
+    for kern in (None, engine_libs[build]):
+        eng = dv.Engine(net11, kern=kern)
+        eng.dist_k = k
+        got.append(eng.mark(out, dq, gn) if dist else eng.mark(out))
+    want, sk = got
+    if case == "no_edges":
+        assert want is None and sk is None
         return
-    (a, busy_a, _), (b, busy_b, count) = runs["plain"], runs["kernels"]
-    assert busy_a == busy_b and len(busy_a) >= 6
-    assert any(c for *_, c in busy_a[:-1]) and any(h for _, _, h, _ in busy_a)
-    for x, y in zip(a, b):
+    assert len(sk) == len(want) == 6
+    for x, y in zip(want, sk):
         assert x.shape == y.shape and torch.equal(_bits(x), _bits(y))
-    # every stage launched: the skeleton's 6 (3 of them pools), then per
-    # busy insertion 4 of K4 and at least 6 of K5
-    assert count["skeleton_mark"] == 6
-    assert count["split_step"] >= 4 * len(busy_a) + 2
-    assert count["connect_step"] >= 6 * len(busy_a)
+    E = want[5]
+    if case == "last_bits":
+        # the edges at points 31 ((0, 2, 9): none below along axis 0) and
+        # 1023 ((8, 5, 0): none below along axis 2), 5 each, 3 of them with
+        # the point as lower end: bit 31 of word 0, of word 31 (block 0's
+        # last)
+        assert E.shape[0] == 10
+    elif case == "ragged":
+        assert 1000 < E.shape[0] < 3630 and want[0].shape[0] < 1331
 
 
 def test_emulated_stage_edge_cases(engine_kernels):

@@ -814,6 +814,36 @@ def test_device_engine_kernels_match_plain_on_cuda(mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["dist", "sign"])
+def test_skeleton_mark_designs_bitwise_on_cuda(mode):
+    """K3 at sphere-small (49^3 lattice points) in its design and its first
+    design (``cuda_build.DEVICE_ENGINE_FIRST``) against the plain versions:
+    the whole skeleton bitwise, and the launches each build records (dist:
+    2 pools, the words, flags, scan and compaction, or the first design's
+    3 pools, points, edges and squeeze; sign: 4, or 3)."""
+    _need_cuda()
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import cuda_build
+
+    net = _sphere_net("small")
+    first = dv.Kernels(cuda_build.load(cuda_build.DEVICE_ENGINE_FIRST),
+                       torch.device("cuda", 0))
+    want = dv.Engine(net, kern=dv.PLAIN).skeleton(mode)
+    for build, kern, launched in (
+            ("design", None, 6 if mode == "dist" else 4),
+            ("first", first, 6 if mode == "dist" else 3)):
+        before = LAUNCHES["skeleton_mark"]
+        got = dv.Engine(net, kern=kern).skeleton(mode)
+        torch.cuda.synchronize()
+        assert LAUNCHES["skeleton_mark"] - before == launched, build
+        assert len(got) == len(want) == 6
+        for x, y in zip(want, got):
+            x, y = (t.view(torch.int32) if t.dtype == torch.float32 else t
+                    for t in (x, y))
+            assert x.shape == y.shape and torch.equal(x, y), build
+
+
+@pytest.mark.gpu
 def test_lattice_encode_designs_bitwise_on_cuda():
     """K2 at sphere-small's skeleton lattice (49^3 points), in one launch and
     in its first design (a launch a level), with and without the

@@ -12,7 +12,7 @@
 // gets back the count of kernels it launched, or minus a CUDA error
 // (cudaGetLastError(), or cudaErrorInvalidValue for arguments it refuses).
 // Each has its plain PyTorch version in that module, which it equals bit
-// for bit.
+// for bit (K3's first design is held to them on its whole skeleton).
 //
 // Words: a vertex's 33 columns as 2 32-bit words (bit j of word w is
 // column 32 w + j): sign (out > 0), zero (|out| <= eps), strict
@@ -22,8 +22,9 @@
 // the edge iff it is >= idx).
 //
 // Bound: bytes everywhere (integer bit tests, a few float operations an
-// item); one thread an item (lattice point, edge, candidate, vertex),
-// shared-memory histograms flushed by one atomic a bin and block.  The
+// item); one thread an item (lattice point, edge, candidate, vertex) but
+// where a warp shares a row or a word (K3 below), shared-memory histograms
+// flushed by one atomic a bin and block.  The
 // pair search is the exception: each candidate scans the candidates of
 // the 27 cells around its own, a data-dependent loop (about the cells'
 // occupancy squared).
@@ -85,9 +86,11 @@ __device__ __forceinline__ unsigned bit_of(const int* w, int col) {
   return (static_cast<unsigned>(w[col >> 5]) >> (col & 31)) & 1u;
 }
 
-__device__ __forceinline__ void pack_row(const float* o, float eps, int* sb,
-                                         int* zb, int* sz) {
-  unsigned s[NW] = {0u, 0u}, z[NW] = {0u, 0u}, t[NW] = {0u, 0u};
+// a row's sign, zero and strict bits (bit j of word w is column 32 w + j)
+__device__ __forceinline__ void pack_bits(const float* o, float eps,
+                                          unsigned* s, unsigned* z,
+                                          unsigned* t) {
+  for (int w = 0; w < NW; ++w) s[w] = z[w] = t[w] = 0u;
   for (int c = 0; c < R; ++c) {
     const float v = o[c];
     const float a = fabsf(v);
@@ -97,6 +100,12 @@ __device__ __forceinline__ void pack_row(const float* o, float eps, int* sb,
     if (a <= eps) z[w] |= b;
     if (a < eps) t[w] |= b;
   }
+}
+
+__device__ __forceinline__ void pack_row(const float* o, float eps, int* sb,
+                                         int* zb, int* sz) {
+  unsigned s[NW], z[NW], t[NW];
+  pack_bits(o, eps, s, z, t);
   for (int w = 0; w < NW; ++w) {
     sb[w] = static_cast<int>(s[w]);
     zb[w] = static_cast<int>(z[w]);
@@ -172,6 +181,83 @@ int done(int launched = 1) {
 }
 
 // --- K3 skeleton_mark --------------------------------------------------------
+//
+// The design (six launches in dist mode, four in sign mode), every index in
+// 32 bits (the engine takes at most 511 marks: M^3 < 2^31); bound by the
+// bytes of out, which skeleton_words reads once:
+// - skeleton_pool, a launch for axis 0 and one for axis 1: a block takes
+//   kPoolLines whole lines along the axis (lanes across lines, so that a
+//   warp reads 32 bytes of each of 4 planes; a warp a line along axis 2),
+//   then a warp a line, the window maxima from doubling runs by shuffles
+//   (three steps at the presets' radii): each value read once from device
+//   memory and written once, no division.
+// - skeleton_words: a block stages its 256 rows of out (33 floats each) in
+//   shared memory with 16-byte loads, all in flight, so the 1 GB of out at
+//   sphere-large is read in whole lines, and the 256 + 2k values of the
+//   pooled |grad| its points' windows along axis 2 need; each thread packs
+//   its row from there (the rows' pitch of 33 words is odd: no bank
+//   conflicts) into the point's canonical columns, 9 bytes: an int2 of
+//   columns 0-31's sign bits off the eps band and zero bits, and a byte of
+//   column 32's two bits and the keep flag (|sdf| <= bc times the window's
+//   max of the pooled |grad|, NaN winning).
+// - skeleton_flags: a thread a lattice point, a block 1,024 points, no 64-bit
+//   division.  A point flags its three upper edges (canonical columns
+//   differ, both ends kept) and is used if one of its six edges is flagged;
+//   a warp's ballots give one word of each of four bit masks (an axis's
+//   edges by lower end, axis-major as _edges_from_sgn orders them, an absent
+//   edge 0; the used points), and the block writes each word's exclusive
+//   popcount prefix within the block and the block's counts.
+// - skeleton_scan: one block, the exclusive prefix sums of the block counts
+//   (the edges axis by axis, then the used points; tiles of 8 values a
+//   thread through shared memory) and the two totals, which the caller reads
+//   before it allocates the skeleton.
+// - skeleton_compact: an edge's slot, and a used point's, is its block's
+//   offset, its word's prefix and the popcount of the lower bits of its
+//   word: the order of an inclusive prefix sum.  A warp takes 1 to 8 words
+//   (empty ones skipped by one ballot), a lane a point; a used point's
+//   thread copies its row (33 loads in flight) and packs its sign, zero and
+//   strict words.
+// The first design (-DSKELETON_CUMSUM, cuda_build.DEVICE_ENGINE_FIRST): three
+// pools, a thread a value with its window read from device memory; a thread
+// a row of out (33 loads a warp, each of 32 lines) writing its sign, zero and
+// strict words and an int32 keep flag; a thread an edge (its ends decoded by
+// 64-bit divisions) writing int32 edge and used flags, which two torch.cumsum
+// calls in the caller turn into ranks; a squeeze that reads those back.
+
+#ifdef SKELETON_CUMSUM
+constexpr bool kSkeletonFirst = true;
+#else
+constexpr bool kSkeletonFirst = false;
+// the most marks the engine takes, and the pool's radius skeleton_words
+// takes (_dist_pool_k's limit)
+constexpr int kMaxMarks = 511;
+constexpr int kMaxRadius = 16;
+// the pool: a warp a line of a block's kPoolLines, up to kPoolRounds
+// positions a lane, the tile's rows kPoolPitch floats apart
+constexpr int kPoolLines = kThreads / 32;
+constexpr int kPoolPitch = (kMaxMarks + 27) / 32 * 32 + 4;
+constexpr int kPoolRounds = (kMaxMarks + 31) / 32;
+// skeleton_words: rows a block, float4 loads a thread; a lattice point's
+// byte: column 32's canonical bits (0, 1) and the keep flag
+constexpr int kWordRows = 256;
+constexpr int kWordLoads = (kWordRows * R / 4 + kWordRows - 1) / kWordRows;
+constexpr unsigned kKeepBit = 4u;
+// skeleton_flags: points a block (32 words of each mask); the scan: threads
+// and values a thread in a tile
+constexpr int kFlagPoints = 1024;
+constexpr int kScanThreads = 1024;
+constexpr int kScanValues = 8;
+// the compaction: a warp takes 1, 2, 4 or kWarpWords words, as many as
+// leave kCompactWarps warps to the card
+constexpr int kWarpWords = 8;
+constexpr int kCompactWarps = 8192;
+#endif
+
+__device__ __forceinline__ float nan_max(float m, float v) {
+  return !(v == v) || v > m ? v : m;  // NaN wins
+}
+
+#ifdef SKELETON_CUMSUM
 
 __global__ void skeleton_pool_kernel(const float* __restrict__ g,
                                      float* __restrict__ out, int M, int k,
@@ -182,10 +268,8 @@ __global__ void skeleton_pool_kernel(const float* __restrict__ g,
   const ll stride = axis == 0 ? static_cast<ll>(M) * M : (axis == 1 ? M : 1);
   const int i = static_cast<int>((p / stride) % M);
   float m = g[p];
-  for (int j = max(i - k, 0); j <= min(i + k, M - 1); ++j) {
-    const float v = g[p + (j - i) * stride];
-    if (!(v == v) || v > m) m = v;  // NaN wins
-  }
+  for (int j = max(i - k, 0); j <= min(i + k, M - 1); ++j)
+    m = nan_max(m, g[p + (j - i) * stride]);
   out[p] = m;
 }
 
@@ -270,6 +354,375 @@ __global__ void skeleton_squeeze_kernel(
     }
   }
 }
+
+#else  // the design
+
+// line t of the M^2 lines along the axis: its first lattice point
+__device__ __forceinline__ int line_start(int t, int M, int axis) {
+  return axis == 0 ? t : (axis == 1 ? (t / M) * M * M + t % M : t * M);
+}
+
+// The max over [i - k, i + k] along the axis, clipped at the line's ends, of
+// the block's kPoolLines lines.  The block loads its lines into the tile
+// (along axes 0 and 1 lanes across lines, so that a warp reads 32 bytes of
+// each of 4 planes; along axis 2 a warp a line), then a warp takes a line,
+// lane l its positions l, l + 32, ... in registers: the maxima of runs of 1,
+// 2, 4, ... P values (m_2s[i] = max(m_s[i], m_s[i + s]), P the largest power
+// of two <= 2k + 1) by shuffles, then each window the max of the two runs of
+// P that cover it, read back from shared memory (a window of fewer than P
+// values, at a line's ends, from the values).  The results go back through
+// the tile to stores laid out as the loads.
+__global__ void __launch_bounds__(kThreads) skeleton_pool_kernel(
+    const float* __restrict__ g, float* __restrict__ out, int M, int k,
+    int axis) {
+  // pitch = 4 mod 32: lanes on 8 lines and 4 positions hit distinct banks
+  __shared__ float tile[kPoolLines * kPoolPitch];
+  __shared__ float runs[kPoolLines * kPoolPitch];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pitch = (M + 27) / 32 * 32 + 4;
+  const int stride = axis == 0 ? M * M : (axis == 1 ? M : 1);
+  // the loads' and stores' layout: line lt, positions li, li + 32, ...
+  const int lt = axis == 2 ? warp : tid & (kPoolLines - 1);
+  const int li = axis == 2 ? lane : tid / kPoolLines;
+  const int lline = blockIdx.x * kPoolLines + lt;
+  const bool llive = lline < M * M;
+  const int lfirst = llive ? line_start(lline, M, axis) : 0;
+  float m[kPoolRounds];
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = li + 32 * r;
+    if (i >= M) break;
+    if (llive) m[r] = g[lfirst + i * stride];
+  }
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = li + 32 * r;
+    if (i >= M) break;
+    if (llive) tile[lt * pitch + i] = m[r];
+  }
+  __syncthreads();
+  // a warp a line: the runs
+  float* const row = tile + warp * pitch;
+  float* const rrow = runs + warp * pitch;
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = lane + 32 * r;
+    if (32 * r >= M) break;  // the whole warp
+    m[r] = i < M ? row[i] : 0.0f;
+  }
+  const int P = 1 << (31 - __clz(2 * k + 1));
+  for (int len = 1; len < P; len *= 2) {
+    const int src = (lane + len) & 31;
+#pragma unroll
+    for (int r = 0; r < kPoolRounds; ++r) {
+      if (32 * r >= M) break;  // the whole warp
+      // position i + len: this round's lane + len, or the next round's
+      const float a = __shfl_sync(0xFFFFFFFFu, m[r], src);
+      const float b = __shfl_sync(0xFFFFFFFFu,
+                                  r + 1 < kPoolRounds ? m[r + 1] : 0.0f, src);
+      const int i = lane + 32 * r;
+      if (i + len < M) m[r] = nan_max(m[r], lane + len < 32 ? a : b);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = lane + 32 * r;
+    if (i >= M) break;
+    rrow[i] = m[r];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = lane + 32 * r;
+    if (i >= M) break;
+    const int lo = max(i - k, 0), hi = min(i + k, M - 1);
+    if (hi - lo + 1 >= P) {
+      m[r] = nan_max(rrow[lo], rrow[hi - P + 1]);
+    } else {
+      m[r] = row[lo];
+      for (int j = lo + 1; j <= hi; ++j) m[r] = nan_max(m[r], row[j]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = lane + 32 * r;
+    if (i >= M) break;
+    row[i] = m[r];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kPoolRounds; ++r) {
+    const int i = li + 32 * r;
+    if (i >= M) break;
+    if (llive) out[lfirst + i * stride] = tile[lt * pitch + i];
+  }
+}
+
+__global__ void __launch_bounds__(kWordRows) skeleton_words_kernel(
+    const float* __restrict__ out, const float* __restrict__ dq,
+    const float* __restrict__ g, int M, int k, float bc, float eps,
+    int2* __restrict__ W, unsigned char* __restrict__ X) {
+  __shared__ float4 staged[kWordRows * R / 4];
+  __shared__ float gs[kWordRows + 2 * kMaxRadius];
+  const float* rows = reinterpret_cast<const float*>(staged);
+  const int n = M * M * M;
+  const int p0 = blockIdx.x * kWordRows;
+  const int nr = min(kWordRows, n - p0);
+  // the block's rows: 16-byte aligned (p0 R floats, p0 a multiple of 256)
+  const float* src = out + static_cast<ll>(p0) * R;
+  const int nf = nr * R, n4 = nf >> 2;
+  float4 v[kWordLoads];  // every load in flight, then the stores
+#pragma unroll
+  for (int b = 0; b < kWordLoads; ++b) {
+    const int q = threadIdx.x + b * kWordRows;
+    if (q < n4) v[b] = reinterpret_cast<const float4*>(src)[q];
+  }
+  // dist mode: g over [p0 - k, p0 + nr + k), for the windows along axis 2
+  for (int q = threadIdx.x; dq != nullptr && q < nr + 2 * k; q += kWordRows) {
+    const int gp = p0 - k + q;
+    if (gp >= 0 && gp < n) gs[q] = g[gp];
+  }
+#pragma unroll
+  for (int b = 0; b < kWordLoads; ++b) {
+    const int q = threadIdx.x + b * kWordRows;
+    if (q < n4) staged[q] = v[b];
+  }
+  for (int q = 4 * n4 + threadIdx.x; q < nf; q += kWordRows)
+    reinterpret_cast<float*>(staged)[q] = src[q];
+  __syncthreads();
+  const int r = threadIdx.x;
+  if (r >= nr) return;
+  unsigned s[NW], z[NW], t[NW];
+  pack_bits(rows + r * R, eps, s, z, t);
+  const int p = p0 + r;
+  bool keep = true;
+  if (dq != nullptr) {
+    // the max of g over the point's window along axis 2, in its row
+    const int kk = p % M;
+    const int lo = max(kk - k, 0) - kk, hi = min(kk + k, M - 1) - kk;
+    const float* at = gs + k + r;
+    float gmax = at[lo];
+    for (int d = lo + 1; d <= hi; ++d) gmax = nan_max(gmax, at[d]);
+    keep = dq[p] <= __fmul_rn(bc, gmax);
+  }
+  W[p] = make_int2(static_cast<int>(s[0] & ~z[0]), static_cast<int>(z[0]));
+  X[p] = static_cast<unsigned char>((s[1] & ~z[1] & 1u) | (z[1] & 1u) << 1 |
+                                    (keep ? kKeepBit : 0u));
+}
+
+// lattice edge (a, b) is flagged: the canonical words (columns 0-31) or
+// the bytes' column 32 differ, and both ends are kept
+__device__ __forceinline__ bool edge_flag(int2 a, unsigned ax, int2 b,
+                                          unsigned bx) {
+  return (a.x != b.x || a.y != b.y || ((ax ^ bx) & 3u)) &&
+         (ax & bx & kKeepBit);
+}
+
+// the inclusive sum of x over lanes 0..lane
+__device__ __forceinline__ int warp_scan(int x, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_sync(0xFFFFFFFFu, x, max(lane - d, 0));
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+// masks [4, nw]: the flagged edges of axes 0, 1, 2 by lower end, the used
+// points; pre [4, nw]: each word's popcount prefix within its block; cnt
+// [4, blocks]: each block's popcounts
+__global__ void __launch_bounds__(kFlagPoints) skeleton_flags_kernel(
+    const int2* __restrict__ W, const unsigned char* __restrict__ X, int M,
+    int nw, int* __restrict__ masks,
+    int* __restrict__ pre, int* __restrict__ cnt) {
+  __shared__ int counts[4][32];
+  const int MM = M * M, n = MM * M;
+  const int p = blockIdx.x * kFlagPoints + threadIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bool f0 = false, f1 = false, f2 = false, used = false;
+  if (p < n) {
+    const int i = p / MM, j = (p - i * MM) / M, k = p - i * MM - j * M;
+    const int2 a = W[p];
+    const unsigned ax = X[p];
+    if (i + 1 < M) f0 = edge_flag(a, ax, W[p + MM], X[p + MM]);
+    if (j + 1 < M) f1 = edge_flag(a, ax, W[p + M], X[p + M]);
+    if (k + 1 < M) f2 = edge_flag(a, ax, W[p + 1], X[p + 1]);
+    used = f0 || f1 || f2 ||
+           (i > 0 && edge_flag(W[p - MM], X[p - MM], a, ax)) ||
+           (j > 0 && edge_flag(W[p - M], X[p - M], a, ax)) ||
+           (k > 0 && edge_flag(W[p - 1], X[p - 1], a, ax));
+  }
+  const unsigned m0 = __ballot_sync(0xFFFFFFFFu, f0);
+  const unsigned m1 = __ballot_sync(0xFFFFFFFFu, f1);
+  const unsigned m2 = __ballot_sync(0xFFFFFFFFu, f2);
+  const unsigned m3 = __ballot_sync(0xFFFFFFFFu, used);
+  const int w = p >> 5;
+  if (lane < 4) {
+    const unsigned mine = lane == 0 ? m0 : (lane == 1 ? m1 : (lane == 2 ? m2 : m3));
+    counts[lane][warp] = __popc(mine);
+    if (w < nw) masks[lane * nw + w] = static_cast<int>(mine);
+  }
+  __syncthreads();
+  if (warp < 4) {
+    const int v = counts[warp][lane];
+    const int x = warp_scan(v, lane);
+    const int word = blockIdx.x * 32 + lane;
+    if (word < nw) pre[warp * nw + word] = x - v;
+    if (lane == 31) cnt[warp * gridDim.x + blockIdx.x] = x;
+  }
+}
+
+// a tile's element e in shared memory: a word of padding every 32, so that
+// a thread's kScanValues consecutive elements and a warp's 32 consecutive
+// ones both fall in distinct banks
+__device__ __forceinline__ int scan_at(int e) { return e + (e >> 5); }
+
+// off: the exclusive prefix sums of cnt [4, nb], the edges' three rows as
+// one sequence (axis-major), the used points' row as another; tot: their
+// totals (edges, used points).  A tile of kScanThreads * kScanValues
+// values: loaded coalesced into shared memory, a thread sums kScanValues
+// consecutive ones, the block scans the sums, the thread writes its
+// prefixes back, and the tile is stored coalesced.
+__global__ void __launch_bounds__(kScanThreads) skeleton_scan_kernel(
+    const int* __restrict__ cnt, int nb, int* __restrict__ off,
+    int* __restrict__ tot) {
+  constexpr int kTile = kScanThreads * kScanValues;
+  __shared__ int tile[kTile + kTile / 32];
+  __shared__ int sums[32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int part = 0; part < 2; ++part) {
+    const int base = part ? 3 * nb : 0, len = part ? nb : 3 * nb;
+    int carry = 0;
+    for (int start = 0; start < len; start += kTile) {
+      int v[kScanValues];
+#pragma unroll
+      for (int j = 0; j < kScanValues; ++j) {
+        const int e = j * kScanThreads + tid;
+        v[j] = start + e < len ? cnt[base + start + e] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kScanValues; ++j)
+        tile[scan_at(j * kScanThreads + tid)] = v[j];
+      __syncthreads();
+      int sum = 0;
+#pragma unroll
+      for (int j = 0; j < kScanValues; ++j) {
+        v[j] = tile[scan_at(kScanValues * tid + j)];
+        sum += v[j];
+      }
+      const int x = warp_scan(sum, lane);
+      if (lane == 31) sums[warp] = x;
+      __syncthreads();
+      const int s = sums[lane];
+      const int ws = warp_scan(s, lane);
+      int run = carry + __shfl_sync(0xFFFFFFFFu, ws - s, warp) + x - sum;
+#pragma unroll
+      for (int j = 0; j < kScanValues; ++j) {
+        tile[scan_at(kScanValues * tid + j)] = run;
+        run += v[j];
+      }
+      carry += __shfl_sync(0xFFFFFFFFu, ws, 31);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kScanValues; ++j) {
+        const int e = j * kScanThreads + tid;
+        if (start + e < len) off[base + start + e] = tile[scan_at(e)];
+      }
+      __syncthreads();
+    }
+    if (tid == 0) tot[part] = carry;
+  }
+}
+
+// the used points' rank of lattice point q
+__device__ __forceinline__ int used_rank(const int* __restrict__ U,
+                                         const int* __restrict__ Upre,
+                                         const int* __restrict__ Uoff, int q) {
+  const int w = q >> 5;
+  const unsigned below = (1u << (q & 31)) - 1u;
+  return Uoff[w >> 5] + Upre[w] + __popc(static_cast<unsigned>(U[w]) & below);
+}
+
+// a used point's outputs, words and world coordinates at its rank v, from
+// its row x
+__device__ __forceinline__ void compact_point(
+    const float* x, int p, int v, int M, const float* __restrict__ marks,
+    float scale, float eps, float* __restrict__ V, float* __restrict__ OUT,
+    int* __restrict__ SB, int* __restrict__ ZB, int* __restrict__ SZ) {
+  for (int c = 0; c < R; ++c) OUT[static_cast<ll>(R) * v + c] = x[c];
+  unsigned sw[NW], zw[NW], tw[NW];
+  pack_bits(x, eps, sw, zw, tw);
+  for (int k = 0; k < NW; ++k) {
+    SB[NW * v + k] = static_cast<int>(sw[k]);
+    ZB[NW * v + k] = static_cast<int>(zw[k]);
+    SZ[NW * v + k] = static_cast<int>(tw[k]);
+  }
+  const int ix[3] = {p / (M * M), (p / M) % M, p % M};
+  for (int d = 0; d < 3; ++d)
+    V[3 * v + d] = __fsub_rn(__fmul_rn(marks[ix[d]], scale * 2.0f), scale);
+}
+
+// A warp `ww` words of the masks (a power of two, so that they lie in one
+// block of skeleton_flags): lane j < ww loads word j's masks, prefixes and
+// offsets, and the warp takes each word with a used point in turn, a lane a
+// point: the edges whose lower end it is, and a used point's row (its 33
+// loads in flight), outputs and words.
+__global__ void __launch_bounds__(kThreads) skeleton_compact_kernel(
+    const int* __restrict__ masks, const int* __restrict__ pre,
+    const int* __restrict__ off, int nw, int nb, int ww,
+    const float* __restrict__ marks, const float* __restrict__ out, int M,
+    float scale, float eps, float* __restrict__ V, float* __restrict__ OUT,
+    int* __restrict__ SB, int* __restrict__ ZB, int* __restrict__ SZ,
+    int* __restrict__ E) {
+  const int lane = threadIdx.x & 31;
+  const int w0 = (blockIdx.x * kThreads + threadIdx.x) / 32 * ww;
+  const int *U = masks + 3 * nw, *Upre = pre + 3 * nw, *Uoff = off + 3 * nb;
+  const int mine = w0 + lane, blk = w0 >> 5, MM = M * M;
+  // lane j < ww: word j's used bits, first vertex slot, edge bits and first
+  // edge slots
+  unsigned um = 0u, fm[3] = {0u, 0u, 0u};
+  int vm = 0, sm[3] = {0, 0, 0};
+  if (lane < ww && mine < nw) {
+    um = static_cast<unsigned>(U[mine]);
+    vm = Uoff[blk] + Upre[mine];
+    for (int ax = 0; ax < 3; ++ax) {
+      fm[ax] = static_cast<unsigned>(masks[ax * nw + mine]);
+      sm[ax] = off[ax * nb + blk] + pre[ax * nw + mine];
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+  for (unsigned todo = __ballot_sync(0xFFFFFFFFu, um != 0u); todo;
+       todo &= todo - 1u) {
+    const int j = __ffs(static_cast<int>(todo)) - 1;
+    const int p = 32 * (w0 + j) + lane;
+    const unsigned u = __shfl_sync(0xFFFFFFFFu, um, j);
+    const int v = __shfl_sync(0xFFFFFFFFu, vm, j) + __popc(u & below);
+    unsigned f[3];
+    int slot[3];
+    for (int ax = 0; ax < 3; ++ax) {
+      f[ax] = __shfl_sync(0xFFFFFFFFu, fm[ax], j);
+      slot[ax] = __shfl_sync(0xFFFFFFFFu, sm[ax], j);
+    }
+    const bool used = (u >> lane) & 1u;
+    float x[R];
+    if (used) {
+      const float* row = out + static_cast<ll>(p) * R;
+      for (int c = 0; c < R; ++c) x[c] = row[c];
+    }
+    // the edges whose lower end is this point, axis-major
+    for (int ax = 0; ax < 3; ++ax) {
+      if ((f[ax] >> lane) & 1u) {
+        const int s = slot[ax] + __popc(f[ax] & below);
+        const int q = p + (ax == 0 ? MM : (ax == 1 ? M : 1));
+        E[2 * s] = used_rank(U, Upre, Uoff, q);
+        E[2 * s + 1] = v;
+      }
+    }
+    if (used) compact_point(x, p, v, M, marks, scale, eps, V, OUT, SB, ZB, SZ);
+  }
+}
+
+#endif  // SKELETON_CUMSUM
 
 // --- K4 split_step -----------------------------------------------------------
 
@@ -725,13 +1178,28 @@ __global__ void compact_edges_kernel(const int* __restrict__ E,
 
 extern "C" {
 
+// 1 in a build of K3's first design (-DSKELETON_CUMSUM), whose skeleton takes
+// skeleton_points, _edges, the caller's prefix sums and skeleton_squeeze;
+// else 0 (skeleton_words, _flags, _scan and _compact)
+int skeleton_first_design() { return kSkeletonFirst ? 1 : 0; }
+
 int skeleton_pool_launch(const float* g, float* out, ll M, ll k, ll axis,
                          cudaStream_t stream) {
+#ifdef SKELETON_CUMSUM
   skeleton_pool_kernel<<<blocks(M * M * M), kThreads, 0, stream>>>(
       g, out, static_cast<int>(M), static_cast<int>(k),
       static_cast<int>(axis));
+#else
+  skeleton_pool_kernel<<<static_cast<int>((M * M + kPoolLines - 1) /
+                                          kPoolLines),
+                         kThreads, 0, stream>>>(
+      g, out, static_cast<int>(M), static_cast<int>(k),
+      static_cast<int>(axis));
+#endif
   return done();
 }
+
+#ifdef SKELETON_CUMSUM
 
 int skeleton_points_launch(const float* out, const float* dq,
                            const float* gmax, ll n, float bc, float eps,
@@ -760,6 +1228,62 @@ int skeleton_squeeze_launch(const int* ecum, const int* ucum,
       SB, ZB, SZ, E);
   return done();
 }
+
+#else
+
+// out: 16-byte aligned (the block's rows are staged by float4 loads); g (dq
+// given): the lattice values pooled along axes 0 and 1, k <= kMaxRadius
+int skeleton_words_launch(const float* out, const float* dq, const float* g,
+                          ll M, ll k, float bc, float eps, int* W,
+                          unsigned char* X, cudaStream_t stream) {
+  if (reinterpret_cast<unsigned long long>(out) % 16 || k < 0 ||
+      k > kMaxRadius)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const ll n = M * M * M;
+  skeleton_words_kernel<<<static_cast<int>((n + kWordRows - 1) / kWordRows),
+                          kWordRows, 0, stream>>>(
+      out, dq, g, static_cast<int>(M), static_cast<int>(k), bc, eps,
+      reinterpret_cast<int2*>(W), X);
+  return done();
+}
+
+// masks, pre: [4, ceil(M^3 / 32)]; cnt: [4, ceil(M^3 / 1024)]
+int skeleton_flags_launch(const int* W, const unsigned char* X, ll M,
+                          int* masks, int* pre, int* cnt,
+                          cudaStream_t stream) {
+  const ll n = M * M * M;
+  skeleton_flags_kernel<<<static_cast<int>((n + kFlagPoints - 1) / kFlagPoints),
+                          kFlagPoints, 0, stream>>>(
+      reinterpret_cast<const int2*>(W), X, static_cast<int>(M),
+      static_cast<int>((n + 31) / 32), masks, pre, cnt);
+  return done();
+}
+
+int skeleton_scan_launch(const int* cnt, ll nb, int* off, int* tot,
+                         cudaStream_t stream) {
+  skeleton_scan_kernel<<<1, kScanThreads, 0, stream>>>(
+      cnt, static_cast<int>(nb), off, tot);
+  return done();
+}
+
+int skeleton_compact_launch(const int* masks, const int* pre, const int* off,
+                            ll M, const float* marks, const float* out,
+                            float scale, float eps, float* V, float* OUT,
+                            int* SB, int* ZB, int* SZ, int* E,
+                            cudaStream_t stream) {
+  const ll n = M * M * M, nw = (n + 31) / 32;
+  ll ww = 1;
+  while (ww < kWarpWords && nw / (2 * ww) >= kCompactWarps) ww *= 2;
+  const ll warps = (nw + ww - 1) / ww;
+  skeleton_compact_kernel<<<blocks(32 * warps), kThreads, 0, stream>>>(
+      masks, pre, off, static_cast<int>(nw),
+      static_cast<int>((n + kFlagPoints - 1) / kFlagPoints),
+      static_cast<int>(ww), marks, out,
+      static_cast<int>(M), scale, eps, V, OUT, SB, ZB, SZ, E);
+  return done();
+}
+
+#endif  // SKELETON_CUMSUM
 
 int pack_words_launch(const float* out, ll n, float eps, int* sb, int* zb,
                       int* sz, cudaStream_t stream) {

@@ -40,10 +40,13 @@ Each kernel (``csrc/device_engine.cu``) has its plain version here; a CPU
 tensor takes the plain version, a CUDA tensor the kernel.
 
 - K3 ``skeleton_mark``: ``skeleton_pool`` (the NaN-propagating max-pool
-  of |grad sdf|, one launch an axis), ``skeleton_points`` (sign, zero and
-  strict words of each lattice point and its keep flag),
-  ``skeleton_edges`` (the lattice edges, axis-major, whose words differ,
-  both ends kept), ``skeleton_squeeze`` (the order-preserving compaction);
+  of |grad sdf|, one launch an axis), ``skeleton_words`` (each lattice
+  point's canonical words and keep flag), ``skeleton_flags`` (the lattice
+  edges, axis-major, whose words differ, both ends kept, and the used
+  points, as bit masks with block counts), ``skeleton_scan`` (the block
+  counts' prefix sums) and ``skeleton_compact`` (the order-preserving
+  compaction); its first design's stages ``skeleton_points``, ``_edges``,
+  ``_cumsum`` and ``_squeeze`` run in a build of it alone;
 - K4 ``split_step``: ``pack_words``, ``edge_words`` (``_edge_bits``),
   ``split_mark`` (the split bit test at plane idx), ``split_lerp``,
   ``split_override`` and ``split_append`` (the sign override, the new
@@ -99,14 +102,13 @@ def _to_i32(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
 
-def _pack_bits(mask: torch.Tensor) -> torch.Tensor:
-    """[N, R] bool -> [N, NW] int32: bit j of word w is column 32 w + j."""
-    words = []
-    for w in range(NW):
-        blk = mask[:, 32 * w:32 * w + 32].to(torch.int64)
-        sh = torch.arange(blk.shape[1], device=mask.device)
-        words.append(_to_i32((blk << sh).sum(1)))
-    return torch.stack(words, 1)
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[..., n] bool -> [..., ceil(n / 32)] int32: bit b of word w is item
+    32 w + b ([N, R] columns -> [N, NW] words)."""
+    pad = (-bits.shape[-1]) % 32
+    b = torch.nn.functional.pad(bits.to(torch.int64), (0, pad))
+    b = b.reshape(*bits.shape[:-1], -1, 32)
+    return _to_i32((b << torch.arange(32, device=bits.device)).sum(-1))
 
 
 def _pack_out_words(out: torch.Tensor, eps: float):
@@ -305,6 +307,8 @@ class Kernels:
     def __init__(self, lib: ctypes.CDLL, device: torch.device):
         self.lib = lib
         self.device = device
+        # a build of K3's first design takes its own skeleton stages
+        self.first_skeleton = bool(lib.skeleton_first_design())
 
     def __call__(self, kernel: str, name: str, n: int, *args) -> None:
         if n <= 0:
@@ -374,6 +378,13 @@ def _zeros32(*shape, device) -> torch.Tensor:
 
 # K3 skeleton_mark
 
+# skeleton_words' byte of a lattice point: column 32's canonical bits (0:
+# sign off the eps band, 1: zero) and the keep flag
+KEEP_BIT = 4
+# skeleton_flags' block: 1,024 lattice points, 32 words of each mask
+FLAG_BLOCK = 1024
+
+
 def skeleton_pool(g: torch.Tensor, M: int, k: int, axis: int,
                   kern: Kernels | None = None) -> torch.Tensor:
     """``_pool_axis`` of the lattice values ``g`` [M^3]."""
@@ -385,100 +396,181 @@ def skeleton_pool(g: torch.Tensor, M: int, k: int, axis: int,
     return out
 
 
-def skeleton_points_plain(out, dq, gmax, bc: float, eps: float):
-    sb, zb, sz = _pack_out_words(out, eps)
+def skeleton_words_plain(out, dq, g, M: int, k: int, bc: float, eps: float):
+    sb, zb, _ = _pack_out_words(out, eps)
+    cs = sb & ~zb
+    W = torch.stack([cs[:, 0], zb[:, 0]], 1)
+    X = (cs[:, 1] & 1) | (zb[:, 1] & 1) << 1
     if dq is None:
-        keep = torch.ones(out.shape[0], dtype=torch.int32, device=out.device)
+        X |= KEEP_BIT
     else:
-        keep = (dq <= bc * gmax).to(torch.int32)
-    return sb, zb, sz, keep
+        keep = dq <= bc * _pool_axis(g, M, k, 2)
+        X |= torch.where(keep, KEEP_BIT, 0).to(X.dtype)
+    return W, X.to(torch.uint8)
 
 
-def skeleton_points(out, dq, gmax, bc: float, eps: float,
-                    kern: Kernels | None = None):
-    """Each lattice point's (sign, zero, strict words [N, NW], keep flag
-    [N] int32): keep = |sdf| <= bc * gmax (bc = ``_bound_cell``), or 1
-    without ``dq`` (sign mode)."""
+def skeleton_words(out, dq, g, M: int, k: int, bc: float, eps: float,
+                   kern: Kernels | None = None):
+    """Each lattice point's canonical columns, equal exactly where the
+    eps-signs are: (W [N, 2] int32, columns 0-31's sign bits off the eps
+    band and zero bits; X [N] uint8, column 32's two bits and the keep
+    flag ``KEEP_BIT``: |sdf| <= bc * gmax (bc = ``_bound_cell``), gmax the
+    last axis's max-pool (``_pool_axis`` along axis 2, radius ``k`` <= 16)
+    of ``g``, or set without ``dq`` (sign mode)).  The kernel takes
+    ``out`` 16-byte aligned."""
     run = _run(kern, out.device)
     if run is None:
-        return skeleton_points_plain(out, dq, gmax, bc, eps)
+        return skeleton_words_plain(out, dq, g, M, k, bc, eps)
     n = out.shape[0]
-    sb, zb, sz = (_i32(n, NW, device=out.device) for _ in range(3))
-    keep = _i32(n, device=out.device)
-    run("skeleton_mark", "skeleton_points", n, out, dq, gmax, n, bc, eps,
-        sb, zb, sz, keep)
-    return sb, zb, sz, keep
+    W = _i32(n, 2, device=out.device)
+    X = torch.empty(n, dtype=torch.uint8, device=out.device)
+    run("skeleton_mark", "skeleton_words", n, out, dq, g, M, k, bc, eps, W, X)
+    return W, X
 
 
-def _canonical(sb, zb):
-    """Words equal exactly where the eps-signs are: the zero words and
-    the sign bits off the eps band."""
-    return torch.cat([sb & ~zb, zb], 1)
+def skeleton_flags_plain(W, X, M: int):
+    n = M ** 3
+    rows = torch.cat([W, (X & 3).to(torch.int32)[:, None]], 1)
+    mask, ea, eb = _edges_from_sgn(rows.reshape(M, M, M, 3), M,
+                                   ((X & KEEP_BIT) > 0).reshape(M, M, M))
+    per = (M - 1) * M * M
+    flags = torch.zeros((4, n), dtype=torch.bool, device=W.device)
+    for axis in range(3):
+        m = mask[axis * per:(axis + 1) * per]
+        flags[axis, eb[axis * per:(axis + 1) * per][m].long()] = True
+    flags[3, ea[mask].long()] = True
+    flags[3, eb[mask].long()] = True
+    masks = _pack_bits(flags)
+    nw = masks.shape[1]
+    nb = -(-nw // 32)
+    counts = torch.nn.functional.pad(_popc(masks), (0, 32 * nb - nw))
+    incl = torch.cumsum(counts.reshape(4, nb, 32), -1)
+    pre = (incl.reshape(4, -1) - counts)[:, :nw]
+    return masks, pre.to(torch.int32), incl[:, :, -1].to(torch.int32)
 
 
-def skeleton_edges_plain(sb, zb, keep, M: int):
-    rows = _canonical(sb, zb).reshape(M, M, M, -1)
-    mask, ea, eb = _edges_from_sgn(rows, M, keep.reshape(M, M, M) > 0)
-    used = _zeros32(M ** 3, device=sb.device)
-    used[ea[mask].long()] = 1
-    used[eb[mask].long()] = 1
-    return mask.to(torch.int32), used
-
-
-def skeleton_edges(sb, zb, keep, M: int, kern: Kernels | None = None):
-    """The lattice edges in ``_edges_from_sgn``'s axis-major order: (flag
-    [3 (M-1) M^2] int32, 1 where the ends' eps-signs differ and both ends
-    are kept; used [M^3] int32, 1 at the ends of a flagged edge)."""
-    run = _run(kern, sb.device)
+def skeleton_flags(W: torch.Tensor, X: torch.Tensor, M: int,
+                   kern: Kernels | None = None):
+    """The lattice edges whose canonical words differ, both ends kept, as
+    bit masks by lattice point: (masks [4, ceil(M^3 / 32)] int32: bit p of
+    row 0, 1, 2 flags the edge along axis 0, 1, 2 whose lower end is point
+    p (``_edges_from_sgn``'s order, axis-major, an absent edge 0), row 3
+    the used points, the ends of a flagged edge; pre, as masks: each
+    word's popcount prefix within its block of ``FLAG_BLOCK`` points; cnt
+    [4, blocks]: each block's popcounts)."""
+    run = _run(kern, W.device)
     if run is None:
-        return skeleton_edges_plain(sb, zb, keep, M)
-    ne = 3 * (M - 1) * M * M
-    flags = _i32(ne, device=sb.device)
-    used = _zeros32(M ** 3, device=sb.device)
-    run("skeleton_mark", "skeleton_edges", ne, sb, zb, keep, M, flags, used)
-    return flags, used
+        return skeleton_flags_plain(W, X, M)
+    n = M ** 3
+    nw, nb = -(-n // 32), -(-n // FLAG_BLOCK)
+    masks, pre = _i32(4, nw, device=W.device), _i32(4, nw, device=W.device)
+    cnt = _i32(4, nb, device=W.device)
+    run("skeleton_mark", "skeleton_flags", n, W, X, M, masks, pre, cnt)
+    return masks, pre, cnt
 
 
-def _serials(M: int, device):
-    """(upper, lower) end serials of every lattice edge, axis-major."""
-    rows = torch.zeros((M, M, M, 1), dtype=torch.int32, device=device)
-    _, ea, eb = _edges_from_sgn(rows, M)
-    return ea, eb
+def skeleton_scan_plain(cnt):
+    edges, used = cnt[:3].reshape(-1), cnt[3]
+    off = torch.cat([torch.cumsum(edges, 0) - edges,
+                     torch.cumsum(used, 0) - used])
+    tot = torch.stack([edges.sum(), used.sum()])
+    return off.reshape(4, -1).to(torch.int32), tot.to(torch.int32)
 
 
-def skeleton_squeeze_plain(ecum, ucum, marks, out, sb, zb, sz, M: int,
-                           scale: float, n_edges: int, n_used: int):
-    dev = out.device
-    flags = torch.diff(ecum, prepend=ecum.new_zeros(1)) > 0
-    used = torch.diff(ucum, prepend=ucum.new_zeros(1)) > 0
-    ea, eb = _serials(M, dev)
-    new_index = ucum - 1
-    E = torch.stack([new_index[ea[flags].long()],
-                     new_index[eb[flags].long()]], 1)
-    v = torch.nonzero(used)[:, 0]
+def skeleton_scan(cnt: torch.Tensor, kern: Kernels | None = None):
+    """(off [4, blocks]: the exclusive prefix sums of ``skeleton_flags``'
+    block counts, the three edge rows as one sequence, axis-major, the
+    used points' row as another; tot [2]: the edges and used points)."""
+    run = _run(kern, cnt.device)
+    if run is None:
+        return skeleton_scan_plain(cnt)
+    off, tot = _i32(*cnt.shape, device=cnt.device), _i32(2, device=cnt.device)
+    run("skeleton_mark", "skeleton_scan", cnt.shape[1], cnt, cnt.shape[1], off,
+        tot)
+    return off, tot
+
+
+def skeleton_compact_plain(masks, marks, out, M: int, scale: float,
+                           eps: float):
+    n = M ** 3
+    bits = (masks[..., None] >> torch.arange(32, device=masks.device)) & 1
+    bits = bits.reshape(4, -1)[:, :n] > 0
+    rank = torch.cumsum(bits[3], 0) - 1
+    E = []
+    for axis, stride in enumerate((M * M, M, 1)):
+        lo = torch.nonzero(bits[axis])[:, 0]
+        E.append(torch.stack([rank[lo + stride], rank[lo]], 1))
+    v = torch.nonzero(bits[3])[:, 0]
     xu = torch.stack([marks[v // (M * M)], marks[(v // M) % M], marks[v % M]],
                      -1)
-    V = xu * (scale * 2) - scale
-    return V, out[v], sb[v], zb[v], sz[v], E.to(torch.int32)
+    OUT = out[v]
+    return (xu * (scale * 2) - scale, OUT, *_pack_out_words(OUT, eps),
+            torch.cat(E).to(torch.int32))
 
 
-def skeleton_squeeze(ecum, ucum, marks, out, sb, zb, sz, M: int, scale: float,
-                     n_edges: int, n_used: int, kern: Kernels | None = None):
+def skeleton_compact(masks, pre, off, marks, out, M: int, scale: float,
+                     eps: float, n_edges: int, n_used: int,
+                     kern: Kernels | None = None):
     """The order-preserving compaction (``_squeeze_edges``): the flagged
-    edges renumbered onto the used lattice points, and those points'
-    world coordinates, outputs and words.  ``ecum`` / ``ucum``: inclusive
-    prefix sums of the edge flags and used flags."""
+    edges, axis-major, renumbered onto the used lattice points, and those
+    points' world coordinates, outputs and words.  The kernel ranks an
+    item by its block's offset (``off``), its word's prefix (``pre``) and
+    the lower bits of its word; the plain version by prefix sums of the
+    masks."""
     run = _run(kern, out.device)
     if run is None:
-        return skeleton_squeeze_plain(ecum, ucum, marks, out, sb, zb, sz, M,
-                                      scale, n_edges, n_used)
+        return skeleton_compact_plain(masks, marks, out, M, scale, eps)
     dev = out.device
     V = torch.empty((n_used, 3), dtype=torch.float32, device=dev)
     OUT = torch.empty((n_used, R_COLS), dtype=torch.float32, device=dev)
     SB, ZB, SZ = (_i32(n_used, NW, device=dev) for _ in range(3))
     E = _i32(n_edges, 2, device=dev)
-    run("skeleton_mark", "skeleton_squeeze", max(ecum.numel(), ucum.numel()),
-        ecum, ucum, marks, out, sb, zb, sz, M, scale, V, OUT, SB, ZB, SZ, E)
+    run("skeleton_mark", "skeleton_compact", M ** 3, masks, pre, off, M, marks,
+        out, scale, eps, V, OUT, SB, ZB, SZ, E)
+    return V, OUT, SB, ZB, SZ, E
+
+
+# K3's first design (a build with SKELETON_CUMSUM): its stages launch the
+# kernels only, and its whole skeleton is held to the plain versions above
+
+def skeleton_points(out, dq, gmax, bc: float, eps: float, kern: Kernels):
+    """Each lattice point's (sign, zero, strict words [N, NW], keep flag
+    [N] int32)."""
+    n = out.shape[0]
+    sb, zb, sz = (_i32(n, NW, device=out.device) for _ in range(3))
+    keep = _i32(n, device=out.device)
+    kern("skeleton_mark", "skeleton_points", n, out, dq, gmax, n, bc, eps,
+         sb, zb, sz, keep)
+    return sb, zb, sz, keep
+
+
+def skeleton_edges(sb, zb, keep, M: int, kern: Kernels):
+    """(flag [3 (M-1) M^2] int32, axis-major; used [M^3] int32)."""
+    ne = 3 * (M - 1) * M * M
+    flags = _i32(ne, device=sb.device)
+    used = _zeros32(M ** 3, device=sb.device)
+    kern("skeleton_mark", "skeleton_edges", ne, sb, zb, keep, M, flags, used)
+    return flags, used
+
+
+def skeleton_cumsum(flags, used):
+    """The inclusive prefix sums of the edge and used flags, and their
+    totals (torch.cumsum)."""
+    ecum = torch.cumsum(flags, 0, dtype=torch.int32)
+    ucum = torch.cumsum(used, 0, dtype=torch.int32)
+    return ecum, ucum, torch.stack([ecum[-1], ucum[-1]])
+
+
+def skeleton_squeeze(ecum, ucum, marks, out, sb, zb, sz, M: int, scale: float,
+                     n_edges: int, n_used: int, kern: Kernels):
+    """``skeleton_compact`` from the prefix sums."""
+    dev = out.device
+    V = torch.empty((n_used, 3), dtype=torch.float32, device=dev)
+    OUT = torch.empty((n_used, R_COLS), dtype=torch.float32, device=dev)
+    SB, ZB, SZ = (_i32(n_used, NW, device=dev) for _ in range(3))
+    E = _i32(n_edges, 2, device=dev)
+    kern("skeleton_mark", "skeleton_squeeze", max(ecum.numel(), ucum.numel()),
+         ecum, ucum, marks, out, sb, zb, sz, M, scale, V, OUT, SB, ZB, SZ, E)
     return V, OUT, SB, ZB, SZ, E
 
 
@@ -970,41 +1062,67 @@ class Engine:
     @torch.no_grad()
     def skeleton(self, mode: str = "dist"):
         """The initial skeleton on the device: the lattice forward (K2),
-        then K3.  Returns (V, OUT, SB, ZB, SZ, E) compacted, or None
-        without edges."""
+        then K3 (``mark``).  Returns (V, OUT, SB, ZB, SZ, E) compacted, or
+        None without edges."""
         net, M, k = self.net, self.M, self.kern
         spec = net.spec
         aw = self.marks * (spec.scale * 2) - spec.scale
         tables = lattice_tables(spec.grid, net.enc.table.detach(), M ** 3)
         if mode == "dist":
-            out, dq, gn = _sdf_dist_grad_lattice(net, aw, aw, aw, tables,
-                                                 plain=k is PLAIN)
-            if self.dist_k <= 0:
-                gmax = gn.max().expand(M ** 3).contiguous()
-            else:
-                gmax = gn
-                for axis in range(3):
-                    gmax = skeleton_pool(gmax, M, self.dist_k, axis, kern=k)
-        elif mode == "sign":
+            return self.mark(*_sdf_dist_grad_lattice(
+                net, aw, aw, aw, tables, plain=k is PLAIN))
+        if mode == "sign":
             feats = lattice_features(net, aw, aw, aw, tables,
                                      plain=k is PLAIN)
-            out = mlp_forward([l.weight for l in net.fc],
-                              [l.bias for l in net.fc], feats, gather=True,
-                              eps=spec.eps)[1]
-            dq = gmax = None
-        else:
-            raise ValueError(f"unknown skeleton mode {mode!r}")
+            return self.mark(mlp_forward(
+                [l.weight for l in net.fc], [l.bias for l in net.fc], feats,
+                gather=True, eps=spec.eps)[1])
+        raise ValueError(f"unknown skeleton mode {mode!r}")
+
+    @torch.no_grad()
+    def mark(self, out, dq=None, gn=None):
+        """K3 on the M^3 lattice's gathered columns ``out`` [M^3, R]: with
+        |sdf| ``dq`` and |grad sdf| ``gn`` [M^3] (dist mode) the points
+        within the distance bound, else (sign mode) all of them; the edges
+        whose eps-signs differ, both ends kept, compacted.  Returns (V, OUT,
+        SB, ZB, SZ, E), or None without edges."""
+        M, k = self.M, self.kern
+        g, pool_k = None, 0
+        if dq is not None:
+            # pooled along axes 0 and 1 here, along axis 2 by the words
+            if self.dist_k <= 0:
+                g = gn.max().expand(M ** 3).contiguous()
+            else:
+                g, pool_k = gn, self.dist_k
+                for axis in range(2):
+                    g = skeleton_pool(g, M, pool_k, axis, kern=k)
+        if isinstance(k, Kernels) and k.first_skeleton:
+            return self._skeleton_first(out, dq, g, pool_k)
+        W, X = skeleton_words(out, dq, g, M, pool_k, self.bc, self.eps,
+                              kern=k)
+        masks, pre, cnt = skeleton_flags(W, X, M, kern=k)
+        off, tot = skeleton_scan(cnt, kern=k)
+        n_edges, n_used = (int(x) for x in self.read(tot))
+        if n_edges == 0:
+            return None
+        return skeleton_compact(masks, pre, off, self.marks, out, M,
+                                self.net.spec.scale, self.eps, n_edges,
+                                n_used, kern=k)
+
+    def _skeleton_first(self, out, dq, g, pool_k):
+        """``mark`` in the first design's stages (its third pool launch,
+        along axis 2, before the points)."""
+        k, M = self.kern, self.M
+        gmax = g if pool_k <= 0 else skeleton_pool(g, M, pool_k, 2, kern=k)
         sb, zb, sz, keep = skeleton_points(out, dq, gmax, self.bc, self.eps,
                                            kern=k)
         flags, used = skeleton_edges(sb, zb, keep, M, kern=k)
-        ecum = torch.cumsum(flags, 0, dtype=torch.int32)
-        ucum = torch.cumsum(used, 0, dtype=torch.int32)
-        n_edges, n_used = (int(x) for x in self.read(
-            torch.stack([ecum[-1], ucum[-1]])))
+        ecum, ucum, tot = skeleton_cumsum(flags, used)
+        n_edges, n_used = (int(x) for x in self.read(tot))
         if n_edges == 0:
             return None
         return skeleton_squeeze(ecum, ucum, self.marks, out, sb, zb, sz, M,
-                                spec.scale, n_edges, n_used, kern=k)
+                                self.net.spec.scale, n_edges, n_used, kern=k)
 
     # the loop ---------------------------------------------------------------
 

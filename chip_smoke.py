@@ -132,7 +132,14 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    and the three-axis pool beside ``max_pool3d`` (``pool_library_ms``;
    K3's ``library_ms`` stays null); the distance skeleton split by CUDA
    events in both designs (the corner tables, K2, the MLP and its
-   tangents, the sdf and |grad|, K3 with the read);
+   tangents, the sdf and |grad|, K3 with the read); K4's stage calls in
+   both designs, each recorded from its own build's run (the first
+   design's torch.cumsum a stage), held bitwise to the plain versions, as
+   recorded and with the sign override planted, the design's also after
+   three replays of a CUDA graph of one call, timed, with the launches of
+   each build's run (3 or 4 a busy insertion) and the bound ``k4_bytes``;
+   how often the override fires at the busy insertions (also sphere-medium's,
+   in phase 12);
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
@@ -188,10 +195,11 @@ FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 # extraction (4 busy insertions on sphere-small): the lattice encode once
 # for every level, the skeleton's 6 launches (2 pools, the words with the
 # third axis's max, the flags, the scan, the compaction), then K4's and K5's
-# a busy insertion (K5: 15 a hidden one, 5 the final, 2 for the starting
-# pools)
+# a busy insertion (K4: the selection, the override's check and the finish,
+# 3 a busy insertion, and the starting pools' edge words; K5: 15 a hidden
+# one, 5 the final, 2 for the starting pools)
 MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
-                 "skeleton_mark": 6, "split_step": 17, "connect_step": 52}
+                 "skeleton_mark": 6, "split_step": 13, "connect_step": 52}
 # each kernel's time before its redesign, for the printed comparison only
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
@@ -322,11 +330,18 @@ K3_FIRST_STAGES = ("skeleton_pool", "skeleton_points", "skeleton_edges",
 # the first design's skeleton launches, dist mode (3 pools, the points, the
 # edges, the squeeze; the design's are MAIN_LAUNCHES')
 K3_FIRST_LAUNCHES = 6
+# K4's stages, the design's (split_select, split_finish) and its first
+# design's (cuda_build.DEVICE_ENGINE_FIRST: split_mark, the torch.cumsum,
+# split_lerp, split_override, split_append), which each build's run records
+# from its own engine; the first design's launches on the flat path (4 a
+# busy insertion and the starting pools' edge words)
+K4_STAGES = ("pack_words", "edge_words", "split_select", "split_finish",
+             "split_mark", "split_cumsum", "split_lerp", "split_override",
+             "split_append")
+K4_FIRST_LAUNCHES = 17
 DEVICE_STAGES = {
     **{name: "skeleton_mark" for name in K3_STAGES + K3_FIRST_STAGES},
-    "pack_words": "split_step", "edge_words": "split_step",
-    "split_mark": "split_step", "split_lerp": "split_step",
-    "split_override": "split_step", "split_append": "split_step",
+    **{name: "split_step" for name in K4_STAGES},
     "hit_mark": "connect_step", "candidates": "connect_step",
     "connect_table": "connect_step", "connect_count": "connect_step",
     "connect_fill": "connect_step",
@@ -2557,25 +2572,14 @@ def stage_bytes(name, a):
     pair scan needs the rows, keys and permutation, a candidate's words, a
     count a candidate and the pairs: its column table, gathered rows and
     [n, 9] counts are the design's own traffic (``design_bytes``).  K3's
-    bound is its whole skeleton's (``k3_bytes``), none a stage's."""
+    bound is its whole skeleton's (``k3_bytes``), none a stage's; K4's the
+    function's (``k4_bytes``)."""
     if name in K3_STAGES:
         return 0
-    if name == "pack_words":
-        return _nb(a[0]) + 24 * a[0].shape[0]
-    if name == "edge_words":
-        return _nb(a[0]) + 12 * a[0].shape[0] + min(
-            _nb(a[1]) + _nb(a[2]), 32 * a[0].shape[0])
-    if name in ("split_mark", "hit_mark"):
+    if DEVICE_STAGES.get(name) == "split_step":
+        return k4_bytes(name, a)
+    if name == "hit_mark":
         return _nb(a[0]) + 4 * a[0].shape[0]
-    if name == "split_lerp":
-        S = a[6]
-        return _nb(a[0]) + _nb(a[1]) + 2 * S * 24 + S * 32
-    if name == "split_override":
-        return _nb(a[0]) + _nb(a[1]) + 4
-    if name == "split_append":
-        S = a[0].shape[0]
-        return 2 * _nb(a[0]) + _nb(a[1]) + _nb(a[3]) + _nb(a[4]) + S * (
-            32 + 24 + 16 + 20)
     if name == "candidates":
         n = a[5] + a[6]
         return _nb(a[3]) + n * (12 + 16 + 20)
@@ -2602,6 +2606,48 @@ def k3_bytes(N, M, n_used, n_edges, dist=True):
     and |grad sdf| (the pool's input); the marks; the skeleton written once:
     168 bytes a vertex (V, OUT, SB, ZB, SZ), 8 an edge."""
     return (132 + (8 if dist else 0)) * N + 4 * M + 168 * n_used + 8 * n_edges
+
+
+def k4_bytes(name, a):
+    """The bytes K4 must move, by the part of the function a stage call of
+    either design computes, each input read once and each output written
+    once: the split bits of EB (``split_mark``); of the S split edges their
+    ends, both ends' V rows, outputs at plane idx and zero words, and the
+    new vertices written, which the forward reads (``split_lerp``); OUTn
+    (``split_override``); OUTn's override columns written where it fires,
+    the new words, E's rewrite and the right edges written, and but at the
+    final insertion the ends' sign words read and the left and right
+    edges' split words and last differing columns written
+    (``split_append``); ``split_select`` and ``split_finish`` are the sums
+    of those two pairs; ``pack_words`` and ``edge_words``: their inputs,
+    of a pool the rows gathered, and outputs.  The first design's flags
+    and prefix sums, and the design's lanes, ends and shared zero words
+    handed from one launch to the next, are traffic of their own."""
+    from tropical_torch.extract import device as dv
+
+    if name == "pack_words":
+        return _nb(a[0]) + 24 * a[0].shape[0]
+    if name == "edge_words":
+        return _nb(a[0]) + 12 * a[0].shape[0] + min(
+            _nb(a[1]) + _nb(a[2]), 32 * a[0].shape[0])
+    if name in ("split_mark", "split_cumsum"):
+        return _nb(a[0]) if name == "split_mark" else 0
+    if name in ("split_lerp", "split_select"):
+        S = a[6]
+        return S * (8 + 24 + 8 + 16 + 12) + (
+            _nb(a[1]) if name == "split_select" else 0)
+    if name == "split_override":
+        return _nb(a[0])
+    if name in ("split_append", "split_finish"):
+        OUTn, bz = a[0], a[1]
+        idx, eps, final = a[-3:]
+        S = OUTn.shape[0]
+        fired = 0
+        if int(dv.split_override_plain(OUTn, bz, idx, eps)[0]):
+            fired = int(dv._override_mask(bz, idx).sum())
+        return 4 * fired + S * (24 + 8 + 4) + (0 if final else S * 40) + (
+            _nb(OUTn) if name == "split_finish" else 0)
+    raise KeyError(name)
 
 
 def stage_sum_bytes(N, M, n_used, n_edges):
@@ -2831,6 +2877,142 @@ def k3_stage_times(net, reps, kern, label="first design"):
     return times, count
 
 
+def graph_bits(fn, args, kw):
+    """The outputs of one call of ``fn`` (its results, then its tensor
+    arguments) after a warm-up call and three replays of a CUDA graph of
+    one call, on clones of ``args``."""
+    a = clones(args)
+    fn(*a, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        res = fn(*a, **kw)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    return _outputs(res, a)
+
+
+def planted(name, args):
+    """A split_finish, split_override or split_append call's arguments with
+    the sign override planted: the last row's output at plane idx set to 1
+    (split_append's ``viol`` set)."""
+    a = clones(args)
+    a[0][-1, a[-3] if name != "split_override" else a[2]] = 1.0
+    if name == "split_append":
+        a[2].fill_(1)
+    return a
+
+
+def k4_stage_times(net, reps, kern, planes, label):
+    """K4 in the build of ``kern`` (None: the committed design) at a net's
+    shapes: the stage calls of the insertions at ``planes``, recorded from a
+    run of that build's engine (the first design's torch.cumsum a stage of
+    its own), each held bitwise to its plain version, as recorded and, for
+    the override's stages, with the override planted (``planted``), then
+    replayed as recorded in a CUDA graph (``graph_ms``; a split_finish
+    call whose override fires with OUTn copied back before each replay,
+    the copy's time taken off); the design's
+    calls also held after three replays of a graph of one call
+    (``graph_bits``: its counters and flags return to zero in every
+    launch).  Returns {ms, plain_ms, bound_ms (``k4_bytes``), err, stages
+    {stage@plane: ms}, launches (the run's K4 launches), planted (the
+    planted calls held)}."""
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import launches
+
+    with StageLog() as log:
+        class Logged(dv.Engine):
+            def step(self, P, idx, *a, **k):
+                log.on, log.plane = idx in planes, idx
+                try:
+                    return super().step(P, idx, *a, **k)
+                finally:
+                    log.on = False
+
+        before = launches.LAUNCHES["split_step"]
+        eng = Logged(net, kern=kern)
+        sk = eng.skeleton("dist")
+        eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+        torch.cuda.synchronize()
+        count = launches.LAUNCHES["split_step"] - before
+    out = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+           "stages": {}, "launches": count, "planted": 0}
+    for name, args, kw, plane in log.calls:
+        if DEVICE_STAGES[name] != "split_step":
+            continue
+        fn = log.orig[name]
+        key = f"{name}@{plane}"
+        fixed = clones(args)
+        ms = graph_ms(lambda: fn(*fixed, **kw), reps=reps)
+        if name == "split_finish" and int(dv.split_override_plain(
+                *args[:2], *args[-3:-1])[0]):
+            # the override fired: the first call zeroed OUTn's columns in
+            # place, so each replay copies the recorded OUTn back first,
+            # and the copy's own time is taken off
+            pristine = args[0]
+            copy_ms = graph_ms(lambda: fixed[0].copy_(pristine), reps=reps)
+            ms = graph_ms(lambda: (fixed[0].copy_(pristine),
+                                   fn(*fixed, **kw)), reps=reps) - copy_ms
+            print(f"  {label}: plane {plane}: {name}: the override fires; "
+                  f"OUTn's copy {copy_ms:.5f} ms taken off")
+        out["stages"][key] = out["stages"].get(key, 0.0) + ms
+        out["ms"] += ms
+        out["bound_ms"] += k4_bytes(name, args) / PEAK_BYTES * 1e3
+        if name == "split_cumsum":  # torch's, no plain version of its own
+            print(f"  {label}: plane {plane}: {name}: {ms:.5f} ms")
+            continue
+        plain = {**kw, "kern": dv.PLAIN}
+        cases = [args] + ([planted(name, args)] if name in (
+            "split_finish", "split_override", "split_append") else [])
+        for case in cases:
+            a = clones(case)
+            got = _outputs(fn(*a, **kw), a)
+            b = clones(case)
+            want = _outputs(fn(*b, **plain), b)
+            runs = [got]
+            if kern is None and name in ("split_select", "split_finish"):
+                runs.append(graph_bits(fn, case, kw))
+            for run in runs:
+                for x, y in zip(want, run):
+                    check(x.shape == y.shape and bits_equal(x, y),
+                          f"{label} {name} at plane {plane}: kernel != "
+                          f"plain ({tuple(x.shape)})")
+                    out["err"] = max(out["err"], _max_err(x, y))
+            out["planted"] += case is not args
+        pfixed = clones(args)
+        plain_ms = cuda_ms(lambda: fn(*pfixed, **plain), iters=2)
+        out["plain_ms"] += plain_ms
+        print(f"  {label}: plane {plane}: {name}: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.3f} ms, bound "
+              f"{k4_bytes(name, args) / PEAK_BYTES * 1e3:.5f} ms")
+    return out
+
+
+def override_fires(net):
+    """The sign override at each busy insertion of a run of the engine:
+    [(plane, splits, 1 if it fired)], each split_finish call's OUTn tested
+    by the plain override before the call."""
+    from tropical_torch.extract import device as dv
+
+    fired, finish = [], dv.split_finish
+
+    def tested(OUTn, bz, *a, **kw):
+        idx, eps = a[-3], a[-2]
+        fired.append((idx, OUTn.shape[0],
+                      int(dv.split_override_plain(OUTn, bz, idx, eps)[0])))
+        return finish(OUTn, bz, *a, **kw)
+
+    dv.split_finish = tested
+    try:
+        eng = dv.Engine(net)
+        sk = eng.skeleton("dist")
+        eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    finally:
+        dv.split_finish = finish
+    return fired
+
+
 def pool_library(log, pool_calls, reps):
     """The three-axis max-pool of |grad sdf| by the pool kernel (the
     design's two launches, and a third along axis 2, which K3 leaves to
@@ -2900,6 +3082,8 @@ def engine_stage_times(net, reps, first):
         redesigned = {}
         pool_ms = 0.0
         for name, args, kw, plane in log.calls:
+            if DEVICE_STAGES[name] == "split_step":
+                continue  # k4_stage_times, both designs from their own runs
             r = stage_check(log, name, args, kw, reps, first)
             rec = out[DEVICE_STAGES[name]]
             rec["err"] = max(rec["err"], r["err"])
@@ -2937,6 +3121,18 @@ def engine_stage_times(net, reps, first):
         k3_calls = [c for c in log.calls if c[3] == "skeleton"]
         pools = [c for c in k3_calls if c[0] == "skeleton_pool"]
         library_ms, pool3_ms = pool_library(log, pools, reps)
+    k4 = k4_stage_times(net, reps, None, planes, "design")
+    k4_first = k4_stage_times(net, reps, first, planes, "first design")
+    check(math.isclose(k4["bound_ms"], k4_first["bound_ms"]),
+          f"K4's bound: design {k4['bound_ms']} ms, first design "
+          f"{k4_first['bound_ms']} ms")
+    out["split_step"].update(
+        err=max(k4["err"], k4_first["err"]), ms=k4["ms"],
+        plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+        first_ms=k4_first["ms"], stage_ms=k4["stages"],
+        first_stage_ms=k4_first["stages"], run_launches=k4["launches"],
+        first_launches=k4_first["launches"],
+        planted=k4["planted"] + k4_first["planted"])
     first_times, first_launches = k3_stage_times(net, reps, first)
     compact = next(c[1] for c in k3_calls if c[0] == "skeleton_compact")
     M, n_edges, n_used = compact[5], compact[8], compact[9]
@@ -2996,6 +3192,29 @@ def device_kernels_phase(records, flat_launches):
               f"ms; three axes: kernel {k3['pool3_ms']:.5f} ms, first "
               f"design {k3['pool_first_ms']:.5f} ms, max_pool3d "
               f"{k3['pool_library_ms']:.5f} ms")
+        k4 = stages["split_step"]
+        conn = sum(c > 0 for i, _, _, c in busy if i < dv.R_COLS - 1)
+        for key, per in (("run_launches", 3), ("first_launches", 4)):
+            check(k4[key] == per * len(busy) + 1 + conn,
+                  f"K4 {key}: {k4[key]} for {len(busy)} busy insertions")
+        if size == "small":
+            check(k4["run_launches"] == flat_launches["split_step"]
+                  and k4["first_launches"] == K4_FIRST_LAUNCHES,
+                  f"K4 launched {k4['run_launches']} / "
+                  f"{k4['first_launches']} kernels on the flat path")
+        fires = override_fires(net)
+        k4["override_fired"] = sum(f for *_, f in fires)
+        print(f"{size}: the sign override fired at {k4['override_fired']} "
+              f"of {len(fires)} busy insertions (plane, splits, fired): "
+              f"{fires}")
+        print(f"{size}: split_step: the design {k4['ms']:.5f} ms "
+              f"({k4['run_launches']} launches on the run), the first design "
+              f"{k4['first_ms']:.5f} ms with its torch.cumsum calls "
+              f"({k4['first_launches']} launches), bound "
+              f"{k4['bound_ms']:.5f} ms (k4_bytes: "
+              f"{k4['bound_ms'] / k4['ms']:.1%} and "
+              f"{k4['bound_ms'] / k4['first_ms']:.1%} of it); "
+              f"{k4['planted']} calls with a planted override bitwise")
         split = {label: skeleton_split(net, kern) for label, kern in
                  (("design", None), ("first", first))}
         print(f"{size}: the dist skeleton's split (ms, CUDA events): "
@@ -3024,11 +3243,15 @@ def device_kernels_phase(records, flat_launches):
                     "stage_sum_bound_ms", "pool_ms", "pool3_ms",
                     "pool_first_ms", "pool_library_ms", "first_launches")})
                 rec[f"skeleton_split_ms{tag}"] = split
+            if name == "split_step":
+                rec.update({f"{key}{tag}": r[key] for key in (
+                    "run_launches", "first_launches", "override_fired",
+                    "planted", "stage_ms", "first_stage_ms")})
             print(f"{size}: {name}: kernel {r['ms']:.4f} ms "
                   f"({r['bound_ms'] / r['ms']:.1%} of its bound "
                   f"{r['bound_ms']:.4f} ms), first design "
                   f"{r['first_ms']:.4f} ms"
-                  f"{'' if name != 'skeleton_mark' else ' (%.1f%% of it)' % (100 * r['bound_ms'] / r['first_ms'])}"
+                  f"{'' if name not in ('skeleton_mark', 'split_step') else ' (%.1f%% of it)' % (100 * r['bound_ms'] / r['first_ms'])}"
                   f", plain {r['plain_ms']:.3f} ms, max err {r['err']}")
             if r.get("design_ms"):
                 print(f"{size}: {name}: the design's own traffic (column "
@@ -3102,6 +3325,11 @@ def presets_phase():
               f"{[dv.LAST.t_skeleton, dv.LAST.t_loop, dv.LAST.t_faces]} s; "
               f"busy {dv.LAST.busy}; reads {dv.LAST.reads}")
         check(worst <= 0.005, f"{size}: funnel {got} off the JAX CLI's {want}")
+        if size == "medium":  # small's and large's: phase 11
+            fires = override_fires(net)
+            print(f"{size}: the sign override fired at "
+                  f"{sum(f for *_, f in fires)} of {len(fires)} busy "
+                  f"insertions (plane, splits, fired): {fires}")
         _, vs, ts = dv.subpoly_device(net, verbose=False, skeleton_mode="sign")
         same_sets(size, vd, vs)
         check(td.shape == ts.shape, f"{size}: dist and sign triangles "

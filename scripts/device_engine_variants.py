@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time variants of the device engine's K2, K3 and K5 kernels on one card.
+"""Time variants of the device engine's K2, K3, K4 and K5 kernels on one card.
 
     python3 scripts/device_engine_variants.py [--variants design,first,...]
-        [--parts k2,k3,k5] [--sizes small,large] [--json PATH]
+        [--parts k2,k3,k4,k5] [--sizes small,large] [--json PATH]
 
-Each variant is ``tropical_torch/csrc/device_engine.cu`` (K3, K5) or
+Each variant is ``tropical_torch/csrc/device_engine.cu`` (K3-K5) or
 ``csrc/lattice_encode.cu`` (K2) built by ``ops/cuda_build`` with other
 ``-D`` macros:
 
@@ -20,13 +20,19 @@ Each variant is ``tropical_torch/csrc/device_engine.cu`` (K3, K5) or
   by doubling runs, a point's canonical words (9 bytes) and the third
   axis's max from its block's rows and values staged in shared memory,
   the edges and used points as bit masks by ballot with block counts, one
-  block's scan of the counts, the compaction ranking by popcounts);
+  block's scan of the counts, the compaction ranking by popcounts; K4: two
+  launches a busy insertion, the split edges ranked and lerped in one pass
+  by ballots and a decoupled look-back, then the override and the append
+  from rows staged in shared memory, the override applied by the last
+  block where any row violates it);
 - ``first``: the first designs (``cuda_build.DEVICE_ENGINE_FIRST``,
   ``-DCONNECT_SEARCHES``: no table, a lower and an upper bound over the
   whole sorted key array for each of the 9 columns, rows through the
   permutation, ``-DCOMPACT_ROW_THREAD``: a thread a row, and
   ``-DSKELETON_CUMSUM``: K3 a thread a value, row or edge with int32
-  flags and two torch.cumsum calls;
+  flags and two torch.cumsum calls, and ``-DSPLIT_FOUR_PASS``: K4's
+  split_mark, a torch.cumsum, split_lerp, split_override and
+  split_append, a thread an item;
   ``cuda_build.LATTICE_FIRST``, ``-DLATTICE_LEVEL_LAUNCH``: a launch a
   level, 8 bytes a thread at the row's stride);
 - ``row_thread``: ``-DCOMPACT_ROW_THREAD`` alone, ``compact_rows`` a
@@ -40,14 +46,20 @@ iterations: the pool's window read from a tile a value at a time, its
 groups of lines pipelined in a block, a third pool launch, 16-byte
 canonical words, the scan a tile of 1,024 or a chunk a thread, the
 compaction a warp a row, a thread a point, or its rows copied coalesced
-through shared memory) measured no better than the design and were
+through shared memory; K4's two launches with the override applied by a
+last block, selection tiles of 256 or 1,024 edges, an acq_rel fetch_add
+for a fence and an atomicAdd) measured no better than the design and were
 deleted; PERF.md keeps their readings.
 
 Inputs: the committed sphere-small and sphere-large checkpoints.  K3:
 each variant's whole skeleton, dist and sign, bitwise the plain versions,
 the launches of its dist skeleton, and that skeleton's stage calls,
 recorded from the variant's own run and replayed as recorded
-(``chip_smoke.k3_stage_times``).  K5's
+(``chip_smoke.k3_stage_times``).  K4: the stage calls of the busiest hidden
+insertion and the final one, recorded from the variant's own run, each
+bitwise the plain version (also with the override planted) and replayed
+as recorded (``chip_smoke.k4_stage_times``), by stage and plane, with the
+variant's launches on the run and the bound (``chip_smoke.k4_bytes``).  K5's
 calls (``connect_table``, ``connect_count``, ``connect_fill``,
 ``compact_rows``) are recorded from a run of the engine at the busiest
 hidden insertion and the final one (``chip_smoke.StageLog``); K2 runs at
@@ -84,7 +96,7 @@ ENGINE = {"design": (), "first": cuda_build.DEVICE_ENGINE_FIRST[1],
           "row_thread": ("COMPACT_ROW_THREAD",)}
 LATTICE = {"design": (), "first": cuda_build.LATTICE_FIRST[1]}
 STAGES = ("connect_table", "connect_count", "connect_fill", "compact_rows")
-PARTS = ("k2", "k3", "k5")
+PARTS = ("k2", "k3", "k4", "k5")
 
 
 def build(source, variants):
@@ -188,6 +200,25 @@ def time_skeleton(libs, net, reps):
     return out
 
 
+def time_split(libs, net, reps):
+    """{variant: {"ms", "bound_ms", "launches", "stages": {stage@plane:
+    ms}}} of K4 at the busiest hidden insertion and the final one."""
+    dev = torch.device("cuda", 0)
+    eng = dv.Engine(net)
+    sk = eng.skeleton("dist")
+    eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    hidden = [b for b in eng.stats.busy if b[0] < eng.n_hidden]
+    planes = {eng.n_hidden, max(hidden, key=lambda b: b[1])[0]}
+    out = {}
+    for variant, lib in libs.items():
+        r = cs.k4_stage_times(net, reps, dv.Kernels(lib, dev), planes,
+                              variant)
+        out[variant] = {"bitwise": True, "planes": sorted(planes),
+                        **{k: r[k] for k in ("ms", "bound_ms", "launches",
+                                             "stages")}}
+    return out
+
+
 def time_lattice(libs, net, reps):
     """{variant: {"bitwise", "ms"}} of K2 at the net's skeleton lattice."""
     spec = net.spec.grid
@@ -222,7 +253,7 @@ def main() -> int:
                         default=",".join(dict.fromkeys([*ENGINE, *LATTICE])),
                         help="comma-separated variants")
     parser.add_argument("--parts", default=",".join(PARTS),
-                        help="comma-separated kernels: k2, k3, k5")
+                        help="comma-separated kernels: k2, k3, k4, k5")
     parser.add_argument("--sizes", default="small,large")
     parser.add_argument("--json", type=Path, default=None,
                         help="write the whole result here")
@@ -263,6 +294,15 @@ def main() -> int:
                 stages = ", ".join(f"{k} {v:.5f}" for k, v in r["ms"].items())
                 print(f"  K3 {variant}: {total:.5f} ms ({stages}), "
                       f"{r['launches']} launches, bitwise {r['bitwise']}")
+        if "k4" in parts:
+            k4 = res["split_step"] = time_split(engine_libs, net, reps)
+            for variant, r in k4.items():
+                stages = ", ".join(f"{k} {v:.5f}" for k, v in
+                                   r["stages"].items())
+                print(f"  K4 {variant}: {r['ms']:.5f} ms ({stages}), "
+                      f"{r['launches']} launches on the run, bound "
+                      f"{r['bound_ms']:.5f} ms "
+                      f"({r['bound_ms'] / r['ms']:.1%}), bitwise")
         if "k5" in parts:
             calls, orig, planes = record(net)
             k5, library = time_engine(engine_libs, calls, orig, reps)
@@ -281,7 +321,8 @@ def main() -> int:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(result, indent=1))
     ok = all(r["bitwise"] for size in args.sizes.split(",")
-             for part in ("lattice_encode", "skeleton_mark", "connect_step")
+             for part in ("lattice_encode", "skeleton_mark", "split_step",
+                          "connect_step")
              for r in result[size].get(part, {}).values())
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1

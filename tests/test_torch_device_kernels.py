@@ -223,10 +223,15 @@ def test_emulated_engine_is_bitwise_plain(engine_libs, net11, mode):
         assert len(busy_a) >= 6 and any(c for *_, c in busy_a[:-1])
         assert any(h for _, _, h, _ in busy_a)
         # every stage launched: the skeleton's 6 (2 pools and 4, or the
-        # first design's 3 pools and 3), then per busy insertion 4 of K4
-        # and at least 6 of K5
+        # first design's 3 pools and 3), then per busy insertion 3 of K4
+        # (split_select, split_check, split_finish; the first design's 4),
+        # the starting
+        # pools' edge_words and one for each hidden insertion's connecting
+        # edges, and at least 6 of K5
         assert count["skeleton_mark"] == 6
-        assert count["split_step"] >= 4 * len(busy_a) + 2
+        hidden = [b for b in busy_a if b[0] < 32]
+        assert count["split_step"] == (3 if build == "design" else 4) * len(
+            busy_a) + 1 + sum(c > 0 for *_, c in hidden)
         assert count["connect_step"] >= 6 * len(busy_a)
 
 

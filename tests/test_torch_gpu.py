@@ -927,3 +927,95 @@ def test_connect_stages_designs_bitwise_on_cuda(monkeypatch):
             for x, y in zip(runs["plain"], out):
                 assert x.shape == y.shape and torch.equal(
                     x.view(torch.int32), y.view(torch.int32)), (name, build)
+
+
+@pytest.mark.gpu
+def test_split_step_designs_bitwise_on_cuda(monkeypatch):
+    """K4 on sphere-small: the whole engine in the design and in the first
+    design (``cuda_build.DEVICE_ENGINE_FIRST``) bitwise the plain versions,
+    with each build's launches (3 or 4 a busy insertion, one ``edge_words``
+    for the starting pools and one for each hidden insertion's connecting
+    edges); then every design call, recorded, replayed twice by the kernel
+    (its counters back at zero) and by the first design's stages, as
+    recorded and with the override planted (one row's plane-idx output off
+    the eps band), bitwise the plain version."""
+    _need_cuda()
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import cuda_build
+
+    net = _sphere_net("small")
+    first = dv.Kernels(cuda_build.load(cuda_build.DEVICE_ENGINE_FIRST),
+                       torch.device("cuda", 0))
+    calls = []
+    orig = {k: getattr(dv, k) for k in ("split_select", "split_finish")}
+
+    def recorder(name):
+        def stage(*args, **kw):
+            calls.append((name, [a.clone() if torch.is_tensor(a) else a
+                                 for a in args]))
+            return orig[name](*args, **kw)
+        return stage
+
+    def bits(ts):
+        return [t.view(torch.int32) if t.dtype == torch.float32 else t
+                for t in ts if torch.is_tensor(t)]
+
+    runs = {}
+    for build, kern in (("plain", dv.PLAIN), ("first", first),
+                        ("design", None)):
+        if build == "design":
+            for k in orig:
+                monkeypatch.setattr(dv, k, recorder(k))
+        before = LAUNCHES["split_step"]
+        eng = dv.Engine(net, kern=kern)
+        sk = eng.skeleton("dist")
+        runs[build] = bits(list(eng.loop(*eng.pools(sk[0], sk[1], sk[5],
+                                                    sk[2:5]))))
+        torch.cuda.synchronize()
+        busy = eng.stats.busy
+        per = {"plain": 0, "first": 4, "design": 3}[build]
+        assert LAUNCHES["split_step"] - before == per * len(busy) + (
+            0 if build == "plain" else
+            1 + sum(c > 0 for i, *_, c in busy if i < eng.n_hidden)), build
+        for x, y in zip(runs["plain"], runs[build]):
+            assert x.shape == y.shape and torch.equal(x, y), build
+    assert {c[0] for c in calls} == set(orig)
+
+    def clone(args):
+        return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+    fired = 0
+    for name, args in calls:
+        cases = [args]
+        if name == "split_finish":
+            planted = clone(args)
+            planted[0][-1, planted[10]] = 1.0  # OUTn at plane idx
+            cases.append(planted)
+        for case in cases:
+            a = clone(case)
+            want = bits([*orig[name](*a, kern=dv.PLAIN), *a])
+            for _ in range(2):
+                a = clone(case)
+                got = bits([*orig[name](*a), *a])
+                for x, y in zip(want, got):
+                    assert x.shape == y.shape and torch.equal(x, y), name
+            a = clone(case)
+            if name == "split_select":
+                E, EB, V, OUT, ZB, idx, n_split = a
+                cum = dv.split_cumsum(dv.split_mark(EB, idx, kern=first))
+                got = bits([*dv.split_lerp(E, cum, V, OUT, ZB, idx, n_split,
+                                           kern=first), *a])
+            else:
+                OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV, idx, eps, \
+                    final = a
+                viol = dv.split_override(OUTn, bz, idx, eps, kern=first)
+                fired += int(viol[0])
+                got = bits([*dv.split_append(OUTn, bz, viol, lanes, ce, E,
+                                             EB, LD, SB, ZB, nV, idx, eps,
+                                             final, kern=first), *a])
+            for x, y in zip(want, got):
+                assert x.shape == y.shape and torch.equal(x, y), (name,
+                                                                 "first")
+    # the planted override fired at every busy insertion, the recorded
+    # calls at none
+    assert fired == len(calls) // 2

@@ -23,7 +23,7 @@
 //
 // Bound: bytes everywhere (integer bit tests, a few float operations an
 // item); one thread an item (lattice point, edge, candidate, vertex) but
-// where a warp shares a row or a word (K3 below), shared-memory histograms
+// where a warp shares a row or a word (K3 and K4 below), shared-memory histograms
 // flushed by one atomic a bin and block.  The
 // pair search is the exception: each candidate scans the candidates of
 // the 27 cells around its own, a data-dependent loop (about the cells'
@@ -57,6 +57,7 @@
 // contiguously.  Its first design (-DCOMPACT_ROW_THREAD) copied a row a thread at every width,
 // a warp's loads 4 width bytes apart.
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
@@ -170,6 +171,15 @@ __device__ __forceinline__ void hist_flush(Hist& h, int* meta, int first0,
                           : (i < 2 * R ? first1 + i - R : counter);
     if (dst >= 0) atomicAdd(&meta[dst], v);
   }
+}
+
+// the inclusive sum of x over lanes 0..lane
+__device__ __forceinline__ int warp_scan(int x, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_sync(0xFFFFFFFFu, x, max(lane - d, 0));
+    if (lane >= d) x += y;
+  }
+  return x;
 }
 
 int blocks(ll n) { return static_cast<int>((n + kThreads - 1) / kThreads); }
@@ -519,15 +529,6 @@ __device__ __forceinline__ bool edge_flag(int2 a, unsigned ax, int2 b,
          (ax & bx & kKeepBit);
 }
 
-// the inclusive sum of x over lanes 0..lane
-__device__ __forceinline__ int warp_scan(int x, int lane) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_sync(0xFFFFFFFFu, x, max(lane - d, 0));
-    if (lane >= d) x += y;
-  }
-  return x;
-}
-
 // masks [4, nw]: the flagged edges of axes 0, 1, 2 by lower end, the used
 // points; pre [4, nw]: each word's popcount prefix within its block; cnt
 // [4, blocks]: each block's popcounts
@@ -725,6 +726,76 @@ __global__ void __launch_bounds__(kThreads) skeleton_compact_kernel(
 #endif  // SKELETON_CUMSUM
 
 // --- K4 split_step -----------------------------------------------------------
+//
+// The design: three launches a busy insertion, the forward of the new
+// vertices (K1's encode and the MLP) after the first; bound by bytes at
+// sphere-large's final insertion and by the launches' latency (a graph
+// node's 1.18 us, the chains of dependent loads) at the hidden ones, whose
+// splits are a few hundred rows:
+// - split_select: the split edges of plane idx, their lerp and their ends'
+//   shared zero words, in edge order, from one pass over the pool.  A tile
+//   of kSelectTile = 512 edges (2 rounds of a block) takes its id from
+//   a counter, so that it waits only on tiles already running (forward
+//   progress on the card; the tests' emulation runs the blocks in order);
+//   each thread loads its edges' split words and ends together; ranks
+//   within the tile are ballots and popcounts of the split bits; warp 0
+//   publishes the tile's count, looks back over the tiles before it 32 at
+//   a time (their counts, up to the nearest inclusive prefix) and publishes
+//   its inclusive prefix (a decoupled look-back), while the other warps
+//   gather their split edges' V rows, outputs at idx and zero words, every
+//   load in flight.
+// - split_check: the sign override's test, a thread a row, the outputs on
+//   the row's override columns (both ends on the plane, columns < idx, and
+//   idx) loaded together; the override is a whole-step any, which the last
+//   block reads.
+// - split_finish: a block stages its kFinishRows rows of OUTn by float4
+//   loads (all in flight, with the rows' edge, ends and their words loaded
+//   before them); each thread applies the override to its row where the
+//   check fired (OUTn zeroed on those columns) and writes its words, E's
+//   rewrite, the right edge and, but for the final insertion, both edges'
+//   split words and last differing columns.
+// The override fires at the final insertion of sphere-medium and -large
+// (chip_smoke.py phase 11 counts it), so it takes a launch of its own: a
+// last block applying it to every row, after a finish that wrote them
+// unoverridden, took one block through the whole of large's 23.7 MB OUTn
+// (2.81 ms on an H100, against the check and finish's 0.022).
+// The kernels' counters, flags and status words are device variables, zero
+// when the library loads, which the last tile or block of every launch
+// returns to zero (split_check's answer, g_finish_fire, every check
+// overwrites): no memset, and a CUDA graph of recorded calls replays them
+// as they ran.  Launches of one library are stream-ordered: two at once on
+// two streams would share them.
+// The first design (-DSPLIT_FOUR_PASS, cuda_build.DEVICE_ENGINE_FIRST): four
+// launches, a thread an item: split_mark's int32 flags, which a torch.cumsum
+// in the caller turns into ranks, split_lerp, split_override (a row's 33
+// columns walked with an early return) and split_append (the override, the
+// words and the edges, its row read at a 132-byte stride).
+
+#ifdef SPLIT_FOUR_PASS
+constexpr bool kSplitFirst = true;
+#else
+constexpr bool kSplitFirst = false;
+// split_select: edges a thread and a tile; the most tiles a launch (the
+// status words': 2^27 edges)
+constexpr int kSelectItems = 2;
+constexpr int kSelectTile = kSelectItems * kThreads;
+constexpr int kMaxTiles = 1 << 18;
+// a tile's status word: its count (low 32 bits), published as an aggregate
+// or as an inclusive prefix; 0 before it publishes
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
+__device__ unsigned long long g_select_status[kMaxTiles];
+__device__ int g_select_tile;
+__device__ int g_select_done;
+// split_finish: rows a block, float4 loads a thread; split_check's blocks'
+// ticket (low 32 bits) and count of blocks whose rows violate the
+// override (high 32), back at zero after every launch, and its answer,
+// which every launch of it overwrites
+constexpr int kFinishRows = 256;
+constexpr int kFinishLoads = (kFinishRows * R / 4 + kFinishRows - 1) / kFinishRows;
+__device__ unsigned long long g_check_ticket;
+__device__ int g_finish_fire;
+#endif
 
 __global__ void pack_words_kernel(const float* __restrict__ out, ll n,
                                   float eps, int* sb, int* zb, int* sz) {
@@ -743,6 +814,20 @@ __global__ void edge_words_kernel(const int* __restrict__ E, ll n,
   ld[e] = edge_bits(SB + NW * p, ZB + NW * p, SB + NW * q, ZB + NW * q, w);
   for (int k = 0; k < NW; ++k) eb[NW * e + k] = static_cast<int>(w[k]);
 }
+
+// the new vertex of a split edge whose ends v0, v1 have outputs d0, d1 at
+// the plane, the host engine's lerp op for op: w = |d0| / |d1 - d0|,
+// v = v0 (1 - w) + v1 w
+__device__ __forceinline__ void lerp_vertex(float d0, float d1,
+                                            const float* v0, const float* v1,
+                                            float* v) {
+  const float w = __fdiv_rn(fabsf(d0), fabsf(__fsub_rn(d1, d0)));
+  const float om = __fsub_rn(1.0f, w);
+  for (int d = 0; d < 3; ++d)
+    v[d] = __fadd_rn(__fmul_rn(v0[d], om), __fmul_rn(v1[d], w));
+}
+
+#ifdef SPLIT_FOUR_PASS
 
 __global__ void split_mark_kernel(const int* __restrict__ EB, ll n, int idx,
                                   int* flags) {
@@ -763,14 +848,8 @@ __global__ void split_lerp_kernel(const int* __restrict__ E,
   lanes[s] = static_cast<int>(e);
   ce[2 * s] = static_cast<int>(a);
   ce[2 * s + 1] = static_cast<int>(b);
-  const float d0 = OUT[R * a + idx], d1 = OUT[R * b + idx];
-  // the host engine's lerp, op for op: w = |d0| / |d1 - d0|,
-  // v = v0 (1 - w) + v1 w
-  const float w = __fdiv_rn(fabsf(d0), fabsf(__fsub_rn(d1, d0)));
-  const float om = __fsub_rn(1.0f, w);
-  for (int d = 0; d < 3; ++d)
-    Vn[3 * s + d] = __fadd_rn(__fmul_rn(V[3 * a + d], om),
-                              __fmul_rn(V[3 * b + d], w));
+  lerp_vertex(OUT[R * a + idx], OUT[R * b + idx], V + 3 * a, V + 3 * b,
+              Vn + 3 * s);
   for (int k = 0; k < NW; ++k) bz[NW * s + k] = ZB[NW * a + k] & ZB[NW * b + k];
 }
 
@@ -820,6 +899,260 @@ __global__ void split_append_kernel(
     for (int k = 0; k < NW; ++k) EBr[NW * s + k] = static_cast<int>(w[k]);
   }
 }
+
+#else  // the design
+
+__device__ __forceinline__ unsigned long long status_load(int t) {
+  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(
+             g_select_status[t])
+      .load(cuda::std::memory_order_relaxed);
+}
+
+__device__ __forceinline__ void status_store(int t, unsigned long long v) {
+  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(
+      g_select_status[t])
+      .store(v, cuda::std::memory_order_relaxed);
+}
+
+// warp 0 of tile t > 0: the count of the edges split before the tile, from
+// its predecessors' status words, 32 a round (lane l reads tile t - 1 - l -
+// 32 round): each word waited for, then the counts summed up to the nearest
+// inclusive prefix (the lowest such lane); before tile 0, an inclusive 0
+__device__ __forceinline__ int look_back(int t, int lane) {
+  int before = 0;
+  for (int j = t - 1;; j -= 32) {
+    const int p = j - lane;
+    unsigned long long s = p >= 0 ? status_load(p) : kInclusive;
+    while (__ballot_sync(0xFFFFFFFFu, (s >> 32) == 0u))
+      if ((s >> 32) == 0u) s = status_load(p);
+    const unsigned inc = __ballot_sync(0xFFFFFFFFu, (s >> 32) == 2u);
+    const int stop = inc ? __ffs(static_cast<int>(inc)) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(s & 0xFFFFFFFFu) : 0;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
+    before += v;
+    if (inc) return before;
+  }
+}
+
+// lanes, ce, Vn, bz [n_split, ...]: the split edges' lanes, ends, new
+// vertices and shared zero words, in edge order (split_lerp's outputs)
+__global__ void __launch_bounds__(kThreads) split_select_kernel(
+    const int* __restrict__ E, const int* __restrict__ EB, int n,
+    const float* __restrict__ V, const float* __restrict__ OUT,
+    const int* __restrict__ ZB, int idx, int* __restrict__ lanes,
+    int* __restrict__ ce, float* __restrict__ Vn, int* __restrict__ bz) {
+  // (round, warp) counts, then their exclusive prefix within the tile
+  constexpr int kCounts = kSelectItems * kThreads / 32;
+  __shared__ int counts[kCounts];
+  __shared__ int tile_s, base_s, last_s;
+  static_assert(kCounts <= 32, "a count a lane");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) tile_s = atomicAdd(&g_select_tile, 1);
+  __syncthreads();
+  const int tile = tile_s;
+  const int e0 = tile * kSelectTile + threadIdx.x;
+  const int word = idx >> 5;
+  const unsigned bit = 1u << (idx & 31);
+  // the split words and the ends of the thread's edges, all in flight
+  int w[kSelectItems];
+  int2 ends[kSelectItems];
+#pragma unroll
+  for (int i = 0; i < kSelectItems; ++i) {
+    const int e = e0 + i * kThreads;
+    w[i] = e < n ? EB[NW * e + word] : 0;
+    ends[i] = e < n ? reinterpret_cast<const int2*>(E)[e] : make_int2(0, 0);
+  }
+  unsigned mask[kSelectItems];
+#pragma unroll
+  for (int i = 0; i < kSelectItems; ++i) {
+    mask[i] = __ballot_sync(0xFFFFFFFFu, static_cast<unsigned>(w[i]) & bit);
+    if (lane == 0) counts[i * (kThreads / 32) + warp] = __popc(mask[i]);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < kCounts ? counts[lane] : 0;
+    const int inc = warp_scan(c, lane);
+    if (lane < kCounts) counts[lane] = inc - c;
+    const int total = __shfl_sync(0xFFFFFFFFu, inc, 31);
+    if (lane == 0)
+      status_store(tile, (tile ? kAggregate : kInclusive) |
+                             static_cast<unsigned>(total));
+    const int before = tile ? look_back(tile, lane) : 0;
+    if (lane == 0) {
+      if (tile)
+        status_store(tile, kInclusive | static_cast<unsigned>(before + total));
+      base_s = before;
+      // the tile's look-back and status are done: the last tile to get
+      // here returns the state to zero
+      __threadfence();
+      last_s = atomicAdd(&g_select_done, 1) == static_cast<int>(gridDim.x) - 1;
+    }
+  }
+  // the split edges' rows, every load in flight, while warp 0 looks back
+  bool split[kSelectItems];
+  float d0[kSelectItems] = {}, d1[kSelectItems] = {},
+        va[kSelectItems][3] = {}, vb[kSelectItems][3] = {};
+  int z[kSelectItems][NW] = {};
+#pragma unroll
+  for (int i = 0; i < kSelectItems; ++i) {
+    split[i] = (mask[i] >> lane) & 1u;
+    if (!split[i]) continue;
+    const ll a = ends[i].x, b = ends[i].y;
+    d0[i] = OUT[R * a + idx];
+    d1[i] = OUT[R * b + idx];
+    for (int d = 0; d < 3; ++d) {
+      va[i][d] = V[3 * a + d];
+      vb[i][d] = V[3 * b + d];
+    }
+    for (int k = 0; k < NW; ++k) z[i][k] = ZB[NW * a + k] & ZB[NW * b + k];
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < kSelectItems; ++i) {
+    if (!split[i]) continue;
+    const int s = base_s + counts[i * (kThreads / 32) + warp] +
+                  __popc(mask[i] & below);
+    lanes[s] = e0 + i * kThreads;
+    ce[2 * s] = ends[i].x;
+    ce[2 * s + 1] = ends[i].y;
+    lerp_vertex(d0[i], d1[i], va[i], vb[i], Vn + 3 * s);
+    for (int k = 0; k < NW; ++k) bz[NW * s + k] = z[i][k];
+  }
+  if (last_s) {
+    for (int t = threadIdx.x; t < static_cast<int>(gridDim.x); t += kThreads)
+      status_store(t, 0ull);
+    if (threadIdx.x == 0) {
+      g_select_tile = 0;
+      g_select_done = 0;
+    }
+  }
+}
+
+// the override's columns of a row, as words: both ends on the plane
+// (columns < idx) and idx
+__device__ __forceinline__ void override_mask(const int* __restrict__ bz,
+                                              int idx, unsigned* m) {
+  for (int w = 0; w < NW; ++w) {
+    const int lo = idx - 32 * w;  // the columns of word w below idx
+    const unsigned under = lo >= 32 ? ~0u : (lo <= 0 ? 0u : (1u << lo) - 1u);
+    const unsigned at = lo >= 0 && lo < 32 ? 1u << lo : 0u;
+    m[w] = (static_cast<unsigned>(bz[w]) & under) | at;
+  }
+}
+
+// the sign override's test (split_override): a thread a row, the outputs
+// on its override columns loaded together (predicated loads, no chain);
+// each block adds 1 to its ticket and, if a row of it violates the
+// override, 1 to the violations in one atomic, and the last block writes
+// whether any did into g_finish_fire and returns the word to zero
+__global__ void __launch_bounds__(kThreads) split_check_kernel(
+    const float* __restrict__ OUTn, const int* __restrict__ bz, int n,
+    int idx, float eps) {
+  __shared__ int viol_s;
+  if (threadIdx.x == 0) viol_s = 0;
+  __syncthreads();
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s < n) {
+    unsigned m[NW];
+    override_mask(bz + NW * s, idx, m);
+    const float* o = OUTn + static_cast<ll>(s) * R;
+    float x[R];
+#pragma unroll
+    for (int c = 0; c < R; ++c)
+      x[c] = (m[c >> 5] >> (c & 31)) & 1u ? o[c] : 0.0f;
+    bool viol = false;
+#pragma unroll
+    for (int c = 0; c < R; ++c) viol |= fabsf(x[c]) > eps;
+    if (viol) viol_s = 1;  // every writer writes 1
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(
+        &g_check_ticket, 1ull + (viol_s ? 1ull << 32 : 0ull));
+    if ((t & 0xFFFFFFFFull) == gridDim.x - 1u) {
+      g_check_ticket = 0ull;
+      g_finish_fire = viol_s || (t >> 32) != 0ull;
+    }
+  }
+}
+
+// the override (where the check fired), the new vertices' words and the
+// edges (split_append's outputs); EB, LD, EBr and LDr null at the final
+// insertion
+__global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
+    float* OUTn, const int* __restrict__ bz, const int* __restrict__ lanes,
+    const int* __restrict__ ce, int* E, int* EB, int* LD,
+    const int* __restrict__ SB, const int* __restrict__ ZB, int n, int nV,
+    int idx, float eps, int* sbn, int* zbn, int* szn, int* Er, int* EBr,
+    int* LDr) {
+  __shared__ float4 staged[kFinishRows * R / 4];
+  const bool fire = g_finish_fire;
+  const int r = threadIdx.x, s0 = blockIdx.x * kFinishRows, s = s0 + r;
+  const bool mine = s < n;
+  // the row's edge, ends and their words, independent of OUTn: first
+  int e = 0, a = 0, b = 0, sa[NW] = {}, za[NW] = {}, sb[NW] = {},
+      zb[NW] = {};
+  unsigned m[NW] = {0u, 0u};
+  if (mine) {
+    e = lanes[s];
+    a = ce[2 * s];
+    b = ce[2 * s + 1];
+    if (fire) override_mask(bz + NW * s, idx, m);
+    for (int k = 0; EBr != nullptr && k < NW; ++k) {
+      sa[k] = SB[NW * a + k];
+      za[k] = ZB[NW * a + k];
+      sb[k] = SB[NW * b + k];
+      zb[k] = ZB[NW * b + k];
+    }
+  }
+  // the block's rows: 16-byte aligned (s0 R floats, s0 a multiple of 256)
+  const int nr = min(kFinishRows, n - s0);
+  const float* src = OUTn + static_cast<ll>(s0) * R;
+  const int nf = nr * R, n4 = nf >> 2;
+  float4 v[kFinishLoads];  // every load in flight, then the stores
+#pragma unroll
+  for (int k = 0; k < kFinishLoads; ++k) {
+    const int q = r + k * kFinishRows;
+    if (q < n4) v[k] = reinterpret_cast<const float4*>(src)[q];
+  }
+#pragma unroll
+  for (int k = 0; k < kFinishLoads; ++k) {
+    const int q = r + k * kFinishRows;
+    if (q < n4) staged[q] = v[k];
+  }
+  for (int q = 4 * n4 + r; q < nf; q += kFinishRows)
+    reinterpret_cast<float*>(staged)[q] = src[q];
+  __syncthreads();
+  if (!mine) return;
+  float* o = reinterpret_cast<float*>(staged) + r * R;
+  for (int w = 0; w < NW; ++w)
+    for (unsigned u = m[w]; u; u &= u - 1u) {
+      const int c = 32 * w + __ffs(static_cast<int>(u)) - 1;
+      o[c] = 0.0f;
+      OUTn[static_cast<ll>(s) * R + c] = 0.0f;
+    }
+  int sn[NW], zn[NW], tn[NW];
+  pack_row(o, eps, sn, zn, tn);
+  for (int k = 0; k < NW; ++k) {
+    sbn[NW * s + k] = sn[k];
+    zbn[NW * s + k] = zn[k];
+    szn[NW * s + k] = tn[k];
+  }
+  const int id = nV + s;
+  E[2 * e + 1] = id;
+  Er[2 * s] = b;
+  Er[2 * s + 1] = id;
+  if (EBr != nullptr) {
+    unsigned ew[NW];
+    LD[e] = edge_bits(sa, za, sn, zn, ew);
+    for (int k = 0; k < NW; ++k) EB[NW * e + k] = static_cast<int>(ew[k]);
+    LDr[s] = edge_bits(sb, zb, sn, zn, ew);
+    for (int k = 0; k < NW; ++k) EBr[NW * s + k] = static_cast<int>(ew[k]);
+  }
+}
+
+#endif  // SPLIT_FOUR_PASS
 
 // --- K5 connect_step ---------------------------------------------------------
 
@@ -1183,6 +1516,11 @@ extern "C" {
 // else 0 (skeleton_words, _flags, _scan and _compact)
 int skeleton_first_design() { return kSkeletonFirst ? 1 : 0; }
 
+// 1 in a build of K4's first design (-DSPLIT_FOUR_PASS), whose insertions
+// take split_mark, the caller's prefix sum, split_lerp, split_override and
+// split_append; else 0 (split_select and split_finish)
+int split_first_design() { return kSplitFirst ? 1 : 0; }
+
 int skeleton_pool_launch(const float* g, float* out, ll M, ll k, ll axis,
                          cudaStream_t stream) {
 #ifdef SKELETON_CUMSUM
@@ -1298,6 +1636,8 @@ int edge_words_launch(const int* E, ll n, const int* SB, const int* ZB,
   return done();
 }
 
+#ifdef SPLIT_FOUR_PASS
+
 int split_mark_launch(const int* EB, ll n, ll idx, int* flags,
                       cudaStream_t stream) {
   split_mark_kernel<<<blocks(n), kThreads, 0, stream>>>(
@@ -1330,6 +1670,44 @@ int split_append_launch(float* OUTn, const int* bz, const int* viol,
       static_cast<int>(idx), eps, sbn, zbn, szn, Er, EBr, LDr);
   return done();
 }
+
+#else
+
+// n: the pool's edges, at most kMaxTiles tiles
+int split_select_launch(const int* E, const int* EB, ll n, const float* V,
+                        const float* OUT, const int* ZB, ll idx, int* lanes,
+                        int* ce, float* Vn, int* bz, cudaStream_t stream) {
+  const ll tiles = (n + kSelectTile - 1) / kSelectTile;
+  if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
+  split_select_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      E, EB, static_cast<int>(n), V, OUT, ZB, static_cast<int>(idx), lanes,
+      ce, Vn, bz);
+  return done();
+}
+
+// OUTn [n, R], 16-byte aligned; EB, LD, EBr and LDr null at the final
+// insertion: split_check, then split_finish
+int split_finish_launch(float* OUTn, const int* bz, const int* lanes,
+                        const int* ce, int* E, int* EB, int* LD, const int* SB,
+                        const int* ZB, ll n, ll nV, ll idx, float eps,
+                        int* sbn, int* zbn, int* szn, int* Er, int* EBr,
+                        int* LDr, cudaStream_t stream) {
+  if (reinterpret_cast<unsigned long long>(OUTn) % 16 != 0 ||
+      (nV + n) * R >= (1LL << 31))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  split_check_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      OUTn, bz, static_cast<int>(n), static_cast<int>(idx), eps);
+  const int rc = done();
+  if (rc < 0) return rc;
+  split_finish_kernel<<<static_cast<int>((n + kFinishRows - 1) / kFinishRows),
+                        kFinishRows, 0, stream>>>(
+      OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, static_cast<int>(n),
+      static_cast<int>(nV), static_cast<int>(idx), eps, sbn, zbn, szn, Er,
+      EBr, LDr);
+  return done(2);
+}
+
+#endif  // SPLIT_FOUR_PASS
 
 int hit_mark_launch(const int* SZ, ll n, ll idx, int* flags,
                     cudaStream_t stream) {

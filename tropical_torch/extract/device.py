@@ -48,9 +48,13 @@ tensor takes the plain version, a CUDA tensor the kernel.
   compaction); its first design's stages ``skeleton_points``, ``_edges``,
   ``_cumsum`` and ``_squeeze`` run in a build of it alone;
 - K4 ``split_step``: ``pack_words``, ``edge_words`` (``_edge_bits``),
-  ``split_mark`` (the split bit test at plane idx), ``split_lerp``,
-  ``split_override`` and ``split_append`` (the sign override, the new
-  vertices' words, the left-edge rewrite and the right-edge append);
+  ``split_select`` (the edges plane idx splits, compacted in edge order by
+  a decoupled look-back, and their lerp) and ``split_finish`` (two
+  launches: the sign override's test, then the override, the new
+  vertices' words, the left-edge rewrite and the right-edge append); its
+  first design's stages ``split_mark`` (the split bit test),
+  ``split_cumsum``, ``split_lerp``, ``split_override`` and
+  ``split_append`` run in a build of it alone;
 - K5 ``connect_step``: ``hit_mark``, ``candidates`` (region words through
   ``_grid_region_lut``, cell keys), ``connect_table`` (each cell column's
   range of sorted positions, and the rows in sorted order),
@@ -307,8 +311,9 @@ class Kernels:
     def __init__(self, lib: ctypes.CDLL, device: torch.device):
         self.lib = lib
         self.device = device
-        # a build of K3's first design takes its own skeleton stages
+        # a build of K3's or K4's first design takes its own stages
         self.first_skeleton = bool(lib.skeleton_first_design())
+        self.first_split = bool(lib.split_first_design())
 
     def __call__(self, kernel: str, name: str, n: int, *args) -> None:
         if n <= 0:
@@ -600,6 +605,66 @@ def edge_words(E: torch.Tensor, SB, ZB, kern: Kernels | None = None):
     return eb, ld
 
 
+def split_select_plain(E, EB, V, OUT, ZB, idx: int, n_split: int):
+    cum = torch.cumsum(_bit(EB, idx).to(torch.int32), 0, dtype=torch.int32)
+    return split_lerp_plain(E, cum, V, OUT, ZB, idx, n_split)
+
+
+def split_select(E, EB, V, OUT, ZB, idx: int, n_split: int,
+                 kern: Kernels | None = None):
+    """The ``n_split`` edges plane ``idx`` splits (their split bit in
+    ``EB``), in edge order: (their lanes [S] int32, ends [S, 2], new
+    vertices [S, 3] at the linear interpolation of plane ``idx``'s outputs,
+    the ends' shared zero words [S, NW]), as ``split_lerp`` of
+    ``split_mark``'s prefix sum.  The kernel ranks the edges in one pass
+    (ballots within a tile of 512, a decoupled look-back across tiles)."""
+    run = _run(kern, E.device)
+    if run is None:
+        return split_select_plain(E, EB, V, OUT, ZB, idx, n_split)
+    dev, n = E.device, E.shape[0]
+    lanes, ce = _i32(n_split, device=dev), _i32(n_split, 2, device=dev)
+    Vn = torch.empty((n_split, 3), dtype=torch.float32, device=dev)
+    bz = _i32(n_split, NW, device=dev)
+    run("split_step", "split_select", n, E, EB, n, V, OUT, ZB, idx, lanes, ce,
+        Vn, bz)
+    return lanes, ce, Vn, bz
+
+
+def split_finish_plain(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int,
+                       idx: int, eps: float, final: bool):
+    viol = split_override_plain(OUTn, bz, idx, eps)
+    return split_append_plain(OUTn, bz, viol, lanes, ce, E, EB, LD, SB, ZB,
+                              nV, idx, eps, final)
+
+
+def split_finish(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int, idx: int,
+                 eps: float, final: bool, kern: Kernels | None = None):
+    """``split_append`` after ``split_override``: the sign override
+    (``OUTn`` zeroed in place on ``_override_mask``'s planes if any new
+    vertex's output there is off the eps band), the new vertices' words,
+    the left edges rewritten in place (``E``, and but for the ``final``
+    insertion ``EB`` / ``LD``), and the right edges with their split words
+    and last differing columns.  Two launches: the override's test (a
+    whole-step any), then the rest from OUTn's rows staged by 16-byte
+    loads (``OUTn`` 16-byte aligned)."""
+    run = _run(kern, OUTn.device)
+    if run is None:
+        return split_finish_plain(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV,
+                                  idx, eps, final)
+    dev, S = OUTn.device, OUTn.shape[0]
+    sbn, zbn, szn = (_i32(S, NW, device=dev) for _ in range(3))
+    Er = _i32(S, 2, device=dev)
+    EBr = None if final else _i32(S, NW, device=dev)
+    LDr = None if final else _i32(S, device=dev)
+    run("split_step", "split_finish", S, OUTn, bz, lanes, ce, E,
+        None if final else EB, None if final else LD, SB, ZB, S, nV, idx, eps,
+        sbn, zbn, szn, Er, EBr, LDr)
+    return sbn, zbn, szn, Er, EBr, LDr
+
+
+# K4's first design (a build with SPLIT_FOUR_PASS): four launches and a
+# torch.cumsum; its stages' plain versions compose the design's
+
 def split_mark(EB: torch.Tensor, idx: int, kern: Kernels | None = None):
     """1 where plane ``idx`` splits the edge (its split bit), int32 [n]."""
     run = _run(kern, EB.device)
@@ -609,6 +674,11 @@ def split_mark(EB: torch.Tensor, idx: int, kern: Kernels | None = None):
     flags = _i32(n, device=EB.device)
     run("split_step", "split_mark", n, EB, n, idx, flags)
     return flags
+
+
+def split_cumsum(flags: torch.Tensor) -> torch.Tensor:
+    """The inclusive prefix sum of ``split_mark``'s flags (torch.cumsum)."""
+    return torch.cumsum(flags, 0, dtype=torch.int32)
 
 
 def split_lerp_plain(E, cum, V, OUT, ZB, idx: int, n_split: int):
@@ -624,10 +694,8 @@ def split_lerp_plain(E, cum, V, OUT, ZB, idx: int, n_split: int):
 
 def split_lerp(E, cum, V, OUT, ZB, idx: int, n_split: int,
                kern: Kernels | None = None):
-    """The split edges, in edge order (``cum``: inclusive prefix sum of
-    ``split_mark``): (their lanes [S] int32, ends [S, 2], new vertices
-    [S, 3] at the linear interpolation of plane ``idx``'s outputs, the
-    ends' shared zero words [S, NW])."""
+    """``split_select`` from ``cum``, the inclusive prefix sum of
+    ``split_mark``."""
     run = _run(kern, E.device)
     if run is None:
         return split_lerp_plain(E, cum, V, OUT, ZB, idx, n_split)
@@ -648,6 +716,11 @@ def _override_mask(bz: torch.Tensor, idx: int) -> torch.Tensor:
     return (both & (cols < idx)) | (cols == idx)
 
 
+def split_override_plain(OUTn, bz, idx: int, eps: float) -> torch.Tensor:
+    b = _override_mask(bz, idx)
+    return (b & (OUTn.abs() > eps)).any().to(torch.int32).reshape(1)
+
+
 def split_override(OUTn: torch.Tensor, bz: torch.Tensor, idx: int, eps: float,
                    kern: Kernels | None = None) -> torch.Tensor:
     """1 (int32 [1]) if some new vertex's output on a plane of
@@ -655,8 +728,7 @@ def split_override(OUTn: torch.Tensor, bz: torch.Tensor, idx: int, eps: float,
     the whole step), else 0."""
     run = _run(kern, OUTn.device)
     if run is None:
-        b = _override_mask(bz, idx)
-        return (b & (OUTn.abs() > eps)).any().to(torch.int32).reshape(1)
+        return split_override_plain(OUTn, bz, idx, eps)
     viol = _zeros32(1, device=OUTn.device)
     run("split_step", "split_override", OUTn.shape[0], OUTn, bz,
         OUTn.shape[0], idx, eps, viol)
@@ -684,11 +756,7 @@ def split_append_plain(OUTn, bz, viol, lanes, ce, E, EB, LD, SB, ZB, nV: int,
 def split_append(OUTn, bz, viol, lanes, ce, E, EB, LD, SB, ZB, nV: int,
                  idx: int, eps: float, final: bool,
                  kern: Kernels | None = None):
-    """The sign override (``OUTn`` zeroed in place on the override's
-    planes if ``viol``), the new vertices' words, the left edges rewritten
-    in place to end at the new vertices (``E``, and but for the ``final``
-    insertion ``EB`` / ``LD``), and the right edges (old second end, new
-    vertex) with their split words and last differing columns."""
+    """``split_finish`` given ``split_override``'s ``viol``."""
     run = _run(kern, OUTn.device)
     if run is None:
         return split_append_plain(OUTn, bz, viol, lanes, ce, E, EB, LD, SB,
@@ -1159,15 +1227,17 @@ class Engine:
         k, eps, dev = self.kern, self.eps, self.dev
         nV, nE = P.V.shape[0], P.E.shape[0]
         E, EB, LD = P.E.clone(), P.EB.clone(), P.LD.clone()
-        # K4: split, lerp, forward, override, words, rewrite and append
-        scum = torch.cumsum(split_mark(EB, idx, kern=k), 0, dtype=torch.int32)
-        lanes, ce, Vn, bz = split_lerp(E, scum, P.V, P.OUT, P.ZB, idx,
-                                       n_split, kern=k)
-        OUTn = self.net.outputs(Vn)
-        viol = split_override(OUTn, bz, idx, eps, kern=k)
-        sbn, zbn, szn, Er, EBr, LDr = split_append(
-            OUTn, bz, viol, lanes, ce, E, EB, LD, P.SB, P.ZB, nV, idx, eps,
-            final, kern=k)
+        # K4: split and lerp, forward, override, words, rewrite and append
+        if isinstance(k, Kernels) and k.first_split:
+            Vn, OUTn, (sbn, zbn, szn, Er, EBr, LDr) = self._split_first(
+                P, E, EB, LD, idx, n_split, final)
+        else:
+            lanes, ce, Vn, bz = split_select(E, EB, P.V, P.OUT, P.ZB, idx,
+                                             n_split, kern=k)
+            OUTn = self.net.outputs(Vn)
+            sbn, zbn, szn, Er, EBr, LDr = split_finish(
+                OUTn, bz, lanes, ce, E, EB, LD, P.SB, P.ZB, nV, idx, eps,
+                final, kern=k)
         Vx = torch.cat([P.V, Vn])
         SBx, ZBx = torch.cat([P.SB, sbn]), torch.cat([P.ZB, zbn])
         # K5: hits, candidates by cell, the pairs, the prune's census
@@ -1217,6 +1287,20 @@ class Engine:
                       compact_rows(EBx, ecum, n_keep, kern=k),
                       compact_rows(LDx, ecum, n_keep, kern=k))
         return pools, counts
+
+    def _split_first(self, P: Pools, E, EB, LD, idx: int, n_split: int,
+                     final: bool):
+        """K4 in the first design's stages: (Vn, OUTn, ``split_append``'s
+        outputs)."""
+        k, eps = self.kern, self.eps
+        scum = split_cumsum(split_mark(EB, idx, kern=k))
+        lanes, ce, Vn, bz = split_lerp(E, scum, P.V, P.OUT, P.ZB, idx,
+                                       n_split, kern=k)
+        OUTn = self.net.outputs(Vn)
+        viol = split_override(OUTn, bz, idx, eps, kern=k)
+        return Vn, OUTn, split_append(OUTn, bz, viol, lanes, ce, E, EB, LD,
+                                      P.SB, P.ZB, P.V.shape[0], idx, eps,
+                                      final, kern=k)
 
     def loop(self, P: Pools, counts: np.ndarray):
         """Every busy insertion from the pools on, skipping idle planes by

@@ -34,14 +34,16 @@ _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 Target = Union[str, Tuple[str, Tuple[str, ...]]]
 
 # the first designs of K2 (a launch a level), of K3 (a thread a value, row or
-# edge, int32 flags and torch.cumsum) and of K5's pair scan (whole-array
-# searches, no column table) and row compaction (a thread a row), which the
-# port never loads: chip_smoke.py, scripts/device_engine_variants.py and the
-# tests time or hold them beside the designs
+# edge, int32 flags and torch.cumsum), of K4 (four launches a busy insertion
+# and a torch.cumsum) and of K5's pair scan (whole-array searches, no column
+# table) and row compaction (a thread a row), which the port never loads:
+# chip_smoke.py, scripts/device_engine_variants.py and the tests time or hold
+# them beside the designs
 LATTICE_FIRST = ("lattice_encode", ("LATTICE_LEVEL_LAUNCH",))
 DEVICE_ENGINE_FIRST = ("device_engine", ("CONNECT_SEARCHES",
                                          "COMPACT_ROW_THREAD",
-                                         "SKELETON_CUMSUM"))
+                                         "SKELETON_CUMSUM",
+                                         "SPLIT_FOUR_PASS"))
 
 
 def _nvcc() -> str:

@@ -36,16 +36,24 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    no backward of the flat or the curved run scatters a table gradient;
    the device engine's kernels on the extraction; on every path, a BVH
    build and one ``bvh_ray`` trace a traced mesh);
-4b. both engines on sphere-small in one call: the device engine and the
-   host engine (``engine="host"``, held to the golden 51455/69581 =>
-   10138/20396, 20336), each extraction's warm ``take``, and its host syncs,
-   device-to-host copies and kernel launches counted by torch.profiler; the
-   device engine makes one read a busy insertion;
+4b. both engines in one call, on sphere-small flat and on sphere-medium
+   curved: the device engine and the host engine (``engine="host"``, held
+   to the golden 51455/69581 => 10138/20396, 20336 on the flat path, to the
+   curved golden within 0.5 %), each extraction's warm ``take``, and its
+   host syncs, device-to-host copies and kernel launches counted by
+   torch.profiler; the device engine makes one read a busy insertion on
+   the flat path, and on the curved path the reads ``Engine._curved``
+   counts, printed for each curved busy insertion;
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
-   128`` on ``cuda``, held to the golden funnel (or, where only eps-boundary
-   flips move it, to the committed JAX vertex set), |sdf| < 2e-4 on every
-   vertex, the launch counts (one ``trilinear_roots`` launch per insertion
-   step with curved rows) and finite CD/AD;
+   128`` on ``cuda``, through the device engine (K4c between K4's split and
+   its finish), held to the JAX CLI's curved funnel
+   (``tests/golden/sphere_curved_presets.json``) or, where only
+   eps-boundary flips move it, within 0.5 % of it and to the committed JAX
+   vertex set within 1e-5 for all but 0.5 %, |sdf| < 2e-4 on every vertex,
+   the launch counts (one ``trilinear_roots`` launch per insertion with
+   curved rows, K4c's by busy insertions and insertions with curved rows,
+   the encode's by forwards), the reads of each curved busy insertion and
+   finite CD/AD;
 6. each kernel at the largest shape its main path gave it: ``min_dist``
    timed; ``trilinear_roots`` held bitwise to its plain version on every
    input the curved path gave it, their device times summed beside the
@@ -140,10 +148,19 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    each build's run (3 or 4 a busy insertion) and the bound ``k4_bytes``;
    how often the override fires at the busy insertions (also sphere-medium's,
    in phase 12);
+11b. K4c (``curved_select``, ``curved_pick``, ``curved_resolve``,
+   ``curved_filter``) at sphere-medium curved: every call of the busiest
+   curved insertion and of the final one, recorded from a run of the
+   engine, bitwise its plain version (also after three replays of a CUDA
+   graph of one call), and planted calls with rescued rows, strict drops
+   and the override firing; each kernel's device time (CUDA graphs), its
+   plain version's and its bound (``k4c_bytes``);
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
    engine's from the device skeleton, the skeleton / loop / faces split;
+   and sphere-medium's curved loop from the device skeleton bitwise the
+   host engine's (vertices, outputs, edges and failover counters);
 13. one JSON line of kernel records, the card's line, and the result line.
 
 It exits non-zero without a result line when CUDA is unavailable or the
@@ -199,7 +216,30 @@ FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 # 3 a busy insertion, and the starting pools' edge words; K5: 15 a hidden
 # one, 5 the final, 2 for the starting pools)
 MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
-                 "skeleton_mark": 6, "split_step": 13, "connect_step": 52}
+                 "skeleton_mark": 6, "split_step": 13, "connect_step": 52,
+                 "curved_select": 0, "curved_pick": 0, "curved_resolve": 0,
+                 "curved_filter": 0}
+# the JAX CLI's curved funnels through its own device engine (dist
+# skeleton), the route the curved CLI takes (scripts/curved_presets_golden.py)
+CURVED_PRESETS = "tests/golden/sphere_curved_presets.json"
+# K4c, the curved insertion's kernels (csrc/device_engine.cu), and their
+# launches on the curved path: a busy insertion's curved_select and its
+# curved_filter's two (the override's test, the strict filter), and at an
+# insertion with curved rows one curved_pick and curved_resolve's three
+# (the points, the residuals and rescue rows, the mix)
+CURVED_KERNELS = ("curved_select", "curved_pick", "curved_resolve",
+                  "curved_filter")
+CURVED_PER_BUSY = {"curved_select": 1, "curved_filter": 2}
+CURVED_PER_STEP = {"curved_pick": 1, "curved_resolve": 3}
+# the stage functions of tropical_torch/extract/device.py that launch each
+K4C_STAGES = {"curved_select": "curved_select", "curved_pick": "curved_pick",
+              "curved_points": "curved_resolve", "curved_gd": "curved_resolve",
+              "curved_mix": "curved_resolve", "curved_filter": "curved_filter"}
+# stage 3b of the JAX engine's busy insertion and its strict filter
+K4C_REPLACES = {"curved_select": "tropical/extract/device.py:567",
+                "curved_pick": "tropical/extract/device.py:603",
+                "curved_resolve": "tropical/extract/device.py:612",
+                "curved_filter": "tropical/extract/device.py:701"}
 # each kernel's time before its redesign, for the printed comparison only
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
@@ -239,13 +279,15 @@ SCATTER_ULPS = 4.0
 # plain versions): flat, 5 forwards in the extraction (4 busy insertions'
 # new vertices and the faces' normals; the skeleton takes the lattice
 # encode) and 27 in the MC ladder (the largest, 278,528 rows, a slab at
-# 128), the faces' normals once; curved, 46 forwards in the
-# extraction and 27 in the ladder, the faces' normals once, and one forward
-# and one backward a step of the GD rescue (``failover.COUNTERS``; 3 steps
-# on the CPU)
+# 128), the faces' normals once; curved (the device engine), the faces'
+# normals and the 27 of the ladder (``CURVED_ENCODE``), and in the loop a
+# forward a busy insertion, two an insertion with curved rows (the corners
+# and the roots' points: 3 busy insertions and 1 with curved rows on the
+# CPU) and one forward and one backward a step of the GD rescue
+# (``failover.COUNTERS``; no step on the CPU)
 FLAT_ENCODE = {"hashgrid_encode_fwd": 32, "hashgrid_encode_bwd": 1,
                "hashgrid_encode_bwd_bwd": 0}
-CURVED_ENCODE = {"hashgrid_encode_fwd": 73, "hashgrid_encode_bwd": 1,
+CURVED_ENCODE = {"hashgrid_encode_fwd": 28, "hashgrid_encode_bwd": 1,
                  "hashgrid_encode_bwd_bwd": 0}
 TRAIN_GOLDEN = "tests/golden/sphere_small_train_1.npz"
 TRAIN_EPOCHS, TRAIN_BATCH, TRAIN_SEED = 10, 1000, 1
@@ -1561,8 +1603,8 @@ def sphere_net(size):
                               f"sphere_sdf_{size}_1.pth"))
 
 
-def extraction_counts(net, engine):
-    """One flat extraction under torch.profiler: (host syncs, device-to-host
+def extraction_counts(net, engine, force=True):
+    """One extraction under torch.profiler: (host syncs, device-to-host
     copies, kernel launches).  Syncs: cudaStreamSynchronize,
     cudaDeviceSynchronize and cudaEventSynchronize calls, less the one that
     ends the profiled window; copies: the device's DtoH memcpys; launches:
@@ -1573,7 +1615,7 @@ def extraction_counts(net, engine):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        subpoly(net, 3, 1.2, force=True, verbose=False, engine=engine)
+        subpoly(net, 3, 1.2, force=force, verbose=False, engine=engine)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events()]
     syncs = sum(n in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
@@ -1584,48 +1626,88 @@ def extraction_counts(net, engine):
     return syncs, d2h, kernels
 
 
+def within(got, want, share=0.005):
+    return max(abs(got[k] - want[k]) / want[k] for k in want) <= share
+
+
 def engines_phase():
-    """Both engines on sphere-small in one call: the device engine (the
-    CLI's) and the host engine (``engine="host"``), each held to its
-    funnel, their ``take`` (warm, host clock) and their syncs, copies and
-    launches.  Returns the device engine's numbers."""
-    phase("4b. the device engine against the host engine, sphere-small flat")
+    """Both engines in one call, on sphere-small flat and on sphere-medium
+    curved: the device engine (the CLI's) and the host engine
+    (``engine="host"``), each held to its funnel (the curved ones, where
+    eps-boundary flips move them, within 0.5 %), their ``take`` (warm, host
+    clock) and their syncs, copies and launches; the device engine's reads,
+    one a busy insertion on the flat path and on the curved path as
+    ``Engine._curved`` counts them.  Returns the numbers."""
+    phase("4b. the device engine against the host engine, sphere-small flat "
+          "and sphere-medium curved")
     from tropical_torch.extract import device as dv
     from tropical_torch.extract import stats
     from tropical_torch.extract.subdivide import subpoly
 
-    net = sphere_net("small")
     out = {}
-    for engine, want in (("auto", preset_funnel("small")), ("host", GOLDEN)):
-        takes = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            subpoly(net, 3, 1.2, force=True, verbose=False, engine=engine)
-            torch.cuda.synchronize()
-            takes.append(time.perf_counter() - t)
-            check(stats.LAST == want, f"{engine}: funnel {stats.LAST} != "
-                  f"{want}")
-        syncs, d2h, kernels = extraction_counts(net, engine)
-        out[engine] = {"take_s": takes[1:], "syncs": syncs, "d2h": d2h,
-                       "launches": kernels}
-        if engine == "auto":
-            out[engine].update(
-                reads=dv.LAST.reads, busy=dv.LAST.busy,
-                split_s=[dv.LAST.t_skeleton, dv.LAST.t_loop, dv.LAST.t_faces])
-            check(dv.LAST.reads == len(dv.LAST.busy) + 2,
-                  f"{dv.LAST.reads} reads for {len(dv.LAST.busy)} busy "
-                  "insertions: one each, and one each for the skeleton and "
-                  "the starting pools")
-    print(json.dumps({"device_engine": out["auto"], "host_engine": out["host"]}))
+    for size, force, cases in (
+            ("small", True, (("auto", preset_funnel("small")),
+                             ("host", GOLDEN))),
+            ("medium", False, (("auto", curved_funnel("medium")),
+                               ("host", CURVED_GOLDEN)))):
+        net = sphere_net(size)
+        label = f"{size} {'flat' if force else 'curved'}"
+        for engine, want in cases:
+            takes = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                subpoly(net, 3, 1.2, force=force, verbose=False,
+                        engine=engine)
+                torch.cuda.synchronize()
+                takes.append(time.perf_counter() - t)
+                check(stats.LAST == want or (not force and within(
+                    stats.LAST, want)), f"{label} {engine}: funnel "
+                    f"{stats.LAST} != {want}")
+            syncs, d2h, kernels = extraction_counts(net, engine, force)
+            rec = out.setdefault(label, {})[engine] = {
+                "take_s": takes[1:], "syncs": syncs, "d2h": d2h,
+                "launches": kernels, "funnel": dict(stats.LAST)}
+            if engine != "auto":
+                continue
+            last = dv.LAST
+            rec.update(reads=last.reads, busy=last.busy,
+                       split_s=[last.t_skeleton, last.t_loop, last.t_faces])
+            extra = sum(r for *_, r in last.curved)
+            if not force:
+                rec["curved_reads"] = curved_reads(last.curved)
+            check(last.reads == len(last.busy) + 2 + extra,
+                  f"{label}: {last.reads} reads for {len(last.busy)} busy "
+                  "insertions: one each, one each for the skeleton and the "
+                  f"starting pools, and the curved path's {extra}")
+        del net
+        torch.cuda.empty_cache()
+    print(json.dumps({
+        f"{label}: {'device' if e == 'auto' else e} engine": r
+        for label, recs in out.items() for e, r in recs.items()}))
     return out
 
 
+def curved_funnel(size):
+    """The JAX CLI's curved funnel of a sphere preset (``CURVED_PRESETS``)."""
+    g = json.load(open(CURVED_PRESETS))[f"sphere_{size}_curved"]
+    return {"pre_v": g["pre_v"], "pre_e": g["pre_e"], "post_v": g["post_v"],
+            "post_e": g["post_e"], "n_faces": g["n_tris"]}
+
+
+def curved_reads(curved):
+    """The host reads of each curved busy insertion beside its META read:
+    [(plane, curved rows, rescued rows, rescue steps, reads)]."""
+    return [(p, c, g, s, r + 1) for p, _, c, g, s, _, r in curved]
+
+
 def curved_path_phase():
-    """The curved CLI run.  Returns (launches, every (p, q) the root
-    solve was given, the extraction's ``take``, the traced meshes)."""
+    """The curved CLI run, through the device engine.  Returns (launches,
+    every (p, q) the root solve was given, the extraction's ``take``, the
+    traced meshes)."""
     phase("5. curved main path: " + " ".join(CURVED_ARGV))
     from tropical_torch.core import trilinear as tl
+    from tropical_torch.extract import device as dv
     from tropical_torch.extract import failover as fo
     from tropical_torch.extract import stats
     from tropical_torch.ops.chamfer import min_dist_plain
@@ -1642,7 +1724,7 @@ def curved_path_phase():
 
     def keep_mesh(net, force):
         out = extract(net, force)
-        kept.update(net=net, vertices=out[1])
+        kept.update(net=net, vertices=out[1], last=dv.LAST)
         return out
 
     tl.intersection_of_two_planes, train.extract_mesh = keep_inputs, keep_mesh
@@ -1650,18 +1732,29 @@ def curved_path_phase():
         text, launches, _, wall, meshes = run_cli(CURVED_ARGV)
     finally:
         tl.intersection_of_two_planes, train.extract_mesh = solve, extract
+    last = kept["last"]
+    check(last is not None and len(last.curved) == len(last.busy) > 0,
+          "the curved CLI did not extract through the device engine")
     print(f"failover counters {fo.COUNTERS}")
+    print(f"device engine: busy insertions (plane, splits, hits, connecting "
+          f"edges) {last.busy}; host reads {last.reads}; reads of each "
+          f"curved busy insertion (plane, curved rows, rescued rows, rescue "
+          f"steps, reads with its META read) {curved_reads(last.curved)}; "
+          f"skeleton / loop / faces "
+          f"{[last.t_skeleton, last.t_loop, last.t_faces]} s")
 
-    # the funnel against the golden; the vertices against the JAX set
+    # the funnel against the JAX CLI's; the vertices against the JAX set
     V = kept["vertices"]
+    want = curved_funnel("medium")
     ref = torch.from_numpy(np.load(CURVED_VERTICES)).cuda()
     d_ours, _ = min_dist_plain(V, ref)
     d_ref, _ = min_dist_plain(ref, V)
     far_ours = int((d_ours.sqrt() > 1e-5).sum())
     far_ref = int((d_ref.sqrt() > 1e-5).sum())
-    exact = stats.LAST == CURVED_GOLDEN
-    diff = {k: stats.LAST[k] - v for k, v in CURVED_GOLDEN.items()}
-    print(json.dumps({"funnel_exact": exact, "funnel_minus_golden": diff,
+    exact = stats.LAST == want
+    diff = {k: stats.LAST[k] - v for k, v in want.items()}
+    print(json.dumps({"funnel": stats.LAST, "funnel_exact": exact,
+                      "funnel_minus_jax_cli": diff,
                       "vertices": V.shape[0], "jax_vertices": ref.shape[0],
                       "ours_beyond_1e-5_of_jax": far_ours,
                       "jax_beyond_1e-5_of_ours": far_ref,
@@ -1669,9 +1762,10 @@ def curved_path_phase():
                           d_ours.max(), d_ref.max())))}))
     if not exact:
         allowed = 0.005 * ref.shape[0]
-        check(abs(V.shape[0] - ref.shape[0]) <= allowed
+        check(within(stats.LAST, want)
+              and abs(V.shape[0] - ref.shape[0]) <= allowed
               and far_ours <= allowed and far_ref <= allowed,
-              f"funnel {stats.LAST} != golden {CURVED_GOLDEN}, and outside "
+              f"funnel {stats.LAST} != the JAX CLI's {want}, and outside "
               "the eps-boundary contract against the JAX vertex set")
 
     sdf = float(kept["net"].sdf(V).abs().max())
@@ -1685,11 +1779,25 @@ def curved_path_phase():
           f"trilinear_roots: {launches['trilinear_roots']} launches and "
           f"{len(kept['inputs'])} inputs, want one per curved insertion step "
           f"({steps})")
+    busy = len(last.busy)
+    want_k4c = {**{k: v * busy for k, v in CURVED_PER_BUSY.items()},
+                **{k: v * steps for k, v in CURVED_PER_STEP.items()}}
+    conn = sum(c > 0 for i, _, _, c in last.busy if i < dv.R_COLS - 1)
+    want_k4c.update(split_step=3 * busy + 1 + conn, lattice_encode=1,
+                    skeleton_mark=6)
+    for k, want_n in want_k4c.items():
+        check(launches[k] == want_n, f"{k}: {launches[k]} launches on the "
+              f"curved path, want {want_n} ({busy} busy insertions, {steps} "
+              "with curved rows)")
     gd_steps = fo.COUNTERS["gd_steps"]
-    for k, want in CURVED_ENCODE.items():
-        want += gd_steps if k != "hashgrid_encode_bwd_bwd" else 0
-        check(launches[k] == want, f"{k}: {launches[k]} launches, want {want} "
-              f"({gd_steps} GD steps)")
+    for k, want_n in CURVED_ENCODE.items():
+        if k == "hashgrid_encode_fwd":
+            want_n += busy + 2 * steps + gd_steps
+        elif k == "hashgrid_encode_bwd":
+            want_n += gd_steps
+        check(launches[k] == want_n, f"{k}: {launches[k]} launches, want "
+              f"{want_n} ({busy} busy insertions, {steps} with curved rows, "
+              f"{gd_steps} GD steps)")
     return launches, kept["inputs"], summary(text, wall)[0], meshes
 
 
@@ -2539,7 +2647,8 @@ class StageLog:
         from tropical_torch.extract import device as dv
 
         self.dv, self.calls, self.on, self.plane = dv, [], False, None
-        self.orig = {name: getattr(dv, name) for name in DEVICE_STAGES}
+        self.orig = {name: getattr(dv, name)
+                     for name in (*DEVICE_STAGES, *K4C_STAGES)}
 
     def __enter__(self):
         for name, fn in self.orig.items():
@@ -3149,6 +3258,204 @@ def engine_stage_times(net, reps, first):
     return out, busy.stats.busy, sorted(planes)
 
 
+def k4c_bytes(name, a, cw):
+    """The bytes a K4c call must move, each input read once and each output
+    written once (``cw``: the count words after the call), counting only
+    the rows that need them: of the S split rows their ends and both ends'
+    V rows, and of the curved rows their shared zero words read (the plane
+    and the no-plane count) and their slots, planes, ends and corners
+    written (``curved_select``); the corner outputs at the plane and at idx
+    read, p and q written (``curved_pick``); the ends and roots read, the
+    points written (``curved_points``); the outputs at the plane and at idx,
+    the planes and roots read, the residuals and ranks written, and of the
+    rescued rows their ends read and their start, direction, plane and root
+    written (``curved_gd``); the slots, ends, ranks read, the vertices and
+    states written, and the root and residual at the plane read, from the
+    rescue for a rescued row and from ``ints`` and ``dnew`` for another
+    (``curved_mix``); of the S rows their zero words, state and output at
+    idx read, and of the survivors their rows of OUTn, V, lanes and ends
+    read and written (``curved_filter``)."""
+    from tropical_torch.extract import device as dv
+
+    if name == "curved_select":
+        return a[0].shape[0] * 32 + int(cw[dv.CW_CURVED]) * (8 + 128)
+    if name == "curved_pick":
+        return a[0].shape[0] * (4 + 64 + 64)
+    if name == "curved_points":
+        return a[0].shape[0] * 48
+    if name == "curved_gd":
+        return a[0].shape[0] * 36 + int(cw[dv.CW_GD]) * (24 + 40)
+    if name == "curved_mix":
+        return a[0].shape[0] * 64
+    if name == "curved_filter":
+        return a[0].shape[0] * 16 + int(cw[dv.CW_KEPT]) * 316
+    raise KeyError(name)
+
+
+def k4c_held(fn, args, label):
+    """One K4c call by the kernel and by the plain version, on clones of
+    ``args``: every result (the kernel's rows of the split or curved rows'
+    length, the plain version's first) and every tensor argument after the
+    call (the count words, the mix's vertices and states) bitwise; also
+    after three replays of a CUDA graph of one call, its results (its rank
+    state back at zero each launch).  Returns (max error, the count words
+    after the plain call)."""
+    from tropical_torch.extract import device as dv
+
+    def run(kern):
+        a = clones(args)
+        res = fn(*a, kern=kern)
+        res = res if isinstance(res, tuple) else (res,)
+        return [r for r in res if torch.is_tensor(r)], [
+            t for t in a if torch.is_tensor(t)]
+
+    (want, wargs), (got, gargs) = run(dv.PLAIN), run(None)
+    graph = graph_bits(fn, args, {"kern": None})
+    err = 0.0
+    for x, y in zip(want + wargs, got + gargs):
+        y = y[:x.shape[0]]
+        check(x.shape == y.shape and bits_equal(x, y),
+              f"{label}: kernel != plain ({tuple(x.shape)})")
+        err = max(err, _max_err(x, y))
+    for x, y in zip(want, graph):
+        check(bits_equal(x, y[:x.shape[0]]),
+              f"{label}: kernel after graph replays != plain")
+    cw = next((t for t in wargs if t.dtype == torch.int32
+               and t.numel() == dv.CW), None)
+    return err, cw
+
+
+def k4c_planted(calls):
+    """Planted K4c calls from the recorded ones: the rescue's rows
+    (``curved_gd`` with 64 in-range rows moved off the surface at idx;
+    ``curved_mix`` with their made-up roots in [0, 1] and residuals on both
+    sides of the band), and strict drops with the override firing
+    (``curved_filter`` with a third of the rows curved and off the band at
+    their plane, a residual off the band, and a violation at a shared plane
+    below idx: column 0 of the first row).  Returns [(name, args)]."""
+    from tropical_torch.extract import device as dv
+
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eps = 1e-4
+    for name, args, _, _ in calls:
+        if name == "curved_gd":
+            a = clones(args)
+            outs, ints, idx = a[0], a[2], a[4]
+            ok = torch.nonzero(~dv._out_of_range(ints))[:64, 0]
+            outs[ok, idx] = 1.0
+            out.append((name, a))
+            cw = dv._zeros32(dv.CW, device="cuda")
+            res = dv.curved_gd(*a[:6], cw, kern=dv.PLAIN)
+            n_gd = int(cw[dv.CW_GD])
+            gx = torch.rand((n_gd, 3), generator=gen, device="cuda")
+            gx[:1] = 0.0
+            gx[1:2] = 1.0
+            gd0 = (torch.rand(n_gd, generator=gen, device="cuda") - 0.5) * (
+                4 * eps)
+            mix = next(c[1] for c in calls if c[0] == "curved_mix"
+                       and c[1][0].shape[0] == ints.shape[0])
+            m = clones(mix)
+            m[3], m[4], m[5], m[6] = res[0], res[1], gx, gd0
+            out.append(("curved_mix", m))
+        if name == "curved_filter":
+            a = clones(args)
+            OUTn, bz, cstate, idx, cw = a[0], a[1], a[5], a[6], a[8]
+            S = OUTn.shape[0]
+            rows = torch.arange(0, S, 3, device="cuda")
+            cstate[rows] = dv.CV_CURVED | dv.CV_OFF
+            cw[dv.CW_ANYD0] = 1
+            out.append((name, a))
+            f = clones(a)
+            f[1][0, 0] |= 1
+            f[0][0, 0] = 1.0
+            out.append((name, f))
+    return out
+
+
+def k4c_times(net, reps):
+    """K4c at a net's curved run: the calls at the busiest curved insertion
+    (the most curved rows) and at the final one, recorded from a run of the
+    engine, each held bitwise to its plain version (``k4c_held``) and
+    timed (a CUDA graph of the call, ``graph_ms``; the plain version by
+    CUDA events), with its bound (``k4c_bytes``); the planted calls
+    (``k4c_planted``) held bitwise.  Returns ({kernel: {err, ms, plain_ms,
+    bound_ms, calls}}, the run's curved list, the recorded planes, the
+    planted calls held)."""
+    from tropical_torch.extract import device as dv
+
+    run = dv.Engine(net, force=False)
+    sk = run.skeleton("dist")
+    run.loop(*run.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    curved = [c for c in run.stats.curved if c[2] > 0]
+    planes = {run.n_hidden, max(curved, key=lambda c: c[2])[0]}
+    with StageLog() as log:
+        class Logged(dv.Engine):
+            def step(self, P, idx, *a, **k):
+                log.on, log.plane = idx in planes, idx
+                try:
+                    return super().step(P, idx, *a, **k)
+                finally:
+                    log.on = False
+
+        eng = Logged(net, force=False)
+        sk = eng.skeleton("dist")
+        eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+        torch.cuda.synchronize()
+    calls = [c for c in log.calls if c[0] in K4C_STAGES]
+    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "calls": 0} for k in CURVED_KERNELS}
+    for name, args, kw, plane in calls:
+        fn = log.orig[name]
+        err, cw = k4c_held(fn, args, f"{name} at plane {plane}")
+        fixed, pfixed = clones(args), clones(args)
+        ms = graph_ms(lambda: fn(*fixed, kern=None), reps=reps)
+        plain_ms = cuda_ms(lambda: fn(*pfixed, kern=dv.PLAIN), iters=2)
+        bound = k4c_bytes(name, args, cw) / PEAK_BYTES * 1e3
+        rec = out[K4C_STAGES[name]]
+        rec["err"] = max(rec["err"], err)
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bound_ms"] += bound
+        rec["calls"] += 1
+        print(f"  plane {plane}: {name} ({args[0].shape[0]} rows): kernel "
+              f"{ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms")
+    planted = k4c_planted(calls)
+    for name, args in planted:
+        k4c_held(log.orig[name], args, f"{name}, planted")
+    return out, run.stats.curved, sorted(planes), len(planted)
+
+
+def curved_kernels_phase(records, curved_launches):
+    """K4c against its plain versions on the card at sphere-medium curved
+    (the curved main path's net), bit for bit, timed, in the kernel
+    records."""
+    phase("11b. the curved insertion's kernels (K4c) against their plain "
+          "versions, sphere-medium curved")
+    net = sphere_net("medium")
+    k4c, curved, planes, planted = k4c_times(net, 20)
+    print(f"medium curved: busy insertions (plane, splits, curved rows, "
+          f"rescued rows, rescue steps, survivors, reads) {curved}; recorded "
+          f"planes {planes}; {planted} planted calls bitwise")
+    for name in CURVED_KERNELS:
+        r = k4c[name]
+        check(r["calls"] > 0, f"{name}: no call recorded")
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "tropical_torch/csrc/device_engine.cu",
+            "replaces": K4C_REPLACES[name],
+            "launches": curved_launches[name], "launches_flat": 0,
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "calls_timed": r["calls"]}
+        print(f"medium curved: {name}: kernel {r['ms']:.5f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of its bound "
+              f"{r['bound_ms']:.5f} ms), plain {r['plain_ms']:.3f} ms, "
+              f"{r['calls']} calls, max err {r['err']}")
+    del net
+    torch.cuda.empty_cache()
+
+
 def device_kernels_phase(records, flat_launches):
     """K2-K5 against their plain versions on the card, bit for bit, at the
     sphere-small (the main path) and sphere-large lattices and insertions,
@@ -3261,7 +3568,7 @@ def device_kernels_phase(records, flat_launches):
         torch.cuda.empty_cache()
 
 
-def host_loop(net, V, E):
+def host_loop(net, V, E, force=True):
     """The host engine from (V, E) through the final insertion."""
     from tropical_torch.extract import subdivide as sp
 
@@ -3269,9 +3576,48 @@ def host_loop(net, V, E):
     for l in range(net.num_layers - 1):
         for h in range(net.num_hidden):
             V, E, outputs = sp.subpoly_(V, E, net, l, h, 1e-4, outputs,
-                                        force=True)
+                                        force=force)
     return sp.subpoly_(V, E, net, net.num_layers - 2, net.num_hidden, 1e-4,
-                       outputs, force=True)
+                       outputs, force=force)
+
+
+def curved_loop(net):
+    """The curved loop from the device skeleton against the host engine's
+    curved loop from the same skeleton: vertices, outputs, edges and the
+    ``failover.COUNTERS`` bit for bit.  The two run the same forwards on
+    the same rows in the same batches (cuBLAS rounds by batch size); where
+    they differ, the first rows that differ are named."""
+    from tropical_torch.extract import device as dv
+    from tropical_torch.extract import failover as fo
+
+    eng = dv.Engine(net, force=False)
+    sk = eng.skeleton("dist")
+    V, E = sk[0], sk[5]
+    fo.reset_counters()
+    t = time.perf_counter()
+    Vd, Od, Ed = eng.loop(*eng.pools(V, net.outputs(V), E))
+    torch.cuda.synchronize()
+    t_dev, dev_counts = time.perf_counter() - t, dict(fo.COUNTERS)
+    fo.reset_counters()
+    t = time.perf_counter()
+    Vh, Eh, Oh = host_loop(net, V, E.long(), force=False)
+    torch.cuda.synchronize()
+    t_host, host_counts = time.perf_counter() - t, dict(fo.COUNTERS)
+    same = (Vd.shape == Vh.shape and Ed.shape == Eh.shape
+            and bits_equal(Vd, Vh) and bits_equal(Od, Oh)
+            and torch.equal(Ed.long(), Eh) and dev_counts == host_counts)
+    print(f"medium curved: the loop from the device skeleton ({V.shape[0]} "
+          f"vertices, {E.shape[0]} edges): {Vd.shape[0]}/{Ed.shape[0]}, the "
+          f"host engine's {Vh.shape[0]}/{Eh.shape[0]}, bitwise {same}; "
+          f"counters {dev_counts} / {host_counts}; loop {t_dev:.4f} s, host "
+          f"engine {t_host:.4f} s; the curved insertions {eng.stats.curved}")
+    if not same:
+        n = min(Vd.shape[0], Vh.shape[0])
+        rows = torch.nonzero((Vd[:n] != Vh[:n]).any(1)
+                             | (Od[:n] != Oh[:n]).any(1))[:8, 0].tolist()
+        print(f"medium curved: the first vertex rows that differ {rows}: "
+              f"device {Vd[rows].tolist()}, host {Vh[rows].tolist()}")
+    check(same, "medium curved: the device loop != the host engine")
 
 
 def same_sets(size, a, b):
@@ -3302,7 +3648,8 @@ def presets_phase():
     same final vertex set from the dist and sign skeletons, the loop equal
     to the host engine's (bit for bit, vertices, outputs and edges in order)
     when both start from the device's skeleton, the time split."""
-    phase("12. sphere-medium and sphere-large, flat, through the device engine")
+    phase("12. sphere-medium and sphere-large, flat, and sphere-medium "
+          "curved, through the device engine")
     from tropical_torch.extract import device as dv
     from tropical_torch.extract import stats
     from tropical_torch.extract.subdivide import subpoly
@@ -3356,6 +3703,8 @@ def presets_phase():
         out[size] = {"funnel": got, "take_s": takes,
                      "split_s": [dv.LAST.t_skeleton, dv.LAST.t_loop,
                                  dv.LAST.t_faces]}
+        if size == "medium":
+            curved_loop(net)
         del net
         torch.cuda.empty_cache()
     return out
@@ -3412,6 +3761,7 @@ def main() -> int:
                for m, c in eval_launches.items()})
 
     device_kernels_phase(records, flat_launches)
+    curved_kernels_phase(records, curved_launches)
     presets_phase()
 
     phase("13. result")

@@ -25,7 +25,9 @@ Tolerances, each measured here, and their cause:
   30000x-table fixture (none converges; each runs all 500 steps): within
   1e-5 of JAX's coordinates (measured 4.2e-6) and 2e-6 of its residuals
   (measured 7.7e-7), since gradients through the MLP sum in another order.
-- End to end against the JAX host engine (``engine="host"``): sphere-small
+- End to end, the port's host engine against the JAX host engine (both
+  ``engine="host"``; ``test_torch_device_curved.py`` holds the port's
+  device engine to the host engine and to JAX's device engine): sphere-small
   curved keeps the JAX vertices in the same order within 5e-6 (measured
   1.34e-6) with exact post-filter counts.  On the synthetic kinked nets of
   ``tests/test_device_curved.py`` the MLP's matrix products round in
@@ -579,7 +581,8 @@ def test_sphere_small_curved_matches_jax_host_engine():
                          engine="host")
     js, jc = dict(jstats.LAST), dict(jfo.COUNTERS)
     net = _torch_twin(jnet)
-    _, Vt, Tt = subpoly(net, 3, 1.2, force=False, verbose=False)
+    _, Vt, Tt = subpoly(net, 3, 1.2, force=False, verbose=False,
+                        engine="host")
 
     # post-filter funnel exact, pre-filter within eps-boundary flips
     for k in ("post_v", "post_e", "n_faces"):
@@ -620,7 +623,8 @@ def test_kinked_net_matches_jax_host_engine(kinked_run):
 
     jnet, Vj, jc = kinked_run
     net = _torch_twin(jnet)
-    _, Vt, _ = subpoly(net, 3, 1.2, force=False, verbose=False)
+    _, Vt, _ = subpoly(net, 3, 1.2, force=False, verbose=False,
+                       engine="host")
     Vt = Vt.numpy()
 
     assert jc["sentinels"] > 1000 and tfo.COUNTERS["sentinels"] > 1000
@@ -639,7 +643,8 @@ def test_gd_fixture_matches_jax_host_engine(gd_fixture_run):
 
     jnet, Vj, jc, _ = gd_fixture_run
     net = _torch_twin(jnet)
-    _, Vt, _ = subpoly(net, 3, 1.2, force=False, verbose=False)
+    _, Vt, _ = subpoly(net, 3, 1.2, force=False, verbose=False,
+                       engine="host")
     Vt = Vt.numpy()
     assert jc["gd_rows"] > 0 and tfo.COUNTERS["gd_rows"] > 0
     _counters_agree(tfo.COUNTERS, jc)

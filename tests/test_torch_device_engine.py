@@ -9,15 +9,22 @@ plain versions).
 - The loop, fed the host skeleton, against the port's host engine
   (``subpoly_`` step by step): vertices, edges, their order and the
   funnel, bit for bit (``tests/test_device_engine.py`` holds JAX's two
-  engines to each other the same way).
+  engines to each other the same way); on the curved path
+  (``force=False``) also the ``failover.COUNTERS`` deltas and the reads
+  (``curved_loop_is_the_host_engine``, which
+  ``tests/test_torch_device_curved.py`` runs on its kinked nets).
 - Dist and sign skeletons give the same final vertex set.
 - End to end against JAX's ``subpoly_device``: the funnel exactly, the
   vertices within 5e-6 (the port's bound against JAX since PR 1, the MLP's
   summation order through the lerp), the triangles under the fan contract
-  of ``tests/test_device_faces.py``.
+  of ``tests/test_device_faces.py``; on the curved path
+  ``tests/test_device_curved.py``'s contract against JAX's
+  ``subpoly_device(force=False)``.
 - The pair test (compatible sign vectors sharing a zero plane) is exactly
   "some 2^zeros replica of each coincides" of JAX's ``_expand_keys``.
-- Routing, and one host read a busy insertion.
+- Routing (both paths take the device engine under ``engine="auto"``, the
+  host engine under ``engine="host"``), and one host read a busy
+  insertion.
 """
 
 import numpy as np
@@ -75,7 +82,7 @@ def test_skeleton_matches_jax(trained_net, tnet, mode):
         assert torch.equal(got, want)
 
 
-def _host_loop(net, V, E):
+def _host_loop(net, V, E, force=True):
     """The port's host engine from (V, E) through the final insertion."""
     from tropical_torch.extract import subdivide as sp
 
@@ -83,9 +90,41 @@ def _host_loop(net, V, E):
     for l in range(net.num_layers - 1):
         for h in range(net.num_hidden):
             V, E, outputs = sp.subpoly_(V, E, net, l, h, 1e-4, outputs,
-                                        force=True)
+                                        force=force)
     return sp.subpoly_(V, E, net, net.num_layers - 2, net.num_hidden, 1e-4,
-                       outputs, force=True)
+                       outputs, force=force)
+
+
+def curved_loop_is_the_host_engine(net, max_iters=500):
+    """The device engine's curved loop (``force=False``, the plain versions)
+    from the host skeleton against the port's host engine's: ``V``, ``OUT``,
+    ``E`` and the ``failover.COUNTERS`` deltas bit for bit, and the reads:
+    one a busy insertion and the starting pools', and of the curved path's
+    2 an insertion, one more with curved rows and one a rescue step but the
+    first (a rescue stopped at ``max_iters`` steps, the rescue's cap:
+    one less).  Returns the host engine's counters."""
+    from tropical_torch.extract import failover as fo
+    from tropical_torch.extract.skeleton import grid_skeleton
+
+    V0, E0 = grid_skeleton(net)
+    fo.reset_counters()
+    Vh, Eh, Oh = _host_loop(net, V0, E0, force=False)
+    host = dict(fo.COUNTERS)
+    fo.reset_counters()
+    eng = tdv.Engine(net, force=False)
+    P, counts = eng.pools(V0, net.outputs(V0), E0)
+    Vd, Od, Ed = eng.loop(P, counts)
+    stats = eng.stats
+    assert dict(fo.COUNTERS) == host
+    assert torch.equal(Vd, Vh) and torch.equal(Od, Oh)
+    assert torch.equal(Ed.long(), Eh)
+    assert host["curved_steps"] > 0 and len(stats.curved) == len(stats.busy)
+    assert stats.reads == len(stats.busy) + 1 + sum(
+        r for *_, r in stats.curved)
+    assert [r for *_, r in stats.curved] == [
+        2 + (c > 0) + min(s, max_iters - 1)
+        for _, _, c, _, s, _, _ in stats.curved]
+    return host
 
 
 def test_loop_from_the_host_skeleton_is_the_host_engine(tnet):
@@ -101,6 +140,10 @@ def test_loop_from_the_host_skeleton_is_the_host_engine(tnet):
     assert torch.equal(Ed.long(), Eh)
     # one host read a busy insertion, one for the starting pools
     assert eng.stats.reads == len(eng.stats.busy) + 1
+
+
+def test_curved_loop_from_the_host_skeleton_is_the_host_engine(tnet):
+    curved_loop_is_the_host_engine(tnet)
 
 
 def test_dist_and_sign_give_the_same_vertex_set(tnet):
@@ -144,6 +187,40 @@ def test_end_to_end_matches_jax_subpoly_device(trained_net, tnet):
     # the engine's stage times and the busy insertions of the run
     assert min(tdv.LAST.t_skeleton, tdv.LAST.t_loop, tdv.LAST.t_faces) > 0
     assert tdv.LAST.reads == len(tdv.LAST.busy) + 2
+
+
+def test_curved_end_to_end_matches_jax_subpoly_device(trained_net, tnet):
+    """``tests/test_device_curved.py``'s contract: vertex counts within
+    0.5 %, each set within 1e-5 of the other for all but 0.5 %, |sdf| <
+    2e-4 through the JAX net, and the fan contract.  Measured: the funnel
+    equal (4471/8410 => 2065/4138, 4127) and the vertices in the same
+    order within 2.2e-7 (the MLP's summation order; 981 sentinel rows
+    against JAX's 982); held to that funnel and to 5e-6, the port's bound
+    against JAX on the flat path."""
+    from scipy.spatial import cKDTree
+
+    from tropical.extract import stats as jstats
+    from tropical_torch.extract import failover as fo
+    from tropical_torch.extract import stats as tstats
+
+    f1, v1, t1 = jdv.subpoly_device(trained_net, force=False, verbose=False)
+    jfunnel = dict(jstats.LAST)
+    f2, v2, t2 = tdv.subpoly_device(tnet, verbose=False, force=False)
+    v2, t2 = v2.numpy(), t2.numpy()
+    n = v1.shape[0]
+    assert abs(v2.shape[0] - n) <= max(5, int(0.005 * n))
+    assert (cKDTree(v2).query(v1)[0] > 1e-5).sum() <= max(5, int(0.005 * n))
+    assert (cKDTree(v1).query(v2)[0] > 1e-5).sum() <= max(
+        5, int(0.005 * v2.shape[0]))
+    sd = np.asarray(trained_net.sdf(jnp.asarray(v2)))[:, 0]
+    assert np.abs(sd).max() < 2e-4
+    np.testing.assert_array_equal(f2.numpy(), v2[t2])
+    assert tstats.LAST == jfunnel
+    np.testing.assert_allclose(v2, v1, rtol=0, atol=5e-6)
+    _fan_contract(v1, t1, t2)
+    assert fo.COUNTERS["curved_steps"] > 0
+    assert tdv.LAST.reads == len(tdv.LAST.busy) + 2 + sum(
+        r for *_, r in tdv.LAST.curved)
 
 
 def _rows(rng, n):
@@ -198,14 +275,21 @@ def test_routing(tnet):
 
     tdv.LAST = None
     subpoly(tnet, 3, 1.2, force=True, verbose=False)
-    assert tdv.LAST is not None and tdv.LAST.busy
+    assert tdv.LAST is not None and tdv.LAST.busy and not tdv.LAST.curved
+    # the curved path takes the device engine too
     tdv.LAST = None
     fo.COUNTERS["curved_steps"] = -1
     subpoly(tnet, 3, 1.2, force=False, verbose=False)
-    assert tdv.LAST is None and fo.COUNTERS["curved_steps"] >= 0
-    subpoly(tnet, 3, 1.2, force=True, verbose=False, engine="host")
-    assert tdv.LAST is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        subpoly(tnet, 3, 1.2, force=False, verbose=False, engine="device")
+    assert tdv.LAST is not None and tdv.LAST.curved
+    assert fo.COUNTERS["curved_steps"] >= 0
+    tdv.LAST = None
+    subpoly(tnet, 3, 1.2, force=False, verbose=False, engine="device")
+    assert tdv.LAST is not None and tdv.LAST.curved
+    # engine="host" keeps the host engine on either path
+    tdv.LAST = None
+    for force in (True, False):
+        fo.COUNTERS["curved_steps"] = -1
+        subpoly(tnet, 3, 1.2, force=force, verbose=False, engine="host")
+        assert tdv.LAST is None and fo.COUNTERS["curved_steps"] >= 0
     with pytest.raises(ValueError, match="unknown engine"):
         subpoly(tnet, 3, 1.2, force=True, verbose=False, engine="fused")

@@ -1,10 +1,11 @@
-// K3, K4 and K5: the device extraction engine's kernels (flat path).
+// K3, K4, K4c and K5: the device extraction engine's kernels.
 //
 // Replace the XLA programs of the JAX package's fused engine,
 // tropical/extract/device.py: K3 the skeleton (_lipschitz_keepv :1891,
 // _edges_from_sgn :1808, _squeeze_edges :2049 under make_skeleton_fn
 // :2092), K4 one insertion's split (make_step_fn's _busy_step s1-s7,
-// :452-848, with _pack_out_words :144 and _edge_bits :180), K5 its
+// :452-848, with _pack_out_words :144 and _edge_bits :180), K4c its curved
+// rows and strict filter on the curved path (s3b and s5b, :564-715), K5 its
 // connecting edges and prune (s8-s12, :858-1119, with _grid_region_lut
 // :254 and _prune :1121).  Each launch function is one kernel; the caller
 // (tropical_torch/extract/device.py) passes device pointers, long long
@@ -934,6 +935,45 @@ __device__ __forceinline__ int look_back(int t, int lane) {
   }
 }
 
+// the block's tile: the id thread 0 takes from the counter
+__device__ __forceinline__ int rank_tile() {
+  __shared__ int tile_s;
+  if (threadIdx.x == 0) tile_s = atomicAdd(&g_select_tile, 1);
+  __syncthreads();
+  return tile_s;
+}
+
+// warp 0 of tile t: the tile's count of flagged items published, the count
+// before the tile looked back and the inclusive count published; then lane 0
+// takes the done ticket, *last set where the tile is the last to get here.
+// Returns the count before the tile.
+__device__ __forceinline__ int tile_prefix(int tile, int total, int lane,
+                                           int* last) {
+  if (lane == 0)
+    status_store(tile, (tile ? kAggregate : kInclusive) |
+                           static_cast<unsigned>(total));
+  const int before = tile ? look_back(tile, lane) : 0;
+  if (lane == 0) {
+    if (tile)
+      status_store(tile, kInclusive | static_cast<unsigned>(before + total));
+    // the tile's look-back and status are done: the last tile to get here
+    // returns the state to zero (rank_reset)
+    __threadfence();
+    *last = atomicAdd(&g_select_done, 1) == static_cast<int>(gridDim.x) - 1;
+  }
+  return before;
+}
+
+// the rank state back at zero, by every thread of the last tile
+__device__ __forceinline__ void rank_reset() {
+  for (int t = threadIdx.x; t < static_cast<int>(gridDim.x); t += kThreads)
+    status_store(t, 0ull);
+  if (threadIdx.x == 0) {
+    g_select_tile = 0;
+    g_select_done = 0;
+  }
+}
+
 // lanes, ce, Vn, bz [n_split, ...]: the split edges' lanes, ends, new
 // vertices and shared zero words, in edge order (split_lerp's outputs)
 __global__ void __launch_bounds__(kThreads) split_select_kernel(
@@ -944,12 +984,10 @@ __global__ void __launch_bounds__(kThreads) split_select_kernel(
   // (round, warp) counts, then their exclusive prefix within the tile
   constexpr int kCounts = kSelectItems * kThreads / 32;
   __shared__ int counts[kCounts];
-  __shared__ int tile_s, base_s, last_s;
+  __shared__ int base_s, last_s;
   static_assert(kCounts <= 32, "a count a lane");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) tile_s = atomicAdd(&g_select_tile, 1);
-  __syncthreads();
-  const int tile = tile_s;
+  const int tile = rank_tile();
   const int e0 = tile * kSelectTile + threadIdx.x;
   const int word = idx >> 5;
   const unsigned bit = 1u << (idx & 31);
@@ -974,19 +1012,8 @@ __global__ void __launch_bounds__(kThreads) split_select_kernel(
     const int inc = warp_scan(c, lane);
     if (lane < kCounts) counts[lane] = inc - c;
     const int total = __shfl_sync(0xFFFFFFFFu, inc, 31);
-    if (lane == 0)
-      status_store(tile, (tile ? kAggregate : kInclusive) |
-                             static_cast<unsigned>(total));
-    const int before = tile ? look_back(tile, lane) : 0;
-    if (lane == 0) {
-      if (tile)
-        status_store(tile, kInclusive | static_cast<unsigned>(before + total));
-      base_s = before;
-      // the tile's look-back and status are done: the last tile to get
-      // here returns the state to zero
-      __threadfence();
-      last_s = atomicAdd(&g_select_done, 1) == static_cast<int>(gridDim.x) - 1;
-    }
+    const int before = tile_prefix(tile, total, lane, &last_s);
+    if (lane == 0) base_s = before;
   }
   // the split edges' rows, every load in flight, while warp 0 looks back
   bool split[kSelectItems];
@@ -1019,14 +1046,7 @@ __global__ void __launch_bounds__(kThreads) split_select_kernel(
     lerp_vertex(d0[i], d1[i], va[i], vb[i], Vn + 3 * s);
     for (int k = 0; k < NW; ++k) bz[NW * s + k] = z[i][k];
   }
-  if (last_s) {
-    for (int t = threadIdx.x; t < static_cast<int>(gridDim.x); t += kThreads)
-      status_store(t, 0ull);
-    if (threadIdx.x == 0) {
-      g_select_tile = 0;
-      g_select_done = 0;
-    }
-  }
+  if (last_s) rank_reset();
 }
 
 // the override's columns of a row, as words: both ends on the plane
@@ -1150,6 +1170,273 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
     LDr[s] = edge_bits(sb, zb, sn, zn, ew);
     for (int k = 0; k < NW; ++k) EBr[NW * s + k] = static_cast<int>(ew[k]);
   }
+}
+
+// --- K4c curved_step: the curved insertion (force=False) --------------------
+//
+// Stage 3b of the JAX engine's busy insertion (tropical/extract/device.py
+// :564-715), as the port's host engine computes it (extract/subdivide.py
+// _curved_intersections, extract/failover.py gradient_descent_failover and
+// strict_check), around K4's selection and finish, the net's forwards (K1)
+// and the root solve (K7).  Four kernels, seven launches at a busy insertion
+// with curved rows, three without:
+// - curved_select (1): a split edge is curved when its ends differ by more
+//   than eps in two or more coordinates; its earlier plane is the highest
+//   column below idx zero at both ends (the selection's shared zero words);
+//   the curved rows, compacted in edge order into a side buffer: their
+//   slots, planes, ends and the 8 corners of their boxes (z-major, corner
+//   4 i + 2 j + k = (x_k, y_j, z_i)); a curved row on no earlier plane is
+//   counted, and the caller raises;
+// - curved_pick (1): the corner forward's columns at each row's plane and at
+//   idx, K7's p and q;
+// - curved_resolve (3): curved_points, each row's point at K7's root on the
+//   edge's box (e0 (1 - t) + e1 t); curved_gd, after the on-surface
+//   forward: the residuals at the plane and at idx, the sentinel rows (a
+//   coordinate outside [0, 1]) and the rows the gradient-descent rescue
+//   takes (in range, off either surface), compacted in row order with their
+//   start, direction, plane and root; curved_mix, after the rescue: the
+//   rescued roots and residuals taken back, each curved row's vertex
+//   e0 + t (e1 - e0) over the lerp, and its state for the filter;
+// - curved_filter (2): the sign override's test over every split row
+//   (split_check), then the strict filter (a flat row on the surface at idx; a curved row on it,
+//   in range and, when any curved residual at the plane is off the eps
+//   band, its own within it) and the survivors compacted in edge order,
+//   the override applied, for K4's finish.
+// Every compaction ranks a thread's item in one pass: ballots within a
+// tile of kThreads, a decoupled look-back across tiles, each tile's id from
+// a counter (split_select's scheme and state, which the last block returns
+// to zero; the launches of one stream do not overlap).  The counts go to the step's count words (cw,
+// zeroed by the caller), which the caller reads: the curved rows and those
+// on no plane, the sentinels and rescued rows, the survivors and dropped
+// curved rows.  Floats are rounded an operation at a time (no FMA), in the
+// host engine's order.
+
+// the count words (tropical_torch/extract/device.py CW_*)
+constexpr int CW_CURVED = 0, CW_NOPLANE = 1, CW_SENT = 2, CW_GD = 3,
+              CW_ANYD0 = 4, CW_KEPT = 5, CW_DROPS = 6;
+// a curved row's state for the filter (CV_*): curved, root out of range,
+// residual at the plane not inside the eps band
+constexpr int CV_CURVED = 1, CV_GG = 2, CV_OFF = 4;
+
+// the rank of the thread's item among the launch's flagged items (tiles in
+// id order, a tile's threads in order), valid where flag; *incl: the
+// flagged items of tiles 0..tile.  Every thread of every block calls it
+// once; the last block to finish its look-back returns the state to zero.
+__device__ __forceinline__ int rank_flag(int tile, bool flag, int* incl) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int counts[kWarps];
+  __shared__ int base_s, incl_s, last_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, flag);
+  if (lane == 0) counts[warp] = __popc(mask);
+  __syncthreads();
+  if (warp == 0) {
+    const int c = lane < kWarps ? counts[lane] : 0;
+    const int inc = warp_scan(c, lane);
+    if (lane < kWarps) counts[lane] = inc - c;
+    const int total = __shfl_sync(0xFFFFFFFFu, inc, 31);
+    const int before = tile_prefix(tile, total, lane, &last_s);
+    if (lane == 0) {
+      base_s = before;
+      incl_s = before + total;
+    }
+  }
+  __syncthreads();
+  *incl = incl_s;
+  const int r = base_s + counts[warp] + __popc(mask & ((1u << lane) - 1u));
+  if (last_s) rank_reset();
+  return r;
+}
+
+// one warp's count of pred added to *dst
+__device__ __forceinline__ void warp_count(bool pred, int* dst) {
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
+  if ((threadIdx.x & 31) == 0 && m) atomicAdd(dst, __popc(m));
+}
+
+__device__ __forceinline__ bool out_of_range(const float* t) {
+  bool gg = false;
+  for (int d = 0; d < 3; ++d) gg |= t[d] < 0.0f || t[d] > 1.0f;
+  return gg;
+}
+
+// qs, plane [n]: the curved rows' slots and earlier planes, in slot order;
+// e01 [n, 2, 3] their ends, corners [n, 8, 3]
+__global__ void __launch_bounds__(kThreads) curved_select_kernel(
+    const int* __restrict__ ce, const int* __restrict__ bz,
+    const float* __restrict__ V, int n, int idx, float eps, int* qs,
+    int* plane, float* e01, float* corners, int* cw) {
+  const int tile = rank_tile();
+  const int s = tile * kThreads + threadIdx.x;
+  bool curved = false;
+  int pl = -1;
+  float v[2][3] = {};
+  if (s < n) {
+    const ll a = ce[2 * s], b = ce[2 * s + 1];
+    int dif = 0;
+    for (int d = 0; d < 3; ++d) {
+      v[0][d] = V[3 * a + d];
+      v[1][d] = V[3 * b + d];
+      dif += fabsf(__fsub_rn(v[1][d], v[0][d])) > eps;
+    }
+    curved = dif > 1;
+    for (int w = NW - 1; w >= 0 && pl < 0; --w) {
+      const int lo = idx - 32 * w;  // the columns of word w below idx
+      const unsigned below =
+          static_cast<unsigned>(bz[NW * s + w]) &
+          (lo >= 32 ? ~0u : (lo <= 0 ? 0u : (1u << lo) - 1u));
+      if (below) pl = 32 * w + 31 - __clz(static_cast<int>(below));
+    }
+  }
+  warp_count(curved && pl < 0, cw + CW_NOPLANE);
+  int incl;
+  const int r = rank_flag(tile, curved, &incl);
+  if (curved) {
+    qs[r] = s;
+    plane[r] = pl;
+    for (int e = 0; e < 2; ++e)
+      for (int d = 0; d < 3; ++d)
+        e01[6 * static_cast<ll>(r) + 3 * e + d] = v[e][d];
+    float* c = corners + 24 * static_cast<ll>(r);
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j)
+        for (int k = 0; k < 2; ++k) {
+          float* p = c + 3 * (4 * i + 2 * j + k);
+          p[0] = v[k][0];
+          p[1] = v[j][1];
+          p[2] = v[i][2];
+        }
+  }
+  if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
+    cw[CW_CURVED] = incl;
+}
+
+// p, q [n, 8]: the corner outputs d [n, 8, R] at each row's plane and at idx
+__global__ void curved_pick_kernel(const float* __restrict__ d,
+                                   const int* __restrict__ plane, ll n,
+                                   int idx, float* p, float* q) {
+  const ll t = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= 8 * n) return;
+  const float* o = d + R * t;
+  p[t] = o[plane[t >> 3]];
+  q[t] = o[idx];
+}
+
+// cand [n, 3]: e0 (1 - t) + e1 t at each row's root t
+__global__ void curved_points_kernel(const float* __restrict__ e01,
+                                     const float* __restrict__ ints, ll n,
+                                     float* cand) {
+  const ll r = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  for (int d = 0; d < 3; ++d) {
+    const float t = ints[3 * r + d];
+    cand[3 * r + d] = __fadd_rn(__fmul_rn(e01[6 * r + d], __fsub_rn(1.0f, t)),
+                                __fmul_rn(e01[6 * r + 3 + d], t));
+  }
+}
+
+// dnew [n, 2]: the residuals at the plane and at idx; grank [n]: a rescued
+// row's rank, else -1; the rescued rows' start ge0, direction gde (e1 - e0),
+// plane gcols and root gx, in row order
+__global__ void __launch_bounds__(kThreads) curved_gd_kernel(
+    const float* __restrict__ outs, const int* __restrict__ plane,
+    const float* __restrict__ ints, const float* __restrict__ e01, int n,
+    int idx, float eps, float* dnew, int* grank, float* ge0, float* gde,
+    int* gcols, float* gx, int* cw) {
+  const int tile = rank_tile();
+  const int r = tile * kThreads + threadIdx.x;
+  bool gg = false, gd = false;
+  if (r < n) {
+    const float d0 = outs[R * static_cast<ll>(r) + plane[r]];
+    const float d1 = outs[R * static_cast<ll>(r) + idx];
+    gg = out_of_range(ints + 3 * static_cast<ll>(r));
+    gd = !gg && (fabsf(d0) > eps || fabsf(d1) > eps);
+    dnew[2 * static_cast<ll>(r)] = d0;
+    dnew[2 * static_cast<ll>(r) + 1] = d1;
+  }
+  warp_count(gg, cw + CW_SENT);
+  int incl;
+  const int g = rank_flag(tile, gd, &incl);
+  if (r < n) grank[r] = gd ? g : -1;
+  if (gd) {
+    for (int d = 0; d < 3; ++d) {
+      const float a = e01[6 * static_cast<ll>(r) + d];
+      ge0[3 * static_cast<ll>(g) + d] = a;
+      gde[3 * static_cast<ll>(g) + d] =
+          __fsub_rn(e01[6 * static_cast<ll>(r) + 3 + d], a);
+      gx[3 * static_cast<ll>(g) + d] = ints[3 * static_cast<ll>(r) + d];
+    }
+    gcols[g] = plane[r];
+  }
+  if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
+    cw[CW_GD] = incl;
+}
+
+// the rescued rows' roots gx and residuals gd0 taken back, each curved
+// row's vertex into Vn at its slot and its state into cstate
+__global__ void curved_mix_kernel(const int* __restrict__ qs,
+                                  const float* __restrict__ e01,
+                                  const float* __restrict__ ints,
+                                  const float* __restrict__ dnew,
+                                  const int* __restrict__ grank,
+                                  const float* __restrict__ gx,
+                                  const float* __restrict__ gd0, ll n,
+                                  float eps, float* Vn, int* cstate, int* cw) {
+  const ll r = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const ll g = grank[r];
+  float t[3];
+  for (int d = 0; d < 3; ++d) t[d] = g >= 0 ? gx[3 * g + d] : ints[3 * r + d];
+  const bool gg = out_of_range(t);
+  const float d0 = gg ? 0.0f : (g >= 0 ? gd0[g] : dnew[2 * r]);
+  const ll s = qs[r];
+  for (int d = 0; d < 3; ++d) {
+    const float a = e01[6 * r + d];
+    Vn[3 * s + d] =
+        __fadd_rn(a, __fmul_rn(t[d], __fsub_rn(e01[6 * r + 3 + d], a)));
+  }
+  cstate[s] = CV_CURVED | (gg ? CV_GG : 0) | (fabsf(d0) < eps ? 0 : CV_OFF);
+  if (fabsf(d0) > eps) cw[CW_ANYD0] = 1;  // every writer writes 1
+}
+
+// the survivors of the strict filter, in slot order: their vertices, outputs
+// (the override applied where it fired), shared zero words, lanes and ends
+__global__ void __launch_bounds__(kThreads) curved_keep_kernel(
+    const float* __restrict__ OUTn, const int* __restrict__ bz,
+    const int* __restrict__ lanes, const int* __restrict__ ce,
+    const float* __restrict__ Vn, const int* __restrict__ cstate, int n,
+    int idx, float eps, int* cw, float* Vs, float* OUTs, int* bzs,
+    int* lanes_s, int* ces) {
+  const int tile = rank_tile();
+  const int s = tile * kThreads + threadIdx.x;
+  const bool fire = g_finish_fire, anyd0 = cw[CW_ANYD0] != 0;
+  bool keep = false, curved = false;
+  if (s < n) {
+    const float chk = fire ? 0.0f : OUTn[R * static_cast<ll>(s) + idx];
+    const bool on = fabsf(chk) < eps;
+    const int st = cstate[s];
+    curved = st & CV_CURVED;
+    keep = curved ? on && !(st & CV_GG) && (!(st & CV_OFF) || !anyd0) : on;
+  }
+  warp_count(curved && !keep, cw + CW_DROPS);
+  int incl;
+  const int r = rank_flag(tile, keep, &incl);
+  if (keep) {
+    unsigned m[NW] = {0u, 0u};
+    if (fire) override_mask(bz + NW * s, idx, m);
+    const float* o = OUTn + R * static_cast<ll>(s);
+    float* os = OUTs + R * static_cast<ll>(r);
+    for (int c = 0; c < R; ++c)
+      os[c] = (m[c >> 5] >> (c & 31)) & 1u ? 0.0f : o[c];
+    for (int d = 0; d < 3; ++d)
+      Vs[3 * static_cast<ll>(r) + d] = Vn[3 * static_cast<ll>(s) + d];
+    for (int k = 0; k < NW; ++k) bzs[NW * r + k] = bz[NW * s + k];
+    lanes_s[r] = lanes[s];
+    ces[2 * r] = ce[2 * s];
+    ces[2 * r + 1] = ce[2 * s + 1];
+  }
+  if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
+    cw[CW_KEPT] = incl;
 }
 
 #endif  // SPLIT_FOUR_PASS
@@ -1704,6 +1991,74 @@ int split_finish_launch(float* OUTn, const int* bz, const int* lanes,
       OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, static_cast<int>(n),
       static_cast<int>(nV), static_cast<int>(idx), eps, sbn, zbn, szn, Er,
       EBr, LDr);
+  return done(2);
+}
+
+// K4c (the design's build alone): n the split rows (curved_select,
+// curved_filter), the curved rows (curved_pick, curved_points, curved_gd,
+// curved_mix), each rank at most kMaxTiles tiles
+
+int curved_select_launch(const int* ce, const int* bz, const float* V, ll n,
+                         ll idx, float eps, int* qs, int* plane, float* e01,
+                         float* corners, int* cw, cudaStream_t stream) {
+  const ll tiles = (n + kThreads - 1) / kThreads;
+  if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
+  curved_select_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      ce, bz, V, static_cast<int>(n), static_cast<int>(idx), eps, qs, plane,
+      e01, corners, cw);
+  return done();
+}
+
+int curved_pick_launch(const float* d, const int* plane, ll n, ll idx,
+                       float* p, float* q, cudaStream_t stream) {
+  curved_pick_kernel<<<blocks(8 * n), kThreads, 0, stream>>>(
+      d, plane, n, static_cast<int>(idx), p, q);
+  return done();
+}
+
+int curved_points_launch(const float* e01, const float* ints, ll n,
+                         float* cand, cudaStream_t stream) {
+  curved_points_kernel<<<blocks(n), kThreads, 0, stream>>>(e01, ints, n, cand);
+  return done();
+}
+
+int curved_gd_launch(const float* outs, const int* plane, const float* ints,
+                     const float* e01, ll n, ll idx, float eps, float* dnew,
+                     int* grank, float* ge0, float* gde, int* gcols, float* gx,
+                     int* cw, cudaStream_t stream) {
+  const ll tiles = (n + kThreads - 1) / kThreads;
+  if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
+  curved_gd_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      outs, plane, ints, e01, static_cast<int>(n), static_cast<int>(idx), eps,
+      dnew, grank, ge0, gde, gcols, gx, cw);
+  return done();
+}
+
+// gx, gd0 may be null when no row was rescued (grank all -1)
+int curved_mix_launch(const int* qs, const float* e01, const float* ints,
+                      const float* dnew, const int* grank, const float* gx,
+                      const float* gd0, ll n, float eps, float* Vn,
+                      int* cstate, int* cw, cudaStream_t stream) {
+  curved_mix_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      qs, e01, ints, dnew, grank, gx, gd0, n, eps, Vn, cstate, cw);
+  return done();
+}
+
+// split_check, then curved_keep (split_check's verdict)
+int curved_filter_launch(const float* OUTn, const int* bz, const int* lanes,
+                         const int* ce, const float* Vn, const int* cstate,
+                         ll n, ll idx, float eps, int* cw, float* Vs,
+                         float* OUTs, int* bzs, int* lanes_s, int* ces,
+                         cudaStream_t stream) {
+  const ll tiles = (n + kThreads - 1) / kThreads;
+  if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
+  split_check_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      OUTn, bz, static_cast<int>(n), static_cast<int>(idx), eps);
+  const int rc = done();
+  if (rc < 0) return rc;
+  curved_keep_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      OUTn, bz, lanes, ce, Vn, cstate, static_cast<int>(n),
+      static_cast<int>(idx), eps, cw, Vs, OUTs, bzs, lanes_s, ces);
   return done(2);
 }
 

@@ -1,29 +1,44 @@
-"""The device extraction engine: the flat path's subdivision loop on the card.
+"""The device extraction engine: the subdivision loop on the card.
 
-Counterpart of ``tropical/extract/device.py`` for ``force=True``: the
-skeleton built on the card from the lattice forward (``"dist"``: the
-Lipschitz-distance-pruned lattice with a local gradient bound, or
-``"sign"``), then the 32 hidden-plane insertions and the final one, each
-insertion a handful of kernels over packed sign words, with the counts on
-the device.  The port's ``extract_skeleton`` and ``extract_faces`` finish.
-The result equals the host engine's (``extract/subdivide.py``) wherever
-both start from the same skeleton: the same vertices and edges, bit for
-bit, in the same order.
+Counterpart of ``tropical/extract/device.py``, on the flat path
+(``force=True``) and the curved one: the skeleton built on the card from
+the lattice forward (``"dist"``: the Lipschitz-distance-pruned lattice with
+a local gradient bound, or ``"sign"``), then the 32 hidden-plane insertions
+and the final one, each insertion a handful of kernels over packed sign
+words, with the counts on the device.  The port's ``extract_skeleton`` and
+``extract_faces`` finish.  The result equals the host engine's
+(``extract/subdivide.py``) wherever both start from the same skeleton: the
+same vertices and edges, bit for bit, in the same order, and on the curved
+path the same ``failover.COUNTERS``.
+
+The curved path (the JAX engine's stage 3b and strict filter) runs between
+an insertion's split and its finish (``Engine._curved``): the curved rows
+(a split edge whose ends differ in two or more coordinates) take the
+trilinear intersection of their earlier plane's and the current plane's
+surfaces on the cube's x = z plane (the corner forward, ``trilinear_roots``,
+the on-surface forward), off-surface roots the gradient-descent rescue, and
+the strict filter keeps the new vertices on the surface; the survivors
+take the ids nV + rank.  The forwards run on the host engine's rows in its
+order and batches, so cuBLAS rounds them alike.  A curved busy insertion
+reads its count words up to three times more than a flat one (the curved
+rows; with curved rows, the rescue's rows; the survivors), and once a
+rescue step but the first.
 
 What fixes the order, as in the JAX engine: every compaction is a prefix
 sum (order-preserving), the future-sign prune is the scalar test
 ``LD >= idx`` on each edge's last differing column, and the connecting
 edges are appended in (lo, hi) order after a stable sort.
 
-Counts stay on the device.  A busy insertion makes one device-to-host
-read, of one small count vector (``META``): the connecting edges it found,
-the edges and vertices its prune keeps, and, per plane, the live edges
-that plane splits and the live vertices it hits.  The next busy plane and
-the next insertion's sizes come from those histograms, so idle planes are
-skipped with no read, and no buffer has a capacity to overflow.  The
-pools are compacted at every busy insertion, so every vertex is live: the
-hit scan reads the vertices' strict words, and the JAX engine's per-edge
-copies of them (EZ0/EZ1) have no counterpart.
+Counts stay on the device.  A busy insertion of the flat path makes one
+device-to-host read, of one small count vector (``META``): the
+connecting edges it found, the edges and vertices its prune keeps, and,
+per plane, the live edges that plane splits and the live vertices it
+hits.  The next busy plane and the next insertion's sizes come from
+those histograms, so idle planes are skipped with no read, and no buffer
+has a capacity to overflow.  The pools are compacted at every busy
+insertion, so every vertex is live: the hit scan reads the vertices'
+strict words, and the JAX engine's per-edge copies of them (EZ0/EZ1)
+have no counterpart.
 
 The JAX engine groups the connecting-edge candidates by expanding each
 into its 2^zeros region replicas; that count has no bound known before
@@ -55,6 +70,13 @@ tensor takes the plain version, a CUDA tensor the kernel.
   first design's stages ``split_mark`` (the split bit test),
   ``split_cumsum``, ``split_lerp``, ``split_override`` and
   ``split_append`` run in a build of it alone;
+- K4c, the curved insertion: ``curved_select`` (the curved rows,
+  compacted in slot order with their planes, ends and corner points),
+  ``curved_pick`` (K7's p and q from the corner forward),
+  ``curved_resolve`` (``curved_points``, ``curved_gd``: the residuals, the
+  sentinels and the rescue's rows; ``curved_mix``: the rescue taken back,
+  the curved vertices and their states) and ``curved_filter`` (the
+  override's test, then the strict filter and the survivors, compacted);
 - K5 ``connect_step``: ``hit_mark``, ``candidates`` (region words through
   ``_grid_region_lut``, cell keys), ``connect_table`` (each cell column's
   range of sorted positions, and the rows in sorted order),
@@ -76,9 +98,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tropical_torch.core import trilinear as tl
 from tropical_torch.core.hashgrid import compute_marks, lattice_tables
 from tropical_torch.core.mlp import mlp_forward
 from tropical_torch.core.net import lattice_features
+from tropical_torch.extract import failover as fo
 from tropical_torch.ops import cuda_build, launches
 
 R_COLS = 33  # (num_layers - 1) * num_hidden + 1 of the 3 x 16 architecture
@@ -304,7 +328,7 @@ class Kernels:
     """``csrc/device_engine.cu``'s launch functions on one device.  Every
     launch function takes device pointers, ``long long`` integers and
     ``float`` scalars in its declared order, then the stream, and returns
-    the count of kernels it launched (K3, K4 or K5), which the call
+    the count of kernels it launched (K3, K4, K4c or K5), which the call
     records, or minus a CUDA error, which it raises.  ``device`` may be the
     CPU for a library built against the tests' CUDA emulation."""
 
@@ -772,6 +796,207 @@ def split_append(OUTn, bz, viol, lanes, ce, E, EB, LD, SB, ZB, nV: int,
     return sbn, zbn, szn, Er, EBr, LDr
 
 
+# K4c curved_step: the curved insertion (force=False)
+
+# the count words of a curved insertion (int32 [CW], zeroed): its curved
+# rows and those on no earlier plane (read after ``curved_select``), its
+# sentinel rows and the rows the gradient-descent rescue takes (read after
+# ``curved_gd``), whether a curved residual at the plane is off the eps
+# band, its survivors and the curved rows the strict filter drops (read
+# after ``curved_filter``)
+CW_CURVED, CW_NOPLANE, CW_SENT, CW_GD, CW_ANYD0, CW_KEPT, CW_DROPS = range(7)
+CW = 7
+# a split row's state for the strict filter (``curved_mix``): curved, its
+# root out of [0, 1], its residual at the plane not inside the eps band
+CV_CURVED, CV_GG, CV_OFF = 1, 2, 4
+
+
+def _planes_below(bz: torch.Tensor, idx: int) -> torch.Tensor:
+    """[S, R] bool: the columns below ``idx`` zero at both ends."""
+    cols = torch.arange(R_COLS, device=bz.device)
+    both = torch.stack([_bit(bz, c) for c in range(R_COLS)], 1)
+    return both & (cols < idx)
+
+
+def _out_of_range(t: torch.Tensor) -> torch.Tensor:
+    return ((t < 0) | (t > 1)).any(-1)
+
+
+def curved_select_plain(ce, bz, V, idx: int, eps: float, cw):
+    e = torch.stack([V[ce[:, 0].long()], V[ce[:, 1].long()]], 1)
+    curved = ((e[:, 1] - e[:, 0]).abs() > eps).sum(-1) > 1
+    below = _planes_below(bz, idx)
+    # the last earlier plane (nonzero_last's), -1 for none
+    plane = R_COLS - 1 - torch.argmax(below.flip(1).to(torch.uint8), 1)
+    plane = torch.where(below.any(1), plane, -1)
+    qs = torch.nonzero(curved)[:, 0]
+    cw[CW_CURVED] += qs.numel()
+    cw[CW_NOPLANE] += (curved & ~below.any(1)).sum().to(torch.int32)
+    ec = e[qs]
+    return (qs.to(torch.int32), plane[qs].to(torch.int32), ec,
+            tl.corner_points(ec))
+
+
+def curved_select(ce, bz, V, idx: int, eps: float, cw,
+                  kern: Kernels | None = None):
+    """The curved rows of the ``split_select`` rows (ends ``ce``, shared
+    zero words ``bz``): a row whose ends differ by more than ``eps`` in
+    two or more coordinates, in slot order: (their slots, earlier planes
+    (the highest column below ``idx`` zero at both ends), ends [n, 2, 3],
+    corner points [n, 8, 3] (``core/trilinear.corner_points``)).  Counts
+    the curved rows into ``cw[CW_CURVED]`` and those on no earlier plane
+    into ``cw[CW_NOPLANE]``.  The kernel's outputs have the split rows'
+    length, the first ``cw[CW_CURVED]`` rows set."""
+    run = _run(kern, ce.device)
+    if run is None:
+        return curved_select_plain(ce, bz, V, idx, eps, cw)
+    dev, S = ce.device, ce.shape[0]
+    qs, plane = _i32(S, device=dev), _i32(S, device=dev)
+    e01 = torch.empty((S, 2, 3), dtype=torch.float32, device=dev)
+    corners = torch.empty((S, 8, 3), dtype=torch.float32, device=dev)
+    run("curved_select", "curved_select", S, ce, bz, V, S, idx, eps, qs,
+        plane, e01, corners, cw)
+    return qs, plane, e01, corners
+
+
+def curved_pick(d_corner, plane, idx: int, kern: Kernels | None = None):
+    """K7's inputs from the corner forward ``d_corner`` [n, 8, R]: (p, the
+    columns at each row's plane, q, at ``idx``), each [n, 8]."""
+    run = _run(kern, d_corner.device)
+    if run is None:
+        p = d_corner.gather(2, plane.long()[:, None, None].expand(-1, 8, 1))
+        return p[..., 0], d_corner[:, :, idx].contiguous()
+    n = d_corner.shape[0]
+    p, q = (torch.empty((n, 8), dtype=torch.float32, device=d_corner.device)
+            for _ in range(2))
+    run("curved_pick", "curved_pick", n, d_corner, plane, n, idx, p, q)
+    return p, q
+
+
+def curved_points(e01, ints, kern: Kernels | None = None):
+    """The points of the roots ``ints`` on the curved rows' edges: e0 (1 -
+    t) + e1 t, [n, 3]."""
+    run = _run(kern, e01.device)
+    if run is None:
+        return e01[:, 0] * (1 - ints) + e01[:, 1] * ints
+    n = e01.shape[0]
+    cand = torch.empty((n, 3), dtype=torch.float32, device=e01.device)
+    run("curved_resolve", "curved_points", n, e01, ints, n, cand)
+    return cand
+
+
+def curved_gd_plain(outs, plane, ints, e01, idx: int, eps: float, cw):
+    d0 = outs.gather(1, plane.long()[:, None])[:, 0]
+    d1 = outs[:, idx]
+    gg = _out_of_range(ints)
+    gd = ~gg & ((d0.abs() > eps) | (d1.abs() > eps))
+    g = torch.nonzero(gd)[:, 0]
+    grank = torch.full_like(plane, -1)
+    grank[g] = torch.arange(g.numel(), dtype=grank.dtype, device=g.device)
+    cw[CW_SENT] += gg.sum().to(torch.int32)
+    cw[CW_GD] += g.numel()
+    ge0 = e01[g, 0]
+    return (torch.stack([d0, d1], 1), grank, ge0, e01[g, 1] - ge0,
+            plane[g], ints[g])
+
+
+def curved_gd(outs, plane, ints, e01, idx: int, eps: float, cw,
+              kern: Kernels | None = None):
+    """After the on-surface forward ``outs`` [n, R] of ``curved_points``:
+    (the residuals at the plane and at ``idx`` [n, 2]; each row's rank
+    among the rows the rescue takes, else -1; those rows' start e0,
+    direction e1 - e0, plane and root), the rescue's rows in row order:
+    in range (no coordinate of the root outside [0, 1]) and off either
+    surface.  Counts the sentinel rows (out of range) into ``cw[CW_SENT]``
+    and the rescue's into ``cw[CW_GD]``; the kernel's rescue rows have the
+    curved rows' length, the first ``cw[CW_GD]`` set."""
+    run = _run(kern, outs.device)
+    if run is None:
+        return curved_gd_plain(outs, plane, ints, e01, idx, eps, cw)
+    dev, n = outs.device, outs.shape[0]
+    dnew = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    grank, gcols = _i32(n, device=dev), _i32(n, device=dev)
+    ge0, gde, gx = (torch.empty((n, 3), dtype=torch.float32, device=dev)
+                    for _ in range(3))
+    run("curved_resolve", "curved_gd", n, outs, plane, ints, e01, n, idx, eps,
+        dnew, grank, ge0, gde, gcols, gx, cw)
+    return dnew, grank, ge0, gde, gcols, gx
+
+
+def curved_mix_plain(qs, e01, ints, dnew, grank, gx, gd0, eps: float, Vn,
+                     cstate, cw):
+    t, d0 = ints.clone(), dnew[:, 0].clone()
+    sel = grank >= 0
+    if gx is not None:
+        t[sel] = gx[grank[sel].long()]
+        d0[sel] = gd0[grank[sel].long()]
+    gg = _out_of_range(t)
+    d0 = torch.where(gg, 0.0, d0)
+    s = qs.long()
+    Vn[s] = e01[:, 0] + t * (e01[:, 1] - e01[:, 0])
+    cstate[s] = (CV_CURVED + torch.where(gg, CV_GG, 0)
+                 + torch.where(d0.abs() < eps, 0, CV_OFF)).to(torch.int32)
+    cw[CW_ANYD0] |= (d0.abs() > eps).any().to(torch.int32)
+
+
+def curved_mix(qs, e01, ints, dnew, grank, gx, gd0, eps: float, Vn, cstate,
+               cw, kern: Kernels | None = None) -> None:
+    """After the rescue (``gx``, ``gd0``: its rows' final roots and their
+    residuals at the plane, None without rescued rows): each curved row's
+    root and residual taken back, its vertex e0 + t (e1 - e0) written into
+    ``Vn`` at its slot ``qs`` over the lerp, and its state (``CV_*``; a
+    row out of range takes residual 0) into ``cstate``; ``cw[CW_ANYD0]``
+    set if a curved residual at the plane is off the eps band."""
+    run = _run(kern, Vn.device)
+    if run is None:
+        return curved_mix_plain(qs, e01, ints, dnew, grank, gx, gd0, eps, Vn,
+                                cstate, cw)
+    n = qs.shape[0]
+    run("curved_resolve", "curved_mix", n, qs, e01, ints, dnew, grank, gx,
+        gd0, n, eps, Vn, cstate, cw)
+
+
+def curved_filter_plain(OUTn, bz, lanes, ce, Vn, cstate, idx: int,
+                        eps: float, cw):
+    viol = split_override_plain(OUTn, bz, idx, eps)
+    OUTo = torch.where((viol[0] > 0) & _override_mask(bz, idx), 0.0, OUTn)
+    on = OUTo[:, idx].abs() < eps
+    curved = (cstate & CV_CURVED) > 0
+    ok = (((cstate & CV_GG) == 0)
+          & (((cstate & CV_OFF) == 0) | (cw[CW_ANYD0] == 0)))
+    keep = torch.where(curved, on & ok, on)
+    cw[CW_KEPT] += keep.sum().to(torch.int32)
+    cw[CW_DROPS] += (curved & ~keep).sum().to(torch.int32)
+    k = torch.nonzero(keep)[:, 0]
+    return Vn[k], OUTo[k], bz[k], lanes[k], ce[k]
+
+
+def curved_filter(OUTn, bz, lanes, ce, Vn, cstate, idx: int, eps: float, cw,
+                  kern: Kernels | None = None):
+    """The strict filter of the split rows after the forward ``OUTn`` of
+    their vertices ``Vn``: the sign override's test (``split_override``),
+    then the survivors in slot order, (vertices, outputs with the override
+    applied where it fired, shared zero words, lanes, ends), for
+    ``split_finish``.  A flat row survives on the surface at ``idx``
+    (|out| < eps); a curved one on it, in range, and with its residual at
+    the plane inside the eps band if any curved residual is off it.
+    Counts the survivors into ``cw[CW_KEPT]`` and the curved rows dropped
+    into ``cw[CW_DROPS]``; the kernel's outputs have the split rows'
+    length, the first ``cw[CW_KEPT]`` set."""
+    run = _run(kern, OUTn.device)
+    if run is None:
+        return curved_filter_plain(OUTn, bz, lanes, ce, Vn, cstate, idx, eps,
+                                   cw)
+    dev, S = OUTn.device, OUTn.shape[0]
+    Vs = torch.empty((S, 3), dtype=torch.float32, device=dev)
+    OUTs = torch.empty((S, R_COLS), dtype=torch.float32, device=dev)
+    bzs, ces = _i32(S, NW, device=dev), _i32(S, 2, device=dev)
+    lanes_s = _i32(S, device=dev)
+    run("curved_filter", "curved_filter", S, OUTn, bz, lanes, ce, Vn, cstate,
+        S, idx, eps, cw, Vs, OUTs, bzs, lanes_s, ces)
+    return Vs, OUTs, bzs, lanes_s, ces
+
+
 # K5 connect_step
 
 def hit_mark(SZ: torch.Tensor, idx: int, kern: Kernels | None = None):
@@ -1085,6 +1310,9 @@ class Stats:
     def __init__(self):
         self.reads = 0
         self.busy = []       # (plane, splits, hits, connecting edges)
+        # the curved path's busy insertions: (plane, splits, curved rows,
+        # rescued rows, rescue steps, survivors, host reads)
+        self.curved = []
         self.t_skeleton = self.t_loop = self.t_faces = 0.0
 
 
@@ -1092,14 +1320,16 @@ LAST = Stats()
 
 
 class Engine:
-    """The flat path's subdivision loop for one net, on the net's device
-    (``kern``: the kernels to launch; default the committed build on a
-    CUDA device, the plain versions on the CPU)."""
+    """The subdivision loop for one net, on the net's device: the flat path
+    (``force``) or the curved one.  ``kern``: the kernels to launch;
+    default the committed build on a CUDA device, the plain versions on
+    the CPU."""
 
     def __init__(self, net, eps: float = 1e-4, kern: Kernels | None = None,
-                 stats: Stats | None = None):
+                 stats: Stats | None = None, force: bool = True):
         self.net = net
         self.eps = eps
+        self.force = force
         self.dev = net.device
         self.kern = PLAIN if kern is PLAIN else _run(kern, self.dev)
         self.stats = stats if stats is not None else Stats()
@@ -1227,29 +1457,38 @@ class Engine:
         k, eps, dev = self.kern, self.eps, self.dev
         nV, nE = P.V.shape[0], P.E.shape[0]
         E, EB, LD = P.E.clone(), P.EB.clone(), P.LD.clone()
-        # K4: split and lerp, forward, override, words, rewrite and append
+        # K4: split and lerp, forward, override, words, rewrite and append;
+        # on the curved path (K4c) the curved rows' vertices and the strict
+        # filter between the split and the finish
         if isinstance(k, Kernels) and k.first_split:
+            if not self.force:
+                raise ValueError("K4's first design takes the flat path only")
             Vn, OUTn, (sbn, zbn, szn, Er, EBr, LDr) = self._split_first(
                 P, E, EB, LD, idx, n_split, final)
         else:
             lanes, ce, Vn, bz = split_select(E, EB, P.V, P.OUT, P.ZB, idx,
                                              n_split, kern=k)
-            OUTn = self.net.outputs(Vn)
+            if self.force:
+                OUTn = self.net.outputs(Vn)
+            else:
+                Vn, OUTn, bz, lanes, ce = self._curved(P, lanes, ce, Vn, bz,
+                                                       idx)
             sbn, zbn, szn, Er, EBr, LDr = split_finish(
                 OUTn, bz, lanes, ce, E, EB, LD, P.SB, P.ZB, nV, idx, eps,
                 final, kern=k)
+        n_new = Vn.shape[0]  # the survivors on the curved path
         Vx = torch.cat([P.V, Vn])
         SBx, ZBx = torch.cat([P.SB, sbn]), torch.cat([P.ZB, zbn])
         # K5: hits, candidates by cell, the pairs, the prune's census
         hcum = torch.cumsum(hit_mark(P.SZ, idx, kern=k), 0, dtype=torch.int32)
-        C, key = candidates(Vx, SBx, ZBx, hcum, nV, n_split, n_hit, idx,
+        C, key = candidates(Vx, SBx, ZBx, hcum, nV, n_new, n_hit, idx,
                             self.marks, self.lut, self.lut_k, eps,
                             self.net.spec.scale, kern=k)
         skey, perm = torch.sort(key, stable=True)
         perm = perm.to(torch.int32)
         cols, Cs = connect_table(C, skey, perm, self.M, kern=k)
         meta = _zeros32(META, device=dev)
-        used = None if final else _zeros32(nV + n_split, device=dev)
+        used = None if final else _zeros32(nV + n_new, device=dev)
         cnt = connect_count(C, skey, perm, cols, Cs, SBx, ZBx, idx, self.M,
                             final, used, meta, kern=k)
         ccum = torch.cumsum(cnt.reshape(-1), 0, dtype=torch.int32)
@@ -1287,6 +1526,62 @@ class Engine:
                       compact_rows(EBx, ecum, n_keep, kern=k),
                       compact_rows(LDx, ecum, n_keep, kern=k))
         return pools, counts
+
+    def _count_read(self) -> None:
+        self.stats.reads += 1
+
+    def _curved(self, P: Pools, lanes, ce, Vn, bz, idx: int):
+        """K4c between ``split_select`` and ``split_finish``: the curved
+        rows' vertices (the corner forward, K7's roots, the on-surface
+        forward, the gradient-descent rescue), the forward of every new
+        vertex, then the strict filter.  Returns the survivors' (Vn, OUTn,
+        bz, lanes, ce).  Reads the count words up to three times (the
+        curved rows; with curved rows, the rescue's rows; the survivors),
+        and once a rescue step but the first; counts the events into
+        ``failover.COUNTERS`` as the host engine does."""
+        k, eps, net = self.kern, self.eps, self.net
+        reads = self.stats.reads
+        cw = _zeros32(CW, device=self.dev)
+        cstate = _zeros32(Vn.shape[0], device=self.dev)
+        qs, plane, e01, corners = curved_select(ce, bz, P.V, idx, eps, cw,
+                                                kern=k)
+        n_cv, bad = (int(x) for x in self.read(cw[:CW_SENT]))
+        if bad:
+            raise RuntimeError(f"curved edges not on any earlier plane at "
+                               f"plane {idx}: {bad}/{n_cv}")
+        n_gd = steps = 0
+        if n_cv:
+            fo.COUNTERS["curved_steps"] += 1
+            qs, plane, e01 = qs[:n_cv], plane[:n_cv], e01[:n_cv]
+            d_corner = net.outputs(corners[:n_cv].reshape(-1, 3), group=8)
+            p, q = curved_pick(d_corner.reshape(n_cv, 8, R_COLS), plane, idx,
+                               kern=k)
+            ints = tl.intersection_of_two_planes(p, q)
+            outs = net.outputs(curved_points(e01, ints, kern=k))
+            dnew, grank, ge0, gde, gcols, gx = curved_gd(
+                outs, plane, ints, e01, idx, eps, cw, kern=k)
+            n_sent, n_gd = (int(x) for x in self.read(cw[CW_SENT:CW_ANYD0]))
+            fo.COUNTERS["sentinels"] += n_sent
+            fo.COUNTERS["gd_rows"] += n_gd
+            gx_end = gd0 = None
+            if n_gd:
+                before = fo.COUNTERS["gd_steps"]
+                gx_end, gd0, _ = fo.descend(net, ge0[:n_gd], gde[:n_gd],
+                                            gcols[:n_gd], gx[:n_gd], idx, eps,
+                                            on_test=self._count_read)
+                steps = fo.COUNTERS["gd_steps"] - before
+            curved_mix(qs, e01, ints, dnew, grank, gx_end, gd0, eps, Vn,
+                       cstate, cw, kern=k)
+        OUTn = net.outputs(Vn)
+        Vs, OUTs, bzs, lanes_s, ces = curved_filter(OUTn, bz, lanes, ce, Vn,
+                                                    cstate, idx, eps, cw,
+                                                    kern=k)
+        n_keep, drops = (int(x) for x in self.read(cw[CW_KEPT:]))
+        fo.COUNTERS["strict_drops"] += drops
+        self.stats.curved.append((idx, Vn.shape[0], n_cv, n_gd, steps, n_keep,
+                                  self.stats.reads - reads))
+        return (Vs[:n_keep], OUTs[:n_keep], bzs[:n_keep], lanes_s[:n_keep],
+                ces[:n_keep])
 
     def _split_first(self, P: Pools, E, EB, LD, idx: int, n_split: int,
                      final: bool):
@@ -1354,21 +1649,19 @@ def device_engine_supports(net) -> bool:
 def subpoly_device(net, d: int = 3, size: float = 1.2, eps: float = 1e-4,
                    verbose: bool = True, force: bool = True,
                    skeleton_mode: str = "auto"):
-    """The flat path's extraction on the net's device: the skeleton
-    (``skeleton_mode`` "dist", the default, or "sign"), the busy
-    insertions, then the port's ``extract_skeleton`` and ``extract_faces``.
+    """The extraction on the net's device, the flat path (``force``) or
+    the curved one: the skeleton (``skeleton_mode`` "dist", the default,
+    or "sign"), the busy insertions, then the port's ``extract_skeleton``
+    and ``extract_faces``.
 
     Returns (face positions [T, 3, 3], vertices [V, 3], triangles [T, 3]),
     as ``subdivide.subpoly``; ``LAST`` keeps the run's reads, busy
-    insertions and stage times."""
+    insertions and stage times, ``failover.COUNTERS`` the curved path's
+    events."""
     from tropical_torch.extract import stats
     from tropical_torch.extract.faces import extract_faces, extract_skeleton
     from tropical_torch.extract.skeleton import get_hypercube
 
-    if not force:
-        raise NotImplementedError(
-            "the device engine has the flat path only (force=True); the "
-            "curved path waits for ROADMAP.md Queue 1 item 1 (stage 3b)")
     if not device_engine_supports(net):
         raise ValueError(
             f"the device engine takes {R_COLS}-column nets with at most 511 "
@@ -1377,7 +1670,8 @@ def subpoly_device(net, d: int = 3, size: float = 1.2, eps: float = 1e-4,
     mode = "dist" if skeleton_mode == "auto" else skeleton_mode
     global LAST
     LAST = Stats()
-    eng = Engine(net, eps, stats=LAST)
+    fo.reset_counters()
+    eng = Engine(net, eps, stats=LAST, force=force)
     clock = _Clock(net.device)
     sk = eng.skeleton(mode)
     if sk is None:  # no lattice edge: the hypercube (subpoly.py:51-52)

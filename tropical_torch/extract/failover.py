@@ -127,12 +127,33 @@ def gradient_descent_failover(net, e_c: torch.Tensor, ints: torch.Tensor,
         return ints, d_new
 
     e0 = e_c[gd, 0]
-    de = e_c[gd, 1] - e0
-    cols = plane_cols[gd][:, None]
-    x = ints[gd]
-    d0 = d1 = torch.ones(n, dtype=ints.dtype, device=ints.device)
-    for _ in range(max_iters):
-        if not bool(((d0.abs() > eps) | (d1.abs() > eps)).any()):
+    x, d0, d1 = descend(net, e0, e_c[gd, 1] - e0, plane_cols[gd], ints[gd],
+                        idx, eps, max_iters, lr)
+    ints = ints.clone()
+    d_new = d_new.clone()
+    ints[gd] = x
+    d_new[gd] = torch.stack([d0, d1], dim=-1)
+    return ints, d_new
+
+
+def descend(net, e0: torch.Tensor, de: torch.Tensor, cols: torch.Tensor,
+            x: torch.Tensor, idx: int, eps: float, max_iters: int = 500,
+            lr: float = 1e-2, on_test=None):
+    """``gradient_descent_failover``'s loop on its rows (start ``e0``,
+    direction ``de``, earlier plane ``cols``, root ``x``): returns (x, d0,
+    d1), the residuals at the pre-update x of the last step.  The stop
+    test reads the residuals back to the host once a step but the first
+    (all ones); ``on_test`` is called at each such read."""
+    cols = cols.long()[:, None]
+    d0 = d1 = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    for i in range(max_iters):
+        if i == 0:
+            go = x.shape[0] > 0 and eps < 1.0
+        else:
+            if on_test is not None:
+                on_test()
+            go = bool(((d0.abs() > eps) | (d1.abs() > eps)).any())
+        if not go:
             break
         COUNTERS["gd_steps"] += 1
         with torch.enable_grad():
@@ -144,12 +165,7 @@ def gradient_descent_failover(net, e_c: torch.Tensor, ints: torch.Tensor,
         d0, d1 = d0.detach(), d1.detach()
         gn = g / torch.linalg.norm(g, dim=-1, keepdim=True).clamp_min(1e-12)
         x = (x - lr * gn).clamp(0.0, 1.0)
-
-    ints = ints.clone()
-    d_new = d_new.clone()
-    ints[gd] = x
-    d_new[gd] = torch.stack([d0, d1], dim=-1)
-    return ints, d_new
+    return x, d0, d1
 
 
 def check_new_vertices_on_surface(ints: torch.Tensor, d_new: torch.Tensor,

@@ -198,16 +198,15 @@ def subpoly(net, d: int, size: float, eps: float = 1e-4, force: bool = False,
     Returns (face_positions [T,3,3], vertices [V,3], triangles [T,3]).
     ``force=True`` takes the flat path, ``force=False`` the curved one.
 
-    ``engine``: "auto" takes the device engine (``extract/device.py``) for
-    the flat path of a net it supports, and this host-orchestrated loop
-    otherwise; "host" / "device" force a choice (the device engine has no
-    curved path yet).
+    ``engine``: "auto" takes the device engine (``extract/device.py``),
+    on either path, for a net it supports, and this host-orchestrated loop
+    otherwise; "host" / "device" force a choice.
     """
     from tropical_torch.extract import device as dv
 
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "device" or (engine == "auto" and force
+    if engine == "device" or (engine == "auto"
                               and dv.device_engine_supports(net)):
         return dv.subpoly_device(net, d, size, eps, verbose=verbose,
                                  force=force)

@@ -18,7 +18,9 @@ LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
                              "bvh_hierarchy": 0, "bvh_refit": 0,
                              "bvh_ray": 0, "bvh_closest": 0,
                              "lattice_encode": 0, "skeleton_mark": 0,
-                             "split_step": 0, "connect_step": 0}
+                             "split_step": 0, "connect_step": 0,
+                             "curved_select": 0, "curved_pick": 0,
+                             "curved_resolve": 0, "curved_filter": 0}
 # the largest problem shape each kernel was launched on since the last reset:
 # (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
 # hash-grid encode kernel, (T,) triangles of a BVH build kernel, (N, T) rays

@@ -9,8 +9,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
 2. build: every kernel of the main paths from ``tropical_torch/csrc/`` (one
    ``nvcc`` per source, all started together, with the instrumented builds
    of ``min_dist`` and ``bvh`` and the first designs of ``bvh``,
-   ``lattice_encode`` and ``device_engine``), with the ``-Xptxas -v``
-   register and shared-memory summary; no spills;
+   ``lattice_encode`` and ``device_engine``, K4c's a build of its own),
+   with the ``-Xptxas -v`` register and shared-memory summary; no spills;
 3. kernels vs plain: each kernel against its plain PyTorch version, bit for
    bit (the encode's table gradients, scattered by atomicAdd, to a stated
    tolerance), on inputs hard for it.  ``min_dist`` at the flat path's shapes, its
@@ -43,7 +43,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    host syncs, device-to-host copies and kernel launches counted by
    torch.profiler; the device engine makes one read a busy insertion on
    the flat path, and on the curved path the reads ``Engine._curved``
-   counts, printed for each curved busy insertion;
+   counts, printed for each curved busy insertion; the device engine's
+   syncs, copies, launches and reads held to ``ENGINE_COUNTS``;
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
    128`` on ``cuda``, through the device engine (K4c between K4's split and
    its finish), held to the JAX CLI's curved funnel
@@ -52,8 +53,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    vertex set within 1e-5 for all but 0.5 %, |sdf| < 2e-4 on every vertex,
    the launch counts (one ``trilinear_roots`` launch per insertion with
    curved rows, K4c's by busy insertions and insertions with curved rows,
-   the encode's by forwards), the reads of each curved busy insertion and
-   finite CD/AD;
+   none of ``curved_select``, K4's two a busy insertion, the encode's by
+   forwards), the reads of each curved busy insertion and finite CD/AD;
 6. each kernel at the largest shape its main path gave it: ``min_dist``
    timed; ``trilinear_roots`` held bitwise to its plain version on every
    input the curved path gave it, their device times summed beside the
@@ -148,13 +149,21 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    each build's run (3 or 4 a busy insertion) and the bound ``k4_bytes``;
    how often the override fires at the busy insertions (also sphere-medium's,
    in phase 12);
-11b. K4c (``curved_select``, ``curved_pick``, ``curved_resolve``,
-   ``curved_filter``) at sphere-medium curved: every call of the busiest
-   curved insertion and of the final one, recorded from a run of the
-   engine, bitwise its plain version (also after three replays of a CUDA
-   graph of one call), and planted calls with rescued rows, strict drops
-   and the override firing; each kernel's device time (CUDA graphs), its
-   plain version's and its bound (``k4c_bytes``);
+11b. K4c (the selection in ``split_select``'s curved instance,
+   ``curved_pick``, ``curved_resolve``, ``curved_filter``, and K4's finish
+   alone on the survivors) at sphere-medium curved: every call of the
+   busiest curved insertion and of the final one, recorded from a run of
+   the engine, bitwise its plain version in the design (also after three
+   replays of a CUDA graph of one call) and in K4c's first design
+   (``cuda_build.CURVED_FIRST``, through the same calls: ``curved_select``
+   after the flat selection, the filter a thread a row, the finish with its
+   own override test), and planted calls with rescued rows, strict drops
+   and the override firing (and the finish on those survivors); each
+   kernel's device time (CUDA graphs) in both designs (the selection's
+   whole, against the flat selection's bytes and the curved rows', and
+   less the flat selection, against the curved rows' bytes or the first
+   design's pass of its own), its plain version's and its bound
+   (``k4c_bytes``), and ``index_select`` of the filter's survivors' rows;
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
@@ -223,18 +232,36 @@ MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
 # skeleton), the route the curved CLI takes (scripts/curved_presets_golden.py)
 CURVED_PRESETS = "tests/golden/sphere_curved_presets.json"
 # K4c, the curved insertion's kernels (csrc/device_engine.cu), and their
-# launches on the curved path: a busy insertion's curved_select and its
-# curved_filter's two (the override's test, the strict filter), and at an
-# insertion with curved rows one curved_pick and curved_resolve's three
-# (the points, the residuals and rescue rows, the mix)
+# launches on the curved path: a busy insertion's curved_filter's two (the
+# override's test, the strict filter), and at an insertion with curved rows
+# one curved_pick and curved_resolve's three (the points, the residuals and
+# rescue rows, the mix).  The curved selection runs inside split_select's
+# curved instance (a K4 launch); curved_select, its first design's pass of
+# its own (cuda_build.CURVED_FIRST), launches nowhere on the path
 CURVED_KERNELS = ("curved_select", "curved_pick", "curved_resolve",
                   "curved_filter")
-CURVED_PER_BUSY = {"curved_select": 1, "curved_filter": 2}
+CURVED_PER_BUSY = {"curved_select": 0, "curved_filter": 2}
 CURVED_PER_STEP = {"curved_pick": 1, "curved_resolve": 3}
+# K4's launches a busy insertion on the curved path: the selection (its
+# curved instance) and the finish alone (no second override test)
+K4_PER_CURVED_BUSY = 2
 # the stage functions of tropical_torch/extract/device.py that launch each
-K4C_STAGES = {"curved_select": "curved_select", "curved_pick": "curved_pick",
-              "curved_points": "curved_resolve", "curved_gd": "curved_resolve",
-              "curved_mix": "curved_resolve", "curved_filter": "curved_filter"}
+# (K4's selection and finish recorded beside them: the curved selection,
+# and the finish the filter's survivors take)
+K4C_STAGES = {"curved_pick": "curved_pick", "curved_points": "curved_resolve",
+              "curved_gd": "curved_resolve", "curved_mix": "curved_resolve",
+              "curved_filter": "curved_filter"}
+K4C_ROUTE = ("split_select", "split_finish", *K4C_STAGES)
+# the bytes a curved row's selection writes: its slot and plane, its ends
+# [2, 3] and its corners [8, 3]
+CURVED_ROW_BYTES = 4 + 4 + 24 + 96
+# the device engine's extractions in phase 4b (torch.profiler: host syncs,
+# device-to-host copies, kernel launches; host reads): sphere-small flat,
+# unchanged since PR 16, and sphere-medium curved, 723 launches in K4c's
+# first design (PR 17), less the three curved_select and the three second
+# split_check launches of its busy insertions
+ENGINE_COUNTS = {"small flat": (38, 29, 698, 6),
+                 "medium curved": (44, 35, 717, 12)}
 # stage 3b of the JAX engine's busy insertion and its strict filter
 K4C_REPLACES = {"curved_select": "tropical/extract/device.py:567",
                 "curved_pick": "tropical/extract/device.py:603",
@@ -473,7 +500,7 @@ def build_phase():
     targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode",
                "bvh", BVH_COUNT, BVH_COUNT_DESIGN, BVH_FIRST, "lattice_encode",
                "device_engine", cuda_build.LATTICE_FIRST,
-               cuda_build.DEVICE_ENGINE_FIRST]
+               cuda_build.DEVICE_ENGINE_FIRST, cuda_build.CURVED_FIRST]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -1680,6 +1707,10 @@ def engines_phase():
                   f"{label}: {last.reads} reads for {len(last.busy)} busy "
                   "insertions: one each, one each for the skeleton and the "
                   f"starting pools, and the curved path's {extra}")
+            check((syncs, d2h, kernels, last.reads) == ENGINE_COUNTS[label],
+                  f"{label}: (syncs, copies, launches, reads) "
+                  f"{(syncs, d2h, kernels, last.reads)} != "
+                  f"{ENGINE_COUNTS[label]}")
         del net
         torch.cuda.empty_cache()
     print(json.dumps({
@@ -1783,8 +1814,8 @@ def curved_path_phase():
     want_k4c = {**{k: v * busy for k, v in CURVED_PER_BUSY.items()},
                 **{k: v * steps for k, v in CURVED_PER_STEP.items()}}
     conn = sum(c > 0 for i, _, _, c in last.busy if i < dv.R_COLS - 1)
-    want_k4c.update(split_step=3 * busy + 1 + conn, lattice_encode=1,
-                    skeleton_mark=6)
+    want_k4c.update(split_step=K4_PER_CURVED_BUSY * busy + 1 + conn,
+                    lattice_encode=1, skeleton_mark=6)
     for k, want_n in want_k4c.items():
         check(launches[k] == want_n, f"{k}: {launches[k]} launches on the "
               f"curved path, want {want_n} ({busy} busy insertions, {steps} "
@@ -3261,10 +3292,14 @@ def engine_stage_times(net, reps, first):
 def k4c_bytes(name, a, cw):
     """The bytes a K4c call must move, each input read once and each output
     written once (``cw``: the count words after the call), counting only
-    the rows that need them: of the S split rows their ends and both ends'
-    V rows, and of the curved rows their shared zero words read (the plane
-    and the no-plane count) and their slots, planes, ends and corners
-    written (``curved_select``); the corner outputs at the plane and at idx
+    the rows that need them: the selection's (``split_select``'s curved
+    instance, ``a`` its arguments) as ``k4_bytes`` of the flat selection
+    and the curved rows' slots, planes, ends and corners written; the
+    curved rows' outputs alone, what the curved instance adds to the flat
+    one (``curved_rows``); the first design's ``curved_select``, a pass of
+    its own: of the S split rows their ends and both ends' V rows, and of
+    the curved rows their shared zero words read (the plane and the
+    no-plane count) and their outputs written; the corner outputs at the plane and at idx
     read, p and q written (``curved_pick``); the ends and roots read, the
     points written (``curved_points``); the outputs at the plane and at idx,
     the planes and roots read, the residuals and ranks written, and of the
@@ -3277,8 +3312,12 @@ def k4c_bytes(name, a, cw):
     read and written (``curved_filter``)."""
     from tropical_torch.extract import device as dv
 
+    if name == "split_select":
+        return k4_bytes(name, a) + int(cw[dv.CW_CURVED]) * CURVED_ROW_BYTES
+    if name == "curved_rows":
+        return int(cw[dv.CW_CURVED]) * CURVED_ROW_BYTES
     if name == "curved_select":
-        return a[0].shape[0] * 32 + int(cw[dv.CW_CURVED]) * (8 + 128)
+        return a[6] * 32 + int(cw[dv.CW_CURVED]) * (8 + CURVED_ROW_BYTES)
     if name == "curved_pick":
         return a[0].shape[0] * (4 + 64 + 64)
     if name == "curved_points":
@@ -3292,59 +3331,76 @@ def k4c_bytes(name, a, cw):
     raise KeyError(name)
 
 
-def k4c_held(fn, args, label):
-    """One K4c call by the kernel and by the plain version, on clones of
-    ``args``: every result (the kernel's rows of the split or curved rows'
-    length, the plain version's first) and every tensor argument after the
-    call (the count words, the mix's vertices and states) bitwise; also
-    after three replays of a CUDA graph of one call, its results (its rank
-    state back at zero each launch).  Returns (max error, the count words
-    after the plain call)."""
+def k4c_held(fn, args, label, kw=None, kern=None):
+    """One call of a curved-route stage by the kernel (``kern``: None, the
+    design; else a build's ``Kernels``) and by the plain version, on clones
+    of ``args``: every result (the kernel's rows of the split or curved
+    rows' length, the plain version's first) and every tensor argument
+    after the call (the count words, the mix's vertices and states, the
+    pools the finish rewrites) bitwise; the design also after three replays
+    of a CUDA graph of one call, its results (its rank state back at zero
+    each launch).  Returns (max error, the count words after the plain
+    call)."""
     from tropical_torch.extract import device as dv
 
-    def run(kern):
+    kw = kw or {}
+
+    def run(k):
         a = clones(args)
-        res = fn(*a, kern=kern)
+        res = fn(*a, **{**kw, "kern": k})
         res = res if isinstance(res, tuple) else (res,)
         return [r for r in res if torch.is_tensor(r)], [
             t for t in a if torch.is_tensor(t)]
 
-    (want, wargs), (got, gargs) = run(dv.PLAIN), run(None)
-    graph = graph_bits(fn, args, {"kern": None})
+    (want, wargs), (got, gargs) = run(dv.PLAIN), run(kern)
     err = 0.0
     for x, y in zip(want + wargs, got + gargs):
         y = y[:x.shape[0]]
         check(x.shape == y.shape and bits_equal(x, y),
               f"{label}: kernel != plain ({tuple(x.shape)})")
         err = max(err, _max_err(x, y))
-    for x, y in zip(want, graph):
-        check(bits_equal(x, y[:x.shape[0]]),
-              f"{label}: kernel after graph replays != plain")
+    if kern is None:
+        graph = graph_bits(fn, args, {**kw, "kern": None})
+        for x, y in zip(want, graph):
+            check(bits_equal(x, y[:x.shape[0]]),
+                  f"{label}: kernel after graph replays != plain")
     cw = next((t for t in wargs if t.dtype == torch.int32
                and t.numel() == dv.CW), None)
     return err, cw
 
 
+def split_launches(fn):
+    """The K4 launches (``split_step``) one call of ``fn`` makes."""
+    from tropical_torch.ops import launches
+
+    before = launches.LAUNCHES["split_step"]
+    fn()
+    return launches.LAUNCHES["split_step"] - before
+
+
 def k4c_planted(calls):
-    """Planted K4c calls from the recorded ones: the rescue's rows
+    """Planted calls from the recorded ones: the rescue's rows
     (``curved_gd`` with 64 in-range rows moved off the surface at idx;
     ``curved_mix`` with their made-up roots in [0, 1] and residuals on both
-    sides of the band), and strict drops with the override firing
+    sides of the band), strict drops with the override firing
     (``curved_filter`` with a third of the rows curved and off the band at
     their plane, a residual off the band, and a violation at a shared plane
-    below idx: column 0 of the first row).  Returns [(name, args)]."""
+    below idx: column 0 of the first row), and K4's finish alone on that
+    filter's survivors (the recorded finish of its plane, which the planted
+    survivors index as the recorded ones do).  Returns [(name, args,
+    kw)]."""
     from tropical_torch.extract import device as dv
 
     out = []
     gen = torch.Generator(device="cuda").manual_seed(0)
     eps = 1e-4
-    for name, args, _, _ in calls:
+    for name, args, _, plane in calls:
         if name == "curved_gd":
             a = clones(args)
             outs, ints, idx = a[0], a[2], a[4]
             ok = torch.nonzero(~dv._out_of_range(ints))[:64, 0]
             outs[ok, idx] = 1.0
-            out.append((name, a))
+            out.append((name, a, {}))
             cw = dv._zeros32(dv.CW, device="cuda")
             res = dv.curved_gd(*a[:6], cw, kern=dv.PLAIN)
             n_gd = int(cw[dv.CW_GD])
@@ -3357,7 +3413,7 @@ def k4c_planted(calls):
                        and c[1][0].shape[0] == ints.shape[0])
             m = clones(mix)
             m[3], m[4], m[5], m[6] = res[0], res[1], gx, gd0
-            out.append(("curved_mix", m))
+            out.append(("curved_mix", m, {}))
         if name == "curved_filter":
             a = clones(args)
             OUTn, bz, cstate, idx, cw = a[0], a[1], a[5], a[6], a[8]
@@ -3365,23 +3421,39 @@ def k4c_planted(calls):
             rows = torch.arange(0, S, 3, device="cuda")
             cstate[rows] = dv.CV_CURVED | dv.CV_OFF
             cw[dv.CW_ANYD0] = 1
-            out.append((name, a))
+            out.append((name, a, {}))
             f = clones(a)
             f[1][0, 0] |= 1
             f[0][0, 0] = 1.0
-            out.append((name, f))
+            out.append((name, f, {}))
+            kept = dv.curved_filter(*clones(f), kern=dv.PLAIN)
+            check(bool((kept[1][:, idx] == 0).all()),
+                  "the planted override did not fire")
+            fin = next(c for c in calls if c[0] == "split_finish"
+                       and c[3] == plane)
+            m = clones(fin[1])
+            m[:4] = [t.clone() for t in kept[1:]]
+            out.append(("split_finish", m, {"survivors": True}))
     return out
 
 
-def k4c_times(net, reps):
-    """K4c at a net's curved run: the calls at the busiest curved insertion
-    (the most curved rows) and at the final one, recorded from a run of the
-    engine, each held bitwise to its plain version (``k4c_held``) and
-    timed (a CUDA graph of the call, ``graph_ms``; the plain version by
-    CUDA events), with its bound (``k4c_bytes``); the planted calls
-    (``k4c_planted``) held bitwise.  Returns ({kernel: {err, ms, plain_ms,
-    bound_ms, calls}}, the run's curved list, the recorded planes, the
-    planted calls held)."""
+def k4c_times(net, reps, first):
+    """K4c at a net's curved run, in the design and in its first design
+    (``first``: the CURVED_FIRST build's ``Kernels``): the curved route's
+    calls at the busiest curved insertion (the most curved rows) and at
+    the final one, recorded from a run of the design's engine, each held
+    bitwise to its plain version (``k4c_held``) in both builds and timed (a
+    CUDA graph of the call, ``graph_ms``; the plain version by CUDA
+    events), with its bound (``k4c_bytes``): the selection as the curved
+    instance of ``split_select`` whole and less its flat instance on the
+    same call (the first design, through the same calls: the flat
+    selection and ``curved_select``, two launches, whole and less its
+    flat selection), ``curved_filter`` beside ``index_select`` of the
+    survivors' rows, K4's finish on the survivors alone (the first design:
+    with its override test); the planted calls (``k4c_planted``) held
+    bitwise in both builds.  Returns ({kernel: {err, ms, first_ms,
+    plain_ms, bound_ms, calls, ...}}, the run's curved list, the recorded
+    planes, the planted calls held)."""
     from tropical_torch.extract import device as dv
 
     run = dv.Engine(net, force=False)
@@ -3402,41 +3474,144 @@ def k4c_times(net, reps):
         sk = eng.skeleton("dist")
         eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
         torch.cuda.synchronize()
-    calls = [c for c in log.calls if c[0] in K4C_STAGES]
-    out = {k: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "calls": 0} for k in CURVED_KERNELS}
+    calls = [c for c in log.calls if c[0] in K4C_ROUTE]
+    out = {k: {"err": 0.0, "ms": 0.0, "first_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "calls": 0} for k in CURVED_KERNELS}
+    sel = out["curved_select"]
+    sel.update(split_select_flat_ms=0.0, increment_ms=0.0,
+               increment_bound_ms=0.0, first_split_select_flat_ms=0.0,
+               first_increment_ms=0.0, first_alone_bound_ms=0.0)
+    out["curved_filter"]["survivor_rows_library_ms"] = 0.0
+    finish = {"ms": 0.0, "first_ms": 0.0, "calls": 0}
     for name, args, kw, plane in calls:
         fn = log.orig[name]
+        fixed, ffixed, pfixed = clones(args), clones(args), clones(args)
+        if name == "split_select":
+            check(len(args) == 9, "split_select: not the curved instance")
+            err, cw = k4c_held(fn, args, f"split_select at plane {plane}")
+            ferr, _ = k4c_held(fn, args, f"first design's split_select at "
+                               f"plane {plane}", kern=first)
+            n_launch = [split_launches(lambda: fn(*clones(args), kern=k))
+                        for k in (None, first)]
+            check(n_launch == [1, 2], f"split_select's launches (design, "
+                  f"first design) {n_launch}, not [1, 2]")
+            flat, fflat = clones(args[:7]), clones(args[:7])
+            ms = graph_ms(lambda: fn(*fixed, kern=None), reps=reps)
+            flat_ms = graph_ms(lambda: fn(*flat, kern=None), reps=reps)
+            first_ms = graph_ms(lambda: fn(*ffixed, kern=first), reps=reps)
+            first_flat_ms = graph_ms(lambda: fn(*fflat, kern=first),
+                                     reps=reps)
+            plain_ms = cuda_ms(lambda: fn(*pfixed, kern=dv.PLAIN), iters=2)
+            bound, inc_bound, alone_bound = (
+                k4c_bytes(b, args, cw) / PEAK_BYTES * 1e3
+                for b in ("split_select", "curved_rows", "curved_select"))
+            sel["err"] = max(sel["err"], err, ferr)
+            for key, v in (("ms", ms), ("first_ms", first_ms),
+                           ("plain_ms", plain_ms), ("bound_ms", bound),
+                           ("split_select_flat_ms", flat_ms),
+                           ("increment_ms", ms - flat_ms),
+                           ("increment_bound_ms", inc_bound),
+                           ("first_split_select_flat_ms", first_flat_ms),
+                           ("first_increment_ms", first_ms - first_flat_ms),
+                           ("first_alone_bound_ms", alone_bound)):
+                sel[key] += v
+            sel["calls"] += 1
+            print(f"  plane {plane}: split_select, {args[0].shape[0]} edges, "
+                  f"{args[6]} split, {int(cw[dv.CW_CURVED])} curved: the "
+                  f"curved instance {ms:.5f} ms (bound {bound:.5f} ms), the "
+                  f"flat {flat_ms:.5f} ms (the curved rows {ms - flat_ms:.5f} "
+                  f"ms, bound {inc_bound:.7f} ms); the first design's flat "
+                  f"selection and curved_select {first_ms:.5f} ms, its flat "
+                  f"{first_flat_ms:.5f} ms (curved_select "
+                  f"{first_ms - first_flat_ms:.5f} ms, bound alone "
+                  f"{alone_bound:.5f} ms); plain {plain_ms:.3f} ms")
+            continue
+        if name == "split_finish":
+            check(kw.get("survivors") is True,
+                  "split_finish: not on the filter's survivors")
+            k4c_held(fn, args, f"split_finish at plane {plane}", kw)
+            k4c_held(fn, args, f"first design's split_finish at plane "
+                     f"{plane}", kw, kern=first)
+            ms = graph_ms(lambda: fn(*fixed, **{**kw, "kern": None}),
+                          reps=reps)
+            first_ms = graph_ms(lambda: fn(*ffixed, **{**kw, "kern": first}),
+                                reps=reps)
+            finish["ms"] += ms
+            finish["first_ms"] += first_ms
+            finish["calls"] += 1
+            print(f"  plane {plane}: split_finish on {args[0].shape[0]} "
+                  f"survivors: alone {ms:.5f} ms, with the first design's "
+                  f"override test {first_ms:.5f} ms")
+            continue
         err, cw = k4c_held(fn, args, f"{name} at plane {plane}")
-        fixed, pfixed = clones(args), clones(args)
         ms = graph_ms(lambda: fn(*fixed, kern=None), reps=reps)
+        first_ms = ms
+        if name == "curved_filter":
+            ferr, _ = k4c_held(fn, args, f"first design's {name} at plane "
+                               f"{plane}", kern=first)
+            err = max(err, ferr)
+            first_ms = graph_ms(lambda: fn(*ffixed, kern=first), reps=reps)
+            # the survivors' rows by one library call (lanes are strictly
+            # increasing: a survivor's lane finds its row)
+            res = fn(*clones(args), kern=dv.PLAIN)
+            k = torch.searchsorted(args[2], res[3])
+            OUTn = args[0]
+            fired = not bits_equal(res[1], OUTn.index_select(0, k))
+            lib_ms = graph_ms(lambda: OUTn.index_select(0, k), reps=reps)
+            out[name]["survivor_rows_library_ms"] += lib_ms
+            print(f"  plane {plane}: curved_filter: index_select of the "
+                  f"{k.numel()} survivors' rows {lib_ms:.5f} ms (the "
+                  f"override {'fired' if fired else 'did not fire'})")
         plain_ms = cuda_ms(lambda: fn(*pfixed, kern=dv.PLAIN), iters=2)
         bound = k4c_bytes(name, args, cw) / PEAK_BYTES * 1e3
         rec = out[K4C_STAGES[name]]
         rec["err"] = max(rec["err"], err)
         rec["ms"] += ms
+        rec["first_ms"] += first_ms
         rec["plain_ms"] += plain_ms
         rec["bound_ms"] += bound
         rec["calls"] += 1
         print(f"  plane {plane}: {name} ({args[0].shape[0]} rows): kernel "
-              f"{ms:.5f} ms, plain {plain_ms:.3f} ms, bound {bound:.5f} ms")
+              f"{ms:.5f} ms, first design {first_ms:.5f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.5f} ms")
     planted = k4c_planted(calls)
-    for name, args in planted:
-        k4c_held(log.orig[name], args, f"{name}, planted")
-    return out, run.stats.curved, sorted(planes), len(planted)
+    for name, args, kw in planted:
+        k4c_held(log.orig[name], args, f"{name}, planted", kw)
+        k4c_held(log.orig[name], args, f"first design's {name}, planted",
+                 kw, kern=first)
+    return out, finish, run.stats.curved, sorted(planes), len(planted)
+
+
+def share(bound_ms, ms):
+    """A time's share of its bound, as text (none for a time <= 0: the
+    selection's is a difference of two times)."""
+    return f"{bound_ms / ms:.1%}" if ms > 0 else "n/a"
 
 
 def curved_kernels_phase(records, curved_launches):
     """K4c against its plain versions on the card at sphere-medium curved
-    (the curved main path's net), bit for bit, timed, in the kernel
+    (the curved main path's net), bit for bit, in the design and in its
+    first design (``cuda_build.CURVED_FIRST``), timed, in the kernel
     records."""
     phase("11b. the curved insertion's kernels (K4c) against their plain "
           "versions, sphere-medium curved")
+    from tropical_torch.extract import device as dv
+    from tropical_torch.ops import cuda_build
+
+    first = dv.Kernels(cuda_build.load(cuda_build.CURVED_FIRST),
+                       torch.device("cuda", 0))
+    check(not first.first_split,
+          "the CURVED_FIRST build takes K4's first design")
     net = sphere_net("medium")
-    k4c, curved, planes, planted = k4c_times(net, 20)
+    k4c, finish, curved, planes, planted = k4c_times(net, 20, first)
     print(f"medium curved: busy insertions (plane, splits, curved rows, "
           f"rescued rows, rescue steps, survivors, reads) {curved}; recorded "
-          f"planes {planes}; {planted} planted calls bitwise")
+          f"planes {planes}; {planted} planted calls bitwise in both designs")
+    print(f"medium curved: K4's finish on the survivors, alone "
+          f"{finish['ms']:.5f} ms, with the first design's override test "
+          f"{finish['first_ms']:.5f} ms ({finish['calls']} calls)")
+    records["split_step"].update(curved_finish_ms=finish["ms"],
+                                 curved_finish_first_ms=finish["first_ms"])
     for name in CURVED_KERNELS:
         r = k4c[name]
         check(r["calls"] > 0, f"{name}: no call recorded")
@@ -3445,13 +3620,30 @@ def curved_kernels_phase(records, curved_launches):
             "source": "tropical_torch/csrc/device_engine.cu",
             "replaces": K4C_REPLACES[name],
             "launches": curved_launches[name], "launches_flat": 0,
-            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": r["err"], "ms": r["ms"], "first_ms": r["first_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
             "calls_timed": r["calls"]}
+        extra = {k: v for k, v in r.items() if k not in (
+            "err", "ms", "first_ms", "plain_ms", "bound_ms", "calls")}
+        records[name].update(extra)
+        if name == "curved_select":
+            records[name]["runs_in"] = (
+                "split_select's curved instance (a split_step launch); ms "
+                "and bound_ms: that instance whole, against the flat "
+                "selection's bytes and the curved rows' outputs; "
+                "increment_ms: less the flat instance on the same calls, "
+                "against the curved rows' outputs alone (increment_bound_ms); "
+                "first_ms: the first design's flat selection and "
+                "curved_select; first_increment_ms: its curved_select "
+                "launch, against that pass's own bytes "
+                "(first_alone_bound_ms)")
         print(f"medium curved: {name}: kernel {r['ms']:.5f} ms "
-              f"({r['bound_ms'] / r['ms']:.1%} of its bound "
-              f"{r['bound_ms']:.5f} ms), plain {r['plain_ms']:.3f} ms, "
-              f"{r['calls']} calls, max err {r['err']}")
+              f"({share(r['bound_ms'], r['ms'])} of its bound "
+              f"{r['bound_ms']:.5f} ms), first design {r['first_ms']:.5f} "
+              f"ms ({share(r['bound_ms'], r['first_ms'])}), plain "
+              f"{r['plain_ms']:.3f} ms, {r['calls']} calls, max err "
+              f"{r['err']}{''.join(f', {k} {v:.5f}' for k, v in extra.items())}")
     del net
     torch.cuda.empty_cache()
 

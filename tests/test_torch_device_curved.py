@@ -1,6 +1,6 @@
 """The device engine's curved path (``force=False``; ``extract/device.py``,
-K4c ``curved_select``, ``curved_pick``, ``curved_resolve``,
-``curved_filter``) on the CPU.
+K4c: the selection in ``split_select``'s curved instance, ``curved_pick``,
+``curved_resolve``, ``curved_filter``, then K4's finish alone) on the CPU.
 
 - The loop, fed the host skeleton (``grid_skeleton``), with the plain
   versions, against the port's host engine's curved loop (``subpoly_``
@@ -20,11 +20,18 @@ K4c ``curved_select``, ``curved_pick``, ``curved_resolve``,
   or dropped row, as JAX counts them.
 - A curved edge on no earlier plane raises ``RuntimeError``.
 - The K4c kernels built with g++ against ``tests/cuda_emulation.h`` and
-  held bitwise to their plain versions: on synthetic rows (no curved row,
-  all curved, ragged; every edge's plane the last column below idx; curved
-  rows on no plane; no rescued row and some; survivors none, all and
-  ragged, the override firing; at a hidden insertion and the final one),
-  and at every K4c call of the kinked net's run, recorded.
+  held bitwise to their plain versions: ``split_select``'s curved instance
+  against ``split_select_plain`` then ``curved_select_plain`` (and its flat
+  instance) on synthetic pools (no curved row, all curved, ragged; every
+  edge's plane the last column below idx; curved rows on no plane);
+  ``curved_pick`` and ``curved_resolve`` (no rescued row and some);
+  ``curved_filter`` (survivors none, all and ragged, the override firing),
+  and K4's finish alone on its survivors against the plain composition; at
+  a hidden insertion and the final one; and every call of the kinked net's
+  run, recorded, in the design and in K4c's first design
+  (``cuda_build.CURVED_FIRST``, through the same calls: ``curved_select``
+  after the flat selection, the filter by ``split_check`` and a thread a
+  row, the finish with its check).
 """
 
 import json
@@ -40,7 +47,7 @@ from test_torch_device_engine import curved_loop_is_the_host_engine
 from test_torch_device_kernels import _bits, _build
 from tropical_torch.extract import device as dv
 from tropical_torch.extract import failover as fo
-from tropical_torch.ops import launches
+from tropical_torch.ops import cuda_build, launches
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 EPS = 1e-4
@@ -63,9 +70,16 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def kern(tmp_path_factory):
-    lib = _build(tmp_path_factory, "device_engine", {"design": ()})["design"]
-    return dv.Kernels(lib, torch.device("cpu"))
+def builds(tmp_path_factory):
+    """The design's and K4c's first design's ``Kernels``."""
+    libs = _build(tmp_path_factory, "device_engine",
+                  {"design": (), "first": cuda_build.CURVED_FIRST[1]})
+    return {k: dv.Kernels(lib, torch.device("cpu")) for k, lib in libs.items()}
+
+
+@pytest.fixture(scope="module")
+def kern(builds):
+    return builds["design"]
 
 
 @pytest.fixture(scope="module")
@@ -124,10 +138,16 @@ def test_no_earlier_plane_raises(kinked_nets):
     bz[0, 0] = 1 << 3  # plane 3 below idx 5: the other row has none
     P = dv.Pools(V, *[None] * 7)
     lanes = torch.arange(2, dtype=torch.int32)
+
+    def curved():
+        cw = dv._zeros32(dv.CW, device="cpu")
+        sel = dv.curved_select_plain(ce, bz, V, 5, EPS, cw)
+        return eng._curved(P, lanes, ce, V[:2].clone(), bz, *sel, 5, cw)
+
     with pytest.raises(RuntimeError, match="not on any earlier plane"):
-        eng._curved(P, lanes, ce, V[:2].clone(), bz, 5)
+        curved()
     bz[1, 0] = 1 << 4
-    eng._curved(P, lanes, ce, V[:2].clone(), bz, 5)
+    curved()
 
 
 # --- the kernels under emulation ---------------------------------------------
@@ -154,9 +174,10 @@ def _band(rng, shape, share=0.3):
     return out
 
 
-def _select_inputs(case, idx, n=700):
-    """(ce, bz, V) of ``n`` split rows (two tiles of 256 and a ragged one)
-    whose ends differ in as many coordinates as ``case`` says."""
+def _select_inputs(case, idx, n=700, n_edges=1100):
+    """(E, EB, V, OUT, ZB) of a pool of ``n_edges`` edges (two tiles of 512
+    and a ragged one), ``n`` of them split at ``idx``, whose ends differ in
+    as many coordinates as ``case`` says."""
     rng = np.random.default_rng(idx + len(case))
     a = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     k = {"none": rng.integers(0, 2, n), "all": rng.integers(2, 4, n)}.get(
@@ -169,9 +190,8 @@ def _select_inputs(case, idx, n=700):
     for i in range(n):
         axes = rng.choice(3, k[i], replace=False)
         b[i, axes] += step[i, axes]
-    V = torch.from_numpy(np.concatenate([a, b]))
-    ce = torch.from_numpy(np.stack([np.arange(n), n + np.arange(n)],
-                                   1).astype(np.int32))
+    V = np.concatenate([a, b])
+    # the split rows' shared zero words, each end's a superset of them
     words = rng.integers(0, 2 ** 32, (n, dv.NW), dtype=np.int64)
     words[:, 1] &= 1
     below = (1 << min(idx, 32)) - 1
@@ -181,30 +201,54 @@ def _select_inputs(case, idx, n=700):
         words[rng.random(n) < 0.2, 0] &= ~below
     else:
         words[(words[:, 0] & below) == 0, 0] |= 1 << int(rng.integers(idx))
-    bz = dv._to_i32(torch.from_numpy(words))
-    return ce, bz.contiguous(), V
+    extra = rng.integers(0, 2 ** 32, (n, dv.NW), dtype=np.int64)
+    ZB = np.concatenate([words | extra, words | (rng.integers(
+        0, 2 ** 32, (n, dv.NW), dtype=np.int64) & ~extra)])
+    # the outputs at idx of opposite signs at the two ends
+    OUT = rng.normal(size=(2 * n, dv.R_COLS)).astype(np.float32)
+    OUT[:n, idx] = np.abs(OUT[:n, idx]) + 0.1
+    OUT[n:, idx] = -np.abs(OUT[n:, idx]) - 0.1
+    # the split edges in row order, among unsplit ones anywhere in the pool
+    split = np.zeros(n_edges, bool)
+    split[np.sort(rng.choice(n_edges, n, replace=False))] = True
+    E = rng.integers(0, 2 * n, (n_edges, 2))
+    E[split] = np.stack([np.arange(n), n + np.arange(n)], 1)
+    EB = rng.integers(0, 2 ** 32, (n_edges, dv.NW), dtype=np.int64)
+    bit = 1 << (idx % 32)
+    EB[:, idx // 32] = np.where(split, EB[:, idx // 32] | bit,
+                                EB[:, idx // 32] & ~bit)
+    return (torch.from_numpy(E.astype(np.int32)),
+            dv._to_i32(torch.from_numpy(EB)).contiguous(),
+            torch.from_numpy(V), torch.from_numpy(OUT),
+            dv._to_i32(torch.from_numpy(ZB)).contiguous())
 
 
 @pytest.mark.parametrize("idx", PLANES)
 @pytest.mark.parametrize("case", ["none", "all", "ragged", "last_bit",
                                   "noplane"])
 def test_emulated_curved_select(kern, case, idx):
-    ce, bz, V = _select_inputs(case, idx)
+    """``split_select``'s curved instance against ``split_select_plain``
+    then ``curved_select_plain``; its flat instance against the first."""
+    pool = _select_inputs(case, idx)
+    n = 700
     cws = [dv._zeros32(dv.CW, device="cpu") for _ in range(2)]
     launches.reset()
-    want = dv.curved_select(ce, bz, V, idx, EPS, cws[0])
-    got = dv.curved_select(ce, bz, V, idx, EPS, cws[1], kern=kern)
+    want = dv.split_select(*pool, idx, n, EPS, cws[0])
+    got = dv.split_select(*pool, idx, n, EPS, cws[1], kern=kern)
     assert torch.equal(cws[0], cws[1])
     _same(want, got)
-    assert launches.LAUNCHES["curved_select"] == 1
+    _same(want[:4], dv.split_select(*pool, idx, n, kern=kern))
+    assert launches.LAUNCHES["split_step"] == 2
+    assert launches.LAUNCHES["curved_select"] == 0
+    assert want[0].shape[0] == n
     n_cv, bad = int(cws[0][dv.CW_CURVED]), int(cws[0][dv.CW_NOPLANE])
-    assert n_cv == {"none": 0, "all": 700}.get(case, n_cv)
+    assert n_cv == {"none": 0, "all": n}.get(case, n_cv)
     assert 0 < n_cv or case == "none"
     assert (bad > 0) == (case == "noplane")
     if case == "last_bit":
-        assert (want[1] == idx - 1).all()
+        assert (want[5] == idx - 1).all()
     # the state is back at zero: a second launch gives the same bits
-    again = dv.curved_select(ce, bz, V, idx, EPS, cws[1].zero_(), kern=kern)
+    again = dv.split_select(*pool, idx, n, EPS, cws[1].zero_(), kern=kern)
     _same(want, again)
 
 
@@ -270,10 +314,11 @@ def test_emulated_curved_pick_and_resolve(kern, case, idx):
 
 
 def _filter_inputs(case, idx, S=700):
-    """(OUTn, bz, lanes, ce, Vn, cstate) of ``S`` split rows.  An output at
-    idx off the band fires the override, which zeroes them all, so a row
-    that fails the test at idx has |out| = eps; "fire" plants a violation
-    on a shared plane below idx."""
+    """(OUTn, bz, lanes, ce, Vn, cstate) of ``S`` split rows (``OUTn``
+    16-byte aligned, as the forward gives it).  An output at idx off the
+    band fires the override, which zeroes them all, so a row that fails the
+    test at idx has |out| = eps; "fire" plants a violation on a shared
+    plane below idx."""
     rng = np.random.default_rng(idx + 3 * len(case))
     OUTn = _band(rng, (S, dv.R_COLS))
     chk = {"none": rng.choice([-EPS, EPS], S),
@@ -296,7 +341,7 @@ def _filter_inputs(case, idx, S=700):
     V = rng.normal(size=(S, 3)).astype(np.float32)
     lanes = np.sort(rng.choice(4 * S, S, replace=False))
     ce = rng.integers(0, 1000, (S, 2))
-    return [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+    return [torch.from_numpy(np.ascontiguousarray(a)).clone() for a in (
         OUTn, dv._to_i32(torch.from_numpy(words)).numpy(),
         lanes.astype(np.int32), ce.astype(np.int32), V,
         cstate.astype(np.int32))]
@@ -326,14 +371,54 @@ def test_emulated_curved_filter(kern, case, idx, anyd0):
     assert launches.LAUNCHES["curved_filter"] == 2
 
 
-K4C = ("curved_select", "curved_pick", "curved_points", "curved_gd",
-       "curved_mix", "curved_filter")
+@pytest.mark.parametrize("idx", PLANES)
+@pytest.mark.parametrize("case", ["ragged", "fire"])
+def test_emulated_finish_after_the_filter(kern, case, idx):
+    """``curved_filter``, then K4's finish alone on its survivors
+    (``survivors=True``: one launch, no second override test), against the
+    plain composition (``curved_filter_plain``, ``split_finish_plain``,
+    whose test finds no violation there): every output and the pools it
+    rewrites in place, at a hidden insertion and at the final one."""
+    OUTn, bz, lanes, ce, Vn, cstate = _filter_inputs(case, idx)
+    rng = np.random.default_rng(idx)
+    S, nV = OUTn.shape[0], 1000
+    E = torch.from_numpy(rng.integers(0, nV, (4 * S, 2)).astype(np.int32))
+    EB, SB, ZB = (dv._to_i32(torch.from_numpy(rng.integers(
+        0, 2 ** 32, (m, dv.NW), dtype=np.int64))).contiguous()
+        for m in (4 * S, nV, nV))
+    LD = torch.from_numpy(rng.integers(-1, 33, 4 * S).astype(np.int32))
+    final = idx == PLANES[1]
+    runs = []
+    launches.reset()
+    for k in (None, kern):
+        cw = dv._zeros32(dv.CW, device="cpu")
+        kept = dv.curved_filter(OUTn, bz, lanes, ce, Vn, cstate, idx, EPS, cw,
+                                kern=k)
+        n = int(cw[dv.CW_KEPT])
+        Vs, OUTs, bzs, lanes_s, ces = (x[:n].clone() for x in kept)
+        pools = [x.clone() for x in (E, EB, LD)]
+        res = dv.split_finish(OUTs, bzs, lanes_s, ces, *pools, SB, ZB, nV,
+                              idx, EPS, final, kern=k, survivors=True)
+        runs.append([Vs, OUTs, *res, *pools, cw])
+    _same(*runs)
+    kept = runs[0][1]
+    assert 0 < kept.shape[0] < S
+    assert bool((kept[:, idx] == 0).all()) == (case == "fire")
+    assert launches.LAUNCHES["curved_filter"] == 2
+    assert launches.LAUNCHES["split_step"] == 1
+
+
+# the stage functions of the curved route: K4's selection (its curved
+# instance) and finish (alone), and K4c's
+K4C = ("split_select", "curved_pick", "curved_points", "curved_gd",
+       "curved_mix", "curved_filter", "split_finish")
 
 
 @pytest.fixture(scope="module")
 def recorded(kinked_nets):
-    """Every K4c call of the kinked net's run (plain versions, from the
-    host skeleton), its tensor arguments cloned as given."""
+    """Every call of the curved route's stages in the kinked net's run
+    (plain versions, from the host skeleton), its tensor arguments cloned
+    as given, and its keywords."""
     from tropical_torch.extract.skeleton import grid_skeleton
 
     net = kinked_nets["kinked"]
@@ -341,7 +426,7 @@ def recorded(kinked_nets):
 
     def recorder(name):
         def call(*args, **kw):
-            calls.append((name, _clone(args)))
+            calls.append((name, _clone(args), kw))
             return real[name](*args, **kw)
         return call
 
@@ -355,18 +440,32 @@ def recorded(kinked_nets):
     return calls
 
 
-def test_emulated_recorded_calls(kern, recorded):
-    """Each recorded call by the kernel and by the plain version, on
-    clones of its arguments: every output and every argument changed in
-    place (the count words, the mix's vertices and states) bitwise."""
-    names = [name for name, _ in recorded]
-    assert names.count("curved_select") == 11
+def test_emulated_recorded_calls(builds, recorded):
+    """Each recorded call by the kernels (the design, and K4c's first
+    design through the same calls) and by the plain version, on clones of its arguments:
+    every output and every argument changed in place (the count words, the
+    mix's vertices and states, the pools the finish rewrites) bitwise."""
+    names = [name for name, *_ in recorded]
+    assert names.count("split_select") == names.count("split_finish") == 11
     assert names.count("curved_mix") == 7
-    for name, args in recorded:
+    assert all(len(args) == 9 for name, args, _ in recorded
+               if name == "split_select")
+    assert all(kw["survivors"] for name, _, kw in recorded
+               if name == "split_finish")
+    launches.reset()
+    for name, args, kw in recorded:
         fn = getattr(dv, name)
-        a, b = _clone(args), _clone(args)
-        want, got = fn(*a), fn(*b, kern=kern)
-        _same(want if isinstance(want, tuple) else [want],
-              got if isinstance(got, tuple) else [got])
-        _same([x for x in a if torch.is_tensor(x)],
-              [y for y in b if torch.is_tensor(y)])
+        a = _clone(args)
+        want = fn(*a, **{**kw, "kern": None})
+        for build, kern in builds.items():
+            b = _clone(args)
+            got = fn(*b, **{**kw, "kern": kern})
+            _same(want if isinstance(want, tuple) else [want],
+                  got if isinstance(got, tuple) else [got])
+            _same([x for x in a if torch.is_tensor(x)],
+                  [y for y in b if torch.is_tensor(y)])
+    # the design's selection and finish one launch each; the first design's
+    # two each (the flat selection and its curved_select, the finish with
+    # its override test)
+    assert launches.LAUNCHES["split_step"] == 11 * (1 + 1) + 11 * (2 + 2)
+    assert launches.LAUNCHES["curved_select"] == 0

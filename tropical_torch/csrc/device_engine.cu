@@ -80,6 +80,11 @@ constexpr bool kCompactWords = false;
 #else
 constexpr bool kCompactWords = true;
 #endif
+#ifdef CURVED_FIRST
+constexpr bool kCurvedFirst = true;
+#else
+constexpr bool kCurvedFirst = false;
+#endif
 // the pair scan's block: kPairLanes candidates, a warp a neighbour column
 constexpr int kPairLanes = 32;
 constexpr int kPairThreads = 9 * kPairLanes;
@@ -744,7 +749,9 @@ __global__ void __launch_bounds__(kThreads) skeleton_compact_kernel(
 //   a time (their counts, up to the nearest inclusive prefix) and publishes
 //   its inclusive prefix (a decoupled look-back), while the other warps
 //   gather their split edges' V rows, outputs at idx and zero words, every
-//   load in flight.
+//   load in flight.  Its curved instance (the curved path, K4c below) also
+//   selects the curved rows from what it gathered, by a second ballot and a
+//   second look-back after the gathers.
 // - split_check: the sign override's test, a thread a row, the outputs on
 //   the row's override columns (both ends on the plane, columns < idx, and
 //   idx) loaded together; the override is a whole-step any, which the last
@@ -754,7 +761,9 @@ __global__ void __launch_bounds__(kThreads) skeleton_compact_kernel(
 //   before them); each thread applies the override to its row where the
 //   check fired (OUTn zeroed on those columns) and writes its words, E's
 //   rewrite, the right edge and, but for the final insertion, both edges'
-//   split words and last differing columns.
+//   split words and last differing columns.  On the curved path the finish
+//   runs alone on curved_filter's survivors, whose rows carry the override
+//   already (two launches a busy insertion).
 // The override fires at the final insertion of sphere-medium and -large
 // (chip_smoke.py phase 11 counts it), so it takes a launch of its own: a
 // last block applying it to every row, after a finish that wrote them
@@ -786,6 +795,8 @@ constexpr int kMaxTiles = 1 << 18;
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kInclusive = 2ull << 32;
 __device__ unsigned long long g_select_status[kMaxTiles];
+// the curved rows' status words (split_select's curved instance)
+__device__ unsigned long long g_curved_status[kMaxTiles];
 __device__ int g_select_tile;
 __device__ int g_select_done;
 // split_finish: rows a block, float4 loads a thread; split_check's blocks'
@@ -903,29 +914,31 @@ __global__ void split_append_kernel(
 
 #else  // the design
 
-__device__ __forceinline__ unsigned long long status_load(int t) {
-  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(
-             g_select_status[t])
+__device__ __forceinline__ unsigned long long status_load(
+    unsigned long long* st, int t) {
+  return cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(st[t])
       .load(cuda::std::memory_order_relaxed);
 }
 
-__device__ __forceinline__ void status_store(int t, unsigned long long v) {
-  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(
-      g_select_status[t])
+__device__ __forceinline__ void status_store(unsigned long long* st, int t,
+                                             unsigned long long v) {
+  cuda::atomic_ref<unsigned long long, cuda::thread_scope_device>(st[t])
       .store(v, cuda::std::memory_order_relaxed);
 }
 
-// warp 0 of tile t > 0: the count of the edges split before the tile, from
-// its predecessors' status words, 32 a round (lane l reads tile t - 1 - l -
-// 32 round): each word waited for, then the counts summed up to the nearest
-// inclusive prefix (the lowest such lane); before tile 0, an inclusive 0
-__device__ __forceinline__ int look_back(int t, int lane) {
+// warp 0 of tile t > 0: the count of the items flagged before the tile, from
+// its predecessors' status words in st, 32 a round (lane l reads tile t - 1 -
+// l - 32 round): each word waited for, then the counts summed up to the
+// nearest inclusive prefix (the lowest such lane); before tile 0, an
+// inclusive 0
+__device__ __forceinline__ int look_back(unsigned long long* st, int t,
+                                         int lane) {
   int before = 0;
   for (int j = t - 1;; j -= 32) {
     const int p = j - lane;
-    unsigned long long s = p >= 0 ? status_load(p) : kInclusive;
+    unsigned long long s = p >= 0 ? status_load(st, p) : kInclusive;
     while (__ballot_sync(0xFFFFFFFFu, (s >> 32) == 0u))
-      if ((s >> 32) == 0u) s = status_load(p);
+      if ((s >> 32) == 0u) s = status_load(st, p);
     const unsigned inc = __ballot_sync(0xFFFFFFFFu, (s >> 32) == 2u);
     const int stop = inc ? __ffs(static_cast<int>(inc)) - 1 : 31;
     int v = lane <= stop ? static_cast<int>(s & 0xFFFFFFFFu) : 0;
@@ -943,48 +956,92 @@ __device__ __forceinline__ int rank_tile() {
   return tile_s;
 }
 
-// warp 0 of tile t: the tile's count of flagged items published, the count
-// before the tile looked back and the inclusive count published; then lane 0
-// takes the done ticket, *last set where the tile is the last to get here.
+// warp 0 of tile t: the tile's count of flagged items published in st, the
+// count before the tile looked back and the inclusive count published.
 // Returns the count before the tile.
-__device__ __forceinline__ int tile_prefix(int tile, int total, int lane,
-                                           int* last) {
+__device__ __forceinline__ int tile_scan(unsigned long long* st, int tile,
+                                         int total, int lane) {
   if (lane == 0)
-    status_store(tile, (tile ? kAggregate : kInclusive) |
-                           static_cast<unsigned>(total));
-  const int before = tile ? look_back(tile, lane) : 0;
-  if (lane == 0) {
-    if (tile)
-      status_store(tile, kInclusive | static_cast<unsigned>(before + total));
-    // the tile's look-back and status are done: the last tile to get here
-    // returns the state to zero (rank_reset)
-    __threadfence();
-    *last = atomicAdd(&g_select_done, 1) == static_cast<int>(gridDim.x) - 1;
-  }
+    status_store(st, tile, (tile ? kAggregate : kInclusive) |
+                               static_cast<unsigned>(total));
+  const int before = tile ? look_back(st, tile, lane) : 0;
+  if (lane == 0 && tile)
+    status_store(st, tile,
+                 kInclusive | static_cast<unsigned>(before + total));
   return before;
 }
 
-// the rank state back at zero, by every thread of the last tile
-__device__ __forceinline__ void rank_reset() {
-  for (int t = threadIdx.x; t < static_cast<int>(gridDim.x); t += kThreads)
-    status_store(t, 0ull);
+// lane 0 of warp 0, once the tile's look-backs and statuses are done: the
+// done ticket, true where the tile is the last to get here (which returns
+// the state to zero, rank_reset)
+__device__ __forceinline__ bool tile_done() {
+  __threadfence();
+  return atomicAdd(&g_select_done, 1) == static_cast<int>(gridDim.x) - 1;
+}
+
+// the rank state back at zero, by every thread of the last tile (and the
+// curved rows' status words after split_select's curved instance)
+__device__ __forceinline__ void rank_reset(bool curved = false) {
+  for (int t = threadIdx.x; t < static_cast<int>(gridDim.x); t += kThreads) {
+    status_store(g_select_status, t, 0ull);
+    if (curved) status_store(g_curved_status, t, 0ull);
+  }
   if (threadIdx.x == 0) {
     g_select_tile = 0;
     g_select_done = 0;
   }
 }
 
+// the count words (tropical_torch/extract/device.py CW_*)
+constexpr int CW_CURVED = 0, CW_NOPLANE = 1, CW_SENT = 2, CW_GD = 3,
+              CW_ANYD0 = 4, CW_KEPT = 5, CW_DROPS = 6;
+// a curved row's state for the filter (CV_*): curved, root out of range,
+// residual at the plane not inside the eps band
+constexpr int CV_CURVED = 1, CV_GG = 2, CV_OFF = 4;
+
+// one warp's count of pred added to *dst
+__device__ __forceinline__ void warp_count(bool pred, int* dst) {
+  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
+  if ((threadIdx.x & 31) == 0 && m) atomicAdd(dst, __popc(m));
+}
+
+// a curved row's earlier plane: the highest column below idx zero at both
+// ends (in its shared zero words z), -1 for none
+__device__ __forceinline__ int plane_below(const int* z, int idx) {
+  for (int w = NW - 1; w >= 0; --w) {
+    const int lo = idx - 32 * w;  // the columns of word w below idx
+    const unsigned below =
+        static_cast<unsigned>(z[w]) &
+        (lo >= 32 ? ~0u : (lo <= 0 ? 0u : (1u << lo) - 1u));
+    if (below) return 32 * w + 31 - __clz(static_cast<int>(below));
+  }
+  return -1;
+}
+
 // lanes, ce, Vn, bz [n_split, ...]: the split edges' lanes, ends, new
-// vertices and shared zero words, in edge order (split_lerp's outputs)
+// vertices and shared zero words, in edge order (split_lerp's outputs).
+// The curved instance (K4c's selection, curved_select's outputs) also
+// flags each split edge whose ends differ by more than eps in two or more
+// coordinates, from the ends' rows and zero words it gathered for the
+// lerp, and ranks the curved rows by a second ballot and a second look-back
+// on status words of their own, published after the gathers: their slots,
+// earlier planes, ends and corners [n_split, ...] in slot order, the first
+// cw[CW_CURVED] set; a curved row on no earlier plane is counted into
+// cw[CW_NOPLANE] (the caller raises)
+template <bool kCurved>
 __global__ void __launch_bounds__(kThreads) split_select_kernel(
     const int* __restrict__ E, const int* __restrict__ EB, int n,
     const float* __restrict__ V, const float* __restrict__ OUT,
-    const int* __restrict__ ZB, int idx, int* __restrict__ lanes,
-    int* __restrict__ ce, float* __restrict__ Vn, int* __restrict__ bz) {
-  // (round, warp) counts, then their exclusive prefix within the tile
+    const int* __restrict__ ZB, int idx, float eps, int* __restrict__ lanes,
+    int* __restrict__ ce, float* __restrict__ Vn, int* __restrict__ bz,
+    int* __restrict__ qs, int* __restrict__ plane, float* __restrict__ e01,
+    float* __restrict__ corners, int* __restrict__ cw) {
+  // (round, warp) counts, then their exclusive prefix within the tile; the
+  // same of the curved rows
   constexpr int kCounts = kSelectItems * kThreads / 32;
   __shared__ int counts[kCounts];
-  __shared__ int base_s, last_s;
+  __shared__ int ccounts[kCounts];
+  __shared__ int base_s, last_s, cbase_s, cincl_s;
   static_assert(kCounts <= 32, "a count a lane");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tile = rank_tile();
@@ -1012,8 +1069,12 @@ __global__ void __launch_bounds__(kThreads) split_select_kernel(
     const int inc = warp_scan(c, lane);
     if (lane < kCounts) counts[lane] = inc - c;
     const int total = __shfl_sync(0xFFFFFFFFu, inc, 31);
-    const int before = tile_prefix(tile, total, lane, &last_s);
-    if (lane == 0) base_s = before;
+    // the curved instance takes its done ticket after the second look-back
+    const int before = tile_scan(g_select_status, tile, total, lane);
+    if (lane == 0) {
+      base_s = before;
+      if (!kCurved) last_s = tile_done();
+    }
   }
   // the split edges' rows, every load in flight, while warp 0 looks back
   bool split[kSelectItems];
@@ -1033,20 +1094,96 @@ __global__ void __launch_bounds__(kThreads) split_select_kernel(
     }
     for (int k = 0; k < NW; ++k) z[i][k] = ZB[NW * a + k] & ZB[NW * b + k];
   }
+  // the curved instance: each split edge's curved flag and earlier plane
+  // (curved_select's), from the rows just gathered, and their ballots
+  bool curved[kSelectItems] = {};
+  int pl[kSelectItems] = {};
+  unsigned cmask[kSelectItems] = {};
+  if constexpr (kCurved) {
+#pragma unroll
+    for (int i = 0; i < kSelectItems; ++i) {
+      if (split[i]) {
+        int dif = 0;
+        for (int d = 0; d < 3; ++d)
+          dif += fabsf(__fsub_rn(vb[i][d], va[i][d])) > eps;
+        curved[i] = dif > 1;
+        pl[i] = plane_below(z[i], idx);
+      }
+      cmask[i] = __ballot_sync(0xFFFFFFFFu, curved[i]);
+      if (lane == 0) ccounts[i * (kThreads / 32) + warp] = __popc(cmask[i]);
+      warp_count(curved[i] && pl[i] < 0, cw + CW_NOPLANE);
+    }
+  }
   __syncthreads();
+  if constexpr (kCurved) {
+    // the curved rows' look-back, while the other warps write their rows
+    if (warp == 0) {
+      const int c = lane < kCounts ? ccounts[lane] : 0;
+      const int inc = warp_scan(c, lane);
+      if (lane < kCounts) ccounts[lane] = inc - c;
+      const int total = __shfl_sync(0xFFFFFFFFu, inc, 31);
+      const int before = tile_scan(g_curved_status, tile, total, lane);
+      if (lane == 0) {
+        cbase_s = before;
+        cincl_s = before + total;
+        last_s = tile_done();
+      }
+    }
+  }
   const unsigned below = (1u << lane) - 1u;
+  int slot[kSelectItems] = {};
 #pragma unroll
   for (int i = 0; i < kSelectItems; ++i) {
     if (!split[i]) continue;
     const int s = base_s + counts[i * (kThreads / 32) + warp] +
                   __popc(mask[i] & below);
+    slot[i] = s;
     lanes[s] = e0 + i * kThreads;
     ce[2 * s] = ends[i].x;
     ce[2 * s + 1] = ends[i].y;
     lerp_vertex(d0[i], d1[i], va[i], vb[i], Vn + 3 * s);
     for (int k = 0; k < NW; ++k) bz[NW * s + k] = z[i][k];
   }
-  if (last_s) rank_reset();
+  if constexpr (kCurved) {
+    // the tile's curved rows by their rank within it, through shared
+    // memory: their slots, planes and ends; then the tile's block of each
+    // output (consecutive ranks) written a value a thread, so that a warp's
+    // stores are contiguous (a curved row's 32 values stored by its own
+    // thread, at a 96-byte stride, measured slower on an H100)
+    __shared__ int cslot_s[kSelectTile], cplane_s[kSelectTile];
+    __shared__ float cends_s[6 * kSelectTile];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kSelectItems; ++i) {
+      if (!curved[i]) continue;
+      const int r = ccounts[i * (kThreads / 32) + warp] +
+                    __popc(cmask[i] & below);
+      cslot_s[r] = slot[i];
+      cplane_s[r] = pl[i];
+      for (int d = 0; d < 3; ++d) {
+        cends_s[6 * r + d] = va[i][d];
+        cends_s[6 * r + 3 + d] = vb[i][d];
+      }
+    }
+    __syncthreads();
+    const int base = cbase_s, cnt = cincl_s - cbase_s;
+    for (int q = threadIdx.x; q < cnt; q += kThreads) {
+      qs[base + q] = cslot_s[q];
+      plane[base + q] = cplane_s[q];
+    }
+    for (int q = threadIdx.x; q < 6 * cnt; q += kThreads)
+      e01[6 * static_cast<ll>(base) + q] = cends_s[q];
+    // corner 4 i + 2 j + k = (x_k, y_j, z_i): coordinate d from end
+    // (corner >> d) & 1
+    for (int q = threadIdx.x; q < 24 * cnt; q += kThreads) {
+      const int r = q / 24, c = q - 24 * r, corner = c / 3, d = c - 3 * corner;
+      corners[24 * static_cast<ll>(base) + q] =
+          cends_s[6 * r + 3 * ((corner >> d) & 1) + d];
+    }
+    if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
+      cw[CW_CURVED] = cincl_s;
+  }
+  if (last_s) rank_reset(kCurved);
 }
 
 // the override's columns of a row, as words: both ends on the plane
@@ -1059,6 +1196,32 @@ __device__ __forceinline__ void override_mask(const int* __restrict__ bz,
     const unsigned at = lo >= 0 && lo < 32 ? 1u << lo : 0u;
     m[w] = (static_cast<unsigned>(bz[w]) & under) | at;
   }
+}
+
+// rows s0 .. s0 + kFinishRows - 1 of OUTn (fewer at its end) into staged:
+// float4 loads, every load in flight, then the stores (16-byte aligned:
+// OUTn is, and s0 R floats with s0 a multiple of 256); all the block's
+// threads, which then meet at a barrier
+__device__ __forceinline__ void stage_rows(const float* __restrict__ OUTn,
+                                           int s0, int n, float4* staged) {
+  const int r = threadIdx.x;
+  const int nr = min(kFinishRows, n - s0);
+  const float* src = OUTn + static_cast<ll>(s0) * R;
+  const int nf = nr * R, n4 = nf >> 2;
+  float4 v[kFinishLoads];
+#pragma unroll
+  for (int k = 0; k < kFinishLoads; ++k) {
+    const int q = r + k * kFinishRows;
+    if (q < n4) v[k] = reinterpret_cast<const float4*>(src)[q];
+  }
+#pragma unroll
+  for (int k = 0; k < kFinishLoads; ++k) {
+    const int q = r + k * kFinishRows;
+    if (q < n4) staged[q] = v[k];
+  }
+  for (int q = 4 * n4 + r; q < nf; q += kFinishRows)
+    reinterpret_cast<float*>(staged)[q] = src[q];
+  __syncthreads();
 }
 
 // the sign override's test (split_override): a thread a row, the outputs
@@ -1099,15 +1262,17 @@ __global__ void __launch_bounds__(kThreads) split_check_kernel(
 
 // the override (where the check fired), the new vertices' words and the
 // edges (split_append's outputs); EB, LD, EBr and LDr null at the final
-// insertion
+// insertion.  Without checked the rows are curved_filter's survivors,
+// which carry the override already: it is not applied (g_finish_fire is
+// not read)
 __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
     float* OUTn, const int* __restrict__ bz, const int* __restrict__ lanes,
     const int* __restrict__ ce, int* E, int* EB, int* LD,
     const int* __restrict__ SB, const int* __restrict__ ZB, int n, int nV,
     int idx, float eps, int* sbn, int* zbn, int* szn, int* Er, int* EBr,
-    int* LDr) {
+    int* LDr, int checked) {
   __shared__ float4 staged[kFinishRows * R / 4];
-  const bool fire = g_finish_fire;
+  const bool fire = checked && g_finish_fire;
   const int r = threadIdx.x, s0 = blockIdx.x * kFinishRows, s = s0 + r;
   const bool mine = s < n;
   // the row's edge, ends and their words, independent of OUTn: first
@@ -1126,24 +1291,7 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
       zb[k] = ZB[NW * b + k];
     }
   }
-  // the block's rows: 16-byte aligned (s0 R floats, s0 a multiple of 256)
-  const int nr = min(kFinishRows, n - s0);
-  const float* src = OUTn + static_cast<ll>(s0) * R;
-  const int nf = nr * R, n4 = nf >> 2;
-  float4 v[kFinishLoads];  // every load in flight, then the stores
-#pragma unroll
-  for (int k = 0; k < kFinishLoads; ++k) {
-    const int q = r + k * kFinishRows;
-    if (q < n4) v[k] = reinterpret_cast<const float4*>(src)[q];
-  }
-#pragma unroll
-  for (int k = 0; k < kFinishLoads; ++k) {
-    const int q = r + k * kFinishRows;
-    if (q < n4) staged[q] = v[k];
-  }
-  for (int q = 4 * n4 + r; q < nf; q += kFinishRows)
-    reinterpret_cast<float*>(staged)[q] = src[q];
-  __syncthreads();
+  stage_rows(OUTn, s0, n, staged);
   if (!mine) return;
   float* o = reinterpret_cast<float*>(staged) + r * R;
   for (int w = 0; w < NW; ++w)
@@ -1178,14 +1326,15 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
 // :564-715), as the port's host engine computes it (extract/subdivide.py
 // _curved_intersections, extract/failover.py gradient_descent_failover and
 // strict_check), around K4's selection and finish, the net's forwards (K1)
-// and the root solve (K7).  Four kernels, seven launches at a busy insertion
-// with curved rows, three without:
-// - curved_select (1): a split edge is curved when its ends differ by more
-//   than eps in two or more coordinates; its earlier plane is the highest
-//   column below idx zero at both ends (the selection's shared zero words);
-//   the curved rows, compacted in edge order into a side buffer: their
-//   slots, planes, ends and the 8 corners of their boxes (z-major, corner
-//   4 i + 2 j + k = (x_k, y_j, z_i)); a curved row on no earlier plane is
+// and the root solve (K7).  Bound by bytes: the filter's survivors' rows
+// (132 bytes each, read and written) are most of them.  The design, six
+// launches at a busy insertion with curved rows, two without:
+// - the selection, inside split_select's curved instance (above): a split
+//   edge is curved when its ends differ by more than eps in two or more
+//   coordinates; its earlier plane is the highest column below idx zero at
+//   both ends (the selection's shared zero words); the curved rows,
+//   compacted in edge order into a side buffer: their slots, planes, ends
+//   and the 8 corners of their boxes; a curved row on no earlier plane is
 //   counted, and the caller raises;
 // - curved_pick (1): the corner forward's columns at each row's plane and at
 //   idx, K7's p and q;
@@ -1198,31 +1347,43 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
 //   rescued roots and residuals taken back, each curved row's vertex
 //   e0 + t (e1 - e0) over the lerp, and its state for the filter;
 // - curved_filter (2): the sign override's test over every split row
-//   (split_check), then the strict filter (a flat row on the surface at idx; a curved row on it,
-//   in range and, when any curved residual at the plane is off the eps
-//   band, its own within it) and the survivors compacted in edge order,
-//   the override applied, for K4's finish.
+//   (split_check, whose predicated loads touch only the sectors of a row's
+//   override columns: a block staging its rows whole measured slower on an
+//   H100), then curved_keep: a tile
+//   of 256 rows, one contiguous range of OUTn, staged in shared memory by
+//   float4 loads (split_finish's scheme), the override applied where it
+//   fired, the strict filter (a flat row on the surface at idx; a curved
+//   row on it, in range and, when any curved residual at the plane is off
+//   the eps band, its own within it) and the survivors compacted in edge
+//   order.  A tile's survivors take consecutive ranks, so its rows are
+//   written as one contiguous block of the output, a float a thread.  K4's
+//   finish then runs on the survivors without a test of its own (it cannot
+//   fire).
 // Every compaction ranks a thread's item in one pass: ballots within a
 // tile of kThreads, a decoupled look-back across tiles, each tile's id from
 // a counter (split_select's scheme and state, which the last block returns
-// to zero; the launches of one stream do not overlap).  The counts go to the step's count words (cw,
-// zeroed by the caller), which the caller reads: the curved rows and those
-// on no plane, the sentinels and rescued rows, the survivors and dropped
-// curved rows.  Floats are rounded an operation at a time (no FMA), in the
-// host engine's order.
-
-// the count words (tropical_torch/extract/device.py CW_*)
-constexpr int CW_CURVED = 0, CW_NOPLANE = 1, CW_SENT = 2, CW_GD = 3,
-              CW_ANYD0 = 4, CW_KEPT = 5, CW_DROPS = 6;
-// a curved row's state for the filter (CV_*): curved, root out of range,
-// residual at the plane not inside the eps band
-constexpr int CV_CURVED = 1, CV_GG = 2, CV_OFF = 4;
+// to zero; the launches of one stream do not overlap).  The counts go to
+// the step's count words (cw, zeroed by the caller), which the caller
+// reads: the curved rows and those on no plane, the sentinels and rescued
+// rows, the survivors and dropped curved rows.  Floats are rounded an
+// operation at a time (no FMA), in the host engine's order.
+// The first design (-DCURVED_FIRST, cuda_build.CURVED_FIRST), seven
+// launches at a busy insertion with curved rows, three without:
+// curved_select, a pass of its own over the split rows (each row's ends
+// and their V rows gathered again, a tile of 256, a curved row's 32 values
+// stored by its thread); curved_keep a thread a row, a survivor's 33
+// floats copied by its thread at a 132-byte stride; and K4's finish with
+// its own split_check.  It takes the design's launch functions
+// (split_select_curved_launch runs the flat selection and curved_select,
+// split_finish_launch always tests), so the engine has one route.
 
 // the rank of the thread's item among the launch's flagged items (tiles in
 // id order, a tile's threads in order), valid where flag; *incl: the
-// flagged items of tiles 0..tile.  Every thread of every block calls it
-// once; the last block to finish its look-back returns the state to zero.
-__device__ __forceinline__ int rank_flag(int tile, bool flag, int* incl) {
+// flagged items of tiles 0..tile, *base: those of tiles before it.  Every
+// thread of every block calls it once; the last block to finish its
+// look-back returns the state to zero.
+__device__ __forceinline__ int rank_flag(int tile, bool flag, int* incl,
+                                         int* base = nullptr) {
   constexpr int kWarps = kThreads / 32;
   __shared__ int counts[kWarps];
   __shared__ int base_s, incl_s, last_s;
@@ -1235,29 +1396,65 @@ __device__ __forceinline__ int rank_flag(int tile, bool flag, int* incl) {
     const int inc = warp_scan(c, lane);
     if (lane < kWarps) counts[lane] = inc - c;
     const int total = __shfl_sync(0xFFFFFFFFu, inc, 31);
-    const int before = tile_prefix(tile, total, lane, &last_s);
+    const int before = tile_scan(g_select_status, tile, total, lane);
     if (lane == 0) {
       base_s = before;
       incl_s = before + total;
+      last_s = tile_done();
     }
   }
   __syncthreads();
   *incl = incl_s;
+  if (base != nullptr) *base = base_s;
   const int r = base_s + counts[warp] + __popc(mask & ((1u << lane) - 1u));
   if (last_s) rank_reset();
   return r;
-}
-
-// one warp's count of pred added to *dst
-__device__ __forceinline__ void warp_count(bool pred, int* dst) {
-  const unsigned m = __ballot_sync(0xFFFFFFFFu, pred);
-  if ((threadIdx.x & 31) == 0 && m) atomicAdd(dst, __popc(m));
 }
 
 __device__ __forceinline__ bool out_of_range(const float* t) {
   bool gg = false;
   for (int d = 0; d < 3; ++d) gg |= t[d] < 0.0f || t[d] > 1.0f;
   return gg;
+}
+
+// a split row's strict filter (``st`` its CV_* state, ``chk`` its output at
+// idx, the override applied)
+__device__ __forceinline__ bool strict_keep(int st, float chk, float eps,
+                                            bool anyd0) {
+  const bool on = fabsf(chk) < eps;
+  return st & CV_CURVED
+             ? on && !(st & CV_GG) && (!(st & CV_OFF) || !anyd0)
+             : on;
+}
+
+#ifdef CURVED_FIRST
+
+// a curved row's outputs at rank r: its slot s, plane, ends (v0, v1) and
+// the 8 corners of its box (z-major, corner 4 i + 2 j + k = (x_k, y_j, z_i))
+__device__ __forceinline__ void curved_row(int r, int s, int pl,
+                                           const float* v0, const float* v1,
+                                           int* qs, int* plane, float* e01,
+                                           float* corners) {
+  const float* v[2] = {v0, v1};
+  qs[r] = s;
+  plane[r] = pl;
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      e01[6 * static_cast<ll>(r) + 3 * e + d] = v[e][d];
+  float* c = corners + 24 * static_cast<ll>(r);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float* p = c + 3 * (4 * i + 2 * j + k);
+        p[0] = v[k][0];
+        p[1] = v[j][1];
+        p[2] = v[i][2];
+      }
 }
 
 // qs, plane [n]: the curved rows' slots and earlier planes, in slot order;
@@ -1280,36 +1477,121 @@ __global__ void __launch_bounds__(kThreads) curved_select_kernel(
       dif += fabsf(__fsub_rn(v[1][d], v[0][d])) > eps;
     }
     curved = dif > 1;
-    for (int w = NW - 1; w >= 0 && pl < 0; --w) {
-      const int lo = idx - 32 * w;  // the columns of word w below idx
-      const unsigned below =
-          static_cast<unsigned>(bz[NW * s + w]) &
-          (lo >= 32 ? ~0u : (lo <= 0 ? 0u : (1u << lo) - 1u));
-      if (below) pl = 32 * w + 31 - __clz(static_cast<int>(below));
-    }
+    pl = plane_below(bz + NW * s, idx);
   }
   warp_count(curved && pl < 0, cw + CW_NOPLANE);
   int incl;
   const int r = rank_flag(tile, curved, &incl);
-  if (curved) {
-    qs[r] = s;
-    plane[r] = pl;
-    for (int e = 0; e < 2; ++e)
-      for (int d = 0; d < 3; ++d)
-        e01[6 * static_cast<ll>(r) + 3 * e + d] = v[e][d];
-    float* c = corners + 24 * static_cast<ll>(r);
-    for (int i = 0; i < 2; ++i)
-      for (int j = 0; j < 2; ++j)
-        for (int k = 0; k < 2; ++k) {
-          float* p = c + 3 * (4 * i + 2 * j + k);
-          p[0] = v[k][0];
-          p[1] = v[j][1];
-          p[2] = v[i][2];
-        }
-  }
+  if (curved) curved_row(r, s, pl, v[0], v[1], qs, plane, e01, corners);
   if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
     cw[CW_CURVED] = incl;
 }
+
+// the survivors of the strict filter, in slot order: their vertices, outputs
+// (the override applied where it fired), shared zero words, lanes and ends
+__global__ void __launch_bounds__(kThreads) curved_keep_kernel(
+    const float* __restrict__ OUTn, const int* __restrict__ bz,
+    const int* __restrict__ lanes, const int* __restrict__ ce,
+    const float* __restrict__ Vn, const int* __restrict__ cstate, int n,
+    int idx, float eps, int* cw, float* Vs, float* OUTs, int* bzs,
+    int* lanes_s, int* ces) {
+  const int tile = rank_tile();
+  const int s = tile * kThreads + threadIdx.x;
+  const bool fire = g_finish_fire, anyd0 = cw[CW_ANYD0] != 0;
+  bool keep = false, curved = false;
+  if (s < n) {
+    const int st = cstate[s];
+    curved = st & CV_CURVED;
+    keep = strict_keep(st, fire ? 0.0f : OUTn[R * static_cast<ll>(s) + idx],
+                       eps, anyd0);
+  }
+  warp_count(curved && !keep, cw + CW_DROPS);
+  int incl;
+  const int r = rank_flag(tile, keep, &incl);
+  if (keep) {
+    unsigned m[NW] = {0u, 0u};
+    if (fire) override_mask(bz + NW * s, idx, m);
+    const float* o = OUTn + R * static_cast<ll>(s);
+    float* os = OUTs + R * static_cast<ll>(r);
+    for (int c = 0; c < R; ++c)
+      os[c] = (m[c >> 5] >> (c & 31)) & 1u ? 0.0f : o[c];
+    for (int d = 0; d < 3; ++d)
+      Vs[3 * static_cast<ll>(r) + d] = Vn[3 * static_cast<ll>(s) + d];
+    for (int k = 0; k < NW; ++k) bzs[NW * r + k] = bz[NW * s + k];
+    lanes_s[r] = lanes[s];
+    ces[2 * r] = ce[2 * s];
+    ces[2 * r + 1] = ce[2 * s + 1];
+  }
+  if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
+    cw[CW_KEPT] = incl;
+}
+
+#else  // the design
+
+// the survivors of the strict filter, in slot order: their vertices, outputs
+// (the override applied where it fired), shared zero words, lanes and ends.
+// A tile of kFinishRows rows (its id from the counter) stages its rows of
+// OUTn, and loads each row's state, words, lane, ends and vertex, before it
+// ranks; its survivors' rows then go out as one contiguous block of OUTs,
+// a float a thread, and each survivor's small outputs from its thread.
+__global__ void __launch_bounds__(kFinishRows) curved_keep_kernel(
+    const float* __restrict__ OUTn, const int* __restrict__ bz,
+    const int* __restrict__ lanes, const int* __restrict__ ce,
+    const float* __restrict__ Vn, const int* __restrict__ cstate, int n,
+    int idx, float eps, int* cw, float* Vs, float* OUTs, int* bzs,
+    int* lanes_s, int* ces) {
+  static_assert(kFinishRows == kThreads, "rank_flag's tile");
+  __shared__ float4 staged[kFinishRows * R / 4];
+  __shared__ int kept_s[kFinishRows];  // a survivor's row within the tile
+  const int tile = rank_tile();
+  const int r = threadIdx.x, s0 = tile * kFinishRows, s = s0 + r;
+  const bool mine = s < n;
+  const bool fire = g_finish_fire, anyd0 = cw[CW_ANYD0] != 0;
+  int st = 0, lane = 0, z[NW] = {}, e[2] = {};
+  float v[3] = {};
+  if (mine) {
+    st = cstate[s];
+    lane = lanes[s];
+    for (int w = 0; w < NW; ++w) z[w] = bz[NW * s + w];
+    e[0] = ce[2 * s];
+    e[1] = ce[2 * s + 1];
+    for (int d = 0; d < 3; ++d) v[d] = Vn[3 * s + d];
+  }
+  stage_rows(OUTn, s0, n, staged);
+  float* rows = reinterpret_cast<float*>(staged);
+  bool keep = false;
+  if (mine) {
+    unsigned m[NW] = {0u, 0u};
+    if (fire) override_mask(z, idx, m);
+    for (int w = 0; w < NW; ++w)
+      for (unsigned u = m[w]; u; u &= u - 1u)
+        rows[r * R + 32 * w + __ffs(static_cast<int>(u)) - 1] = 0.0f;
+    keep = strict_keep(st, rows[r * R + idx], eps, anyd0);
+  }
+  warp_count((st & CV_CURVED) && !keep, cw + CW_DROPS);
+  int incl, base;
+  const int k = rank_flag(tile, keep, &incl, &base);
+  if (keep) {
+    kept_s[k - base] = r;
+    for (int d = 0; d < 3; ++d) Vs[3 * static_cast<ll>(k) + d] = v[d];
+    for (int w = 0; w < NW; ++w) bzs[NW * k + w] = z[w];
+    ces[2 * k] = e[0];
+    ces[2 * k + 1] = e[1];
+    lanes_s[k] = lane;
+  }
+  __syncthreads();
+  // a float a thread a round, four rounds unrolled (the loop rolled, and
+  // all R rounds unrolled, measured slower on an H100)
+  float* dst = OUTs + static_cast<ll>(base) * R;
+#pragma unroll 4
+  for (int q = r; q < (incl - base) * R; q += kFinishRows) {
+    const int j = q / R;
+    dst[q] = rows[kept_s[j] * R + q - j * R];
+  }
+  if (tile == static_cast<int>(gridDim.x) - 1 && r == 0) cw[CW_KEPT] = incl;
+}
+
+#endif  // CURVED_FIRST
 
 // p, q [n, 8]: the corner outputs d [n, 8, R] at each row's plane and at idx
 __global__ void curved_pick_kernel(const float* __restrict__ d,
@@ -1397,46 +1679,6 @@ __global__ void curved_mix_kernel(const int* __restrict__ qs,
   }
   cstate[s] = CV_CURVED | (gg ? CV_GG : 0) | (fabsf(d0) < eps ? 0 : CV_OFF);
   if (fabsf(d0) > eps) cw[CW_ANYD0] = 1;  // every writer writes 1
-}
-
-// the survivors of the strict filter, in slot order: their vertices, outputs
-// (the override applied where it fired), shared zero words, lanes and ends
-__global__ void __launch_bounds__(kThreads) curved_keep_kernel(
-    const float* __restrict__ OUTn, const int* __restrict__ bz,
-    const int* __restrict__ lanes, const int* __restrict__ ce,
-    const float* __restrict__ Vn, const int* __restrict__ cstate, int n,
-    int idx, float eps, int* cw, float* Vs, float* OUTs, int* bzs,
-    int* lanes_s, int* ces) {
-  const int tile = rank_tile();
-  const int s = tile * kThreads + threadIdx.x;
-  const bool fire = g_finish_fire, anyd0 = cw[CW_ANYD0] != 0;
-  bool keep = false, curved = false;
-  if (s < n) {
-    const float chk = fire ? 0.0f : OUTn[R * static_cast<ll>(s) + idx];
-    const bool on = fabsf(chk) < eps;
-    const int st = cstate[s];
-    curved = st & CV_CURVED;
-    keep = curved ? on && !(st & CV_GG) && (!(st & CV_OFF) || !anyd0) : on;
-  }
-  warp_count(curved && !keep, cw + CW_DROPS);
-  int incl;
-  const int r = rank_flag(tile, keep, &incl);
-  if (keep) {
-    unsigned m[NW] = {0u, 0u};
-    if (fire) override_mask(bz + NW * s, idx, m);
-    const float* o = OUTn + R * static_cast<ll>(s);
-    float* os = OUTs + R * static_cast<ll>(r);
-    for (int c = 0; c < R; ++c)
-      os[c] = (m[c >> 5] >> (c & 31)) & 1u ? 0.0f : o[c];
-    for (int d = 0; d < 3; ++d)
-      Vs[3 * static_cast<ll>(r) + d] = Vn[3 * static_cast<ll>(s) + d];
-    for (int k = 0; k < NW; ++k) bzs[NW * r + k] = bz[NW * s + k];
-    lanes_s[r] = lanes[s];
-    ces[2 * r] = ce[2 * s];
-    ces[2 * r + 1] = ce[2 * s + 1];
-  }
-  if (tile == static_cast<int>(gridDim.x) - 1 && threadIdx.x == 0)
-    cw[CW_KEPT] = incl;
 }
 
 #endif  // SPLIT_FOUR_PASS
@@ -1966,47 +2208,73 @@ int split_select_launch(const int* E, const int* EB, ll n, const float* V,
                         int* ce, float* Vn, int* bz, cudaStream_t stream) {
   const ll tiles = (n + kSelectTile - 1) / kSelectTile;
   if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
-  split_select_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
-      E, EB, static_cast<int>(n), V, OUT, ZB, static_cast<int>(idx), lanes,
-      ce, Vn, bz);
+  split_select_kernel<false><<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      E, EB, static_cast<int>(n), V, OUT, ZB, static_cast<int>(idx), 0.0f,
+      lanes, ce, Vn, bz, nullptr, nullptr, nullptr, nullptr, nullptr);
   return done();
 }
 
 // OUTn [n, R], 16-byte aligned; EB, LD, EBr and LDr null at the final
-// insertion: split_check, then split_finish
+// insertion: split_check, then split_finish; without check (curved_filter's
+// survivors, which carry the override already) split_finish alone, but in
+// K4c's first design, which tests them again
 int split_finish_launch(float* OUTn, const int* bz, const int* lanes,
                         const int* ce, int* E, int* EB, int* LD, const int* SB,
                         const int* ZB, ll n, ll nV, ll idx, float eps,
                         int* sbn, int* zbn, int* szn, int* Er, int* EBr,
-                        int* LDr, cudaStream_t stream) {
+                        int* LDr, ll check, cudaStream_t stream) {
   if (reinterpret_cast<unsigned long long>(OUTn) % 16 != 0 ||
       (nV + n) * R >= (1LL << 31))
     return -static_cast<int>(cudaErrorInvalidValue);
-  split_check_kernel<<<blocks(n), kThreads, 0, stream>>>(
-      OUTn, bz, static_cast<int>(n), static_cast<int>(idx), eps);
-  const int rc = done();
-  if (rc < 0) return rc;
+  check = check || kCurvedFirst;
+  if (check) {
+    split_check_kernel<<<blocks(n), kThreads, 0, stream>>>(
+        OUTn, bz, static_cast<int>(n), static_cast<int>(idx), eps);
+    const int rc = done();
+    if (rc < 0) return rc;
+  }
   split_finish_kernel<<<static_cast<int>((n + kFinishRows - 1) / kFinishRows),
                         kFinishRows, 0, stream>>>(
       OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, static_cast<int>(n),
       static_cast<int>(nV), static_cast<int>(idx), eps, sbn, zbn, szn, Er,
-      EBr, LDr);
-  return done(2);
+      EBr, LDr, check ? 1 : 0);
+  return done(check ? 2 : 1);
 }
 
-// K4c (the design's build alone): n the split rows (curved_select,
-// curved_filter), the curved rows (curved_pick, curved_points, curved_gd,
+// K4c (without SPLIT_FOUR_PASS): n the split rows (the selection,
+// curved_filter) or the curved rows (curved_pick, curved_points, curved_gd,
 // curved_mix), each rank at most kMaxTiles tiles
 
-int curved_select_launch(const int* ce, const int* bz, const float* V, ll n,
-                         ll idx, float eps, int* qs, int* plane, float* e01,
-                         float* corners, int* cw, cudaStream_t stream) {
-  const ll tiles = (n + kThreads - 1) / kThreads;
+// split_select with the curved rows of its n_split split edges (qs, plane,
+// e01, corners: [n_split, ...], the first cw[CW_CURVED] set): the curved
+// instance; in K4c's first design the flat one, then curved_select on its
+// rows (two launches)
+int split_select_curved_launch(const int* E, const int* EB, ll n, ll n_split,
+                               const float* V, const float* OUT, const int* ZB,
+                               ll idx, float eps, int* lanes, int* ce,
+                               float* Vn, int* bz, int* qs, int* plane,
+                               float* e01, float* corners, int* cw,
+                               cudaStream_t stream) {
+  const ll tiles = (n + kSelectTile - 1) / kSelectTile;
   if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
-  curved_select_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
-      ce, bz, V, static_cast<int>(n), static_cast<int>(idx), eps, qs, plane,
-      e01, corners, cw);
+#ifdef CURVED_FIRST
+  if ((n_split + kThreads - 1) / kThreads > kMaxTiles)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const int rc = split_select_launch(E, EB, n, V, OUT, ZB, idx, lanes, ce, Vn,
+                                     bz, stream);
+  if (rc < 0 || n_split <= 0) return rc;
+  curved_select_kernel<<<static_cast<int>((n_split + kThreads - 1) /
+                                          kThreads),
+                         kThreads, 0, stream>>>(
+      ce, bz, V, static_cast<int>(n_split), static_cast<int>(idx), eps, qs,
+      plane, e01, corners, cw);
+  return done(2);
+#else
+  split_select_kernel<true><<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      E, EB, static_cast<int>(n), V, OUT, ZB, static_cast<int>(idx), eps,
+      lanes, ce, Vn, bz, qs, plane, e01, corners, cw);
   return done();
+#endif
 }
 
 int curved_pick_launch(const float* d, const int* plane, ll n, ll idx,
@@ -2044,14 +2312,18 @@ int curved_mix_launch(const int* qs, const float* e01, const float* ints,
   return done();
 }
 
-// split_check, then curved_keep (split_check's verdict)
+// split_check, then curved_keep (its verdict); OUTn [n, R], 16-byte aligned
+// but in the first design
 int curved_filter_launch(const float* OUTn, const int* bz, const int* lanes,
                          const int* ce, const float* Vn, const int* cstate,
                          ll n, ll idx, float eps, int* cw, float* Vs,
                          float* OUTs, int* bzs, int* lanes_s, int* ces,
                          cudaStream_t stream) {
   const ll tiles = (n + kThreads - 1) / kThreads;
-  if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
+  if (tiles > kMaxTiles ||
+      (!kCurvedFirst && (reinterpret_cast<unsigned long long>(OUTn) % 16 != 0 ||
+                         n * R >= (1LL << 31))))
+    return -static_cast<int>(cudaErrorInvalidValue);
   split_check_kernel<<<blocks(n), kThreads, 0, stream>>>(
       OUTn, bz, static_cast<int>(n), static_cast<int>(idx), eps);
   const int rc = done();

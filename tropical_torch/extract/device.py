@@ -70,8 +70,9 @@ tensor takes the plain version, a CUDA tensor the kernel.
   first design's stages ``split_mark`` (the split bit test),
   ``split_cumsum``, ``split_lerp``, ``split_override`` and
   ``split_append`` run in a build of it alone;
-- K4c, the curved insertion: ``curved_select`` (the curved rows,
-  compacted in slot order with their planes, ends and corner points),
+- K4c, the curved insertion: the curved rows (``split_select``'s curved
+  instance: compacted in slot order with their planes, ends and corner
+  points),
   ``curved_pick`` (K7's p and q from the corner forward),
   ``curved_resolve`` (``curved_points``, ``curved_gd``: the residuals, the
   sentinels and the rescue's rows; ``curved_mix``: the rescue taken back,
@@ -635,23 +636,41 @@ def split_select_plain(E, EB, V, OUT, ZB, idx: int, n_split: int):
 
 
 def split_select(E, EB, V, OUT, ZB, idx: int, n_split: int,
+                 eps: float | None = None, cw=None,
                  kern: Kernels | None = None):
     """The ``n_split`` edges plane ``idx`` splits (their split bit in
     ``EB``), in edge order: (their lanes [S] int32, ends [S, 2], new
     vertices [S, 3] at the linear interpolation of plane ``idx``'s outputs,
     the ends' shared zero words [S, NW]), as ``split_lerp`` of
     ``split_mark``'s prefix sum.  The kernel ranks the edges in one pass
-    (ballots within a tile of 512, a decoupled look-back across tiles)."""
+    (ballots within a tile of 512, a decoupled look-back across tiles).
+    Given the curved path's count words ``cw`` (and ``eps``), also the
+    curved rows of the selection, as ``curved_select_plain`` of it:
+    (slots, planes, ends, corners) after the four, counted into ``cw``;
+    the kernel's curved instance selects them in the same pass (a second
+    ballot and look-back), its outputs of the split rows' length.  (A
+    build of K4c's first design launches the flat instance, then a
+    selection pass of its own.)"""
     run = _run(kern, E.device)
     if run is None:
-        return split_select_plain(E, EB, V, OUT, ZB, idx, n_split)
+        sel = split_select_plain(E, EB, V, OUT, ZB, idx, n_split)
+        if cw is None:
+            return sel
+        return sel + curved_select_plain(sel[1], sel[3], V, idx, eps, cw)
     dev, n = E.device, E.shape[0]
     lanes, ce = _i32(n_split, device=dev), _i32(n_split, 2, device=dev)
     Vn = torch.empty((n_split, 3), dtype=torch.float32, device=dev)
     bz = _i32(n_split, NW, device=dev)
-    run("split_step", "split_select", n, E, EB, n, V, OUT, ZB, idx, lanes, ce,
-        Vn, bz)
-    return lanes, ce, Vn, bz
+    if cw is None:
+        run("split_step", "split_select", n, E, EB, n, V, OUT, ZB, idx, lanes,
+            ce, Vn, bz)
+        return lanes, ce, Vn, bz
+    qs, plane = _i32(n_split, device=dev), _i32(n_split, device=dev)
+    e01 = torch.empty((n_split, 2, 3), dtype=torch.float32, device=dev)
+    corners = torch.empty((n_split, 8, 3), dtype=torch.float32, device=dev)
+    run("split_step", "split_select_curved", n, E, EB, n, n_split, V, OUT,
+        ZB, idx, eps, lanes, ce, Vn, bz, qs, plane, e01, corners, cw)
+    return lanes, ce, Vn, bz, qs, plane, e01, corners
 
 
 def split_finish_plain(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int,
@@ -662,7 +681,8 @@ def split_finish_plain(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int,
 
 
 def split_finish(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int, idx: int,
-                 eps: float, final: bool, kern: Kernels | None = None):
+                 eps: float, final: bool, kern: Kernels | None = None,
+                 survivors: bool = False):
     """``split_append`` after ``split_override``: the sign override
     (``OUTn`` zeroed in place on ``_override_mask``'s planes if any new
     vertex's output there is off the eps band), the new vertices' words,
@@ -670,7 +690,10 @@ def split_finish(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int, idx: int,
     insertion ``EB`` / ``LD``), and the right edges with their split words
     and last differing columns.  Two launches: the override's test (a
     whole-step any), then the rest from OUTn's rows staged by 16-byte
-    loads (``OUTn`` 16-byte aligned)."""
+    loads (``OUTn`` 16-byte aligned).  ``survivors``: the rows are
+    ``curved_filter``'s, which carry the override already, so the test
+    cannot fire and the kernel's finish runs alone (one launch; a build
+    of K4c's first design tests them all the same)."""
     run = _run(kern, OUTn.device)
     if run is None:
         return split_finish_plain(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV,
@@ -682,7 +705,7 @@ def split_finish(OUTn, bz, lanes, ce, E, EB, LD, SB, ZB, nV: int, idx: int,
     LDr = None if final else _i32(S, device=dev)
     run("split_step", "split_finish", S, OUTn, bz, lanes, ce, E,
         None if final else EB, None if final else LD, SB, ZB, S, nV, idx, eps,
-        sbn, zbn, szn, Er, EBr, LDr)
+        sbn, zbn, szn, Er, EBr, LDr, int(not survivors))
     return sbn, zbn, szn, Er, EBr, LDr
 
 
@@ -799,7 +822,7 @@ def split_append(OUTn, bz, viol, lanes, ce, E, EB, LD, SB, ZB, nV: int,
 # K4c curved_step: the curved insertion (force=False)
 
 # the count words of a curved insertion (int32 [CW], zeroed): its curved
-# rows and those on no earlier plane (read after ``curved_select``), its
+# rows and those on no earlier plane (read after the selection), its
 # sentinel rows and the rows the gradient-descent rescue takes (read after
 # ``curved_gd``), whether a curved residual at the plane is off the eps
 # band, its survivors and the curved rows the strict filter drops (read
@@ -823,6 +846,14 @@ def _out_of_range(t: torch.Tensor) -> torch.Tensor:
 
 
 def curved_select_plain(ce, bz, V, idx: int, eps: float, cw):
+    """The curved rows of the ``split_select`` rows (ends ``ce``, shared
+    zero words ``bz``): a row whose ends differ by more than ``eps`` in
+    two or more coordinates, in slot order: (their slots, earlier planes
+    (the highest column below ``idx`` zero at both ends), ends [n, 2, 3],
+    corner points [n, 8, 3] (``core/trilinear.corner_points``)).  Counts
+    the curved rows into ``cw[CW_CURVED]`` and those on no earlier plane
+    into ``cw[CW_NOPLANE]``.  ``split_select``'s curved instance computes
+    it in the selection's pass."""
     e = torch.stack([V[ce[:, 0].long()], V[ce[:, 1].long()]], 1)
     curved = ((e[:, 1] - e[:, 0]).abs() > eps).sum(-1) > 1
     below = _planes_below(bz, idx)
@@ -835,28 +866,6 @@ def curved_select_plain(ce, bz, V, idx: int, eps: float, cw):
     ec = e[qs]
     return (qs.to(torch.int32), plane[qs].to(torch.int32), ec,
             tl.corner_points(ec))
-
-
-def curved_select(ce, bz, V, idx: int, eps: float, cw,
-                  kern: Kernels | None = None):
-    """The curved rows of the ``split_select`` rows (ends ``ce``, shared
-    zero words ``bz``): a row whose ends differ by more than ``eps`` in
-    two or more coordinates, in slot order: (their slots, earlier planes
-    (the highest column below ``idx`` zero at both ends), ends [n, 2, 3],
-    corner points [n, 8, 3] (``core/trilinear.corner_points``)).  Counts
-    the curved rows into ``cw[CW_CURVED]`` and those on no earlier plane
-    into ``cw[CW_NOPLANE]``.  The kernel's outputs have the split rows'
-    length, the first ``cw[CW_CURVED]`` rows set."""
-    run = _run(kern, ce.device)
-    if run is None:
-        return curved_select_plain(ce, bz, V, idx, eps, cw)
-    dev, S = ce.device, ce.shape[0]
-    qs, plane = _i32(S, device=dev), _i32(S, device=dev)
-    e01 = torch.empty((S, 2, 3), dtype=torch.float32, device=dev)
-    corners = torch.empty((S, 8, 3), dtype=torch.float32, device=dev)
-    run("curved_select", "curved_select", S, ce, bz, V, S, idx, eps, qs,
-        plane, e01, corners, cw)
-    return qs, plane, e01, corners
 
 
 def curved_pick(d_corner, plane, idx: int, kern: Kernels | None = None):
@@ -982,7 +991,10 @@ def curved_filter(OUTn, bz, lanes, ce, Vn, cstate, idx: int, eps: float, cw,
     the plane inside the eps band if any curved residual is off it.
     Counts the survivors into ``cw[CW_KEPT]`` and the curved rows dropped
     into ``cw[CW_DROPS]``; the kernel's outputs have the split rows'
-    length, the first ``cw[CW_KEPT]`` set."""
+    length, the first ``cw[CW_KEPT]`` set.  Two launches: the test
+    (``split_check``), then the filter on a tile's rows staged by 16-byte
+    loads (``OUTn`` 16-byte aligned), its survivors' rows written as one
+    block."""
     run = _run(kern, OUTn.device)
     if run is None:
         return curved_filter_plain(OUTn, bz, lanes, ce, Vn, cstate, idx, eps,
@@ -1465,17 +1477,22 @@ class Engine:
                 raise ValueError("K4's first design takes the flat path only")
             Vn, OUTn, (sbn, zbn, szn, Er, EBr, LDr) = self._split_first(
                 P, E, EB, LD, idx, n_split, final)
-        else:
+        elif self.force:
             lanes, ce, Vn, bz = split_select(E, EB, P.V, P.OUT, P.ZB, idx,
                                              n_split, kern=k)
-            if self.force:
-                OUTn = self.net.outputs(Vn)
-            else:
-                Vn, OUTn, bz, lanes, ce = self._curved(P, lanes, ce, Vn, bz,
-                                                       idx)
+            OUTn = self.net.outputs(Vn)
             sbn, zbn, szn, Er, EBr, LDr = split_finish(
                 OUTn, bz, lanes, ce, E, EB, LD, P.SB, P.ZB, nV, idx, eps,
                 final, kern=k)
+        else:
+            cw = _zeros32(CW, device=dev)
+            sel = split_select(E, EB, P.V, P.OUT, P.ZB, idx, n_split, eps,
+                               cw, kern=k)
+            Vn, OUTn, bz, lanes, ce = self._curved(P, *sel, idx, cw)
+            # the survivors carry the override: K4's finish alone
+            sbn, zbn, szn, Er, EBr, LDr = split_finish(
+                OUTn, bz, lanes, ce, E, EB, LD, P.SB, P.ZB, nV, idx, eps,
+                final, kern=k, survivors=True)
         n_new = Vn.shape[0]  # the survivors on the curved path
         Vx = torch.cat([P.V, Vn])
         SBx, ZBx = torch.cat([P.SB, sbn]), torch.cat([P.ZB, zbn])
@@ -1530,21 +1547,20 @@ class Engine:
     def _count_read(self) -> None:
         self.stats.reads += 1
 
-    def _curved(self, P: Pools, lanes, ce, Vn, bz, idx: int):
-        """K4c between ``split_select`` and ``split_finish``: the curved
-        rows' vertices (the corner forward, K7's roots, the on-surface
-        forward, the gradient-descent rescue), the forward of every new
-        vertex, then the strict filter.  Returns the survivors' (Vn, OUTn,
-        bz, lanes, ce).  Reads the count words up to three times (the
-        curved rows; with curved rows, the rescue's rows; the survivors),
-        and once a rescue step but the first; counts the events into
-        ``failover.COUNTERS`` as the host engine does."""
+    def _curved(self, P: Pools, lanes, ce, Vn, bz, qs, plane, e01, corners,
+                idx: int, cw):
+        """K4c between the selection (the split rows and their curved rows,
+        counted in ``cw``) and ``split_finish``: the curved rows' vertices
+        (the corner forward, K7's roots, the on-surface forward, the
+        gradient-descent rescue), the forward of every new vertex, then the
+        strict filter.  Returns the survivors' (Vn, OUTn, bz, lanes, ce).
+        Reads the count words up to three times (the curved rows; with
+        curved rows, the rescue's rows; the survivors), and once a rescue
+        step but the first; counts the events into ``failover.COUNTERS`` as
+        the host engine does."""
         k, eps, net = self.kern, self.eps, self.net
         reads = self.stats.reads
-        cw = _zeros32(CW, device=self.dev)
         cstate = _zeros32(Vn.shape[0], device=self.dev)
-        qs, plane, e01, corners = curved_select(ce, bz, P.V, idx, eps, cw,
-                                                kern=k)
         n_cv, bad = (int(x) for x in self.read(cw[:CW_SENT]))
         if bad:
             raise RuntimeError(f"curved edges not on any earlier plane at "

@@ -40,6 +40,10 @@ Target = Union[str, Tuple[str, Tuple[str, ...]]]
 # chip_smoke.py, scripts/device_engine_variants.py and the tests time or hold
 # them beside the designs
 LATTICE_FIRST = ("lattice_encode", ("LATTICE_LEVEL_LAUNCH",))
+# K4c's first design (the curved path: a selection pass of its own, the
+# filter a thread a row, K4's finish with a second override test), beside
+# the design's K3-K5
+CURVED_FIRST = ("device_engine", ("CURVED_FIRST",))
 DEVICE_ENGINE_FIRST = ("device_engine", ("CONNECT_SEARCHES",
                                          "COMPACT_ROW_THREAD",
                                          "SKELETON_CUMSUM",

@@ -44,20 +44,24 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    torch.profiler; the device engine makes one read a busy insertion on
    the flat path, and on the curved path the reads ``Engine._curved``
    counts, printed for each curved busy insertion; the device engine's
-   syncs, copies, launches and reads held to ``ENGINE_COUNTS``;
+   syncs, copies, launches and reads held to ``ENGINE_COUNTS``; the
+   ``trilinear_roots`` launches of each (the host engine's curved path is
+   the path of K7's own launch);
 5. curved main path: the CLI ``-e -m medium -d sphere -s 1 -f --gt_res
    128`` on ``cuda``, through the device engine (K4c between K4's split and
    its finish), held to the JAX CLI's curved funnel
    (``tests/golden/sphere_curved_presets.json``) or, where only
    eps-boundary flips move it, within 0.5 % of it and to the committed JAX
    vertex set within 1e-5 for all but 0.5 %, |sdf| < 2e-4 on every vertex,
-   the launch counts (one ``trilinear_roots`` launch per insertion with
-   curved rows, K4c's by busy insertions and insertions with curved rows,
-   none of ``curved_select``, K4's two a busy insertion, the encode's by
-   forwards), the reads of each curved busy insertion and finite CD/AD;
+   the launch counts (no ``trilinear_roots`` launch: its solve runs inside
+   ``curved_roots``; K4c's by busy insertions, insertions with curved rows
+   and with rescued rows, none of ``curved_select``, K4's two a busy
+   insertion, the encode's by forwards), the reads of each curved busy
+   insertion and finite CD/AD;
 6. each kernel at the largest shape its main path gave it: ``min_dist``
    timed; ``trilinear_roots`` held bitwise to its plain version on every
-   input the curved path gave it, their device times summed beside the
+   row set the curved path solved (the rows ``curved_roots`` gathered from
+   the corner forward), their device times summed beside the
    extraction's ``take``, and on the largest of them and on the 100,000
    seeded rows its device time (a CUDA graph of calls, ``graph_ms``), one
    wrapper call, the plain version and ``torch.linalg.eigvals`` on the
@@ -150,20 +154,31 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    how often the override fires at the busy insertions (also sphere-medium's,
    in phase 12);
 11b. K4c (the selection in ``split_select``'s curved instance,
-   ``curved_pick``, ``curved_resolve``, ``curved_filter``, and K4's finish
+   ``curved_roots``, ``curved_resolve``, ``curved_filter``, and K4's finish
    alone on the survivors) at sphere-medium curved: every call of the
    busiest curved insertion and of the final one, recorded from a run of
    the engine, bitwise its plain version in the design (also after three
    replays of a CUDA graph of one call) and in K4c's first design
    (``cuda_build.CURVED_FIRST``, through the same calls: ``curved_select``
-   after the flat selection, the filter a thread a row, the finish with its
-   own override test), and planted calls with rescued rows, strict drops
-   and the override firing (and the finish on those survivors); each
-   kernel's device time (CUDA graphs) in both designs (the selection's
-   whole, against the flat selection's bytes and the curved rows', and
-   less the flat selection, against the curved rows' bytes or the first
-   design's pass of its own), its plain version's and its bound
-   (``k4c_bytes``), and ``index_select`` of the filter's survivors' rows;
+   after the flat selection, ``curved_pick``, K7 and ``curved_points``,
+   ``curved_gd`` then ``curved_mix``, the filter a thread a row, the
+   finish with its own override test), and planted calls with rescued
+   rows (``curved_gd``, then the rescue's ``curved_mix``), strict drops and
+   the override firing (and the finish on those survivors); each kernel's
+   device time (CUDA graphs) in both designs (the selection's whole,
+   against the flat selection's bytes and the curved rows', and less the
+   flat selection, against the curved rows' bytes or the first design's
+   pass of its own; ``curved_roots`` and ``curved_gd`` also as a pair at
+   the final insertion), its plain version's and its bound
+   (``k4c_bound_ms``: ``curved_roots`` also against K7's operations) beside
+   a graph node's floor, and ``index_select`` of the filter's survivors'
+   rows;
+11c. a rescue on the card: the x30000 kinked net of the CPU tests' GD
+   fixture from the port's own seeded init (``kinked_net``), its curved
+   loop from the device skeleton bitwise the host engine's (vertices,
+   outputs, edges and failover counters) with rows rescued, and K4c's
+   launches there (the rescue's ``curved_mix`` and second filter among
+   them);
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's, the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
@@ -226,47 +241,70 @@ FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 # one, 5 the final, 2 for the starting pools)
 MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
                  "skeleton_mark": 6, "split_step": 13, "connect_step": 52,
-                 "curved_select": 0, "curved_pick": 0, "curved_resolve": 0,
+                 "curved_select": 0, "curved_roots": 0, "curved_resolve": 0,
                  "curved_filter": 0}
 # the JAX CLI's curved funnels through its own device engine (dist
 # skeleton), the route the curved CLI takes (scripts/curved_presets_golden.py)
 CURVED_PRESETS = "tests/golden/sphere_curved_presets.json"
 # K4c, the curved insertion's kernels (csrc/device_engine.cu), and their
 # launches on the curved path: a busy insertion's curved_filter's two (the
-# override's test, the strict filter), and at an insertion with curved rows
-# one curved_pick and curved_resolve's three (the points, the residuals and
-# rescue rows, the mix).  The curved selection runs inside split_select's
-# curved instance (a K4 launch); curved_select, its first design's pass of
-# its own (cuda_build.CURVED_FIRST), launches nowhere on the path
-CURVED_KERNELS = ("curved_select", "curved_pick", "curved_resolve",
+# override's test, the strict filter); at an insertion with curved rows one
+# curved_roots (K7's solve on the corner forward, and the roots' points)
+# and one curved_resolve (the residuals, the rescue's rows and the mix as
+# without a rescue); at one with rescued rows also the mix after the rescue
+# and the filter's two again.  The curved selection runs inside
+# split_select's curved instance (a K4 launch); curved_select, its first
+# design's pass of its own (cuda_build.CURVED_FIRST), launches nowhere on
+# the path
+CURVED_KERNELS = ("curved_select", "curved_roots", "curved_resolve",
                   "curved_filter")
 CURVED_PER_BUSY = {"curved_select": 0, "curved_filter": 2}
-CURVED_PER_STEP = {"curved_pick": 1, "curved_resolve": 3}
+CURVED_PER_STEP = {"curved_roots": 1, "curved_resolve": 1}
+CURVED_PER_RESCUE = {"curved_resolve": 1, "curved_filter": 2}
 # K4's launches a busy insertion on the curved path: the selection (its
 # curved instance) and the finish alone (no second override test)
 K4_PER_CURVED_BUSY = 2
 # the stage functions of tropical_torch/extract/device.py that launch each
 # (K4's selection and finish recorded beside them: the curved selection,
 # and the finish the filter's survivors take)
-K4C_STAGES = {"curved_pick": "curved_pick", "curved_points": "curved_resolve",
-              "curved_gd": "curved_resolve", "curved_mix": "curved_resolve",
-              "curved_filter": "curved_filter"}
+K4C_STAGES = {"curved_roots": "curved_roots", "curved_gd": "curved_resolve",
+              "curved_mix": "curved_resolve", "curved_filter": "curved_filter"}
 K4C_ROUTE = ("split_select", "split_finish", *K4C_STAGES)
 # the bytes a curved row's selection writes: its slot and plane, its ends
 # [2, 3] and its corners [8, 3]
 CURVED_ROW_BYTES = 4 + 4 + 24 + 96
 # the device engine's extractions in phase 4b (torch.profiler: host syncs,
 # device-to-host copies, kernel launches; host reads): sphere-small flat,
-# unchanged since PR 16, and sphere-medium curved, 723 launches in K4c's
-# first design (PR 17), less the three curved_select and the three second
-# split_check launches of its busy insertions
+# and sphere-medium curved, whose one insertion with curved rows launches
+# curved_roots and curved_gd (K4c's first design: curved_pick, K7,
+# curved_points, curved_gd and curved_mix) and reads the count words once
+# after the strict filter
 ENGINE_COUNTS = {"small flat": (38, 29, 698, 6),
-                 "medium curved": (44, 35, 717, 12)}
-# stage 3b of the JAX engine's busy insertion and its strict filter
+                 "medium curved": (43, 34, 714, 11)}
+# stage 3b of the JAX engine's busy insertion and its strict filter;
+# curved_roots also replaces K7's launch (tropical/core/trilinear.py:91)
+# and the roots' points (:612)
 K4C_REPLACES = {"curved_select": "tropical/extract/device.py:567",
-                "curved_pick": "tropical/extract/device.py:603",
+                "curved_roots": "tropical/extract/device.py:603",
                 "curved_resolve": "tropical/extract/device.py:612",
                 "curved_filter": "tropical/extract/device.py:701"}
+# the bytes a curved row's curved_roots needs: its plane, p and q (the
+# corner forward's 16 values) and ends read, its root and point written
+CURVED_ROOTS_ROW_BYTES = 4 + 64 + 24 + 12 + 12
+# the bytes a curved row's curved_gd needs: the outputs at the plane and at
+# idx, the plane and the root read, the residuals and the rank written
+# (36), and the mix's: the slot and the ends read, the vertex and the state
+# written (44); a rescued row's ends read and its start, direction, plane
+# and root written (64); curved_mix after a rescue: a row's slot, ends,
+# rank, root and residual at the plane read, vertex and state written
+CURVED_GD_ROW_BYTES, CURVED_GD_RESCUED_BYTES = 36 + 44, 24 + 40
+CURVED_MIX_ROW_BYTES = 64
+# the x30000 kinked net of tests/test_device_curved.py's GD fixture
+# (_kinked_net(r_max=6, levels=3, scale=30000)), from the port's own init
+# with this seed, whose curved insertions rescue rows
+KINKED_SPEC = {"num_layers": 3, "num_hidden": 16, "levels": 3, "r_min": 2,
+               "r_max": 6, "T": 19}
+KINKED_SCALE, KINKED_SEED = 30000.0, 0
 # each kernel's time before its redesign, for the printed comparison only
 # (H100 80GB HBM3, 700 W; min_dist at 100k x 100k, trilinear_roots' device
 # time at the curved run's largest input, B = 8,460)
@@ -310,8 +348,9 @@ SCATTER_ULPS = 4.0
 # normals and the 27 of the ladder (``CURVED_ENCODE``), and in the loop a
 # forward a busy insertion, two an insertion with curved rows (the corners
 # and the roots' points: 3 busy insertions and 1 with curved rows on the
-# CPU) and one forward and one backward a step of the GD rescue
-# (``failover.COUNTERS``; no step on the CPU)
+# CPU), one forward and one backward a step of the GD rescue
+# (``failover.COUNTERS``; no step on the CPU) and one more forward of the
+# new vertices an insertion with rescued rows
 FLAT_ENCODE = {"hashgrid_encode_fwd": 32, "hashgrid_encode_bwd": 1,
                "hashgrid_encode_bwd_bwd": 0}
 CURVED_ENCODE = {"hashgrid_encode_fwd": 28, "hashgrid_encode_bwd": 1,
@@ -679,15 +718,13 @@ def roots_vs_plain(label, p, q) -> float:
     return err
 
 
-def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
-                             ) -> tuple[float, str]:
-    """Least time for the root solve of these rows: the operations each row
-    needs, counted as in csrc/trilinear_roots.cu's note (134 for the
-    coefficients and 20 for y; on a non-constant row 16 for the first
-    samples, 19 a cell scanned, 483 for the last bracket's bisection, 413 a
-    probe and 482 more where it bisects a hidden pair), against 76 bytes a
-    row read and written once.  The operations are unfused (one rounded
-    product, sum or quotient each), so they run at PEAK_F32_UNFUSED_OPS."""
+def trilinear_roots_ops(p: torch.Tensor, q: torch.Tensor) -> float:
+    """The float operations the root solve of these rows needs, counted as
+    in csrc/trilinear_roots.cu's note (134 for the coefficients and 20 for
+    y; on a non-constant row 16 for the first samples, 19 a cell scanned,
+    483 for the last bracket's bisection, 413 a probe and 482 more where it
+    bisects a hidden pair).  They are unfused (one rounded product, sum or
+    quotient each), so they run at PEAK_F32_UNFUSED_OPS."""
     from tropical_torch.core import roots as rt
     from tropical_torch.core import trilinear as tl
 
@@ -719,7 +756,15 @@ def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
         cross += (dhas & (pm * pr < 0)).long()
     per_row = 154 + nonconst.long() * (16 + 19 * cells + 483 * has.long()
                                        + 413 * nd + 482 * cross)
-    ops = float(per_row.sum())
+    return float(per_row.sum())
+
+
+def trilinear_roots_bound_ms(p: torch.Tensor, q: torch.Tensor
+                             ) -> tuple[float, str]:
+    """Least time for the root solve of these rows: its operations
+    (``trilinear_roots_ops``) against 76 bytes a row read and written
+    once."""
+    ops = trilinear_roots_ops(p, q)
     nbytes = 76.0 * p.shape[0]
     t_ops, t_bytes = ops / PEAK_F32_UNFUSED_OPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -1664,12 +1709,16 @@ def engines_phase():
     eps-boundary flips move them, within 0.5 %), their ``take`` (warm, host
     clock) and their syncs, copies and launches; the device engine's reads,
     one a busy insertion on the flat path and on the curved path as
-    ``Engine._curved`` counts them.  Returns the numbers."""
+    ``Engine._curved`` counts them; ``trilinear_roots``' launches in each
+    profiled extraction (the host engine's curved path launches it, the
+    device engine's runs its solve inside ``curved_roots``).  Returns the
+    numbers."""
     phase("4b. the device engine against the host engine, sphere-small flat "
           "and sphere-medium curved")
     from tropical_torch.extract import device as dv
     from tropical_torch.extract import stats
     from tropical_torch.extract.subdivide import subpoly
+    from tropical_torch.ops import launches
 
     out = {}
     for size, force, cases in (
@@ -1691,10 +1740,12 @@ def engines_phase():
                 check(stats.LAST == want or (not force and within(
                     stats.LAST, want)), f"{label} {engine}: funnel "
                     f"{stats.LAST} != {want}")
+            launches.reset()
             syncs, d2h, kernels = extraction_counts(net, engine, force)
             rec = out.setdefault(label, {})[engine] = {
                 "take_s": takes[1:], "syncs": syncs, "d2h": d2h,
-                "launches": kernels, "funnel": dict(stats.LAST)}
+                "launches": kernels, "funnel": dict(stats.LAST),
+                "trilinear_roots": launches.LAUNCHES["trilinear_roots"]}
             if engine != "auto":
                 continue
             last = dv.LAST
@@ -1719,6 +1770,13 @@ def engines_phase():
     return out
 
 
+def k7_rows(d_corner, plane, idx):
+    """K7's rows (p at each row's plane, q at idx, [n, 8] each) in the
+    corner forward ``d_corner`` [n, 8, R], as ``curved_roots`` reads them."""
+    p = d_corner.gather(2, plane.long()[:, None, None].expand(-1, 8, 1))
+    return p[..., 0].contiguous(), d_corner[:, :, idx].contiguous()
+
+
 def curved_funnel(size):
     """The JAX CLI's curved funnel of a sphere preset (``CURVED_PRESETS``)."""
     g = json.load(open(CURVED_PRESETS))[f"sphere_{size}_curved"]
@@ -1734,35 +1792,34 @@ def curved_reads(curved):
 
 def curved_path_phase():
     """The curved CLI run, through the device engine.  Returns (launches,
-    every (p, q) the root solve was given, the extraction's ``take``, the
-    traced meshes)."""
+    every (p, q) the root solve was given: K7's rows that ``curved_roots``
+    gathered, the extraction's ``take``, the traced meshes)."""
     phase("5. curved main path: " + " ".join(CURVED_ARGV))
-    from tropical_torch.core import trilinear as tl
     from tropical_torch.extract import device as dv
     from tropical_torch.extract import failover as fo
     from tropical_torch.extract import stats
     from tropical_torch.ops.chamfer import min_dist_plain
     from tropical_torch.stanford import train
 
-    # keep the extracted vertices and the root solve's inputs
+    # keep the extracted vertices and the root solve's rows
     kept = {"inputs": []}
-    solve, extract = tl.intersection_of_two_planes, train.extract_mesh
+    roots, extract = dv.curved_roots, train.extract_mesh
 
-    def keep_inputs(p, q):
-        if p.shape[0]:
-            kept["inputs"].append((p.clone(), q.clone()))
-        return solve(p, q)
+    def keep_inputs(d_corner, plane, e01, idx, kern=None):
+        if plane.shape[0]:
+            kept["inputs"].append(k7_rows(d_corner, plane, idx))
+        return roots(d_corner, plane, e01, idx, kern=kern)
 
     def keep_mesh(net, force):
         out = extract(net, force)
         kept.update(net=net, vertices=out[1], last=dv.LAST)
         return out
 
-    tl.intersection_of_two_planes, train.extract_mesh = keep_inputs, keep_mesh
+    dv.curved_roots, train.extract_mesh = keep_inputs, keep_mesh
     try:
         text, launches, _, wall, meshes = run_cli(CURVED_ARGV)
     finally:
-        tl.intersection_of_two_planes, train.extract_mesh = solve, extract
+        dv.curved_roots, train.extract_mesh = roots, extract
     last = kept["last"]
     check(last is not None and len(last.curved) == len(last.busy) > 0,
           "the curved CLI did not extract through the device engine")
@@ -1803,27 +1860,31 @@ def curved_path_phase():
     print(f"max |sdf| on the curved vertices: {sdf:.3e}")
     check(sdf < 2e-4, f"curved vertices off the surface: |sdf| {sdf}")
     steps = fo.COUNTERS["curved_steps"]
+    rescues = sum(g > 0 for _, _, _, g, *_ in last.curved)
     check(launches["min_dist"] == 16,
           f"min_dist: {launches['min_dist']} launches, want 16")
-    check(steps > 0 and launches["trilinear_roots"] == steps
-          == len(kept["inputs"]),
-          f"trilinear_roots: {launches['trilinear_roots']} launches and "
-          f"{len(kept['inputs'])} inputs, want one per curved insertion step "
+    check(steps > 0 and launches["trilinear_roots"] == 0
+          and len(kept["inputs"]) == steps,
+          f"trilinear_roots: {launches['trilinear_roots']} launches (its "
+          f"solve runs inside curved_roots) and {len(kept['inputs'])} "
+          f"curved_roots inputs, want one per curved insertion step "
           f"({steps})")
     busy = len(last.busy)
     want_k4c = {**{k: v * busy for k, v in CURVED_PER_BUSY.items()},
                 **{k: v * steps for k, v in CURVED_PER_STEP.items()}}
+    for k, v in CURVED_PER_RESCUE.items():
+        want_k4c[k] += v * rescues
     conn = sum(c > 0 for i, _, _, c in last.busy if i < dv.R_COLS - 1)
     want_k4c.update(split_step=K4_PER_CURVED_BUSY * busy + 1 + conn,
                     lattice_encode=1, skeleton_mark=6)
     for k, want_n in want_k4c.items():
         check(launches[k] == want_n, f"{k}: {launches[k]} launches on the "
               f"curved path, want {want_n} ({busy} busy insertions, {steps} "
-              "with curved rows)")
+              f"with curved rows, {rescues} with rescued rows)")
     gd_steps = fo.COUNTERS["gd_steps"]
     for k, want_n in CURVED_ENCODE.items():
         if k == "hashgrid_encode_fwd":
-            want_n += busy + 2 * steps + gd_steps
+            want_n += busy + 2 * steps + gd_steps + rescues
         elif k == "hashgrid_encode_bwd":
             want_n += gd_steps
         check(launches[k] == want_n, f"{k}: {launches[k]} launches, want "
@@ -3299,17 +3360,14 @@ def k4c_bytes(name, a, cw):
     one (``curved_rows``); the first design's ``curved_select``, a pass of
     its own: of the S split rows their ends and both ends' V rows, and of
     the curved rows their shared zero words read (the plane and the
-    no-plane count) and their outputs written; the corner outputs at the plane and at idx
-    read, p and q written (``curved_pick``); the ends and roots read, the
-    points written (``curved_points``); the outputs at the plane and at idx,
-    the planes and roots read, the residuals and ranks written, and of the
-    rescued rows their ends read and their start, direction, plane and root
-    written (``curved_gd``); the slots, ends, ranks read, the vertices and
-    states written, and the root and residual at the plane read, from the
-    rescue for a rescued row and from ``ints`` and ``dnew`` for another
-    (``curved_mix``); of the S rows their zero words, state and output at
-    idx read, and of the survivors their rows of OUTn, V, lanes and ends
-    read and written (``curved_filter``)."""
+    no-plane count) and their outputs written; ``curved_roots``: a row's
+    plane, the 16 corner outputs at the plane and at idx and its ends
+    read, its root and point written (``CURVED_ROOTS_ROW_BYTES``);
+    ``curved_gd`` with its mix (``CURVED_GD_ROW_BYTES`` a row, and
+    ``CURVED_GD_RESCUED_BYTES`` more a rescued row); ``curved_mix`` after a
+    rescue (``CURVED_MIX_ROW_BYTES`` a row); of the S rows their zero
+    words, state and output at idx read, and of the survivors their rows
+    of OUTn, V, lanes and ends read and written (``curved_filter``)."""
     from tropical_torch.extract import device as dv
 
     if name == "split_select":
@@ -3318,17 +3376,27 @@ def k4c_bytes(name, a, cw):
         return int(cw[dv.CW_CURVED]) * CURVED_ROW_BYTES
     if name == "curved_select":
         return a[6] * 32 + int(cw[dv.CW_CURVED]) * (8 + CURVED_ROW_BYTES)
-    if name == "curved_pick":
-        return a[0].shape[0] * (4 + 64 + 64)
-    if name == "curved_points":
-        return a[0].shape[0] * 48
+    if name == "curved_roots":
+        return a[0].shape[0] * CURVED_ROOTS_ROW_BYTES
     if name == "curved_gd":
-        return a[0].shape[0] * 36 + int(cw[dv.CW_GD]) * (24 + 40)
+        return (a[0].shape[0] * CURVED_GD_ROW_BYTES
+                + int(cw[dv.CW_GD]) * CURVED_GD_RESCUED_BYTES)
     if name == "curved_mix":
-        return a[0].shape[0] * 64
+        return a[0].shape[0] * CURVED_MIX_ROW_BYTES
     if name == "curved_filter":
         return a[0].shape[0] * 16 + int(cw[dv.CW_KEPT]) * 316
     raise KeyError(name)
+
+
+def k4c_bound_ms(name, a, cw) -> tuple[float, float]:
+    """A K4c call's least time: (its bytes at the card's memory rate,
+    ``k4c_bytes``; its operations at the unfused f32 rate, K7's on the rows
+    of a ``curved_roots`` call, ``trilinear_roots_ops``, else 0)."""
+    bytes_ms = k4c_bytes(name, a, cw) / PEAK_BYTES * 1e3
+    if name != "curved_roots":
+        return bytes_ms, 0.0
+    ops = trilinear_roots_ops(*k7_rows(a[0], a[1], a[3]))
+    return bytes_ms, ops / PEAK_F32_UNFUSED_OPS * 1e3
 
 
 def k4c_held(fn, args, label, kw=None, kern=None):
@@ -3380,15 +3448,16 @@ def split_launches(fn):
 
 def k4c_planted(calls):
     """Planted calls from the recorded ones: the rescue's rows
-    (``curved_gd`` with 64 in-range rows moved off the surface at idx;
-    ``curved_mix`` with their made-up roots in [0, 1] and residuals on both
-    sides of the band), strict drops with the override firing
-    (``curved_filter`` with a third of the rows curved and off the band at
-    their plane, a residual off the band, and a violation at a shared plane
-    below idx: column 0 of the first row), and K4's finish alone on that
-    filter's survivors (the recorded finish of its plane, which the planted
-    survivors index as the recorded ones do).  Returns [(name, args,
-    kw)]."""
+    (``curved_gd`` with 64 in-range rows moved off the surface at idx, and
+    ``curved_mix`` after it with their made-up roots in [0, 1] and
+    residuals on both sides of the band, the count words its mix and the
+    filter set cleared, as ``Engine._curved`` clears them), strict drops
+    with the override firing (``curved_filter`` with a third of the rows
+    curved and off the band at their plane, a residual off the band, and a
+    violation at a shared plane below idx: column 0 of the first row), and
+    K4's finish alone on that filter's survivors (the recorded finish of
+    its plane, which the planted survivors index as the recorded ones do).
+    Returns [(name, args, kw)]."""
     from tropical_torch.extract import device as dv
 
     out = []
@@ -3397,23 +3466,23 @@ def k4c_planted(calls):
     for name, args, _, plane in calls:
         if name == "curved_gd":
             a = clones(args)
-            outs, ints, idx = a[0], a[2], a[4]
+            outs, ints, idx = a[0], a[2], a[5]
             ok = torch.nonzero(~dv._out_of_range(ints))[:64, 0]
             outs[ok, idx] = 1.0
             out.append((name, a, {}))
-            cw = dv._zeros32(dv.CW, device="cuda")
-            res = dv.curved_gd(*a[:6], cw, kern=dv.PLAIN)
+            g = clones(a)
+            dnew, grank = dv.curved_gd(*g, kern=dv.PLAIN)[:2]
+            cw = g[9]
             n_gd = int(cw[dv.CW_GD])
+            check(n_gd > 0, "the planted curved_gd call rescues no row")
             gx = torch.rand((n_gd, 3), generator=gen, device="cuda")
             gx[:1] = 0.0
             gx[1:2] = 1.0
             gd0 = (torch.rand(n_gd, generator=gen, device="cuda") - 0.5) * (
                 4 * eps)
-            mix = next(c[1] for c in calls if c[0] == "curved_mix"
-                       and c[1][0].shape[0] == ints.shape[0])
-            m = clones(mix)
-            m[3], m[4], m[5], m[6] = res[0], res[1], gx, gd0
-            out.append(("curved_mix", m, {}))
+            cw[dv.CW_ANYD0:] = 0
+            out.append(("curved_mix", [g[4], g[3], g[2], dnew, grank, gx, gd0,
+                                       g[6], g[7], g[8], cw], {}))
         if name == "curved_filter":
             a = clones(args)
             OUTn, bz, cstate, idx, cw = a[0], a[1], a[5], a[6], a[8]
@@ -3444,16 +3513,20 @@ def k4c_times(net, reps, first):
     the final one, recorded from a run of the design's engine, each held
     bitwise to its plain version (``k4c_held``) in both builds and timed (a
     CUDA graph of the call, ``graph_ms``; the plain version by CUDA
-    events), with its bound (``k4c_bytes``): the selection as the curved
+    events), with its bound (``k4c_bound_ms``): the selection as the curved
     instance of ``split_select`` whole and less its flat instance on the
     same call (the first design, through the same calls: the flat
     selection and ``curved_select``, two launches, whole and less its
-    flat selection), ``curved_filter`` beside ``index_select`` of the
+    flat selection), ``curved_roots`` (the first design: ``curved_pick``,
+    K7 and ``curved_points``) and ``curved_gd`` with its mix (the first
+    design: ``curved_gd``, then ``curved_mix``), also as a pair at the
+    final insertion, ``curved_filter`` beside ``index_select`` of the
     survivors' rows, K4's finish on the survivors alone (the first design:
-    with its override test); the planted calls (``k4c_planted``) held
-    bitwise in both builds.  Returns ({kernel: {err, ms, first_ms,
-    plain_ms, bound_ms, calls, ...}}, the run's curved list, the recorded
-    planes, the planted calls held)."""
+    with its override test); the planted calls (``k4c_planted``: the
+    rescue's ``curved_mix`` among them) held bitwise in both builds.
+    Returns ({kernel: {err, ms, first_ms, plain_ms, bound_ms, calls,
+    ...}}, the run's curved list, the recorded planes, the planted calls
+    held)."""
     from tropical_torch.extract import device as dv
 
     run = dv.Engine(net, force=False)
@@ -3476,13 +3549,16 @@ def k4c_times(net, reps, first):
         torch.cuda.synchronize()
     calls = [c for c in log.calls if c[0] in K4C_ROUTE]
     out = {k: {"err": 0.0, "ms": 0.0, "first_ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "calls": 0} for k in CURVED_KERNELS}
+               "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "calls": 0}
+           for k in CURVED_KERNELS}
     sel = out["curved_select"]
     sel.update(split_select_flat_ms=0.0, increment_ms=0.0,
                increment_bound_ms=0.0, first_split_select_flat_ms=0.0,
                first_increment_ms=0.0, first_alone_bound_ms=0.0)
     out["curved_filter"]["survivor_rows_library_ms"] = 0.0
     finish = {"ms": 0.0, "first_ms": 0.0, "calls": 0}
+    # curved_roots and curved_gd at the final insertion: (ms, first_ms)
+    pair = {}
     for name, args, kw, plane in calls:
         fn = log.orig[name]
         fixed, ffixed, pfixed = clones(args), clones(args), clones(args)
@@ -3544,13 +3620,14 @@ def k4c_times(net, reps, first):
                   f"override test {first_ms:.5f} ms")
             continue
         err, cw = k4c_held(fn, args, f"{name} at plane {plane}")
+        ferr, _ = k4c_held(fn, args, f"first design's {name} at plane "
+                           f"{plane}", kern=first)
+        err = max(err, ferr)
         ms = graph_ms(lambda: fn(*fixed, kern=None), reps=reps)
-        first_ms = ms
+        first_ms = graph_ms(lambda: fn(*ffixed, kern=first), reps=reps)
+        if name in ("curved_roots", "curved_gd") and plane == max(planes):
+            pair[name] = (ms, first_ms)
         if name == "curved_filter":
-            ferr, _ = k4c_held(fn, args, f"first design's {name} at plane "
-                               f"{plane}", kern=first)
-            err = max(err, ferr)
-            first_ms = graph_ms(lambda: fn(*ffixed, kern=first), reps=reps)
             # the survivors' rows by one library call (lanes are strictly
             # increasing: a survivor's lane finds its row)
             res = fn(*clones(args), kern=dv.PLAIN)
@@ -3563,22 +3640,43 @@ def k4c_times(net, reps, first):
                   f"{k.numel()} survivors' rows {lib_ms:.5f} ms (the "
                   f"override {'fired' if fired else 'did not fire'})")
         plain_ms = cuda_ms(lambda: fn(*pfixed, kern=dv.PLAIN), iters=2)
-        bound = k4c_bytes(name, args, cw) / PEAK_BYTES * 1e3
+        bytes_ms, ops_ms = k4c_bound_ms(name, args, cw)
+        bound = max(bytes_ms, ops_ms)
         rec = out[K4C_STAGES[name]]
         rec["err"] = max(rec["err"], err)
-        rec["ms"] += ms
-        rec["first_ms"] += first_ms
-        rec["plain_ms"] += plain_ms
-        rec["bound_ms"] += bound
+        for key, v in (("ms", ms), ("first_ms", first_ms),
+                       ("plain_ms", plain_ms), ("bound_ms", bound),
+                       ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            rec[key] += v
         rec["calls"] += 1
         print(f"  plane {plane}: {name} ({args[0].shape[0]} rows): kernel "
               f"{ms:.5f} ms, first design {first_ms:.5f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.5f} ms")
+              f"{plain_ms:.3f} ms, bound {bound:.7f} ms (bytes "
+              f"{bytes_ms:.7f} ms, operations {ops_ms:.7f} ms)")
+    check(set(pair) == {"curved_roots", "curved_gd"},
+          f"the final insertion recorded {sorted(pair)}, not curved_roots "
+          "and curved_gd")
+    out["curved_roots"].update(
+        final_pair_ms=pair["curved_roots"][0] + pair["curved_gd"][0],
+        final_pair_first_ms=pair["curved_roots"][1] + pair["curved_gd"][1])
     planted = k4c_planted(calls)
+    check(any(name == "curved_mix" for name, *_ in planted),
+          "no planted curved_mix call")
     for name, args, kw in planted:
         k4c_held(log.orig[name], args, f"{name}, planted", kw)
         k4c_held(log.orig[name], args, f"first design's {name}, planted",
                  kw, kern=first)
+        if name == "curved_mix":
+            fixed, ffixed = clones(args), clones(args)
+            rec = out["curved_resolve"]
+            for key, v in (
+                    ("planted_mix_ms", graph_ms(lambda: log.orig[name](
+                        *fixed, kern=None), reps=reps)),
+                    ("planted_mix_first_ms", graph_ms(lambda: log.orig[name](
+                        *ffixed, kern=first), reps=reps)),
+                    ("planted_mix_bound_ms", k4c_bytes(
+                        name, args, None) / PEAK_BYTES * 1e3)):
+                rec[key] = rec.get(key, 0.0) + v
     return out, finish, run.stats.curved, sorted(planes), len(planted)
 
 
@@ -3604,6 +3702,7 @@ def curved_kernels_phase(records, curved_launches):
           "the CURVED_FIRST build takes K4's first design")
     net = sphere_net("medium")
     k4c, finish, curved, planes, planted = k4c_times(net, 20, first)
+    floor_ms = graph_floor_ms()
     print(f"medium curved: busy insertions (plane, splits, curved rows, "
           f"rescued rows, rescue steps, survivors, reads) {curved}; recorded "
           f"planes {planes}; {planted} planted calls bitwise in both designs")
@@ -3622,11 +3721,19 @@ def curved_kernels_phase(records, curved_launches):
             "launches": curved_launches[name], "launches_flat": 0,
             "max_abs_err": r["err"], "ms": r["ms"], "first_ms": r["first_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
-            "calls_timed": r["calls"]}
+            "bound_by": ("operations" if r["ops_ms"] > r["bytes_ms"]
+                         else "bytes"),
+            "library_ms": None, "calls_timed": r["calls"],
+            "graph_node_floor_ms": floor_ms}
         extra = {k: v for k, v in r.items() if k not in (
             "err", "ms", "first_ms", "plain_ms", "bound_ms", "calls")}
         records[name].update(extra)
+        if name == "curved_roots":
+            records[name].update(
+                source="tropical_torch/csrc/device_engine.cu (curved_roots), "
+                       "tropical_torch/csrc/trilinear_roots.cuh (K7's kernel)",
+                also_replaces=["tropical/core/trilinear.py:91",
+                               "tropical/extract/device.py:612"])
         if name == "curved_select":
             records[name]["runs_in"] = (
                 "split_select's curved instance (a split_step launch); ms "
@@ -3640,10 +3747,18 @@ def curved_kernels_phase(records, curved_launches):
                 "(first_alone_bound_ms)")
         print(f"medium curved: {name}: kernel {r['ms']:.5f} ms "
               f"({share(r['bound_ms'], r['ms'])} of its bound "
-              f"{r['bound_ms']:.5f} ms), first design {r['first_ms']:.5f} "
-              f"ms ({share(r['bound_ms'], r['first_ms'])}), plain "
+              f"{r['bound_ms']:.7f} ms, {records[name]['bound_by']}), first "
+              f"design {r['first_ms']:.5f} ms "
+              f"({share(r['bound_ms'], r['first_ms'])}), plain "
               f"{r['plain_ms']:.3f} ms, {r['calls']} calls, max err "
-              f"{r['err']}{''.join(f', {k} {v:.5f}' for k, v in extra.items())}")
+              f"{r['err']}{''.join(f', {k} {v:.7f}' for k, v in extra.items())}")
+    pair = records["curved_roots"]
+    print(f"medium curved, the final insertion: curved_roots + curved_gd "
+          f"{pair['final_pair_ms']:.5f} ms in 2 launches, the first design's "
+          f"curved_pick, K7, curved_points, curved_gd and curved_mix "
+          f"{pair['final_pair_first_ms']:.5f} ms in 5; a graph node's floor "
+          f"{floor_ms:.5f} ms; predicted <= 0.008 ms: "
+          f"{'met' if pair['final_pair_ms'] <= 0.008 else 'missed'}")
     del net
     torch.cuda.empty_cache()
 
@@ -3773,12 +3888,13 @@ def host_loop(net, V, E, force=True):
                        outputs, force=force)
 
 
-def curved_loop(net):
+def curved_loop(net, label="medium curved"):
     """The curved loop from the device skeleton against the host engine's
     curved loop from the same skeleton: vertices, outputs, edges and the
     ``failover.COUNTERS`` bit for bit.  The two run the same forwards on
     the same rows in the same batches (cuBLAS rounds by batch size); where
-    they differ, the first rows that differ are named."""
+    they differ, the first rows that differ are named.  Returns the device
+    engine's counters and its curved insertions."""
     from tropical_torch.extract import device as dv
     from tropical_torch.extract import failover as fo
 
@@ -3798,7 +3914,7 @@ def curved_loop(net):
     same = (Vd.shape == Vh.shape and Ed.shape == Eh.shape
             and bits_equal(Vd, Vh) and bits_equal(Od, Oh)
             and torch.equal(Ed.long(), Eh) and dev_counts == host_counts)
-    print(f"medium curved: the loop from the device skeleton ({V.shape[0]} "
+    print(f"{label}: the loop from the device skeleton ({V.shape[0]} "
           f"vertices, {E.shape[0]} edges): {Vd.shape[0]}/{Ed.shape[0]}, the "
           f"host engine's {Vh.shape[0]}/{Eh.shape[0]}, bitwise {same}; "
           f"counters {dev_counts} / {host_counts}; loop {t_dev:.4f} s, host "
@@ -3807,9 +3923,64 @@ def curved_loop(net):
         n = min(Vd.shape[0], Vh.shape[0])
         rows = torch.nonzero((Vd[:n] != Vh[:n]).any(1)
                              | (Od[:n] != Oh[:n]).any(1))[:8, 0].tolist()
-        print(f"medium curved: the first vertex rows that differ {rows}: "
+        print(f"{label}: the first vertex rows that differ {rows}: "
               f"device {Vd[rows].tolist()}, host {Vh[rows].tolist()}")
-    check(same, "medium curved: the device loop != the host engine")
+    check(same, f"{label}: the device loop != the host engine")
+    return dev_counts, eng.stats.curved
+
+
+def kinked_net(device="cuda"):
+    """The x30000 kinked net (``KINKED_SPEC``; tests/test_device_curved.py
+    ``_kinked_net(r_max=6, levels=3, scale=30000)``) from the port's own
+    init with ``KINKED_SEED``: its table scaled by ``KINKED_SCALE``, so
+    that most split edges are curved and their roots poor, and the last
+    bias shifted by the mean of the two outputs' difference at 512 seeded
+    points of [-1, 1]^3, so that the zero set crosses the cube."""
+    from tropical_torch.core.net import NetSpec, TorchNet
+
+    net = TorchNet(NetSpec(**KINKED_SPEC), device=device,
+                   generator=torch.Generator().manual_seed(KINKED_SEED))
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (512, 3)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        net.enc.table.mul_(KINKED_SCALE)
+        out = net(x)
+        net.fc[-1].bias[1] -= (out[:, 1] - out[:, 0]).mean()
+    return net
+
+
+def rescue_phase(device="cuda"):
+    """A curved run whose insertions rescue rows, on the card: the x30000
+    kinked net (``kinked_net``), its curved loop from the device skeleton
+    bitwise the host engine's (``curved_loop``), with rows rescued, and
+    K4c's launches in it: curved_roots and curved_resolve one an insertion
+    with curved rows, and at each with rescued rows curved_mix after the
+    rescue and curved_filter's two again.  Returns the device engine's
+    counters."""
+    phase("11c. a rescue on the card: the x30000 kinked net, curved, the "
+          "device engine against the host engine")
+    from tropical_torch.ops import launches
+
+    net = kinked_net(device)
+    launches.reset()
+    counts, curved = curved_loop(net, "x30000 kinked")
+    steps = sum(c > 0 for _, _, c, *_ in curved)
+    rescues = sum(g > 0 for _, _, _, g, *_ in curved)
+    print(f"x30000 kinked: {len(curved)} busy insertions, {steps} with curved "
+          f"rows, {rescues} with rescued rows ({counts['gd_rows']} rows, "
+          f"{counts['gd_steps']} rescue steps); K4c's launches "
+          f"{ {k: launches.LAUNCHES[k] for k in CURVED_KERNELS} }")
+    check(counts["gd_rows"] > 0 and rescues > 0,
+          f"x30000 kinked: no row rescued ({counts})")
+    want = {"curved_select": 0, "curved_roots": steps,
+            "curved_resolve": steps + rescues,
+            "curved_filter": 2 * (len(curved) + rescues)}
+    got = {k: launches.LAUNCHES[k] for k in want}
+    check(got == want, f"x30000 kinked: K4c's launches {got}, want {want}")
+    del net
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return counts
 
 
 def same_sets(size, a, b):
@@ -3916,12 +4087,22 @@ def main() -> int:
     records = {r["name"]: r for r in kernel_phase()}
     flat_launches, flat_largest, flat_cd, flat_meshes = main_path_phase()
     mesh_digest = file_digest("meshes_torch/sphere/our_mesh_small_1.ply")
-    engines_phase()
+    engines = engines_phase()
     curved_launches, curved_inputs, curved_take, curved_meshes = \
         curved_path_phase()
     records["min_dist"]["launches"] = flat_launches["min_dist"]
     records["min_dist"]["launches_curved"] = curved_launches["min_dist"]
-    records["trilinear_roots"]["launches"] = curved_launches["trilinear_roots"]
+    # K7's own launches are the host engine's curved path's; the device
+    # engine's runs its solve inside curved_roots
+    host_k7 = engines["medium curved"]["host"]["trilinear_roots"]
+    check(host_k7 > 0, "the host engine's curved extraction launched no "
+          "trilinear_roots")
+    records["trilinear_roots"].update(
+        launches=host_k7,
+        launches_path="subpoly(engine='host', force=False), sphere-medium "
+                      "(phase 4b)",
+        launches_curved=curved_launches["trilinear_roots"],
+        runs_in="curved_roots on the device engine's curved path")
     shapes_phase(records, flat_largest, curved_inputs, curved_take)
     train_launches = training_phase(flat_cd)
     for k in ENCODE:
@@ -3954,6 +4135,7 @@ def main() -> int:
 
     device_kernels_phase(records, flat_launches)
     curved_kernels_phase(records, curved_launches)
+    rescue_phase()
     presets_phase()
 
     phase("13. result")

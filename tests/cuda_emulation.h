@@ -1,10 +1,11 @@
 // The CUDA surface that tropical_torch/csrc/hashgrid_encode.cu and
 // tropical_torch/csrc/bvh.cu use, on the CPU, so that the CPU tests can run
 // the encode's forward kernel (tests/test_torch_encode_forward.py) and the
-// BVH's kernels (tests/test_torch_bvh.py): one std::thread a lane, all the
-// lanes of a block at once; a warp's 32 lanes meet at a std::barrier in each
-// shuffle, vote, reduction and __syncwarp, a block's at another in
-// __syncthreads, and a lane that returns leaves both.  The blocks run one
+// BVH's kernels (tests/test_torch_bvh.py): all the lanes of a block at once,
+// each a fiber on the launching thread (below, EmuLaunch); a warp's 32 lanes
+// meet at a barrier in each shuffle, vote, reduction and __syncwarp, a
+// block's at another in __syncthreads, and a lane that returns leaves both.
+// The blocks run one
 // after another, so a __shared__ array is a function-static one, which each
 // block's kernel sets before it reads it, as on the card.  Float arithmetic
 // is IEEE single precision rounded to nearest (built with -ffp-contract=off),
@@ -16,16 +17,16 @@
 // cudaMemcpyFromSymbol copy.  The encode backwards' other intrinsics (float
 // atomics, match, any) compile but abort when called.
 #pragma once
+#include <sys/mman.h>
+#include <ucontext.h>
+
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <climits>
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
-#include <memory>
-#include <thread>
 #include <vector>
 
 #define __global__
@@ -36,6 +37,7 @@
 #define __grid_constant__
 #define __shared__ static
 
+using std::isfinite;
 using std::max;
 using std::min;
 
@@ -128,6 +130,75 @@ inline int __clz(int x) {
   return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
 }
 
+// --- a block's lanes as fibers ----------------------------------------------
+//
+// A launch runs on the calling thread: each lane of a block is a fiber with
+// a stack of its own, and a lane runs until it reaches a barrier (a warp's
+// or the block's) or returns; the next lane that can run then runs.  The
+// lane that completes a barrier goes on without a switch.  A lane that
+// loads an atomic yields first, so that one spinning on another lane's flag
+// lets that lane run.  The lanes of a block thus run at once as on the card,
+// on one core, and the blocks one after another.
+struct EmuBar {
+  unsigned expected = 0, arrived = 0, phase = 0;
+};
+struct EmuWarp {
+  EmuBar bar;
+  unsigned long long buf[32];
+};
+struct EmuBlock {
+  EmuBar bar;
+};
+struct EmuFiber {
+  ucontext_t ctx;  // its registers and stack while switched out
+  char* stack = nullptr;
+  const EmuBar* wait = nullptr;  // the barrier it waits at, and its phase
+  unsigned phase = 0;
+  bool done = false;
+};
+
+[[noreturn]] inline void emu_fatal(const char* what) {
+  std::fprintf(stderr, "cuda_emulation.h: %s\n", what);
+  std::abort();
+}
+
+struct EmuRun {
+  static constexpr size_t kStack = 256 << 10;
+  ucontext_t sched;  // the launching thread's context
+  EmuFiber* lane = nullptr;  // the running lane
+  void (*body)(const void*) = nullptr;  // the kernel with its arguments
+  const void* args = nullptr;
+  std::vector<EmuFiber> fibers;  // stacks kept from launch to launch
+};
+inline thread_local EmuRun emu_run;
+inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local EmuBlock* emu_block = nullptr;
+
+// the running lane back to the launch's scheduler
+inline void emu_yield() { swapcontext(&emu_run.lane->ctx, &emu_run.sched); }
+
+inline void emu_complete(EmuBar& b) {
+  b.arrived = 0;
+  ++b.phase;
+}
+
+// the running lane at barrier b: waits until every lane still running has
+// arrived
+inline void emu_wait(EmuBar& b) {
+  if (emu_run.lane == nullptr) return;  // host code
+  const unsigned phase = b.phase;
+  if (++b.arrived == b.expected) return emu_complete(b);
+  emu_run.lane->wait = &b;
+  emu_run.lane->phase = phase;
+  emu_yield();
+}
+
+// a lane that returns leaves its barriers
+inline void emu_drop(EmuBar& b) {
+  --b.expected;
+  if (b.arrived != 0 && b.arrived == b.expected) emu_complete(b);
+}
+
 // <cuda/atomic>'s atomic_ref and memory orders; every scope is the process
 namespace cuda {
 enum thread_scope {
@@ -147,19 +218,13 @@ using ::std::memory_order_seq_cst;
 template <typename T, thread_scope = thread_scope_system>
 struct atomic_ref : ::std::atomic_ref<T> {
   explicit atomic_ref(T& obj) : ::std::atomic_ref<T>(obj) {}
+  // a lane that may spin on another's store lets the others run first
+  T load(::std::memory_order order = ::std::memory_order_seq_cst) const {
+    if (emu_run.lane != nullptr) emu_yield();
+    return ::std::atomic_ref<T>::load(order);
+  }
 };
 }  // namespace cuda
-
-struct EmuWarp {
-  std::barrier<> bar{32};
-  unsigned long long buf[32];
-};
-struct EmuBlock {
-  explicit EmuBlock(unsigned threads) : bar(threads) {}
-  std::barrier<> bar;
-};
-inline thread_local EmuWarp* emu_warp = nullptr;
-inline thread_local EmuBlock* emu_block = nullptr;
 
 // each lane's value in, lane src's out (within sections of `width` lanes)
 template <typename T>
@@ -167,10 +232,10 @@ inline T __shfl_sync(unsigned, T v, int src, int width = 32) {
   static_assert(sizeof(T) <= sizeof(unsigned long long));
   const int lane = threadIdx.x & 31;
   std::memcpy(&emu_warp->buf[lane], &v, sizeof v);
-  emu_warp->bar.arrive_and_wait();
+  emu_wait(emu_warp->bar);
   T r;
   std::memcpy(&r, &emu_warp->buf[(lane & ~(width - 1)) + src % width], sizeof r);
-  emu_warp->bar.arrive_and_wait();
+  emu_wait(emu_warp->bar);
   return r;
 }
 
@@ -185,10 +250,10 @@ inline T __shfl_xor_sync(unsigned, T v, int mask, int width = 32) {
 template <typename F>
 inline unsigned emu_warp_fold(unsigned v, F f) {
   emu_warp->buf[threadIdx.x & 31] = v;
-  emu_warp->bar.arrive_and_wait();
+  emu_wait(emu_warp->bar);
   unsigned r = static_cast<unsigned>(emu_warp->buf[0]);
   for (int l = 1; l < 32; ++l) r = f(r, static_cast<unsigned>(emu_warp->buf[l]), l);
-  emu_warp->bar.arrive_and_wait();
+  emu_wait(emu_warp->bar);
   return r;
 }
 inline unsigned __ballot_sync(unsigned, bool pred) {
@@ -198,8 +263,8 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
   return emu_warp_fold(v, [](unsigned a, unsigned b, int) { return b < a ? b : a; });
 }
-inline void __syncthreads() { emu_block->bar.arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->bar.arrive_and_wait(); }
+inline void __syncthreads() { emu_wait(emu_block->bar); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_wait(emu_warp->bar); }
 
 [[noreturn]] inline void emu_unsupported(const char* what) {
   std::fprintf(stderr, "cuda_emulation.h: %s is not emulated\n", what);
@@ -250,32 +315,89 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 
 // kernel<<<grid, block, shared, stream>>>(args) becomes
 // EmuLaunch(grid, block, shared, stream).run(kernel, args): the blocks in
-// turn, a block's lanes as threads.
+// turn, a block's lanes as fibers.
 struct EmuLaunch {
   unsigned grid, block;
   EmuLaunch(long long g, int b, int = 0, cudaStream_t = nullptr)
       : grid(static_cast<unsigned>(g)), block(static_cast<unsigned>(b)) {}
+
+  // a lane's first frame: runs the kernel, leaves its barriers and never
+  // comes back
+  static void entry() {
+    emu_run.body(emu_run.args);
+    EmuFiber* f = emu_run.lane;
+    f->done = true;
+    emu_drop(emu_warp->bar);
+    emu_drop(emu_block->bar);
+    emu_yield();
+  }
+
+  // fiber t's stack (kept) and a first frame that enters entry()
+  static void start(unsigned t) {
+    EmuFiber& f = emu_run.fibers[t];
+    if (f.stack == nullptr) {
+      void* m = mmap(nullptr, EmuRun::kStack, PROT_READ | PROT_WRITE,
+                     MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE | MAP_STACK,
+                     -1, 0);
+      if (m == MAP_FAILED) emu_fatal("no memory for a lane's stack");
+      f.stack = static_cast<char*>(m);
+      mprotect(f.stack, 4096, PROT_NONE);  // an overflow faults
+    }
+    f.wait = nullptr;
+    f.done = false;
+    getcontext(&f.ctx);
+    f.ctx.uc_stack.ss_sp = f.stack;
+    f.ctx.uc_stack.ss_size = EmuRun::kStack;
+    f.ctx.uc_link = nullptr;
+    makecontext(&f.ctx, &entry, 0);
+  }
+
+  static void resume(unsigned t, unsigned bx, std::vector<EmuWarp>& warps,
+                     EmuBlock& blk) {
+    EmuFiber& f = emu_run.fibers[t];
+    f.wait = nullptr;
+    emu_run.lane = &f;
+    blockIdx.x = bx;
+    threadIdx.x = t;
+    emu_warp = &warps[t / 32];
+    emu_block = &blk;
+    swapcontext(&emu_run.sched, &f.ctx);
+  }
+
   template <typename Kernel, typename... Args>
   void run(Kernel kernel, const Args&... args) {
+    if (emu_run.lane != nullptr) emu_fatal("a launch from a kernel");
     gridDim.x = grid;
     blockDim.x = block;
+    auto call = [&] { kernel(args...); };
+    emu_run.body = [](const void* c) {
+      (*static_cast<const decltype(call)*>(c))();
+    };
+    emu_run.args = &call;
+    if (emu_run.fibers.size() < block) emu_run.fibers.resize(block);
+    std::vector<EmuWarp> warps((block + 31) / 32);
     for (unsigned bx = 0; bx < grid; ++bx) {
-      EmuBlock shared_block(block);
-      std::vector<std::unique_ptr<EmuWarp>> warps;
-      for (unsigned w = 0; w < block / 32; ++w)
-        warps.push_back(std::make_unique<EmuWarp>());
-      std::vector<std::thread> lanes;
-      for (unsigned t = 0; t < block; ++t)
-        lanes.emplace_back([&, t] {
-          blockIdx.x = bx;
-          threadIdx.x = t;
-          emu_warp = warps[t / 32].get();
-          emu_block = &shared_block;
-          kernel(args...);
-          emu_warp->bar.arrive_and_drop();
-          shared_block.bar.arrive_and_drop();
-        });
-      for (auto& t : lanes) t.join();
+      EmuBlock blk;
+      blk.bar.expected = block;
+      for (unsigned w = 0; w < warps.size(); ++w)
+        warps[w].bar = EmuBar{std::min(32u, block - 32 * w), 0, 0};
+      for (unsigned t = 0; t < block; ++t) start(t);
+      // each lane that can run, in turn, until all have returned
+      for (unsigned live = block; live > 0;) {
+        bool ran = false;
+        for (unsigned t = 0; t < block; ++t) {
+          const EmuFiber& f = emu_run.fibers[t];
+          if (f.done || (f.wait != nullptr && f.wait->phase == f.phase))
+            continue;
+          resume(t, bx, warps, blk);
+          ran = true;
+          live -= f.done;
+        }
+        if (!ran) emu_fatal("every lane of a block waits: a deadlock");
+      }
     }
+    emu_run.lane = nullptr;
+    emu_warp = nullptr;
+    emu_block = nullptr;
   }
 };

@@ -1,5 +1,5 @@
 """The device engine's curved path (``force=False``; ``extract/device.py``,
-K4c: the selection in ``split_select``'s curved instance, ``curved_pick``,
+K4c: the selection in ``split_select``'s curved instance, ``curved_roots``,
 ``curved_resolve``, ``curved_filter``, then K4's finish alone) on the CPU.
 
 - The loop, fed the host skeleton (``grid_skeleton``), with the plain
@@ -19,19 +19,32 @@ K4c: the selection in ``split_select``'s curved instance, ``curved_pick``,
   ``scripts/curved_presets_golden.py``) exactly, with no sentinel, rescued
   or dropped row, as JAX counts them.
 - A curved edge on no earlier plane raises ``RuntimeError``.
+- ``Engine._curved`` on synthetic curved rows of the x30000 net, with
+  rescued rows and with none (every box flat along a coordinate: K7's
+  sentinel), against the parent design's order of the same plain stages
+  (``curved_pick``, K7, ``curved_points``, ``curved_gd``, a count read,
+  the rescue, ``curved_mix``, the forward, the filter): the same
+  survivors and counters, one read fewer without a rescue and as many
+  with one.
 - The K4c kernels built with g++ against ``tests/cuda_emulation.h`` and
   held bitwise to their plain versions: ``split_select``'s curved instance
   against ``split_select_plain`` then ``curved_select_plain`` (and its flat
   instance) on synthetic pools (no curved row, all curved, ragged; every
   edge's plane the last column below idx; curved rows on no plane);
-  ``curved_pick`` and ``curved_resolve`` (no rescued row and some);
+  ``curved_roots`` on K7's hard rows (``tests/trilinear_cases.py``)
+  gathered from a corner forward, its plain version also against the
+  parent design's chain (``curved_pick``, K7's plain version,
+  ``curved_points``); ``curved_gd`` with its mix against
+  ``curved_gd_plain`` then ``curved_mix_plain`` without a rescue, and
+  ``curved_mix`` after a rescue (no rescued row and some);
   ``curved_filter`` (survivors none, all and ragged, the override firing),
   and K4's finish alone on its survivors against the plain composition; at
   a hidden insertion and the final one; and every call of the kinked net's
   run, recorded, in the design and in K4c's first design
   (``cuda_build.CURVED_FIRST``, through the same calls: ``curved_select``
-  after the flat selection, the filter by ``split_check`` and a thread a
-  row, the finish with its check).
+  after the flat selection, ``curved_pick``, K7 and ``curved_points``,
+  ``curved_gd`` then ``curved_mix``, the filter by ``split_check`` and a
+  thread a row, the finish with its check).
 """
 
 import json
@@ -41,10 +54,12 @@ import numpy as np
 import pytest
 import torch
 
+import trilinear_cases
 from test_device_curved import _kinked_net
 from test_torch_curved import _torch_twin
 from test_torch_device_engine import curved_loop_is_the_host_engine
 from test_torch_device_kernels import _bits, _build
+from tropical_torch.core import trilinear as tl
 from tropical_torch.extract import device as dv
 from tropical_torch.extract import failover as fo
 from tropical_torch.ops import cuda_build, launches
@@ -148,6 +163,92 @@ def test_no_earlier_plane_raises(kinked_nets):
         curved()
     bz[1, 0] = 1 << 4
     curved()
+
+
+def _parent_roots(d_corner, plane, e01, idx):
+    """The parent design's chain: ``curved_pick``'s plain version (p at
+    each row's plane, q at idx), K7's plain version, ``curved_points``'
+    plain version."""
+    p = d_corner.gather(2, plane.long()[:, None, None].expand(-1, 8, 1))
+    p, q = p[..., 0], d_corner[:, :, idx].contiguous()
+    ints = tl.intersection_of_two_planes_plain(p, q)
+    return ints, e01[:, 0] * (1 - ints) + e01[:, 1] * ints
+
+
+def _parent_curved(eng, lanes, ce, Vn, bz, qs, plane, e01, corners, idx, cw):
+    """``Engine._curved`` in the parent design's order, on the plain
+    stages: the curved rows read, the corner forward, K7 and the points,
+    the on-surface forward, ``curved_gd``, a read of the sentinels and
+    rescued rows, the rescue, ``curved_mix``, the forward of every new
+    vertex, the filter and a read of the survivors."""
+    net, eps = eng.net, eng.eps
+    cstate = dv._zeros32(Vn.shape[0], device="cpu")
+    n_cv, _ = (int(x) for x in eng.read(cw[:dv.CW_SENT]))
+    if n_cv:
+        fo.COUNTERS["curved_steps"] += 1
+        qs, plane, e01 = qs[:n_cv], plane[:n_cv], e01[:n_cv]
+        d_corner = net.outputs(corners[:n_cv].reshape(-1, 3), group=8)
+        ints, cand = _parent_roots(d_corner.reshape(n_cv, 8, dv.R_COLS),
+                                   plane, e01, idx)
+        dnew, grank, ge0, gde, gcols, gx = dv.curved_gd_plain(
+            net.outputs(cand), plane, ints, e01, idx, eps, cw)
+        n_sent, n_gd = (int(x) for x in eng.read(cw[dv.CW_SENT:dv.CW_ANYD0]))
+        fo.COUNTERS["sentinels"] += n_sent
+        fo.COUNTERS["gd_rows"] += n_gd
+        gx_end = gd0 = None
+        if n_gd:
+            gx_end, gd0, _ = fo.descend(net, ge0[:n_gd], gde[:n_gd],
+                                        gcols[:n_gd], gx[:n_gd], idx, eps,
+                                        on_test=eng._count_read)
+        dv.curved_mix_plain(qs, e01, ints, dnew, grank, gx_end, gd0, eps, Vn,
+                            cstate, cw)
+    kept = dv.curved_filter_plain(net.outputs(Vn), bz, lanes, ce, Vn, cstate,
+                                  idx, eps, cw)
+    n_keep, drops = (int(x) for x in eng.read(cw[dv.CW_KEPT:]))
+    fo.COUNTERS["strict_drops"] += drops
+    return [x[:n_keep] for x in kept]
+
+
+@pytest.mark.parametrize("case", ["rescue", "no_rescue"])
+def test_curved_reads_and_order(kinked_nets, monkeypatch, case):
+    """``Engine._curved`` against ``_parent_curved`` on 300 synthetic split
+    rows of the x30000 net at plane 20 (ends in [-1, 1]^3 at a plane below
+    idx): the survivors and the ``failover.COUNTERS`` deltas bit for bit;
+    with rescued rows as many reads, without (each curved row's ends equal
+    in one coordinate, a box flat along it: K7's sentinel for every row)
+    one read fewer."""
+    monkeypatch.setattr(fo.descend, "__defaults__", (GD_STEPS, 1e-2, None))
+    net, idx, n = kinked_nets["gd"], 20, 300
+    rng = np.random.default_rng(7)
+    a = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    b = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    if case == "no_rescue":
+        axis = rng.integers(0, 3, n)
+        b[np.arange(n), axis] = a[np.arange(n), axis]
+    V = torch.from_numpy(np.concatenate([a, b]))
+    ce = torch.from_numpy(np.stack([np.arange(n), n + np.arange(n)], 1)
+                          .astype(np.int32))
+    words = rng.integers(0, 2 ** 32, (n, dv.NW), dtype=np.int64)
+    words[:, 0] |= 1 << rng.integers(0, idx, n)
+    bz = dv._to_i32(torch.from_numpy(words)).contiguous()
+    Vn = 0.5 * (V[:n] + V[n:])
+    lanes = torch.arange(n, dtype=torch.int32)
+    runs = []
+    for curved in ("engine", "parent"):
+        eng = dv.Engine(net, force=False)
+        cw = dv._zeros32(dv.CW, device="cpu")
+        sel = dv.curved_select_plain(ce, bz, V, idx, EPS, cw)
+        fo.reset_counters()
+        args = (lanes, ce, Vn.clone(), bz, *sel, idx, cw)
+        kept = (eng._curved(dv.Pools(V, *[None] * 7), *args)
+                if curved == "engine" else _parent_curved(eng, *args))
+        runs.append((kept, dict(fo.COUNTERS), eng.stats.reads))
+    (kept, counters, reads), (pkept, pcounters, preads) = runs
+    _same(pkept, kept)
+    assert counters == pcounters
+    assert counters["curved_steps"] == 1 and counters["sentinels"] > 0
+    assert (counters["gd_rows"] > 0) == (case == "rescue")
+    assert reads == preads - (case == "no_rescue")
 
 
 # --- the kernels under emulation ---------------------------------------------
@@ -266,51 +367,94 @@ def _resolve_inputs(case, idx, n=600, seed=0):
     return e01, torch.from_numpy(ints), plane, torch.from_numpy(outs)
 
 
+def _corner_forward(case, idx, plane):
+    """A corner forward [n, 8, R] whose rows at each row's plane and at idx
+    are K7's hard rows (``trilinear_cases.kernel_pq``: quartics of known
+    roots, cubes constant along an axis, random rows) ("some_gd"), or
+    normal draws ("no_gd")."""
+    n = plane.shape[0]
+    rng = np.random.default_rng(idx + len(case))
+    d = rng.normal(size=(n, 8, dv.R_COLS)).astype(np.float32)
+    if case == "some_gd":
+        p, q, _ = trilinear_cases.kernel_pq()
+        rows = np.resize(rng.permutation(p.shape[0]), n)
+        r = np.arange(n)
+        d[r, :, idx] = q[rows]
+        d[r, :, plane.numpy()] = p[rows]
+    return torch.from_numpy(d)
+
+
 @pytest.mark.parametrize("idx", PLANES)
 @pytest.mark.parametrize("case", ["no_gd", "some_gd"])
-def test_emulated_curved_pick_and_resolve(kern, case, idx):
-    """``curved_pick``, then ``curved_resolve``'s three stages (the points,
-    the residuals and the rescue's rows, the mix) on 600 curved rows of 800
-    split rows, with the rescue's results made up."""
-    e01, ints, plane, outs = _resolve_inputs(case, idx)
-    n = e01.shape[0]
-    rng = np.random.default_rng(idx)
-    d_corner = torch.from_numpy(rng.normal(size=(n, 8, dv.R_COLS)).astype(
-        np.float32))
+def test_emulated_curved_roots(kern, case, idx):
+    """``curved_roots`` (one launch) on 600 curved rows, bitwise its plain
+    version, which is bitwise the parent design's chain
+    (``_parent_roots``)."""
+    e01, _, plane, _ = _resolve_inputs(case, idx)
+    d_corner = _corner_forward(case, idx, plane)
     launches.reset()
-    _same(dv.curved_pick(d_corner, plane, idx),
-          dv.curved_pick(d_corner, plane, idx, kern=kern))
-    _same([dv.curved_points(e01, ints)],
-          [dv.curved_points(e01, ints, kern=kern)])
-    cws = [dv._zeros32(dv.CW, device="cpu") for _ in range(2)]
-    want = dv.curved_gd(outs, plane, ints, e01, idx, EPS, cws[0])
-    got = dv.curved_gd(outs, plane, ints, e01, idx, EPS, cws[1], kern=kern)
-    assert torch.equal(cws[0], cws[1])
-    _same(want, got)
-    n_gd = int(cws[0][dv.CW_GD])
-    assert (n_gd == 0) == (case == "no_gd") and cws[0][dv.CW_SENT] > 0
+    want = dv.curved_roots(d_corner, plane, e01, idx)
+    _same(_parent_roots(d_corner, plane, e01, idx), want)
+    _same(want, dv.curved_roots(d_corner, plane, e01, idx, kern=kern))
+    assert launches.LAUNCHES["curved_roots"] == 1
+    ints = want[0]
+    assert (ints == -1).any() and ((ints >= 0) & (ints <= 1)).all(1).any()
+
+
+@pytest.mark.parametrize("idx", PLANES)
+@pytest.mark.parametrize("case", ["no_gd", "some_gd", "tiles"])
+def test_emulated_curved_resolve(kern, case, idx):
+    """``curved_resolve`` on 600 curved rows of 800 split rows (one block
+    ranks them) and on 1,500 ("tiles": ranked by tiles of 256 and their
+    look-back): ``curved_gd`` with its mix (one launch), bitwise its plain
+    version, which is bitwise ``curved_gd_plain`` then ``curved_mix_plain``
+    without a rescue; and with rescued rows ``curved_mix`` after the
+    rescue (its results made up)."""
+    e01, ints, plane, outs = _resolve_inputs(case, idx,
+                                             1500 if case == "tiles" else 600)
+    n, S = e01.shape[0], e01.shape[0] + 200
+    rng = np.random.default_rng(idx)
+    qs = torch.from_numpy(np.sort(rng.choice(S, n, replace=False))
+                          .astype(np.int32))
+    Vn = torch.from_numpy(rng.normal(size=(S, 3)).astype(np.float32))
+    launches.reset()
+    runs = []
+    for k in (None, kern):
+        V_, cs, cw = Vn.clone(), dv._zeros32(S, device="cpu"), dv._zeros32(
+            dv.CW, device="cpu")
+        res = dv.curved_gd(outs, plane, ints, e01, qs, idx, EPS, V_, cs, cw,
+                           kern=k)
+        runs.append([*res, V_, cs, cw])
+    _same(*runs)
+    V_, cs, cw = Vn.clone(), dv._zeros32(S, device="cpu"), dv._zeros32(
+        dv.CW, device="cpu")
+    res = dv.curved_gd_plain(outs, plane, ints, e01, idx, EPS, cw)
+    dv.curved_mix_plain(qs, e01, ints, res[0], res[1], None, None, EPS, V_,
+                        cs, cw)
+    _same([*res, V_, cs, cw], runs[0])
+    want, cw0 = runs[0][:6], runs[0][-1]
+    n_gd = int(cw0[dv.CW_GD])
+    assert (n_gd == 0) == (case == "no_gd") and cw0[dv.CW_SENT] > 0
+    assert ((cs & dv.CV_CURVED) > 0).sum() == n and (cs & dv.CV_GG).any()
+    assert launches.LAUNCHES["curved_resolve"] == 1
+    if not n_gd:
+        return
     # the rescue's results: roots in [0, 1] (two at its ends), residuals
     # on both sides of the band
     gx = torch.from_numpy(rng.uniform(0, 1, (n_gd, 3)).astype(np.float32))
     gx[:1] = 0.0
     gx[1:2] = 1.0
     gd0 = torch.from_numpy(_band(rng, (n_gd,), 0.5))
-    qs = torch.from_numpy(np.sort(rng.choice(n + 200, n, replace=False))
-                          .astype(np.int32))
-    S = n + 200
-    Vn = torch.from_numpy(rng.normal(size=(S, 3)).astype(np.float32))
-    outs_mix = []
+    mixed = []
     for k in (None, kern):
-        V_, cs, cw = Vn.clone(), dv._zeros32(S, device="cpu"), cws[0].clone()
-        dv.curved_mix(qs, e01, ints, want[0], want[1],
-                      gx if n_gd else None, gd0 if n_gd else None, EPS, V_,
-                      cs, cw, kern=k)
-        outs_mix.append((V_, cs, cw))
-    _same(*outs_mix)
-    cs = outs_mix[0][1]
-    assert ((cs & dv.CV_CURVED) > 0).sum() == n and (cs & dv.CV_GG).any()
-    assert launches.LAUNCHES["curved_pick"] == 1
-    assert launches.LAUNCHES["curved_resolve"] == 3
+        V_, cs, cw = runs[0][6].clone(), runs[0][7].clone(), cw0.clone()
+        cw[dv.CW_ANYD0] = 0
+        dv.curved_mix(qs, e01, ints, want[0], want[1], gx, gd0, EPS, V_, cs,
+                      cw, kern=k)
+        mixed.append((V_, cs, cw))
+    _same(*mixed)
+    assert not torch.equal(mixed[0][0], runs[0][6])
+    assert launches.LAUNCHES["curved_resolve"] == 2
 
 
 def _filter_inputs(case, idx, S=700):
@@ -410,8 +554,8 @@ def test_emulated_finish_after_the_filter(kern, case, idx):
 
 # the stage functions of the curved route: K4's selection (its curved
 # instance) and finish (alone), and K4c's
-K4C = ("split_select", "curved_pick", "curved_points", "curved_gd",
-       "curved_mix", "curved_filter", "split_finish")
+K4C = ("split_select", "curved_roots", "curved_gd", "curved_mix",
+       "curved_filter", "split_finish")
 
 
 @pytest.fixture(scope="module")
@@ -447,7 +591,11 @@ def test_emulated_recorded_calls(builds, recorded):
     mix's vertices and states, the pools the finish rewrites) bitwise."""
     names = [name for name, *_ in recorded]
     assert names.count("split_select") == names.count("split_finish") == 11
-    assert names.count("curved_mix") == 7
+    # 7 insertions with curved rows; the mix, and the filter a second
+    # time, after the one rescue
+    assert names.count("curved_roots") == names.count("curved_gd") == 7
+    assert names.count("curved_mix") == 1
+    assert names.count("curved_filter") == 11 + 1
     assert all(len(args) == 9 for name, args, _ in recorded
                if name == "split_select")
     assert all(kw["survivors"] for name, _, kw in recorded
@@ -469,3 +617,8 @@ def test_emulated_recorded_calls(builds, recorded):
     # its override test)
     assert launches.LAUNCHES["split_step"] == 11 * (1 + 1) + 11 * (2 + 2)
     assert launches.LAUNCHES["curved_select"] == 0
+    # curved_roots one launch, the first design's three (curved_pick, K7,
+    # curved_points); curved_gd one, the first design's two (with
+    # curved_mix); the rescue's curved_mix one in each
+    assert launches.LAUNCHES["curved_roots"] == 7 * (1 + 3)
+    assert launches.LAUNCHES["curved_resolve"] == 7 * (1 + 2) + 1 * 2

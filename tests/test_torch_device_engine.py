@@ -100,8 +100,8 @@ def curved_loop_is_the_host_engine(net, max_iters=500):
     from the host skeleton against the port's host engine's: ``V``, ``OUT``,
     ``E`` and the ``failover.COUNTERS`` deltas bit for bit, and the reads:
     one a busy insertion and the starting pools', and of the curved path's
-    2 an insertion, one more with curved rows and one a rescue step but the
-    first (a rescue stopped at ``max_iters`` steps, the rescue's cap:
+    2 an insertion, one more with rescued rows and one a rescue step but
+    the first (a rescue stopped at ``max_iters`` steps, the rescue's cap:
     one less).  Returns the host engine's counters."""
     from tropical_torch.extract import failover as fo
     from tropical_torch.extract.skeleton import grid_skeleton
@@ -122,8 +122,8 @@ def curved_loop_is_the_host_engine(net, max_iters=500):
     assert stats.reads == len(stats.busy) + 1 + sum(
         r for *_, r in stats.curved)
     assert [r for *_, r in stats.curved] == [
-        2 + (c > 0) + min(s, max_iters - 1)
-        for _, _, c, _, s, _, _ in stats.curved]
+        2 + (g > 0) + min(s, max_iters - 1)
+        for _, _, _, g, s, _, _ in stats.curved]
     return host
 
 

@@ -217,9 +217,14 @@ def _emulated_build(tmp_path, lanes):
 
 
 def emulated_source(src: str) -> str:
-    """The .cu source with each launch ``k<<<grid, block, ...>>>(args)``
-    made a call of the emulation's launcher, the CUDA headers left to the
-    emulation, and the dynamic shared buffer a namespace-scope array."""
+    """The .cu source with the package's headers it includes
+    (``#include "name.cuh"``, from ``csrc/``) written in its place, each
+    launch ``k<<<grid, block, ...>>>(args)`` made a call of the emulation's
+    launcher, the CUDA headers left to the emulation, and the dynamic shared
+    buffer a namespace-scope array."""
+    src = re.sub(r'#include "(\w+\.cuh)"', lambda m: (
+        ROOT / "tropical_torch" / "csrc" / m.group(1)).read_text().replace(
+        "#pragma once", ""), src)
     src = re.sub(r"#include <cuda_runtime.h>|#include <cuda/atomic>", "", src)
     src = src.replace("extern __shared__", "extern")
     src = re.sub(r"(\w+(?:<[\w, ]+>)?)<<<(.*?)>>>\(\s*", r"EmuLaunch(\2).run(\1, ",

@@ -61,6 +61,10 @@
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
+#include <climits>
+
+#include "trilinear_roots.cuh"
+
 namespace {
 
 typedef long long ll;
@@ -1327,8 +1331,11 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
 // _curved_intersections, extract/failover.py gradient_descent_failover and
 // strict_check), around K4's selection and finish, the net's forwards (K1)
 // and the root solve (K7).  Bound by bytes: the filter's survivors' rows
-// (132 bytes each, read and written) are most of them.  The design, six
-// launches at a busy insertion with curved rows, two without:
+// (132 bytes each, read and written) are most of them.  At a few hundred
+// curved rows each launch is a graph node's floor (some 2 us on an H100),
+// so the design runs the curved rows in as few launches as the forwards
+// between them allow: four at a busy insertion with curved rows, two
+// without, and on a rescue the mix and the filter's two again:
 // - the selection, inside split_select's curved instance (above): a split
 //   edge is curved when its ends differ by more than eps in two or more
 //   coordinates; its earlier plane is the highest column below idx zero at
@@ -1336,16 +1343,21 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
 //   compacted in edge order into a side buffer: their slots, planes, ends
 //   and the 8 corners of their boxes; a curved row on no earlier plane is
 //   counted, and the caller raises;
-// - curved_pick (1): the corner forward's columns at each row's plane and at
-//   idx, K7's p and q;
-// - curved_resolve (3): curved_points, each row's point at K7's root on the
-//   edge's box (e0 (1 - t) + e1 t); curved_gd, after the on-surface
-//   forward: the residuals at the plane and at idx, the sentinel rows (a
-//   coordinate outside [0, 1]) and the rows the gradient-descent rescue
-//   takes (in range, off either surface), compacted in row order with their
-//   start, direction, plane and root; curved_mix, after the rescue: the
-//   rescued roots and residuals taken back, each curved row's vertex
-//   e0 + t (e1 - e0) over the lerp, and its state for the filter;
+// - curved_roots (1): K7's kernel (trilinear_roots.cuh) on rows gathered
+//   from the corner forward, each lane's float4 the column at the row's
+//   plane (p) or at idx (q) of four corners, and each root written with
+//   its point on the edge's box, e0 (1 - t) + e1 t, the input of the
+//   on-surface forward;
+// - curved_resolve: curved_gd (1), after that forward: the residuals at the
+//   plane and at idx, the sentinel rows (a coordinate outside [0, 1]) and
+//   the rows the gradient-descent rescue takes (in range, off either
+//   surface), compacted in row order with their start, direction, plane
+//   and root (up to kGdBlock rows by one block, with no look-back), and
+//   each curved row mixed as if none were rescued: its
+//   vertex e0 + t (e1 - e0) over the lerp, and its state for the filter;
+//   curved_mix (1) only after a rescue: every curved row mixed again, the
+//   rescued roots and residuals taken back (the caller clears the count
+//   words the mix and the filter set, and filters again);
 // - curved_filter (2): the sign override's test over every split row
 //   (split_check, whose predicated loads touch only the sectors of a row's
 //   override columns: a block staging its rows whole measured slower on an
@@ -1364,17 +1376,21 @@ __global__ void __launch_bounds__(kFinishRows) split_finish_kernel(
 // a counter (split_select's scheme and state, which the last block returns
 // to zero; the launches of one stream do not overlap).  The counts go to
 // the step's count words (cw, zeroed by the caller), which the caller
-// reads: the curved rows and those on no plane, the sentinels and rescued
-// rows, the survivors and dropped curved rows.  Floats are rounded an
-// operation at a time (no FMA), in the host engine's order.
-// The first design (-DCURVED_FIRST, cuda_build.CURVED_FIRST), seven
+// reads: the curved rows and those on no plane after the selection; the
+// sentinels and rescued rows, the survivors and dropped curved rows after
+// the filter.  Floats are rounded an operation at a time (no FMA), in the
+// host engine's order.
+// The first design (-DCURVED_FIRST, cuda_build.CURVED_FIRST), eight
 // launches at a busy insertion with curved rows, three without:
 // curved_select, a pass of its own over the split rows (each row's ends
 // and their V rows gathered again, a tile of 256, a curved row's 32 values
-// stored by its thread); curved_keep a thread a row, a survivor's 33
-// floats copied by its thread at a 132-byte stride; and K4's finish with
-// its own split_check.  It takes the design's launch functions
+// stored by its thread); curved_pick (a thread a corner: p and q written),
+// K7 on them and curved_points; curved_gd without the mix, and curved_mix
+// after it whether or not a row is rescued; curved_keep a thread a row, a
+// survivor's 33 floats copied by its thread at a 132-byte stride; and K4's
+// finish with its own split_check.  It takes the design's launch functions
 // (split_select_curved_launch runs the flat selection and curved_select,
+// curved_roots_launch its three, curved_gd_launch its two,
 // split_finish_launch always tests), so the engine has one route.
 
 // the rank of the thread's item among the launch's flagged items (tiles in
@@ -1593,6 +1609,21 @@ __global__ void __launch_bounds__(kFinishRows) curved_keep_kernel(
 
 #endif  // CURVED_FIRST
 
+// a curved row's vertex into Vn at its slot s, e0 + t (e1 - e0) at its root
+// t, and its state into cstate (gg: t out of range, d0 its residual at the
+// plane, 0 where gg); cw[CW_ANYD0] set where the residual is off the band
+__device__ __forceinline__ void mix_row(ll s, const float* e0,
+                                        const float* e1, const float* t,
+                                        bool gg, float d0, float eps,
+                                        float* Vn, int* cstate, int* cw) {
+  for (int d = 0; d < 3; ++d)
+    Vn[3 * s + d] = __fadd_rn(e0[d], __fmul_rn(t[d], __fsub_rn(e1[d], e0[d])));
+  cstate[s] = CV_CURVED | (gg ? CV_GG : 0) | (fabsf(d0) < eps ? 0 : CV_OFF);
+  if (fabsf(d0) > eps) cw[CW_ANYD0] = 1;  // every writer writes 1
+}
+
+#ifdef CURVED_FIRST
+
 // p, q [n, 8]: the corner outputs d [n, 8, R] at each row's plane and at idx
 __global__ void curved_pick_kernel(const float* __restrict__ d,
                                    const int* __restrict__ plane, ll n,
@@ -1617,28 +1648,111 @@ __global__ void curved_points_kernel(const float* __restrict__ e01,
   }
 }
 
+#else  // the design
+
+// curved_roots: K7's rows gathered from the corner forward d [n, 8, R] (p
+// at each row's plane, q at idx: a lane's float4 is four corners' column,
+// 132 bytes apart), and each root t written with its point on the row's
+// edge, e0 (1 - t) + e1 t (the host engine's form), by the lane of its
+// coordinate, from the ends that lane loaded before the solve
+struct CornerRows {
+  static constexpr int kEnds = (3 + k7::kLanes - 1) / k7::kLanes;
+  struct Ends {
+    float e0[kEnds], e1[kEnds];  // coordinates lane, lane + kLanes, ...
+  };
+  const float* __restrict__ d;
+  const int* __restrict__ plane;
+  int idx;
+  const float* __restrict__ e01;
+  float* __restrict__ ints;
+  float* __restrict__ cand;
+  __device__ __forceinline__ Ends prefetch(int row, int lane) const {
+    Ends e{};
+    for (int i = 0, j = lane; j < 3; ++i, j += k7::kLanes) {
+      e.e0[i] = e01[6 * static_cast<ll>(row) + j];
+      e.e1[i] = e01[6 * static_cast<ll>(row) + 3 + j];
+    }
+    return e;
+  }
+  __device__ __forceinline__ float4 load(int row, int k) const {
+    const float* o = d + (8 * static_cast<ll>(row) + 4 * (k & 1)) * R +
+                     (k < 2 ? plane[row] : idx);
+    return make_float4(o[0], o[R], o[2 * R], o[3 * R]);
+  }
+  __device__ __forceinline__ void store(int row, int j, float t,
+                                        const Ends& e) const {
+    const ll r = row;
+    const int i = j / k7::kLanes;
+    ints[3 * r + j] = t;
+    cand[3 * r + j] = __fadd_rn(__fmul_rn(e.e0[i], __fsub_rn(1.0f, t)),
+                                __fmul_rn(e.e1[i], t));
+  }
+};
+
+#endif  // CURVED_FIRST
+
+// the most curved rows curved_gd ranks in one block
+constexpr int kGdBlock = 1024;
+
+// the rank of the thread's item among its block's flagged items (the
+// block's threads in order), valid where flag; *total: the block's flagged
+// items.  For a launch of one block: no tile id, status word or ticket
+__device__ __forceinline__ int block_rank(bool flag, int* total) {
+  __shared__ int counts[kGdBlock / 32];
+  __shared__ int total_s;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned mask = __ballot_sync(0xFFFFFFFFu, flag);
+  if (lane == 0) counts[warp] = __popc(mask);
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = static_cast<int>(blockDim.x >> 5);
+    const int c = lane < warps ? counts[lane] : 0;
+    const int inc = warp_scan(c, lane);
+    if (lane < warps) counts[lane] = inc - c;
+    if (lane == 31) total_s = inc;
+  }
+  __syncthreads();
+  *total = total_s;
+  return counts[warp] + __popc(mask & ((1u << lane) - 1u));
+}
+
 // dnew [n, 2]: the residuals at the plane and at idx; grank [n]: a rescued
 // row's rank, else -1; the rescued rows' start ge0, direction gde (e1 - e0),
-// plane gcols and root gx, in row order
-__global__ void __launch_bounds__(kThreads) curved_gd_kernel(
-    const float* __restrict__ outs, const int* __restrict__ plane,
-    const float* __restrict__ ints, const float* __restrict__ e01, int n,
-    int idx, float eps, float* dnew, int* grank, float* ge0, float* gde,
-    int* gcols, float* gx, int* cw) {
-  const int tile = rank_tile();
+// plane gcols and root gx, in row order.  The design also mixes each row as
+// curved_mix would without a rescue (its root from ints, its residual from
+// dnew): its vertex into Vn at its slot qs, its state into cstate, and
+// cw[CW_ANYD0].  kOneBlock: the design's instance for n <= kGdBlock, one
+// block ranking its rows by block_rank; else tiles of kThreads ranked by
+// rank_flag's look-back.  At a few hundred rows the launch is a chain of
+// latencies: the one block leaves out the tile counter's atomic, the status
+// word and the done ticket's fence and atomic
+template <bool kOneBlock>
+__global__ void __launch_bounds__(kOneBlock ? kGdBlock : kThreads)
+curved_gd_kernel(const float* __restrict__ outs,
+                 const int* __restrict__ plane,
+                 const float* __restrict__ ints,
+                 const float* __restrict__ e01, const int* __restrict__ qs,
+                 int n, int idx, float eps, float* dnew, int* grank,
+                 float* ge0, float* gde, int* gcols, float* gx, float* Vn,
+                 int* cstate, int* cw) {
+  const int tile = kOneBlock ? 0 : rank_tile();
   const int r = tile * kThreads + threadIdx.x;
   bool gg = false, gd = false;
   if (r < n) {
+    const ll r3 = 3 * static_cast<ll>(r);
     const float d0 = outs[R * static_cast<ll>(r) + plane[r]];
     const float d1 = outs[R * static_cast<ll>(r) + idx];
-    gg = out_of_range(ints + 3 * static_cast<ll>(r));
+    gg = out_of_range(ints + r3);
     gd = !gg && (fabsf(d0) > eps || fabsf(d1) > eps);
     dnew[2 * static_cast<ll>(r)] = d0;
     dnew[2 * static_cast<ll>(r) + 1] = d1;
+    if (!kCurvedFirst)
+      mix_row(qs[r], e01 + 2 * r3, e01 + 2 * r3 + 3, ints + r3, gg,
+              gg ? 0.0f : d0, eps, Vn, cstate, cw);
   }
   warp_count(gg, cw + CW_SENT);
   int incl;
-  const int g = rank_flag(tile, gd, &incl);
+  const int g = kOneBlock ? block_rank(gd, &incl) : rank_flag(tile, gd, &incl);
   if (r < n) grank[r] = gd ? g : -1;
   if (gd) {
     for (int d = 0; d < 3; ++d) {
@@ -1654,8 +1768,9 @@ __global__ void __launch_bounds__(kThreads) curved_gd_kernel(
     cw[CW_GD] = incl;
 }
 
-// the rescued rows' roots gx and residuals gd0 taken back, each curved
-// row's vertex into Vn at its slot and its state into cstate
+// each curved row's root and residual, from the rescue (gx, gd0 by its rank
+// grank) where it was rescued, else from ints and dnew, mixed (mix_row);
+// gx null: no row rescued
 __global__ void curved_mix_kernel(const int* __restrict__ qs,
                                   const float* __restrict__ e01,
                                   const float* __restrict__ ints,
@@ -1666,19 +1781,12 @@ __global__ void curved_mix_kernel(const int* __restrict__ qs,
                                   float eps, float* Vn, int* cstate, int* cw) {
   const ll r = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  const ll g = grank[r];
-  float t[3];
-  for (int d = 0; d < 3; ++d) t[d] = g >= 0 ? gx[3 * g + d] : ints[3 * r + d];
+  const ll g = gx != nullptr ? grank[r] : -1;
+  const float* t = g >= 0 ? gx + 3 * g : ints + 3 * r;
   const bool gg = out_of_range(t);
   const float d0 = gg ? 0.0f : (g >= 0 ? gd0[g] : dnew[2 * r]);
-  const ll s = qs[r];
-  for (int d = 0; d < 3; ++d) {
-    const float a = e01[6 * r + d];
-    Vn[3 * s + d] =
-        __fadd_rn(a, __fmul_rn(t[d], __fsub_rn(e01[6 * r + 3 + d], a)));
-  }
-  cstate[s] = CV_CURVED | (gg ? CV_GG : 0) | (fabsf(d0) < eps ? 0 : CV_OFF);
-  if (fabsf(d0) > eps) cw[CW_ANYD0] = 1;  // every writer writes 1
+  mix_row(qs[r], e01 + 6 * r, e01 + 6 * r + 3, t, gg, d0, eps, Vn, cstate,
+          cw);
 }
 
 #endif  // SPLIT_FOUR_PASS
@@ -2242,8 +2350,8 @@ int split_finish_launch(float* OUTn, const int* bz, const int* lanes,
 }
 
 // K4c (without SPLIT_FOUR_PASS): n the split rows (the selection,
-// curved_filter) or the curved rows (curved_pick, curved_points, curved_gd,
-// curved_mix), each rank at most kMaxTiles tiles
+// curved_filter) or the curved rows (curved_roots, curved_gd, curved_mix),
+// each rank at most kMaxTiles tiles
 
 // split_select with the curved rows of its n_split split edges (qs, plane,
 // e01, corners: [n_split, ...], the first cw[CW_CURVED] set): the curved
@@ -2277,32 +2385,63 @@ int split_select_curved_launch(const int* E, const int* EB, ll n, ll n_split,
 #endif
 }
 
-int curved_pick_launch(const float* d, const int* plane, ll n, ll idx,
-                       float* p, float* q, cudaStream_t stream) {
+// the roots of the curved rows (K7) from the corner forward d [n, 8, R] and
+// their points: ints, cand [n, 3]; the design's curved_roots, one launch
+// (the scratch p, q unused), the first design's curved_pick into p, q
+// [n, 8] (16-byte aligned), K7 on them and curved_points (three)
+int curved_roots_launch(const float* d, const int* plane, const float* e01,
+                        ll n, ll idx, float* ints, float* cand, float* p,
+                        float* q, cudaStream_t stream) {
+  if (n > INT_MAX / k7::kLanes) return -static_cast<int>(cudaErrorInvalidValue);
+#ifdef CURVED_FIRST
   curved_pick_kernel<<<blocks(8 * n), kThreads, 0, stream>>>(
       d, plane, n, static_cast<int>(idx), p, q);
-  return done();
-}
-
-int curved_points_launch(const float* e01, const float* ints, ll n,
-                         float* cand, cudaStream_t stream) {
+  int rc = done();
+  if (rc < 0) return rc;
+  rc = k7::launch(k7::PlainRows{reinterpret_cast<const float4*>(p),
+                                reinterpret_cast<const float4*>(q), ints},
+                  static_cast<int>(n), stream);
+  if (rc) return -rc;
   curved_points_kernel<<<blocks(n), kThreads, 0, stream>>>(e01, ints, n, cand);
-  return done();
+  return done(3);
+#else
+  const int rc = k7::launch(CornerRows{d, plane, static_cast<int>(idx), e01,
+                                       ints, cand},
+                            static_cast<int>(n), stream);
+  return rc ? -rc : 1;
+#endif
 }
 
+// curved_gd, in the design with each row mixed as no rescue would change
+// it (one launch: one block up to kGdBlock rows); in the first design
+// curved_gd (tiles of kThreads), then curved_mix without the rescue (two)
 int curved_gd_launch(const float* outs, const int* plane, const float* ints,
-                     const float* e01, ll n, ll idx, float eps, float* dnew,
-                     int* grank, float* ge0, float* gde, int* gcols, float* gx,
-                     int* cw, cudaStream_t stream) {
+                     const float* e01, const int* qs, ll n, ll idx, float eps,
+                     float* dnew, int* grank, float* ge0, float* gde,
+                     int* gcols, float* gx, float* Vn, int* cstate, int* cw,
+                     cudaStream_t stream) {
   const ll tiles = (n + kThreads - 1) / kThreads;
   if (tiles > kMaxTiles) return -static_cast<int>(cudaErrorInvalidValue);
-  curved_gd_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
-      outs, plane, ints, e01, static_cast<int>(n), static_cast<int>(idx), eps,
-      dnew, grank, ge0, gde, gcols, gx, cw);
-  return done();
+  if (!kCurvedFirst && n <= kGdBlock) {
+    curved_gd_kernel<true><<<1, static_cast<int>((n + 31) / 32 * 32), 0,
+                             stream>>>(
+        outs, plane, ints, e01, qs, static_cast<int>(n),
+        static_cast<int>(idx), eps, dnew, grank, ge0, gde, gcols, gx, Vn,
+        cstate, cw);
+    return done();
+  }
+  curved_gd_kernel<false><<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      outs, plane, ints, e01, qs, static_cast<int>(n), static_cast<int>(idx),
+      eps, dnew, grank, ge0, gde, gcols, gx, Vn, cstate, cw);
+  if (!kCurvedFirst) return done();
+  const int rc = done();
+  if (rc < 0) return rc;
+  curved_mix_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      qs, e01, ints, dnew, grank, nullptr, nullptr, n, eps, Vn, cstate, cw);
+  return done(2);
 }
 
-// gx, gd0 may be null when no row was rescued (grank all -1)
+// after a rescue: every curved row mixed, the rescued ones from gx, gd0
 int curved_mix_launch(const int* qs, const float* e01, const float* ints,
                       const float* dnew, const int* grank, const float* gx,
                       const float* gd0, ll n, float eps, float* Vn,

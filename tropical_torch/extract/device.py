@@ -15,14 +15,15 @@ The curved path (the JAX engine's stage 3b and strict filter) runs between
 an insertion's split and its finish (``Engine._curved``): the curved rows
 (a split edge whose ends differ in two or more coordinates) take the
 trilinear intersection of their earlier plane's and the current plane's
-surfaces on the cube's x = z plane (the corner forward, ``trilinear_roots``,
-the on-surface forward), off-surface roots the gradient-descent rescue, and
-the strict filter keeps the new vertices on the surface; the survivors
-take the ids nV + rank.  The forwards run on the host engine's rows in its
-order and batches, so cuBLAS rounds them alike.  A curved busy insertion
-reads its count words up to three times more than a flat one (the curved
-rows; with curved rows, the rescue's rows; the survivors), and once a
-rescue step but the first.
+surfaces on the cube's x = z plane (the corner forward, the root solve of
+``trilinear_roots`` inside ``curved_roots``, the on-surface forward),
+off-surface roots the gradient-descent rescue, and the strict filter keeps
+the new vertices on the surface; the survivors take the ids nV + rank.
+The forwards run on the host engine's rows in its order and batches, so
+cuBLAS rounds them alike.  A curved busy insertion reads its count words
+twice more than a flat one (the curved rows; the sentinels, rescued rows
+and survivors), and with rescued rows once a rescue step but the first
+and once more after it.
 
 What fixes the order, as in the JAX engine: every compaction is a prefix
 sum (order-preserving), the future-sign prune is the scalar test
@@ -73,11 +74,12 @@ tensor takes the plain version, a CUDA tensor the kernel.
 - K4c, the curved insertion: the curved rows (``split_select``'s curved
   instance: compacted in slot order with their planes, ends and corner
   points),
-  ``curved_pick`` (K7's p and q from the corner forward),
-  ``curved_resolve`` (``curved_points``, ``curved_gd``: the residuals, the
-  sentinels and the rescue's rows; ``curved_mix``: the rescue taken back,
-  the curved vertices and their states) and ``curved_filter`` (the
-  override's test, then the strict filter and the survivors, compacted);
+  ``curved_roots`` (K7's root solve on p and q gathered from the corner
+  forward, and the roots' points), ``curved_resolve`` (``curved_gd``: the
+  residuals, the sentinels and the rescue's rows, and the curved vertices
+  and their states as if none were rescued; ``curved_mix``, after a
+  rescue: the rescue taken back) and ``curved_filter`` (the override's
+  test, then the strict filter and the survivors, compacted);
 - K5 ``connect_step``: ``hit_mark``, ``candidates`` (region words through
   ``_grid_region_lut``, cell keys), ``connect_table`` (each cell column's
   range of sorted positions, and the rows in sorted order),
@@ -823,13 +825,13 @@ def split_append(OUTn, bz, viol, lanes, ce, E, EB, LD, SB, ZB, nV: int,
 
 # the count words of a curved insertion (int32 [CW], zeroed): its curved
 # rows and those on no earlier plane (read after the selection), its
-# sentinel rows and the rows the gradient-descent rescue takes (read after
-# ``curved_gd``), whether a curved residual at the plane is off the eps
-# band, its survivors and the curved rows the strict filter drops (read
-# after ``curved_filter``)
+# sentinel rows and the rows the gradient-descent rescue takes, whether a
+# curved residual at the plane is off the eps band, its survivors and the
+# curved rows the strict filter drops (read after ``curved_filter``)
 CW_CURVED, CW_NOPLANE, CW_SENT, CW_GD, CW_ANYD0, CW_KEPT, CW_DROPS = range(7)
 CW = 7
-# a split row's state for the strict filter (``curved_mix``): curved, its
+# a split row's state for the strict filter (``curved_gd``'s mix, and
+# ``curved_mix``'s after a rescue): curved, its
 # root out of [0, 1], its residual at the plane not inside the eps band
 CV_CURVED, CV_GG, CV_OFF = 1, 2, 4
 
@@ -868,30 +870,34 @@ def curved_select_plain(ce, bz, V, idx: int, eps: float, cw):
             tl.corner_points(ec))
 
 
-def curved_pick(d_corner, plane, idx: int, kern: Kernels | None = None):
-    """K7's inputs from the corner forward ``d_corner`` [n, 8, R]: (p, the
-    columns at each row's plane, q, at ``idx``), each [n, 8]."""
+def curved_roots_plain(d_corner, plane, e01, idx: int):
+    """The roots ``ints`` [n, 3] of K7 on p, the corner forward's columns at
+    each row's plane, and q, at ``idx`` ([n, 8] each), and their points on
+    the rows' edges, e0 (1 - t) + e1 t."""
+    cols = torch.stack([plane.long(), torch.full_like(plane.long(), idx)], 1)
+    pq = d_corner.gather(2, cols[:, None, :].expand(-1, 8, 2))
+    ints = tl.intersection_of_two_planes_plain(pq[..., 0].contiguous(),
+                                               pq[..., 1].contiguous())
+    return ints, e01[:, 0] * (1 - ints) + e01[:, 1] * ints
+
+
+def curved_roots(d_corner, plane, e01, idx: int, kern: Kernels | None = None):
+    """The curved rows' roots and their points (``curved_roots_plain``)
+    from the corner forward ``d_corner`` [n, 8, R]: (ints, cand), [n, 3]
+    each.  One launch: K7's kernel (``csrc/trilinear_roots.cuh``) reading
+    its rows from ``d_corner`` and writing each root's point beside it
+    (K4c's first design: ``curved_pick`` into the scratch rows ``pq``, K7
+    and ``curved_points``)."""
     run = _run(kern, d_corner.device)
     if run is None:
-        p = d_corner.gather(2, plane.long()[:, None, None].expand(-1, 8, 1))
-        return p[..., 0], d_corner[:, :, idx].contiguous()
-    n = d_corner.shape[0]
-    p, q = (torch.empty((n, 8), dtype=torch.float32, device=d_corner.device)
-            for _ in range(2))
-    run("curved_pick", "curved_pick", n, d_corner, plane, n, idx, p, q)
-    return p, q
-
-
-def curved_points(e01, ints, kern: Kernels | None = None):
-    """The points of the roots ``ints`` on the curved rows' edges: e0 (1 -
-    t) + e1 t, [n, 3]."""
-    run = _run(kern, e01.device)
-    if run is None:
-        return e01[:, 0] * (1 - ints) + e01[:, 1] * ints
-    n = e01.shape[0]
-    cand = torch.empty((n, 3), dtype=torch.float32, device=e01.device)
-    run("curved_resolve", "curved_points", n, e01, ints, n, cand)
-    return cand
+        return curved_roots_plain(d_corner, plane, e01, idx)
+    dev, n = d_corner.device, d_corner.shape[0]
+    ints, cand = (torch.empty((n, 3), dtype=torch.float32, device=dev)
+                  for _ in range(2))
+    pq = torch.empty((2, n, 8), dtype=torch.float32, device=dev)
+    run("curved_roots", "curved_roots", n, d_corner, plane, e01, n, idx, ints,
+        cand, pq[0], pq[1])
+    return ints, cand
 
 
 def curved_gd_plain(outs, plane, ints, e01, idx: int, eps: float, cw):
@@ -909,26 +915,33 @@ def curved_gd_plain(outs, plane, ints, e01, idx: int, eps: float, cw):
             plane[g], ints[g])
 
 
-def curved_gd(outs, plane, ints, e01, idx: int, eps: float, cw,
-              kern: Kernels | None = None):
-    """After the on-surface forward ``outs`` [n, R] of ``curved_points``:
+def curved_gd(outs, plane, ints, e01, qs, idx: int, eps: float, Vn, cstate,
+              cw, kern: Kernels | None = None):
+    """After the on-surface forward ``outs`` [n, R] of the roots' points:
     (the residuals at the plane and at ``idx`` [n, 2]; each row's rank
     among the rows the rescue takes, else -1; those rows' start e0,
     direction e1 - e0, plane and root), the rescue's rows in row order:
     in range (no coordinate of the root outside [0, 1]) and off either
     surface.  Counts the sentinel rows (out of range) into ``cw[CW_SENT]``
     and the rescue's into ``cw[CW_GD]``; the kernel's rescue rows have the
-    curved rows' length, the first ``cw[CW_GD]`` set."""
+    curved rows' length, the first ``cw[CW_GD]`` set.  Also mixes every
+    row as ``curved_mix`` would if none were rescued (its vertex into
+    ``Vn`` at its slot ``qs``, its state into ``cstate``,
+    ``cw[CW_ANYD0]``), so that without a rescue no mix follows.  One
+    launch."""
     run = _run(kern, outs.device)
     if run is None:
-        return curved_gd_plain(outs, plane, ints, e01, idx, eps, cw)
+        res = curved_gd_plain(outs, plane, ints, e01, idx, eps, cw)
+        curved_mix_plain(qs, e01, ints, res[0], res[1], None, None, eps, Vn,
+                         cstate, cw)
+        return res
     dev, n = outs.device, outs.shape[0]
     dnew = torch.empty((n, 2), dtype=torch.float32, device=dev)
     grank, gcols = _i32(n, device=dev), _i32(n, device=dev)
     ge0, gde, gx = (torch.empty((n, 3), dtype=torch.float32, device=dev)
                     for _ in range(3))
-    run("curved_resolve", "curved_gd", n, outs, plane, ints, e01, n, idx, eps,
-        dnew, grank, ge0, gde, gcols, gx, cw)
+    run("curved_resolve", "curved_gd", n, outs, plane, ints, e01, qs, n, idx,
+        eps, dnew, grank, ge0, gde, gcols, gx, Vn, cstate, cw)
     return dnew, grank, ge0, gde, gcols, gx
 
 
@@ -951,11 +964,12 @@ def curved_mix_plain(qs, e01, ints, dnew, grank, gx, gd0, eps: float, Vn,
 def curved_mix(qs, e01, ints, dnew, grank, gx, gd0, eps: float, Vn, cstate,
                cw, kern: Kernels | None = None) -> None:
     """After the rescue (``gx``, ``gd0``: its rows' final roots and their
-    residuals at the plane, None without rescued rows): each curved row's
-    root and residual taken back, its vertex e0 + t (e1 - e0) written into
-    ``Vn`` at its slot ``qs`` over the lerp, and its state (``CV_*``; a
-    row out of range takes residual 0) into ``cstate``; ``cw[CW_ANYD0]``
-    set if a curved residual at the plane is off the eps band."""
+    residuals at the plane; None: no row rescued, as ``curved_gd`` mixes
+    the rows): each curved row's root and residual taken back, its vertex
+    e0 + t (e1 - e0) written into ``Vn`` at its slot ``qs`` over the lerp,
+    and its state (``CV_*``; a row out of range takes residual 0) into
+    ``cstate``; ``cw[CW_ANYD0]`` set if a curved residual at the plane is
+    off the eps band."""
     run = _run(kern, Vn.device)
     if run is None:
         return curved_mix_plain(qs, e01, ints, dnew, grank, gx, gd0, eps, Vn,
@@ -1551,13 +1565,15 @@ class Engine:
                 idx: int, cw):
         """K4c between the selection (the split rows and their curved rows,
         counted in ``cw``) and ``split_finish``: the curved rows' vertices
-        (the corner forward, K7's roots, the on-surface forward, the
-        gradient-descent rescue), the forward of every new vertex, then the
-        strict filter.  Returns the survivors' (Vn, OUTn, bz, lanes, ce).
-        Reads the count words up to three times (the curved rows; with
-        curved rows, the rescue's rows; the survivors), and once a rescue
-        step but the first; counts the events into ``failover.COUNTERS`` as
-        the host engine does."""
+        (the corner forward, K7's roots and their points, the on-surface
+        forward, the residuals and the vertices as if no row were rescued),
+        the forward of every new vertex, then the strict filter.  Returns
+        the survivors' (Vn, OUTn, bz, lanes, ce).  Reads the count words
+        twice: the curved rows, then the sentinels, rescued rows and
+        survivors.  Where rows were rescued, the rescue (a read a step but
+        the first) and the mix take them back, and the forward and the
+        filter run again, with a third read.  Counts the events into
+        ``failover.COUNTERS`` as the host engine does."""
         k, eps, net = self.kern, self.eps, self.net
         reads = self.stats.reads
         cstate = _zeros32(Vn.shape[0], device=self.dev)
@@ -1565,39 +1581,42 @@ class Engine:
         if bad:
             raise RuntimeError(f"curved edges not on any earlier plane at "
                                f"plane {idx}: {bad}/{n_cv}")
-        n_gd = steps = 0
         if n_cv:
             fo.COUNTERS["curved_steps"] += 1
             qs, plane, e01 = qs[:n_cv], plane[:n_cv], e01[:n_cv]
             d_corner = net.outputs(corners[:n_cv].reshape(-1, 3), group=8)
-            p, q = curved_pick(d_corner.reshape(n_cv, 8, R_COLS), plane, idx,
-                               kern=k)
-            ints = tl.intersection_of_two_planes(p, q)
-            outs = net.outputs(curved_points(e01, ints, kern=k))
+            ints, cand = curved_roots(d_corner.reshape(n_cv, 8, R_COLS), plane,
+                                      e01, idx, kern=k)
             dnew, grank, ge0, gde, gcols, gx = curved_gd(
-                outs, plane, ints, e01, idx, eps, cw, kern=k)
-            n_sent, n_gd = (int(x) for x in self.read(cw[CW_SENT:CW_ANYD0]))
-            fo.COUNTERS["sentinels"] += n_sent
-            fo.COUNTERS["gd_rows"] += n_gd
-            gx_end = gd0 = None
-            if n_gd:
-                before = fo.COUNTERS["gd_steps"]
-                gx_end, gd0, _ = fo.descend(net, ge0[:n_gd], gde[:n_gd],
-                                            gcols[:n_gd], gx[:n_gd], idx, eps,
-                                            on_test=self._count_read)
-                steps = fo.COUNTERS["gd_steps"] - before
+                net.outputs(cand), plane, ints, e01, qs, idx, eps, Vn, cstate,
+                cw, kern=k)
+
+        def strict():
+            OUTn = net.outputs(Vn)
+            return curved_filter(OUTn, bz, lanes, ce, Vn, cstate, idx, eps, cw,
+                                 kern=k)
+
+        kept = strict()
+        n_sent, n_gd, _, n_keep, drops = (int(x)
+                                          for x in self.read(cw[CW_SENT:]))
+        steps = 0
+        if n_gd:
+            before = fo.COUNTERS["gd_steps"]
+            gx_end, gd0, _ = fo.descend(net, ge0[:n_gd], gde[:n_gd],
+                                        gcols[:n_gd], gx[:n_gd], idx, eps,
+                                        on_test=self._count_read)
+            steps = fo.COUNTERS["gd_steps"] - before
+            cw[CW_ANYD0:].zero_()  # the mix's flag, the filter's counts
             curved_mix(qs, e01, ints, dnew, grank, gx_end, gd0, eps, Vn,
                        cstate, cw, kern=k)
-        OUTn = net.outputs(Vn)
-        Vs, OUTs, bzs, lanes_s, ces = curved_filter(OUTn, bz, lanes, ce, Vn,
-                                                    cstate, idx, eps, cw,
-                                                    kern=k)
-        n_keep, drops = (int(x) for x in self.read(cw[CW_KEPT:]))
+            kept = strict()
+            n_keep, drops = (int(x) for x in self.read(cw[CW_KEPT:]))
+        fo.COUNTERS["sentinels"] += n_sent
+        fo.COUNTERS["gd_rows"] += n_gd
         fo.COUNTERS["strict_drops"] += drops
         self.stats.curved.append((idx, Vn.shape[0], n_cv, n_gd, steps, n_keep,
                                   self.stats.reads - reads))
-        return (Vs[:n_keep], OUTs[:n_keep], bzs[:n_keep], lanes_s[:n_keep],
-                ces[:n_keep])
+        return tuple(x[:n_keep] for x in kept)
 
     def _split_first(self, P: Pools, E, EB, LD, idx: int, n_split: int,
                      final: bool):

@@ -6,7 +6,8 @@ device pointers and a stream and return ``cudaGetLastError()`` (those of
 minus a CUDA error).  They are
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
 in ``.gitignore``) and loaded with ``ctypes``; a library is named by a hash
-of its source and flags, so an edited source is rebuilt.  A variant built
+of its source, the ``csrc/*.cuh`` headers it includes and its flags, so an
+edited source or header is rebuilt.  A variant built
 with extra ``-D`` macros (an instrumented build for a measurement), or from
 another ``.cu`` file (a patched copy, for an ablation), is a library of its
 own.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Tuple, Union
@@ -25,7 +27,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-I{CSRC_DIR}")
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 
@@ -78,10 +81,26 @@ def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
     return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
 
 
+def _text(src: Path) -> bytes:
+    """The source with the package's headers it includes (``#include
+    "name.cuh"``, found in ``csrc/``), each once, after it."""
+    out, todo, seen = [], [src], set()
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        out.append(text)
+        todo += [CSRC_DIR / m.decode() for m in
+                 re.findall(rb'#include "(\w+\.cuh)"', text)]
+    return b"".join(out)
+
+
 def library_path(target: Target) -> Path:
     name, defines = _split(target)
     src = _source(name)
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(_text(src)
                             + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 

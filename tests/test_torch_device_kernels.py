@@ -1,5 +1,6 @@
 """The device engine's CUDA sources, run on the CPU: ``csrc/lattice_encode.cu``
-(K2) and ``csrc/device_engine.cu`` (K3, K4, K5) built with g++ against
+(K2) and ``csrc/device_engine.cu`` (K3, K4, K5, and K6 from the
+``csrc/faces.cu`` it includes) built with g++ against
 ``tests/cuda_emulation.h`` (one thread a lane, a barrier in each
 ``__syncthreads``) and held bitwise to their plain versions.
 
@@ -26,6 +27,14 @@
   each build records; ``compact_rows`` at widths 1, 2 and 33 with no rows
   kept, some and all, and its refusal of an outputs' pool of 2^31 words.
 - Stage edge cases: the max-pool with a NaN, empty compactions.
+- K6 (the design's build) on the 11-mark net's complex after the final
+  insertion: every stage
+  call of ``Engine.faces`` replayed by the emulated kernels and held
+  bitwise to its plain version, the whole stage's result equal, two
+  launches of each of the four kernels; and every stage on the planted
+  cases of ``tests/faces_cases.py`` (duplicate regions in an A, B, A
+  signature run, repeated ids, 1, 2 and 100 members, exact score ties,
+  cell offsets -1, 0 and M - 1, kz up to 9).
 """
 
 import ctypes
@@ -37,6 +46,7 @@ import numpy as np
 import pytest
 import torch
 
+import faces_cases
 from test_torch_encode_forward import emulated_source
 from tropical_torch.core import hashgrid as thg
 from tropical_torch.extract import device as dv
@@ -463,3 +473,26 @@ def test_emulated_compact_rows_refuses_a_pool_past_int32(engine_kernels):
         engine_kernels("connect_step", "compact_rows", n, src, cum, n, 33,
                        src)
     assert launches.LAUNCHES["connect_step"] == 0
+
+
+def test_emulated_faces_are_bitwise_plain(engine_kernels, net11):
+    eng = dv.Engine(net11)
+    sk = eng.skeleton("dist")
+    args = eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    want, calls = faces_cases.record(dv, lambda: eng.faces(*args))
+    assert [c[0] for c in calls] == list(faces_cases.K6_STAGES)
+    assert want[2].shape[0] > 500
+    faces_cases.held(dv, calls, engine_kernels)
+    launches.reset()
+    got = dv.Engine(net11, kern=engine_kernels).faces(*args)
+    assert got[0] == want[0]
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    assert {k: launches.LAUNCHES[k] for k in (
+        "final_keep", "face_keys", "face_regions", "face_fans")} == {
+        "final_keep": 2, "face_keys": 2, "face_regions": 2, "face_fans": 2}
+
+
+def test_emulated_faces_planted_cases(engine_kernels):
+    calls = faces_cases.planted_calls(dv, "cpu")
+    assert faces_cases.held(dv, calls, engine_kernels) == len(
+        faces_cases.K6_STAGES)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import encode_cases
+import faces_cases
 import trilinear_cases as cases
 from tropical_torch.core import trilinear as ttri
 from tropical_torch.ops import chamfer as tch
@@ -788,7 +789,26 @@ def test_device_engine_funnel_on_cuda():
     for k in ("lattice_encode", "skeleton_mark", "split_step",
               "connect_step"):
         assert LAUNCHES[k] > before[k], k
-    assert dv.LAST.reads == len(dv.LAST.busy) + 2
+    for k in ("final_keep", "face_keys", "face_regions", "face_fans"):
+        assert LAUNCHES[k] == before[k] + 2, k
+    assert dv.LAST.reads == len(dv.LAST.busy) + 4
+
+
+@pytest.mark.gpu
+def test_faces_kernels_match_plain_on_cuda():
+    """K6 on the card: every stage call of the faces at sphere-small flat,
+    and every planted one (tests/faces_cases.py), bitwise its plain
+    version."""
+    _need_cuda()
+    from tropical_torch.extract import device as dv
+
+    eng = dv.Engine(_sphere_net("small"))
+    sk = eng.skeleton("dist")
+    args = eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    _, calls = faces_cases.record(dv, lambda: eng.faces(*args))
+    assert faces_cases.held(dv, calls, None) == len(faces_cases.K6_STAGES)
+    planted = faces_cases.planted_calls(dv, "cuda")
+    assert faces_cases.held(dv, planted, None) == len(faces_cases.K6_STAGES)
 
 
 @pytest.mark.gpu

@@ -7,7 +7,9 @@
 // :452-848, with _pack_out_words :144 and _edge_bits :180), K4c its curved
 // rows and strict filter on the curved path (s3b and s5b, :564-715), K5 its
 // connecting edges and prune (s8-s12, :858-1119, with _grid_region_lut
-// :254 and _prune :1121).  Each launch function is one kernel; the caller
+// :254, in grid_region.cuh, and _prune :1121); K6, the final filter and
+// the faces, is faces.cu, included at the end into the same library.  Each
+// launch function is one kernel; the caller
 // (tropical_torch/extract/device.py) passes device pointers, long long
 // integers and float scalars in the declared order, then the stream, and
 // gets back the count of kernels it launched, or minus a CUDA error
@@ -63,6 +65,7 @@
 
 #include <climits>
 
+#include "grid_region.cuh"
 #include "trilinear_roots.cuh"
 
 namespace {
@@ -1818,19 +1821,9 @@ __global__ void candidates_kernel(
   unsigned go = 0u;
   int o1[3];
   for (int d = 0; d < 3; ++d) {
-    const float xu = __fdiv_rn(__fadd_rn(Vx[3 * vid + d], scale), scale * 2.0f);
-    const float q = __fadd_rn(xu, eps);
-    const int j = min(max(static_cast<int>(__fmul_rn(q, 1024.0f)), 0), 1023);
-    int cnt = lut[j];
-    const int start = cnt;
-    for (int s = 0; s < lut_k; ++s) {
-      const int pos = start + s;
-      cnt += (pos < M) && (marks[min(pos, M - 1)] < q);
-    }
-    const int off = cnt - 1;
-    const int wrapped = off < 0 ? off + M : off;
-    const float at = marks[min(max(wrapped, 0), M - 1)];
-    const bool on_plane = !(fabsf(__fsub_rn(at, xu)) > eps);
+    bool on_plane;
+    const int off = grid_region::cell(grid_region::unit(Vx[3 * vid + d], scale),
+                                      eps, marks, M, lut, lut_k, &on_plane);
     o1[d] = off + 1;
     go |= static_cast<unsigned>(off + 1) << (9 * d);
     go |= static_cast<unsigned>(on_plane) << (27 + d);
@@ -2558,3 +2551,6 @@ int compact_edges_launch(const int* E, const int* cum, const int* vcum, ll n,
 }
 
 }  // extern "C"
+
+// K6, the final filter and the faces, in the same library
+#include "faces.cu"

@@ -5,11 +5,24 @@ Counterpart of ``tropical/extract/device.py``, on the flat path
 the lattice forward (``"dist"``: the Lipschitz-distance-pruned lattice with
 a local gradient bound, or ``"sign"``), then the 32 hidden-plane insertions
 and the final one, each insertion a handful of kernels over packed sign
-words, with the counts on the device.  The port's ``extract_skeleton`` and
-``extract_faces`` finish.  The result equals the host engine's
+words, with the counts on the device, then the final filter and the faces
+(K6, ``Engine.faces``).  The result equals the host engine's
 (``extract/subdivide.py``) wherever both start from the same skeleton: the
 same vertices and edges, bit for bit, in the same order, and on the curved
-path the same ``failover.COUNTERS``.
+path the same ``failover.COUNTERS``; the same faces but for the diagonals
+of fans whose angular sort ties otherwise (the host faces sort in float64,
+K6 in float32 around a fixed-point mean, as the JAX engine's device faces
+do) and the order of the triangles.
+
+The faces (the JAX engine's fused stage, ``make_extract_fn._run``
+:1444-1772): the used vertices' 2^zeros region replicas as int64 keys (3 x
+10 bits of grid cell + 2, 32 hidden neurons' sign bits), sorted (the
+members of a region in (zero count, id) order), a region a run of equal
+keys with its mean in 2^-22 fixed point, the duplicate regions (equal
+member lists) found among the regions of equal signature (first member,
+count), the normals at the kept regions' means (the encode's kernels),
+then each polygon sorted by angle and fanned.  Two reads of the count
+vector: after the filter and the replica count, after the fans' count.
 
 The curved path (the JAX engine's stage 3b and strict filter) runs between
 an insertion's split and its finish (``Engine._curved``): the curved rows
@@ -87,7 +100,14 @@ tensor takes the plain version, a CUDA tensor the kernel.
   zero plane (``__popc``), past the future-sign pre-filter),
   ``census_edges`` / ``census_vertices`` (the prune's survivors and the
   per-plane histograms) and ``compact_rows`` / ``compact_edges`` (the
-  prune's compaction).
+  prune's compaction);
+- K6 (``csrc/faces.cu``): ``final_keep`` (the keep flags, a vertex pass
+  and an edge pass), ``face_keys`` (``face_keys_count``: each used
+  vertex's all-minus key, its zero columns and zero count;
+  ``face_keys_fill``: its replicas), ``face_regions`` (``_runs``: each
+  region's signature, count and mean; ``_dups``: the kept regions),
+  ``face_fans`` (``_count``: the triangles of each kept region; ``_fill``:
+  the angular sort and the fan).
 
 K2 (the lattice encode) is ``core/hashgrid.lattice_encode``.
 """
@@ -328,11 +348,12 @@ def _sdf_dist_grad_lattice(net, xw, yw, zw, tables=None, plain=False):
 # --- the kernels, and their plain versions -------------------------------
 
 class Kernels:
-    """``csrc/device_engine.cu``'s launch functions on one device.  Every
-    launch function takes device pointers, ``long long`` integers and
-    ``float`` scalars in its declared order, then the stream, and returns
-    the count of kernels it launched (K3, K4, K4c or K5), which the call
-    records, or minus a CUDA error, which it raises.  ``device`` may be the
+    """``csrc/device_engine.cu``'s launch functions (with ``faces.cu``'s,
+    which it includes) on one device.  Every launch function takes device
+    pointers, ``long long`` integers and ``float`` scalars in its declared
+    order, then the stream, and returns the count of kernels it launched
+    (K3, K4, K4c, K5 or K6), which the call records, or minus a CUDA error,
+    which it raises.  ``device`` may be the
     CPU for a library built against the tests' CUDA emulation."""
 
     def __init__(self, lib: ctypes.CDLL, device: torch.device):
@@ -1314,6 +1335,378 @@ def compact_edges(E: torch.Tensor, cum: torch.Tensor, vcum: torch.Tensor,
     return out
 
 
+# K6 the final filter and the faces (csrc/faces.cu)
+
+# the faces stage's count vector (int64 [FC], zeroed): vertices the keep
+# test passes, vertices and edges of the complex (the funnel's "A/B"), kept
+# edges and the vertices they use ("C/D"), region replicas (read after
+# face_keys_count); kept regions and triangles (read after face_fans_count);
+# then the used vertices by zero count
+FC_KEEPV, FC_PRE, FC_LIVE, FC_EKEEP, FC_USED, FC_REP, FC_KEPT, FC_TRI = range(8)
+FC_HIST = 8
+KZ_MAX = D + R_COLS - 1  # the grid columns and the hidden neurons'
+FC = FC_HIST + KZ_MAX + 1
+KZ_NONE = 64             # an unused vertex's zero count: it sorts last
+SIG_NONE = 2 ** 63 - 1   # the signature of a replica that starts no region
+PFIX = 2.0 ** 22         # the means' fixed point (the JAX engine's, :1614)
+# a region key's grid fields (cell offset + 2, 10 bits each, axis 0 highest)
+# above the 32 hidden neurons' sign bits
+KEY_SHIFT = (52, 42, 32)
+
+
+def final_keep_plain(V, OUT, E, eps: float, scale: float, fc):
+    keep = OUT[:, -1].abs() < eps
+    xu = (V + scale) / (scale * 2)
+    keep &= ~(xu > 1).any(-1) & ~(xu < 0).any(-1)
+    a, b = E[:, 0].long(), E[:, 1].long()
+    ends = _zeros32(2, V.shape[0], device=V.device)
+    ends[0, a] = 1
+    ends[0, b] = 1
+    ek = keep[a] & keep[b]
+    ends[1, a[ek]] = 1
+    ends[1, b[ek]] = 1
+    fc[FC_KEEPV] += keep.sum()
+    fc[FC_LIVE] += E.shape[0]
+    fc[FC_EKEEP] += ek.sum()
+    return keep.to(torch.int32), ends
+
+
+def final_keep(V, OUT, E, eps: float, scale: float, fc,
+               kern: Kernels | None = None):
+    """The final filter (``faces.extract_skeleton``'s test): (keep [nV]
+    int32, a vertex with |OUT[:, -1]| < eps inside the unit cube; ends
+    [2, nV] int32, row 0 the ends of an edge, row 1 the ends of a kept
+    edge, both ends kept).  Counts the kept vertices, the edges and the
+    kept edges into ``fc``.  Two launches: a thread a vertex, then a
+    thread an edge."""
+    run = _run(kern, V.device)
+    if run is None:
+        return final_keep_plain(V, OUT, E, eps, scale, fc)
+    nV, nE = V.shape[0], E.shape[0]
+    keep = _i32(nV, device=V.device)
+    ends = _zeros32(2, nV, device=V.device)
+    run("final_keep", "final_keep", nV + nE, V, OUT, nV, E, nE, eps, scale,
+        keep, ends, fc)
+    return keep, ends
+
+
+def _replica_rows(V, SB, ZB, marks, lut, lut_k: int, eps: float,
+                  scale: float):
+    """Each vertex's all-minus region key and zero columns: [n, 4] int32
+    (the key's low and high words, the zero hidden neurons' bits, the
+    on-grid-plane axes' bits), and its zero count [n]."""
+    xu = (V + scale) / (scale * 2)
+    g, off = _grid_region_lut(marks, lut, xu, eps, lut_k)
+    zg = (g == 0).to(torch.int64)
+    field = off.to(torch.int64) + 2 - zg
+    zw = ZB[:, 0]
+    key = (SB[:, 0] & ~zw).to(torch.int64) & 0xFFFFFFFF
+    gz = torch.zeros_like(key)
+    for d in range(D):
+        key |= field[:, d] << KEY_SHIFT[d]
+        gz |= zg[:, d] << d
+    kz = _popc(zw) + _popc(gz)
+    rows = torch.stack([_to_i32(key & 0xFFFFFFFF), (key >> 32).to(torch.int32),
+                        zw, gz.to(torch.int32)], 1)
+    return rows, kz.to(torch.int32)
+
+
+def face_keys_count_plain(V, SB, ZB, ends, marks, lut, lut_k: int, eps: float,
+                          scale: float, fc):
+    rows, kz = _replica_rows(V, SB, ZB, marks, lut, lut_k, eps, scale)
+    used = ends[1] > 0
+    fc[FC_PRE] += (ends[0] > 0).sum()
+    fc[FC_USED] += used.sum()
+    ku = kz[used].long()
+    fc[FC_REP] += (1 << ku).sum()
+    fc[FC_HIST:] += torch.bincount(ku, minlength=KZ_MAX + 1)
+    return (torch.where(used, kz, KZ_NONE),
+            torch.where(used[:, None], rows, 0))
+
+
+def face_keys_count(V, SB, ZB, ends, marks, lut, lut_k: int, eps: float,
+                    scale: float, fc, kern: Kernels | None = None):
+    """A thread a vertex: for each used vertex (``ends[1]``), its region
+    (``_grid_region_lut`` on the unit-cube point, the hidden neurons'
+    eps-signs from the words, the final sdf column excluded) as the
+    all-minus key with its zero columns ([nV, 4] int32, 0 for an unused
+    vertex), and its zero count kz (``KZ_NONE`` for an unused one).
+    Counts the vertices of an edge, the used vertices, their 2^kz
+    replicas and the used vertices by kz into ``fc``."""
+    run = _run(kern, V.device)
+    if run is None:
+        return face_keys_count_plain(V, SB, ZB, ends, marks, lut, lut_k, eps,
+                                     scale, fc)
+    n = V.shape[0]
+    kz, rows = _i32(n, device=V.device), _i32(n, 4, device=V.device)
+    run("face_keys", "face_keys_count", n, V, SB, ZB, ends, n, marks,
+        marks.shape[0], lut, lut_k, eps, scale, kz, rows, fc)
+    return kz, rows
+
+
+def _zero_deltas(rows):
+    """[n, KZ_MAX] int64: the key's increment for each zero column, by the
+    column's rank (grid axes first, then the hidden neurons), 0 past kz."""
+    n = rows.shape[0]
+    cols = [(((rows[:, 3] >> d) & 1) > 0, 1 << KEY_SHIFT[d]) for d in range(D)]
+    cols += [(_bit(rows[:, 2:3], c), 1 << c) for c in range(R_COLS - 1)]
+    z = torch.stack([c for c, _ in cols], 1)
+    rank = torch.cumsum(z.to(torch.int64), 1) - 1
+    inc = torch.tensor([v for _, v in cols], dtype=torch.int64,
+                       device=rows.device)
+    out = torch.zeros((n, KZ_MAX + 1), dtype=torch.int64, device=rows.device)
+    out.scatter_(1, torch.where(z, rank, KZ_MAX), torch.where(z, inc, 0))
+    return out[:, :KZ_MAX]
+
+
+def face_keys_fill_plain(V, rows, kzs, order, vcum, n_used: int, n_rep: int):
+    o = order[:n_used].long()
+    k = kzs[:n_used].long()
+    vid = (vcum[o] - 1).long()
+    Vf = torch.empty((n_used, 3), dtype=V.dtype, device=V.device)
+    Vf[vid] = V[o]
+    cnt = 1 << k
+    first = torch.cumsum(cnt, 0) - cnt
+    rv = torch.repeat_interleave(torch.arange(n_used, device=V.device), cnt,
+                                 output_size=n_rep)
+    p = torch.arange(n_rep, device=V.device) - first[rv]
+    r = rows[o]
+    base = (r[:, 0].to(torch.int64) & 0xFFFFFFFF) | (
+        r[:, 1].to(torch.int64) << 32)
+    bits = (p[:, None] >> torch.arange(KZ_MAX, device=V.device)) & 1
+    keys = base[rv] + (bits * _zero_deltas(r)[rv]).sum(1)
+    return keys, vid[rv].to(torch.int32), Vf
+
+
+def face_keys_fill(V, rows, kzs, order, vcum, fc, n_used: int, n_rep: int,
+                   kern: Kernels | None = None):
+    """A thread a used vertex, in (kz, vertex) order (``kzs``, ``order``:
+    the stable sort of ``face_keys_count``'s kz): its 2^kz region replicas
+    (keys [n_rep] int64: a zero column's bit r of the replica's rank takes
+    the column's + side, the replica of a grid column's - side the cell
+    below), each with the vertex's id among the used ones (``vcum``: their
+    flags' inclusive prefix sum) [n_rep] int32, at the offset the zero
+    counts' histogram in ``fc`` gives (the exclusive prefix sum of 2^kz
+    in that order); and the used vertices' rows of ``V`` [n_used, 3]."""
+    run = _run(kern, V.device)
+    if run is None:
+        return face_keys_fill_plain(V, rows, kzs, order, vcum, n_used, n_rep)
+    dev = V.device
+    keys = torch.empty(n_rep, dtype=torch.int64, device=dev)
+    rvid = _i32(n_rep, device=dev)
+    Vf = torch.empty((n_used, 3), dtype=V.dtype, device=dev)
+    run("face_keys", "face_keys_fill", n_used, V, rows, kzs, order, vcum, fc,
+        n_used, keys, rvid, Vf)
+    return keys, rvid, Vf
+
+
+def face_regions_runs_plain(skey, perm, rvid, Vf):
+    n = skey.shape[0]
+    dev = skey.device
+    svid = rvid[perm]
+    start = torch.ones(n, dtype=torch.bool, device=dev)
+    start[1:] = skey[1:] != skey[:-1]
+    s = torch.nonzero(start)[:, 0]
+    cnt = torch.diff(s, append=s.new_full((1,), n))
+    fix = torch.round(Vf[svid.long()] * PFIX).to(torch.int64)
+    cs = torch.cat([fix.new_zeros(1, 3), torch.cumsum(fix, 0)])
+    sums = cs[s + cnt] - cs[s]
+    sig = torch.full((n,), SIG_NONE, dtype=torch.int64, device=dev)
+    sig[s] = (svid[s].to(torch.int64) << 32) | cnt
+    rcnt = _zeros32(n, device=dev)
+    rcnt[s] = cnt.to(torch.int32)
+    mean = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    mean[s] = sums.to(torch.float32) / (cnt.to(torch.float32) * PFIX)[:, None]
+    return sig, rcnt, mean, svid
+
+
+def face_regions_runs(skey, perm, rvid, Vf, kern: Kernels | None = None):
+    """A thread a replica of the key-sorted replicas (``skey``; ``perm``
+    the sort's permutation of ``face_keys_fill``'s order): the one that
+    starts a run of equal keys, a region, writes at its position the
+    region's signature (its first member's id << 32 | its member count;
+    ``SIG_NONE`` elsewhere) [n] int64, its count [n] int32 (0 elsewhere)
+    and the mean of its members' points in 2^-22 fixed point (integer
+    sums, one f32 division) [n, 3] (0 elsewhere); every replica its member
+    id in sorted order, ``svid`` [n] int32."""
+    run = _run(kern, skey.device)
+    if run is None:
+        return face_regions_runs_plain(skey, perm, rvid, Vf)
+    n, dev = skey.shape[0], skey.device
+    sig = torch.empty(n, dtype=torch.int64, device=dev)
+    rcnt, svid = _i32(n, device=dev), _i32(n, device=dev)
+    mean = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    run("face_regions", "face_regions_runs", n, skey, perm, rvid, Vf, n, sig,
+        rcnt, mean, svid)
+    return sig, rcnt, mean, svid
+
+
+def face_regions_dups_plain(ssig, rord, rcnt, svid):
+    n = ssig.shape[0]
+    dev = ssig.device
+    real = ssig != SIG_NONE
+    s = rord.long()
+    c = rcnt[s].long()
+    i = torch.arange(n, device=dev)
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    new[1:] = ssig[1:] != ssig[:-1]
+    first = torch.cummax(torch.where(new, i, 0), 0).values
+    L = torch.where(real, i - first, 0)
+    # every pair (j, earlier j') inside a run of equal signatures
+    jj = torch.repeat_interleave(i, L)
+    jp = first[jj] + torch.arange(jj.numel(), device=dev) - (
+        torch.cumsum(L, 0) - L)[jj]
+    cp = c[jj]
+    pair = torch.repeat_interleave(torch.arange(jj.numel(), device=dev), cp)
+    k = torch.arange(pair.numel(), device=dev) - (torch.cumsum(cp, 0)
+                                                  - cp)[pair]
+    mism = svid[s[jj][pair] + k] != svid[s[jp][pair] + k]
+    bad = torch.zeros(jj.numel(), dtype=torch.int64, device=dev)
+    bad.index_add_(0, pair, mism.to(torch.int64))
+    dup = torch.zeros(n, dtype=torch.bool, device=dev)
+    dup[jj[bad == 0]] = True
+    return (real & (c >= 3) & ~dup).to(torch.int32)
+
+
+def face_regions_dups(ssig, rord, rcnt, svid, kern: Kernels | None = None):
+    """A thread a region slot of the signature-sorted order (``ssig``,
+    ``rord`` the sort's permutation of the replica positions): the region
+    is kept (1, int32 [n]) if it has 3 members or more and is no duplicate:
+    no earlier region of its run of equal signatures has its member list,
+    compared member by member with every one of them."""
+    run = _run(kern, ssig.device)
+    if run is None:
+        return face_regions_dups_plain(ssig, rord, rcnt, svid)
+    n = ssig.shape[0]
+    keep = _i32(n, device=ssig.device)
+    run("face_regions", "face_regions_dups", n, ssig, rord, rcnt, svid, n,
+        keep)
+    return keep
+
+
+def _region_members(rord, rcnt, keep):
+    """The kept regions' members: (each member's region rank [m], position
+    in the sorted replicas [m], the regions' counts [r])."""
+    j = torch.nonzero(keep)[:, 0]
+    s = rord[j].long()
+    c = rcnt[s].long()
+    r = torch.repeat_interleave(torch.arange(j.numel(), device=keep.device), c)
+    k = torch.arange(r.numel(), device=keep.device) - (torch.cumsum(c, 0)
+                                                       - c)[r]
+    return r, s[r] + k, c
+
+
+def _first_in_region(r, v, n: int):
+    """[m] bool: the first of each (region r, vertex v) in the given
+    order."""
+    key = r.to(torch.int64) * (n + 1) + v.to(torch.int64)
+    o = torch.sort(key, stable=True).indices
+    ks = key[o]
+    dup = torch.zeros_like(ks, dtype=torch.bool)
+    dup[1:] = ks[1:] == ks[:-1]
+    first = torch.ones_like(dup)
+    first[o] = ~dup
+    return first
+
+
+def face_fans_count_plain(rord, rcnt, svid, mean, keep, kcum, fc):
+    n = keep.shape[0]
+    r, pos, c = _region_members(rord, rcnt, keep)
+    v = svid[pos]
+    d = torch.bincount(r[_first_in_region(r, v, n)], minlength=c.numel())
+    ntri = torch.zeros(n, dtype=torch.int64, device=keep.device)
+    j = torch.nonzero(keep)[:, 0]
+    ntri[j] = (d - 2).clamp(min=0)
+    mk = torch.zeros((n, 3), dtype=torch.float32, device=keep.device)
+    mk[kcum[j] - 1] = mean[rord[j]]
+    fc[FC_KEPT] += j.numel()
+    fc[FC_TRI] += ntri.sum()
+    return ntri, mk
+
+
+def face_fans_count(rord, rcnt, svid, mean, keep, kcum, fc,
+                    kern: Kernels | None = None):
+    """A thread a kept region slot (``kcum``: the keep flags' inclusive
+    prefix sum): its fan's triangles, its distinct member ids less 2
+    (int64 [n], 0 for a slot not kept), and its mean at its rank among the
+    kept regions (``mk`` [n, 3], zeros past them), for the normals.  Counts
+    the kept regions and the triangles into ``fc``."""
+    run = _run(kern, keep.device)
+    if run is None:
+        return face_fans_count_plain(rord, rcnt, svid, mean, keep, kcum, fc)
+    n, dev = keep.shape[0], keep.device
+    ntri = torch.empty(n, dtype=torch.int64, device=dev)
+    mk = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    run("face_fans", "face_fans_count", n, rord, rcnt, svid, mean, keep, kcum,
+        n, fc, ntri, mk)
+    return ntri, mk
+
+
+def _fan_scores(P, Mn, Nn, first):
+    """The angular score of each member point ``P`` [m, 3] around its
+    region's mean ``Mn`` and normal ``Nn`` (rows a member), against the
+    region's first member (``first``: its row): s = cos * sign(dn) +
+    2 (dn < 0), f32, every sum written out left to right."""
+    u = P - Mn
+    ux, uy, uz = u.unbind(1)
+    ax, ay, az = u[first].unbind(1)
+    nx, ny, nz = Nn.unbind(1)
+    dx, dy, dz = ay * uz - az * uy, az * ux - ax * uz, ax * uy - ay * ux
+    nrm = torch.sqrt(ux * ux + uy * uy + uz * uz)
+    denom = torch.clamp(nrm[first] * nrm, min=1e-8)
+    cos = (ax * ux + ay * uy + az * uz) / denom
+    dn = dx * nx + dy * ny + dz * nz
+    return cos * torch.where(dn >= 0, 1.0, -1.0) + torch.where(dn < 0, 2.0,
+                                                              0.0)
+
+
+def face_fans_fill_plain(rord, rcnt, svid, mean, keep, nrm, Vf, n_tri: int):
+    n = keep.shape[0]
+    r, pos, c = _region_members(rord, rcnt, keep)
+    v = svid[pos]
+    j = torch.nonzero(keep)[:, 0]
+    first = (torch.cumsum(c, 0) - c)[r]
+    score = _fan_scores(Vf[v.long()], mean[rord[j]][r], nrm[r], first)
+    # by region, then by descending score, ties in member order
+    o = torch.sort(-score, stable=True).indices
+    o = o[torch.sort(r[o], stable=True).indices]
+    r, v = r[o], v[o]
+    keepm = _first_in_region(r, v, n)
+    r, v = r[keepm], v[keepm].to(torch.int64)
+    d = torch.bincount(r, minlength=c.numel())
+    nt = (d - 2).clamp(min=0)
+    t = torch.repeat_interleave(torch.arange(c.numel(), device=keep.device),
+                                nt, output_size=n_tri)
+    b = (torch.cumsum(d, 0) - d)[t]
+    rank = torch.arange(n_tri, device=keep.device) - (torch.cumsum(nt, 0)
+                                                      - nt)[t]
+    # the fan (v0, v_t+1, v_t+2) with its winding reversed (faces.py)
+    return torch.stack([v[b + rank + 2], v[b + rank + 1], v[b]], 1)
+
+
+def face_fans_fill(rord, rcnt, svid, mean, keep, kcum, ntri, tcum, nrm, Vf,
+                   n_tri: int, kern: Kernels | None = None):
+    """A thread a kept region slot: its members' angular scores around its
+    normal (``nrm`` [kept, 3], at the region's rank ``kcum - 1``), a
+    stable sort by descending score in the region's own segment of
+    scratch memory (ties keep the (kz, id) member order), the repeated ids
+    dropped (the first in angle order kept), and its fan written at its
+    slot of ``tcum`` (``ntri``'s inclusive prefix sum): [n_tri, 3] int64,
+    each (v_t+2, v_t+1, v0), the winding reversed so the normals point
+    out."""
+    run = _run(kern, keep.device)
+    if run is None:
+        return face_fans_fill_plain(rord, rcnt, svid, mean, keep, nrm, Vf,
+                                    n_tri)
+    n, dev = keep.shape[0], keep.device
+    tris = torch.empty((n_tri, 3), dtype=torch.int64, device=dev)
+    score = torch.empty(n, dtype=torch.float32, device=dev)
+    order = _i32(n, device=dev)
+    run("face_fans", "face_fans_fill", n, rord, rcnt, svid, mean, keep, kcum,
+        ntri, tcum, nrm, Vf, n, score, order, tris)
+    return tris
+
+
 # --- the engine -------------------------------------------------------------
 
 class Pools(NamedTuple):
@@ -1347,9 +1740,9 @@ LAST = Stats()
 
 class Engine:
     """The subdivision loop for one net, on the net's device: the flat path
-    (``force``) or the curved one.  ``kern``: the kernels to launch;
-    default the committed build on a CUDA device, the plain versions on
-    the CPU."""
+    (``force``) or the curved one, then the faces.  ``kern``: the kernels
+    to launch; default the committed build on a CUDA device, the plain
+    versions on the CPU (and for ``PLAIN``)."""
 
     def __init__(self, net, eps: float = 1e-4, kern: Kernels | None = None,
                  stats: Stats | None = None, force: bool = True):
@@ -1367,16 +1760,19 @@ class Engine:
         self.dist_k = _dist_pool_k(mk)
         self.bc = float(_bound_cell(mk))
         self.n_hidden = (net.num_layers - 1) * net.num_hidden
-        # pinned host memory for the one read an insertion makes
-        self._host = torch.empty(META, dtype=torch.int32,
-                                 pin_memory=self.dev.type == "cuda")
+        # pinned host memory for the one read an insertion makes, by type
+        self._host = {}
 
     def read(self, meta: torch.Tensor) -> np.ndarray:
         """The count vector, read to the host: the loop's only sync."""
         self.stats.reads += 1
         if self.dev.type != "cuda":
             return meta.numpy().copy()
-        host = self._host[:meta.numel()]
+        buf = self._host.get(meta.dtype)
+        if buf is None:
+            buf = self._host[meta.dtype] = torch.empty(
+                max(META, FC), dtype=meta.dtype, pin_memory=True)
+        host = buf[:meta.numel()]
         host.copy_(meta, non_blocking=True)
         torch.cuda.current_stream(self.dev).synchronize()
         return host.numpy().copy()
@@ -1479,7 +1875,8 @@ class Engine:
         """One busy insertion at plane ``idx`` (``n_split`` edges split,
         ``n_hit`` vertices hit, from the last count vector).  Returns the
         pruned pools and their count vector; the final insertion returns
-        the unpruned (V, OUT, E) instead."""
+        the unpruned (V, OUT, E) and the vertices' sign and zero words
+        instead."""
         k, eps, dev = self.kern, self.eps, self.dev
         nV, nE = P.V.shape[0], P.E.shape[0]
         E, EB, LD = P.E.clone(), P.EB.clone(), P.LD.clone()
@@ -1539,7 +1936,7 @@ class Engine:
         self.stats.busy.append((idx, n_split, n_hit, n_conn))
         OUTx = torch.cat([P.OUT, OUTn])
         if final:
-            return Vx, OUTx, torch.cat([E, Er, Ec])
+            return Vx, OUTx, torch.cat([E, Er, Ec]), SBx, ZBx
         EBc, LDc = edge_words(Ec, SBx, ZBx, kern=k)
         Ex = torch.cat([E, Er, Ec])
         EBx, LDx = torch.cat([EB, EBr, EBc]), torch.cat([LD, LDr, LDc])
@@ -1635,7 +2032,8 @@ class Engine:
     def loop(self, P: Pools, counts: np.ndarray):
         """Every busy insertion from the pools on, skipping idle planes by
         the count vector's split histogram; returns the complex after the
-        final insertion (V, OUT, E), unpruned."""
+        final insertion (V, OUT, E), unpruned, and its vertices' sign and
+        zero words (SB, ZB)."""
         idx = self._next(counts, -1)
         while idx < self.n_hidden:
             P, counts = self.step(P, idx, int(counts[SPLIT + idx]),
@@ -1643,9 +2041,51 @@ class Engine:
             idx = self._next(counts, idx)
         fin = self.n_hidden
         if counts[SPLIT + fin] == 0:
-            return P.V, P.OUT, P.E
+            return P.V, P.OUT, P.E, P.SB, P.ZB
         return self.step(P, fin, int(counts[SPLIT + fin]),
                          int(counts[HIT + fin]), final=True)
+
+    # the faces ------------------------------------------------------------
+
+    @torch.no_grad()
+    def faces(self, V, OUT, E, SB, ZB):
+        """K6 on the complex after the final insertion (V, OUT, E and its
+        vertices' words SB, ZB): the final filter, then the faces.  Returns
+        the funnel (vertices and edges before the filter, after it), the
+        used vertices [n, 3] in vertex order and the triangles [T, 3]
+        int64.  Reads the count vector twice: after the filter and the
+        replica count, and after the fans' count."""
+        k, eps, scale = self.kern, self.eps, self.net.spec.scale
+        dev = V.device
+        E = E.to(torch.int32).contiguous()
+        fc = torch.zeros(FC, dtype=torch.int64, device=dev)
+        _, ends = final_keep(V, OUT, E, eps, scale, fc, kern=k)
+        kz, rows = face_keys_count(V, SB, ZB, ends, self.marks, self.lut,
+                                   self.lut_k, eps, scale, fc, kern=k)
+        n_keepv, pre_v, pre_e, n_ekeep, n_used, n_rep = (
+            int(x) for x in self.read(fc[:FC_KEPT]))
+        no_tris = torch.empty((0, 3), dtype=torch.int64, device=dev)
+        if n_keepv < 3 or n_used == 0:  # extract_skeleton's empty result
+            return (pre_v, pre_e, 0, 0), V[:0], no_tris
+        funnel = (pre_v, pre_e, n_used, n_ekeep)
+        vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
+        kzs, order = torch.sort(kz, stable=True)
+        keys, rvid, Vf = face_keys_fill(V, rows, kzs, order, vcum, fc, n_used,
+                                        n_rep, kern=k)
+        skey, perm = torch.sort(keys, stable=True)
+        sig, rcnt, mean, svid = face_regions_runs(skey, perm, rvid, Vf, kern=k)
+        ssig, rord = torch.sort(sig, stable=True)
+        keep = face_regions_dups(ssig, rord, rcnt, svid, kern=k)
+        kcum = torch.cumsum(keep, 0, dtype=torch.int64)
+        ntri, mk = face_fans_count(rord, rcnt, svid, mean, keep, kcum, fc,
+                                   kern=k)
+        n_kept, n_tri = (int(x) for x in self.read(fc[FC_KEPT:FC_HIST]))
+        if n_kept == 0:
+            return funnel, Vf, no_tris
+        nrm = self.net.normal(mk[:n_kept])
+        tris = face_fans_fill(rord, rcnt, svid, mean, keep, kcum, ntri,
+                              torch.cumsum(ntri, 0), nrm, Vf, n_tri, kern=k)
+        return funnel, Vf, tris
 
 
 class _Clock:
@@ -1686,15 +2126,14 @@ def subpoly_device(net, d: int = 3, size: float = 1.2, eps: float = 1e-4,
                    skeleton_mode: str = "auto"):
     """The extraction on the net's device, the flat path (``force``) or
     the curved one: the skeleton (``skeleton_mode`` "dist", the default,
-    or "sign"), the busy insertions, then the port's ``extract_skeleton``
-    and ``extract_faces``.
+    or "sign"), the busy insertions, then the final filter and the faces
+    (``Engine.faces``).
 
     Returns (face positions [T, 3, 3], vertices [V, 3], triangles [T, 3]),
     as ``subdivide.subpoly``; ``LAST`` keeps the run's reads, busy
     insertions and stage times, ``failover.COUNTERS`` the curved path's
     events."""
     from tropical_torch.extract import stats
-    from tropical_torch.extract.faces import extract_faces, extract_skeleton
     from tropical_torch.extract.skeleton import get_hypercube
 
     if not device_engine_supports(net):
@@ -1715,29 +2154,15 @@ def subpoly_device(net, d: int = 3, size: float = 1.2, eps: float = 1e-4,
     V, OUT, SB, ZB, SZ, E = sk
     P, counts = eng.pools(V, OUT, E, None if SB is None else (SB, ZB, SZ))
     clock.mark()
-    V, OUT, E = eng.loop(P, counts)
-    E = E.to(torch.int64)
+    V, OUT, E, SB, ZB = eng.loop(P, counts)
     clock.mark()
-
-    pre_v, pre_e = V.shape[0], E.shape[0]
+    (pre_v, pre_e, post_v, post_e), V, tris = eng.faces(V, OUT, E, SB, ZB)
+    faces = V[tris]
+    clock.mark()
     if verbose:
         print()
-        print(f"# of vertices and edges = {pre_v}/{pre_e} => ", end="")
-    V, E, v_idx = extract_skeleton(V, E, OUT, net, eps)
-    dev = V.device
-    if V.shape[0] == 0:
-        if verbose:
-            print("0/0, 0 faces", end=", ")
-        stats.record(pre_v, pre_e, 0, 0, 0)
-        return (torch.empty((0, 3, 3), dtype=torch.float32, device=dev), V,
-                torch.empty((0, 3), dtype=torch.int64, device=dev))
-    OUT = OUT[v_idx]
-    if verbose:
-        print(f"{V.shape[0]}/{E.shape[0]}", end=", ")
-    faces, tris = extract_faces(V, E, net, OUT, eps)
-    clock.mark()
-    if verbose:
-        print(f"{len(faces)} faces", end=", ")
+        print(f"# of vertices and edges = {pre_v}/{pre_e} => "
+              f"{post_v}/{post_e}, {len(faces)} faces", end=", ")
     LAST.t_skeleton, LAST.t_loop, LAST.t_faces = clock.spans()
-    stats.record(pre_v, pre_e, V.shape[0], E.shape[0], len(faces))
+    stats.record(pre_v, pre_e, post_v, post_e, len(faces))
     return faces, V, tris

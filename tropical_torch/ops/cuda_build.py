@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes ``extern "C"`` launch functions that take
 device pointers and a stream and return ``cudaGetLastError()`` (those of
-``lattice_encode`` and ``device_engine``: the count of kernels launched, or
-minus a CUDA error).  They are
+``lattice_encode`` and ``device_engine``, which includes ``faces.cu``: the
+count of kernels launched, or minus a CUDA error).  They are
 compiled with ``nvcc`` for ``sm_90a`` at first use into ``_build/`` (listed
 in ``.gitignore``) and loaded with ``ctypes``; a library is named by a hash
-of its source, the ``csrc/*.cuh`` headers it includes and its flags, so an
+of its source, the ``csrc/`` files it includes and its flags, so an
 edited source or header is rebuilt.  A variant built
 with extra ``-D`` macros (an instrumented build for a measurement), or from
 another ``.cu`` file (a patched copy, for an ablation), is a library of its
@@ -82,8 +82,9 @@ def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
 
 
 def _text(src: Path) -> bytes:
-    """The source with the package's headers it includes (``#include
-    "name.cuh"``, found in ``csrc/``), each once, after it."""
+    """The source with the package's files it includes (``#include
+    "name.cuh"`` or ``"name.cu"``, found in ``csrc/``), each once, after
+    it."""
     out, todo, seen = [], [src], set()
     while todo:
         path = todo.pop()
@@ -93,7 +94,7 @@ def _text(src: Path) -> bytes:
         text = path.read_bytes()
         out.append(text)
         todo += [CSRC_DIR / m.decode() for m in
-                 re.findall(rb'#include "(\w+\.cuh)"', text)]
+                 re.findall(rb'#include "(\w+\.cuh?)"', text)]
     return b"".join(out)
 
 

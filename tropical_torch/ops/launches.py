@@ -20,13 +20,16 @@ LAUNCHES: Dict[str, int] = {"min_dist": 0, "trilinear_roots": 0,
                              "lattice_encode": 0, "skeleton_mark": 0,
                              "split_step": 0, "connect_step": 0,
                              "curved_select": 0, "curved_roots": 0,
-                             "curved_resolve": 0, "curved_filter": 0}
+                             "curved_resolve": 0, "curved_filter": 0,
+                             "final_keep": 0, "face_keys": 0,
+                             "face_regions": 0, "face_fans": 0}
 # the largest problem shape each kernel was launched on since the last reset:
 # (n, m) of a min_dist search, (B,) of a trilinear_roots solve, (B, L) of a
 # hash-grid encode kernel, (T,) triangles of a BVH build kernel, (N, T) rays
 # or points by triangles of a BVH query; (N, L) lattice points by the levels
 # of a lattice encode launch, (n,) items of a device-engine kernel (lattice
-# points, edges, candidates)
+# points, edges, candidates; K6's vertices and edges, used vertices,
+# replicas or region slots)
 LARGEST: Dict[str, Optional[Tuple[int, ...]]] = {k: None for k in LAUNCHES}
 # the product of each LARGEST shape (0 for none)
 _LARGEST_SIZE: Dict[str, int] = {k: 0 for k in LAUNCHES}

@@ -185,23 +185,34 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    them);
 11d. K6 (``final_keep``, ``face_keys``, ``face_regions``, ``face_fans``,
    ``csrc/faces.cu``) at sphere-small flat, sphere-medium curved and
-   sphere-large flat: every stage call of ``Engine.faces``, recorded from a
-   run of the engine, bitwise its plain version, also after three replays
-   of a CUDA graph of one call, and the planted calls of
-   ``tests/faces_cases.py`` (duplicate regions in an A, B, A signature
-   run, repeated ids, 1, 2 and 100 members, exact score ties, cell offsets
-   -1, 0 and M - 1); the stage's result against the host faces
-   (``extract_skeleton`` + ``extract_faces``) on the same loop output: the
-   vertices bitwise, the counts exactly, the fan contract (at most 0.5 %
-   of the rows differ, 1 % at sphere-large), and every fan that differs
-   the same polygon started at another vertex, each member that crossed
-   the angular sort's cut within two fixed-point steps of it
-   (``faces_cases.fan_ties``); each
-   kernel's device time (CUDA graphs, its calls summed) beside its bound
-   (``k6_bytes`` at 3.35 TB/s), a graph node's floor and its plain
-   version's time, ``face_keys``' vertex gather beside ``index_select`` on
-   the same rows; the faces stage's span (CUDA events) and its device time
-   by kernel (torch.profiler);
+   sphere-large flat, in the design and in the first design of face_keys
+   and face_fans (``cuda_build.FACES_FIRST``): every stage call of
+   ``Engine.faces``, recorded from a run of each build's engine, bitwise
+   its plain version, also after three replays of a CUDA graph of one
+   call, and the planted calls of ``tests/faces_cases.py`` in both builds
+   (duplicate regions in an A, B, A signature run, repeated ids, 1, 2, 8,
+   9, 12 and 100 members, exact score ties, cell offsets -1, 0 and M - 1,
+   five tiles of vertices with every zero count, five tiles of region
+   slots, one kept region and none); the two builds' faces bitwise equal;
+   at sphere-large both against the JAX package's device faces
+   (``LARGE_DEVICE_FACES``, the first design first): the vertices within
+   1e-5 index for index, the fan contract at 0.5 % or JAX's own host
+   against device share, whichever is larger, and every fan that differs
+   its polygon started at another vertex, the start K6's score gives on
+   JAX's vertices, or with the members at the sort's wrap moved
+   (``faces_cases.golden_ties``); the stage's result against the host
+   faces (``extract_skeleton`` + ``extract_faces``) on the same loop
+   output: the vertices bitwise, the counts exactly, the fan contract (at
+   most 0.5 % of the rows differ, 1 % at sphere-large), and every fan that
+   differs the same polygon started at another vertex, each member that
+   crossed the angular sort's cut within two fixed-point steps of it
+   (``faces_cases.fan_ties``); each kernel's device time (CUDA graphs, its
+   calls summed) beside its bound (``k6_bytes`` at 3.35 TB/s), a graph
+   node's floor and its plain version's time, face_keys' and face_fans'
+   beside their first designs', ``face_keys``' vertex gather beside
+   ``index_select`` on the same rows; the faces stage's span (CUDA
+   events), launches and device time by kernel (torch.profiler) in each
+   build;
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's (K6's launches,
    two of each kernel), the same final
@@ -290,12 +301,33 @@ K6_REPLACES = {"final_keep": "tropical/extract/device.py:1444",
                "face_keys": "tropical/extract/device.py:1527",
                "face_regions": "tropical/extract/device.py:1562",
                "face_fans": "tropical/extract/device.py:1681"}
-# the stage functions of tropical_torch/extract/device.py and their kernels
+# the stage functions of tropical_torch/extract/device.py and their kernels:
+# the design's, then the first design's of face_keys and face_fans
+# (cuda_build.FACES_FIRST: a thread an item, the caller's torch.cumsum and
+# torch.sort of the zero counts between them)
 K6_STAGES = {"final_keep": "final_keep", "face_keys_count": "face_keys",
              "face_keys_fill": "face_keys",
              "face_regions_runs": "face_regions",
              "face_regions_dups": "face_regions",
              "face_fans_count": "face_fans", "face_fans_fill": "face_fans"}
+K6_FIRST_STAGES = {"final_keep": "final_keep",
+                   "face_keys_count_first": "face_keys",
+                   "face_keys_fill_first": "face_keys",
+                   "face_regions_runs": "face_regions",
+                   "face_regions_dups": "face_regions",
+                   "face_fans_count_first": "face_fans",
+                   "face_fans_fill_first": "face_fans"}
+# K6's redesigned kernels, timed beside their first designs
+K6_REDESIGNED = ("face_keys", "face_fans")
+# the JAX package's device faces of sphere-large (its fused program's
+# triangles, each row sorted, and vertices; the rows in which its host
+# faces differ; scripts/device_faces_golden.py), and the bounds phase 11d
+# holds K6's -large output to: the vertices index for index, the fan
+# contract at 0.5 % or at JAX's own host-against-device share, whichever is
+# larger
+LARGE_DEVICE_FACES = "tests/golden/sphere_large_device_faces.npz"
+GOLDEN_VERTEX_ERR = 1e-5
+GOLDEN_SHARE = 0.005
 # the JAX CLI's curved funnels through its own device engine (dist
 # skeleton), the route the curved CLI takes (scripts/curved_presets_golden.py)
 CURVED_PRESETS = "tests/golden/sphere_curved_presets.json"
@@ -332,8 +364,8 @@ CURVED_ROW_BYTES = 4 + 4 + 24 + 96
 # curved_roots and curved_gd (K4c's first design: curved_pick, K7,
 # curved_points, curved_gd and curved_mix) and reads the count words once
 # after the strict filter; the faces (K6) read the count vector twice
-ENGINE_COUNTS = {"small flat": (10, 8, 415, 8),
-                 "medium curved": (15, 13, 420, 13)}
+ENGINE_COUNTS = {"small flat": (10, 8, 400, 8),
+                 "medium curved": (15, 13, 405, 13)}
 # stage 3b of the JAX engine's busy insertion and its strict filter;
 # curved_roots also replaces K7's launch (tropical/core/trilinear.py:91)
 # and the roots' points (:612)
@@ -592,7 +624,8 @@ def build_phase():
     targets = ["min_dist", EXACT_COUNT, "trilinear_roots", "hashgrid_encode",
                "bvh", BVH_COUNT, BVH_COUNT_DESIGN, BVH_FIRST, "lattice_encode",
                "device_engine", cuda_build.LATTICE_FIRST,
-               cuda_build.DEVICE_ENGINE_FIRST, cuda_build.CURVED_FIRST]
+               cuda_build.DEVICE_ENGINE_FIRST, cuda_build.CURVED_FIRST,
+               cuda_build.FACES_FIRST]
     logs = cuda_build.build(targets)
     for target in targets:
         name = cuda_build.label(target)
@@ -1673,6 +1706,7 @@ def fan_contract(v, ours, ref, against="the committed mesh", share=0.005):
           and {i for t in d1 for i in t} == {i for t in d2 for i in t}
           and abs(a1 - a2) <= 1e-6 * area(s2) + 1e-12,
           "triangles outside the fan-diagonal contract")
+    return len(d1), len(s2)
 
 
 def main_path_phase():
@@ -3938,24 +3972,39 @@ def k6_bytes(name, a):
     """The bytes a K6 stage call must move, each input read once and each
     output written once, counting only the rows that need them:
     ``final_keep`` a vertex's point, sdf column, keep flag and two marks, an
-    edge's ends; ``face_keys_count`` a vertex's point, first sign and zero
-    words, marks, zero count and key row, and the grid's marks and table;
-    ``face_keys_fill`` a used vertex's order, zero count, rank, key row,
-    point read and point written, a replica's key and id; the region
-    stages a replica's key, permutation entry and id (``runs``: every used
-    point, a replica's signature, count, mean and id written; ``dups``: a
-    slot's signature and keep flag, a region's start and count, the
-    members of a run of two or more); the fans a slot's keep flag, a kept
-    region's start, count, rank, mean and normal, its members' ids and
-    points (each used point once at most), its triangles (``count``: a
-    slot's count and a kept region's mean written)."""
+    edge's ends; ``face_keys_count`` a vertex's point, ends, first sign and
+    zero words and key row (the design: and its two ranks in its tile, and
+    a tile's 36 class counts; the first design: its zero count), the grid's
+    marks and table; ``face_keys_fill`` (the design) a vertex's ranks, a
+    used vertex's key row, point read and point written, a replica's key
+    and id, the tiles' class counts once and the histogram (the first
+    design: a used vertex's order, zero count and id instead of every
+    vertex's ranks); the region stages a replica's key,
+    permutation entry and id (``runs``: every used point, a replica's
+    signature, count, mean and id written; ``dups``: a slot's signature and
+    keep flag, a region's start and count, the members of a run of two or
+    more); the fans a slot's keep flag, a kept region's start and count,
+    its members' ids, its mean and (``count``) its row of the compact list
+    and its mean written, a tile's status word (the first design: a slot's
+    rank and triangles, a kept region's mean written); ``fill`` (the
+    design) a kept region's row of the list, mean and normal, its members'
+    ids and points (each used point once at most), its triangles (the first
+    design: a slot's flag and offsets instead of the list)."""
     from tropical_torch.extract import device as dv
 
     if name == "final_keep":
         return a[0].shape[0] * (12 + 4 + 4 + 8) + a[2].shape[0] * 8
-    if name == "face_keys_count":
+    if name == "face_keys_count_first":
         return a[0].shape[0] * (12 + 8 + 8 + 4 + 16) + _nb(a[4]) + _nb(a[5])
+    if name == "face_keys_count":
+        n = a[0].shape[0]
+        tiles = -(-n // dv.KEYS_TILE)
+        return (n * (12 + 8 + 8 + 16 + 8) + _nb(a[4]) + _nb(a[5])
+                + tiles * 4 * (dv.KZ_MAX + 1))
     if name == "face_keys_fill":
+        return (a[0].shape[0] * 8 + a[5] * (16 + 12 + 12) + a[6] * 12
+                + _nb(a[3]) + 8 * (dv.KZ_MAX + 1))
+    if name == "face_keys_fill_first":
         return a[6] * (8 + 4 + 4 + 16 + 12 + 12) + a[7] * 12
     if name == "face_regions_runs":
         n = a[0].shape[0]
@@ -3969,13 +4018,23 @@ def k6_bytes(name, a):
         members = int(a[2][a[1][runs]].sum())
         return ssig.shape[0] * (8 + 4) + int(real.sum()) * (8 + 4) + (
             4 * members)
+    if name == "face_fans_fill":
+        kl, n_kept, n_tri = a[0], a[5], a[6]
+        members = int(kl[:n_kept, 1].sum())
+        points = min(members, a[4].shape[0])
+        return (n_kept * (16 + 12 + 12) + 4 * members + 12 * points
+                + 24 * n_tri)
     rord, rcnt, svid, keep = a[0], a[1], a[2], a[4]
     j = torch.nonzero(keep)[:, 0]
     members = int(rcnt[rord[j]].sum())
     if name == "face_fans_count":
+        tiles = -(-keep.shape[0] // 1024)
+        return keep.shape[0] * 4 + j.numel() * (8 + 4 + 12 + 16 + 12) + (
+            4 * members + 8 * tiles)
+    if name == "face_fans_count_first":
         return keep.shape[0] * (4 + 8) + j.numel() * (8 + 4 + 8 + 12 + 12) + (
             4 * members)
-    if name == "face_fans_fill":
+    if name == "face_fans_fill_first":
         points = min(members, a[9].shape[0])
         return keep.shape[0] * 4 + j.numel() * (8 + 4 + 8 + 16 + 12 + 12) + (
             4 * members + 12 * points + 24 * a[10])
@@ -3986,8 +4045,9 @@ def faces_profile(eng, args):
     """The faces stage (``Engine.faces``) on a loop's output: its span by
     CUDA events (warm, three runs) and, from one run under torch.profiler,
     its device time by kernel, the K6 kernels, the sorts and the encode
-    (the normals) apart, and the host's time by operation (self CPU time):
-    {span_ms, busy_ms, k6_ms, sort_ms, encode_ms, top, host_ms,
+    (the normals) apart, its kernel launch calls and device activities, and
+    the host's time by operation (self CPU time): {span_ms, busy_ms,
+    launches, kernels, k6_ms, sort_ms, encode_ms, top, host_ms,
     host_top}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4016,7 +4076,12 @@ def faces_profile(eng, args):
     top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
     host = sorted(((e.key, e.self_cpu_time_total / 1e3)
                    for e in prof.key_averages()), key=lambda kv: -kv[1])
+    launched = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                              "cuLaunchKernel", "cuLaunchKernelEx")
+                   for e in prof.events())
     return {"span_ms": spans, "busy_ms": sum(by.values()),
+            "launches": launched, "kernels": sum(
+                e.device_type == DeviceType.CUDA for e in prof.events()),
             "k6_ms": group(k6), "sort_ms": group(("sort",)),
             "encode_ms": group(("hashgrid", "bwd_kernel", "fwd_kernel")),
             "top": [(n[:60], round(v, 5)) for n, v in top],
@@ -4024,26 +4089,27 @@ def faces_profile(eng, args):
             "host_top": [(n[:40], round(v, 4)) for n, v in host[:10]]}
 
 
-def k6_call(dv, name, args, kw, reps):
-    """One recorded or planted K6 stage call: by the kernel and by the
-    plain version (``faces_cases.held``), the kernel's results also after
-    three replays of a CUDA graph of one call (the count vector, which each
-    replay adds to, left out); the kernel's device time (``graph_ms``), the
-    plain version's (CUDA events) and the call's bound (``k6_bytes``)."""
+def k6_call(dv, name, args, kw, reps, kern=None):
+    """One recorded or planted K6 stage call: by the kernel (``kern``: a
+    build's ``Kernels``, None the committed design) and by the plain version
+    (``faces_cases.held``), the kernel's results also after three replays of
+    a CUDA graph of one call (the count vector, which each replay adds to,
+    left out); the kernel's device time (``graph_ms``), the plain version's
+    (CUDA events) and the call's bound (``k6_bytes``)."""
     import faces_cases
 
-    faces_cases.held(dv, [(name, args, kw)], None)
+    faces_cases.held(dv, [(name, args, kw)], kern)
     fn = getattr(dv, name)
     res = fn(*[a.clone() if torch.is_tensor(a) else a for a in args],
              **{**kw, "kern": dv.PLAIN})
     n_res = len(res) if isinstance(res, tuple) else 1
     want = faces_cases.outputs(dv, name, args, kw, dv.PLAIN)[:n_res]
-    got = graph_bits(fn, args, {**kw, "kern": None})[:n_res]
+    got = graph_bits(fn, args, {**kw, "kern": kern})[:n_res]
     for x, y in zip(want, got):
         check(x.shape == y.shape and bits_equal(x, y),
               f"{name}: kernel after graph replays != plain")
     fixed, pfixed = clones(args), clones(args)
-    return {"ms": graph_ms(lambda: fn(*fixed, **{**kw, "kern": None}),
+    return {"ms": graph_ms(lambda: fn(*fixed, **{**kw, "kern": kern}),
                            reps=reps),
             "plain_ms": cuda_ms(lambda: fn(*pfixed, **{**kw,
                                                        "kern": dv.PLAIN}),
@@ -4051,14 +4117,59 @@ def k6_call(dv, name, args, kw, reps):
             "bound_ms": k6_bytes(name, args) / PEAK_BYTES * 1e3}
 
 
+def golden_check(dv, net, label, fill, Vf, tris):
+    """K6's sphere-large output (``Vf``, ``tris``; ``fill`` its recorded
+    fill call) against the JAX package's device faces
+    (``LARGE_DEVICE_FACES``): the vertices within ``GOLDEN_VERTEX_ERR``
+    index for index, the fan contract at the larger of ``GOLDEN_SHARE``
+    and JAX's own host-against-device share, and each fan with a row JAX's
+    lack its polygon started at another vertex, at the cut
+    (``faces_cases.golden_ties``).  Returns the figures."""
+    import faces_cases
+
+    g = np.load(LARGE_DEVICE_FACES)
+    share = max(GOLDEN_SHARE, float(g["jax_share"]))
+    v = Vf.cpu().numpy()
+    check(v.shape == g["vertices"].shape
+          and tris.shape == g["triangles"].shape,
+          f"{label}: K6 {v.shape}, {tuple(tris.shape)} != JAX's device faces' "
+          f"{g['vertices'].shape}, {g['triangles'].shape}")
+    err = float(np.abs(v - g["vertices"]).max())
+    moved = int((np.abs(v - g["vertices"]) > 0).any(1).sum())
+    print(f"{label}: vertices against JAX's device faces: max |diff| "
+          f"{err:.3e} ({moved} vertices differ), bound {GOLDEN_VERTEX_ERR}")
+    check(err <= GOLDEN_VERTEX_ERR, f"{label}: vertices {err} off JAX's")
+    differ, rows = fan_contract(g["vertices"], tris.cpu().numpy(),
+                                g["triangles"], "JAX's device faces", share)
+    ties = faces_cases.golden_ties(dv, net, fill, tris, g["triangles"],
+                                   g["vertices"])
+    print(f"{label}: {differ} of {rows} rows differ ({differ / rows:.4%}; "
+          f"bound {share:.4%}, JAX's own host against device "
+          f"{float(g['jax_share']):.4%}); the fans that differ: "
+          f"{json.dumps(ties)}")
+    check(ties["k6_rows"]
+          and ties["differ"] == ties["rotations"] == ties["explained"],
+          f"{label}: fans that differ from JAX's device faces other than by "
+          f"their start, or that K6's score on JAX's vertices does not "
+          f"give: {ties}")
+    return {"rows_differ": differ, "rows": rows, "share_bound": share,
+            "jax_share": float(g["jax_share"]), "max_vertex_err": err,
+            "vertices_differ": moved, "ties": ties}
+
+
 def faces_phase(records, flat_launches, curved_launches):
     """K6 on the card at sphere-small flat, sphere-medium curved and
-    sphere-large flat: every stage call of ``Engine.faces`` recorded from a
-    run of the engine, and the planted calls of ``tests/faces_cases.py``,
-    each bitwise its plain version (also after graph replays), timed beside
-    its bound, a graph node's floor and the plain version; the stage's
-    result against the host faces on the same loop output; the stage's
-    span and its device time by kernel.  Adds the K6 kernel records."""
+    sphere-large flat, in the design and in the first design of face_keys
+    and face_fans (``cuda_build.FACES_FIRST``): every stage call of
+    ``Engine.faces`` recorded from a run of each build's engine, and the
+    planted calls of ``tests/faces_cases.py``, each bitwise its plain
+    version (also after graph replays), timed beside its bound, a graph
+    node's floor and the plain version; the two builds' results bitwise
+    equal; the stage's result against the host faces on the same loop
+    output, and at sphere-large against the JAX package's device faces
+    (``golden_check``, the first design first); the stage's span, launches
+    and device time by kernel in each build.  Adds the K6 kernel
+    records."""
     phase("11d. the faces (K6) against their plain versions, sphere-small "
           "flat, sphere-medium curved, sphere-large flat")
     sys.path.insert(0, "tests")
@@ -4066,22 +4177,42 @@ def faces_phase(records, flat_launches, curved_launches):
 
     from tropical_torch.extract import device as dv
     from tropical_torch.extract.faces import extract_faces, extract_skeleton
+    from tropical_torch.ops import cuda_build
 
+    first = dv.Kernels(cuda_build.load(cuda_build.FACES_FIRST),
+                       torch.device("cuda", 0))
+    check(first.first_faces, "the FACES_FIRST build takes K6's first design")
     floor_ms = graph_floor_ms()
-    planted = faces_cases.planted_calls(dv, "cuda")
-    for name, args, kw in planted:
-        k6_call(dv, name, args, kw, reps=10)
-    print(f"{len(planted)} planted K6 calls bitwise their plain versions, "
-          f"also after graph replays; a graph node's floor {floor_ms:.5f} ms")
+    for kern, label in ((None, "design"), (first, "first design")):
+        planted = faces_cases.planted_calls(dv, "cuda", first=kern is first)
+        for name, args, kw in planted:
+            k6_call(dv, name, args, kw, reps=10, kern=kern)
+        print(f"{len(planted)} planted K6 calls of the {label} bitwise their "
+              f"plain versions, also after graph replays")
+    print(f"a graph node's floor {floor_ms:.5f} ms")
     for size, force, tag, contract in K6_RUNS:
         net = sphere_net(size)
         eng = dv.Engine(net, force=force)
+        eng1 = dv.Engine(net, force=force, kern=first)
         sk = eng.skeleton("dist")
         args = eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+        (funnel1, V1, t1), calls1 = faces_cases.record(
+            dv, lambda: eng1.faces(*args))
         (funnel, Vf, tris), calls = faces_cases.record(
             dv, lambda: eng.faces(*args))
-        check([c[0] for c in calls] == list(K6_STAGES),
-              f"{size}: K6 stage calls {[c[0] for c in calls]}")
+        check([c[0] for c in calls] == list(K6_STAGES)
+              and [c[0] for c in calls1] == list(K6_FIRST_STAGES),
+              f"{size}: K6 stage calls {[c[0] for c in calls]}, the first "
+              f"design's {[c[0] for c in calls1]}")
+        check(funnel1 == funnel and bits_equal(V1, Vf)
+              and bits_equal(t1, tris),
+              f"{size}: the first design's faces != the design's")
+        golden = None
+        if size == "large":
+            golden = {"first_design": golden_check(
+                dv, net, f"{size}, the first design", calls1[-1], V1, t1)}
+            golden["design"] = golden_check(dv, net, size, calls[-1], Vf,
+                                            tris)
         V, OUT, E = args[:3]
         Vh, Eh, vidx = extract_skeleton(V, E.long(), OUT, net, eng.eps)
         _, th = extract_faces(Vh, Eh, net, OUT[vidx], eng.eps)
@@ -4091,27 +4222,36 @@ def faces_phase(records, flat_launches, curved_launches):
             f"{size}: K6 {funnel}, {tuple(tris.shape)} != the host faces' "
             f"{Vh.shape[0]}/{Eh.shape[0]}, {tuple(th.shape)}")
         print(f"{size}: K6 against the host faces on the same loop output: "
-              f"funnel {funnel}, {tris.shape[0]} triangles, vertices bitwise")
+              f"funnel {funnel}, {tris.shape[0]} triangles, vertices "
+              f"bitwise; the first design's faces bitwise the design's")
         fan_contract(Vh.cpu().numpy(), tris.cpu().numpy(), th.cpu().numpy(),
                      "the host faces", contract)
-        ties = faces_cases.fan_ties(
-            dv, net, next(c for c in calls if c[0] == "face_fans_fill")[1],
-            tris, th)
+        ties = faces_cases.fan_ties(dv, net, calls[-1], tris, th)
         print(f"{size}: the fans that differ from the host faces': "
               f"{json.dumps(ties)}")
         check(ties["host_rows"] and ties["k6_rows"]
               and ties["differ"] == ties["rotations"] == ties["near"],
               f"{size}: fans that differ from the host faces' other than by "
               f"their start at the cut: {ties}")
+        kl, n_kept = calls[-1][1][0], calls[-1][1][5]
+        largest = int(kl[:n_kept, 1].max())
+        print(f"{size}: {n_kept} kept regions, the largest of {largest} "
+              f"members")
         reps = 20 if size == "large" else 50
-        per = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": 0}
+        per = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "calls": 0,
+                   "first_ms": 0.0, "first_bound_ms": 0.0, "first_calls": 0}
                for k in K6}
-        for name, a, kw in calls:
-            r = k6_call(dv, name, a, kw, reps)
-            rec = per[K6_STAGES[name]]
-            for key in ("ms", "plain_ms", "bound_ms"):
-                rec[key] += r[key]
-            rec["calls"] += 1
+        timed = [(c, None, "") for c in calls] + [
+            (c, first, "first_") for c in calls1
+            if K6_FIRST_STAGES[c[0]] in K6_REDESIGNED]
+        for (name, a, kw), kern, pre in timed:
+            r = k6_call(dv, name, a, kw, reps, kern=kern)
+            rec = per[K6_FIRST_STAGES.get(name) or K6_STAGES[name]]
+            for key in ("ms", "bound_ms"):
+                rec[pre + key] += r[key]
+            if not pre:
+                rec["plain_ms"] += r["plain_ms"]
+            rec[pre + "calls"] += 1
             print(f"{size}: {name}: kernel {r['ms']:.5f} ms "
                   f"({share(r['bound_ms'], r['ms'])} of its bound "
                   f"{r['bound_ms']:.7f} ms, {r['ms'] / floor_ms:.1f} graph "
@@ -4124,13 +4264,17 @@ def faces_phase(records, flat_launches, curved_launches):
               f"{size}: index_select of the used rows != face_keys' rows")
         gather_ms = graph_ms(lambda: fill[0].index_select(0, used),
                              reps=reps)
-        prof = faces_profile(eng, args)
-        print(f"{size}: the faces stage: span {prof['span_ms']} ms (CUDA "
-              f"events, warm), device busy {prof['busy_ms']:.4f} ms "
-              f"(K6 {prof['k6_ms']:.4f}, sorts {prof['sort_ms']:.4f}, "
-              f"encode {prof['encode_ms']:.4f}); by kernel {prof['top']}; "
-              f"host self time {prof['host_ms']:.3f} ms under the profiler, "
-              f"by operation {prof['host_top']}")
+        profs = {}
+        for label, e in (("first design", eng1), ("design", eng)):
+            prof = profs[label] = faces_profile(e, args)
+            print(f"{size}: the faces stage, {label}: span "
+                  f"{prof['span_ms']} ms (CUDA events, warm), "
+                  f"{prof['launches']} launches, device busy "
+                  f"{prof['busy_ms']:.4f} ms (K6 {prof['k6_ms']:.4f}, sorts "
+                  f"{prof['sort_ms']:.4f}, encode {prof['encode_ms']:.4f}); "
+                  f"by kernel {prof['top']}; host self time "
+                  f"{prof['host_ms']:.3f} ms under the profiler, by "
+                  f"operation {prof['host_top']}")
         print(f"{size}: the used vertices' gather: index_select "
               f"{gather_ms:.5f} ms ({used.numel()} rows)")
         for k in K6:
@@ -4146,15 +4290,26 @@ def faces_phase(records, flat_launches, curved_launches):
             rec.update({f"ms{tag}": r["ms"], f"plain_ms{tag}": r["plain_ms"],
                         f"bound_ms{tag}": r["bound_ms"],
                         f"calls_timed{tag}": r["calls"]})
+            first_note = ""
+            if k in K6_REDESIGNED:
+                rec.update({f"first_ms{tag}": r["first_ms"],
+                            f"first_bound_ms{tag}": r["first_bound_ms"]})
+                first_note = (f", the first design {r['first_ms']:.5f} ms "
+                              f"({share(r['first_bound_ms'], r['first_ms'])}"
+                              f" of its bound)")
             if k == "face_keys":
                 rec[f"gather_library_ms{tag}"] = gather_ms
             if k == "face_fans":
                 rec[f"fan_ties{tag}"] = ties
+                rec[f"largest_region{tag}"] = largest
+                if golden is not None:
+                    rec[f"golden{tag}"] = golden
             print(f"{size}: {k}: {r['calls']} calls, kernel {r['ms']:.5f} "
                   f"ms ({share(r['bound_ms'], r['ms'])} of its bound "
-                  f"{r['bound_ms']:.7f} ms), plain {r['plain_ms']:.3f} ms")
-        records["final_keep"].setdefault("faces_stage", {})[size] = prof
-        del net, eng, args, calls
+                  f"{r['bound_ms']:.7f} ms){first_note}, plain "
+                  f"{r['plain_ms']:.3f} ms")
+        records["final_keep"].setdefault("faces_stage", {})[size] = profs
+        del net, eng, eng1, args, calls, calls1
         torch.cuda.empty_cache()
 
 

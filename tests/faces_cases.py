@@ -5,16 +5,23 @@ its stage calls recorded and replayed, shared by the CPU tests and
 import numpy as np
 import torch
 
-# the stage functions of tropical_torch/extract/device.py, in call order
+# the stage functions of tropical_torch/extract/device.py, in call order:
+# the design's, and the first design's (-DFACES_FIRST)
 K6_STAGES = ("final_keep", "face_keys_count", "face_keys_fill",
              "face_regions_runs", "face_regions_dups", "face_fans_count",
              "face_fans_fill")
+K6_FIRST_STAGES = ("final_keep", "face_keys_count_first",
+                   "face_keys_fill_first", "face_regions_runs",
+                   "face_regions_dups", "face_fans_count_first",
+                   "face_fans_fill_first")
 
 
 def record(dv, fn):
-    """``fn()`` with the K6 stage functions of ``dv`` wrapped: its result
-    and [(name, arguments (tensors cloned), keywords)] of every call."""
-    calls, orig = [], {n: getattr(dv, n) for n in K6_STAGES}
+    """``fn()`` with the K6 stage functions of ``dv`` (both designs')
+    wrapped: its result and [(name, arguments (tensors cloned), keywords)]
+    of every call."""
+    calls = []
+    orig = {n: getattr(dv, n) for n in {*K6_STAGES, *K6_FIRST_STAGES}}
 
     def wrap(name, f):
         def stage(*args, **kw):
@@ -148,46 +155,146 @@ def regions_case(device, seed=2):
             t(pts))
 
 
-def planted_calls(dv, device, eps=1e-4, scale=1.2):
-    """The planted calls of every K6 stage, each stage's inputs from the
-    plain versions' outputs of the stage before: [(name, args, kw)]."""
+def classes_case(dv, device, n=4500, top=None, seed=4):
+    """(V, SB, ZB, ends) of ``n`` vertices, five tiles of face_keys_count
+    at the default ``n``, with every zero count from 0 to ``top`` (35 by
+    default) among the used ones (a vertex on 0 to 3 grid planes with 0 to
+    32 zero neurons) and a fifth unused."""
+    rng = np.random.default_rng(seed)
+    marks = np.linspace(0, 1, 21)
+    xu = rng.uniform(0, 1, (n, 3))
+    kz = np.arange(n) % ((dv.KZ_MAX if top is None else top) + 1)
+    gz = np.minimum(kz, np.maximum(kz - 32, rng.integers(0, 4, n)))
+    for i in range(n):
+        on = rng.choice(3, gz[i], replace=False)
+        xu[i, on] = rng.choice(marks, gz[i])
+    z = np.zeros((n, 33), bool)
+    for i in range(n):
+        z[i, rng.choice(32, kz[i] - gz[i], replace=False)] = True
+    s = rng.random((n, 33)) < 0.5
+    bits = lambda b: torch.from_numpy(b.astype(np.int64)) > 0
+    ends = torch.zeros((2, n), dtype=torch.int32)
+    ends[0] = 1
+    ends[1] = torch.from_numpy(rng.random(n) < 0.8)
+    V = torch.from_numpy((xu * 2.4 - 1.2).astype(np.float32))
+    t = lambda a: a.contiguous().to(device)
+    return t(V), t(dv._pack_bits(bits(s))), t(dv._pack_bits(bits(z))), t(ends)
+
+
+def fans_case(device, n=5000, kept=0.5, seed=5):
+    """(rord, rcnt, svid, mean, keep, Vf): ``face_fans_count``'s inputs over
+    ``n`` replica slots, five tiles: regions of 1 to 12 members (one past
+    ``face_fans_fill``'s shared-memory path, of 8) laid end to end in the
+    sorted replicas, ids repeated inside some, the slots a seeded
+    permutation of the replica positions (so that the regions fall in
+    every tile), a share ``kept`` of the regions of 3 members or more
+    kept; the points the ids index."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(min(n - sum(sizes), int(rng.choice(
+            [1, 2, 3, 3, 4, 4, 4, 5, 6, 8, 9, 12]))))
+    starts = np.cumsum([0] + sizes[:-1])
+    nv = n // 3
+    svid = rng.integers(0, nv, n).astype(np.int32)
+    for s, c in zip(starts, sizes):
+        if c >= 4 and rng.random() < 0.2:
+            svid[s + c - 1] = svid[s]          # a repeated id
+    rcnt = np.zeros(n, np.int32)
+    rcnt[starts] = sizes
+    rord = rng.permutation(n).astype(np.int64)
+    keep = ((rcnt[rord] >= 3) & (rng.random(n) < kept)).astype(np.int32)
+    mean = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    Vf = rng.uniform(-1, 1, (nv, 3)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(rord), t(rcnt), t(svid), t(mean), t(keep), t(Vf)
+
+
+def planted_calls(dv, device, first=False, eps=1e-4, scale=1.2):
+    """The planted calls of every K6 stage of the design (``first``: of the
+    first design), each stage's inputs from the plain versions' outputs of
+    the stage before: [(name, args, kw)].  The chain of ``K6_STAGES`` (or
+    ``K6_FIRST_STAGES``) first, in order; then face_keys_count on
+    ``classes_case`` (five tiles, every zero count), face_keys_count and
+    face_keys_fill on three tiles of zero counts up to 4, face_fans_count and
+    face_fans_fill on ``fans_case`` (five tiles, regions past the shared
+    path), with one region kept and with none (no fill: the engine reads
+    no kept region and stops)."""
     P = dv.PLAIN
     calls = []
+    sfx = "_first" if first else ""
 
     def call(name, *args):
         calls.append((name, [a.clone() if torch.is_tensor(a) else a
                              for a in args], {}))
         return getattr(dv, name)(*args, kern=P)
 
+    def keys_chain(V, SB, ZB, ends, marks, fill=True):
+        lut, lut_k = dv._lut(marks), dv._lut_k(marks.cpu().numpy())
+        fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
+        out = call("face_keys_count" + sfx, V, SB, ZB, ends, marks, lut,
+                   lut_k, eps, scale, fc)
+        n_used, n_rep = int(fc[dv.FC_USED]), int(fc[dv.FC_REP])
+        if not fill:
+            return
+        if first:
+            kz, rows = out
+            vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
+            kzs, order = torch.sort(kz, stable=True)
+            call("face_keys_fill_first", V, rows, kzs, order, vcum, fc,
+                 n_used, n_rep)
+        else:
+            call("face_keys_fill", V, *out, fc, n_used, n_rep)
+
+    def fans_chain(rord, rcnt, svid, mean, keep, Vf, nrm=None):
+        fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
+        n = keep.shape[0]
+        if first:
+            kcum = torch.cumsum(keep, 0, dtype=torch.int64)
+            ntri, _ = call("face_fans_count_first", rord, rcnt, svid, mean,
+                           keep, kcum, fc)
+        else:
+            kl, mk = call("face_fans_count", rord, rcnt, svid, mean, keep,
+                          fc, torch.full((n, 4), -7, dtype=torch.int32,
+                                         device=device),
+                          torch.full((n, 3), 7.0, device=device))
+        n_kept, n_tri = int(fc[dv.FC_KEPT]), int(fc[dv.FC_TRI])
+        if n_kept == 0:
+            return
+        if nrm is None:
+            g = torch.Generator().manual_seed(3)
+            nrm = torch.nn.functional.normalize(
+                torch.randn(n_kept, 3, generator=g), dim=1).to(device)
+        if first:
+            call("face_fans_fill_first", rord, rcnt, svid, mean, keep, kcum,
+                 ntri, torch.cumsum(ntri, 0), nrm, Vf, n_tri)
+        else:
+            call("face_fans_fill", kl, svid, mk, nrm, Vf, n_kept, n_tri)
+
     fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
     V, OUT, E = final_keep_case(device, scale, eps)
     call("final_keep", V, OUT, E, eps, scale, fc)
     marks = torch.from_numpy(np.linspace(0, 1, 21).astype(np.float32)).to(
         device)
-    lut = dv._lut(marks)
-    lut_k = dv._lut_k(marks.cpu().numpy())
-    fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
-    V, SB, ZB, ends = face_keys_case(dv, marks, device, scale, eps)
-    kz, rows = call("face_keys_count", V, SB, ZB, ends, marks, lut, lut_k,
-                    eps, scale, fc)
-    n_used, n_rep = int(fc[dv.FC_USED]), int(fc[dv.FC_REP])
-    vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
-    kzs, order = torch.sort(kz, stable=True)
-    call("face_keys_fill", V, rows, kzs, order, vcum, fc, n_used, n_rep)
+    keys_chain(*face_keys_case(dv, marks, device, scale, eps), marks)
     skey, perm, rvid, Vf = regions_case(device)
     sig, rcnt, mean, svid = call("face_regions_runs", skey, perm, rvid, Vf)
     ssig, rord = torch.sort(sig, stable=True)
     keep = call("face_regions_dups", ssig, rord, rcnt, svid)
-    kcum = torch.cumsum(keep, 0, dtype=torch.int64)
-    fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
-    ntri, _ = call("face_fans_count", rord, rcnt, svid, mean, keep, kcum, fc)
-    n_kept, n_tri = int(fc[dv.FC_KEPT]), int(fc[dv.FC_TRI])
     g = torch.Generator().manual_seed(3)
-    nrm = torch.nn.functional.normalize(torch.randn(n_kept, 3, generator=g),
-                                        dim=1)
+    nrm = torch.nn.functional.normalize(
+        torch.randn(int(keep.sum()), 3, generator=g), dim=1)
     nrm[0] = torch.tensor([0.0, 0.0, 1.0])
-    call("face_fans_fill", rord, rcnt, svid, mean, keep, kcum, ntri,
-         torch.cumsum(ntri, 0), nrm.to(device), Vf, n_tri)
+    fans_chain(rord, rcnt, svid, mean, keep, Vf, nrm.to(device))
+    keys_chain(*classes_case(dv, device), marks, fill=False)
+    keys_chain(*classes_case(dv, device, 3000, 4, seed=6), marks)
+    case = fans_case(device)
+    fans_chain(*case)
+    rord, rcnt, svid, mean, keep, Vf = case
+    one = torch.zeros_like(keep)
+    one[int(torch.nonzero(keep)[-1, 0])] = 1
+    fans_chain(rord, rcnt, svid, mean, one, Vf)
+    fans_chain(rord, rcnt, svid, mean, torch.zeros_like(keep), Vf)
     return calls
 
 
@@ -220,11 +327,27 @@ def _rows(tris):
 
 # K6's means are in fixed point of this step (world units)
 STEP = 2.0 ** -22
+PFIX = 2.0 ** 22
+
+
+def fan_inputs(dv, call):
+    """The kept regions of a recorded fill call (``face_fans_fill`` or the
+    first design's ``face_fans_fill_first``): (each member's region [m],
+    its position in the sorted replicas [m], the regions' counts, their
+    means and normals, svid, Vf)."""
+    name, a = call[0], call[1]
+    if name == "face_fans_fill":
+        kl, svid, mk, nrm, Vf, n_kept, _ = a
+        return (*dv.kept_members(kl, n_kept), mk[:n_kept], nrm, svid, Vf)
+    rord, rcnt, svid, mean, keep, _, _, _, nrm, Vf, _ = a
+    j = torch.nonzero(keep)[:, 0]
+    return (*dv._region_members(rord, rcnt, keep), mean[rord[j]], nrm, svid,
+            Vf)
 
 
 def fan_ties(dv, net, fill, tris, th, steps=2.0):
     """Why K6's fans and the host faces' differ on one complex.  ``fill``:
-    the arguments of the recorded ``face_fans_fill`` call; ``tris``: K6's
+    the recorded fill call (name, arguments, keywords); ``tris``: K6's
     triangles; ``th``: the host faces' triangles on the same loop output.
     Each kept region's members are scored twice: as K6 scores them
     (``dv._fan_scores``: float32 around the fixed-point mean, the normal at
@@ -243,14 +366,11 @@ def fan_ties(dv, net, fill, tris, th, steps=2.0):
     two means, a coordinate, in steps, "host_rows": whether the host
     scores' fans are the host faces' triangles, "k6_rows": whether K6's
     scores' fans are K6's triangles}."""
-    rord, rcnt, svid, mean, keep, kcum, ntri, tcum, nrm, Vf, n_tri = fill
-    r, pos, c = dv._region_members(rord, rcnt, keep)
+    r, pos, c, m32, nrm, svid, Vf = fan_inputs(dv, fill)
     n = c.numel()
     v = svid[pos].long()
-    j = torch.nonzero(keep)[:, 0]
     first = (torch.cumsum(c, 0) - c)[r]
     P = Vf[v]
-    m32 = mean[rord[j]]
     s32 = dv._fan_scores(P, m32[r], nrm[r], first)
     # the host: the members zero-padded into rows, summed in float32
     rank = torch.arange(r.numel(), device=r.device) - first
@@ -288,6 +408,128 @@ def fan_ties(dv, net, fill, tris, th, steps=2.0):
         out["rotations"] += 1
         # the members that went from one end of the order to the other
         moved = set(b[:at] if at <= len(b) - at else b[at:])
+        mine = r == k
+        far = float(cut[mine][np.isin(v[mine], list(moved))].max()) / STEP
+        out["cut_steps"] = max(out["cut_steps"], far)
+        out["near"] += far <= steps
+    return out
+
+
+def _row_keys(tris, n):
+    """Each triangle's vertices sorted, as one int64 key (n: the vertex
+    count)."""
+    t = np.sort(np.asarray(tris, np.int64), 1)
+    return (t[:, 0] * n + t[:, 1]) * n + t[:, 2]
+
+
+def _fan_rows(v, score):
+    """A region's fan rows (v_0, v_t+1, v_t+2) from its members' ids and
+    scores: descending, stable, the repeated ids dropped."""
+    ids = []
+    for i in v[torch.sort(-score, stable=True).indices].tolist():
+        if i not in ids:
+            ids.append(i)
+    return [(ids[0], ids[t + 1], ids[t + 2]) for t in range(len(ids) - 2)]
+
+
+# a score this close to the wrap (3 or -1: a member opposite the first
+# one) is at the cut: four float32 ulps of 3
+WRAP_TOL = 2.0 ** -20
+
+
+def _explain(dv, net, v, c, bad, ref_vertices, known, nv):
+    """Why the regions ``bad`` differ from the other engine's fans: K6's
+    score run on that engine's vertices (each region's members' points
+    there, their fixed-point mean in K6's arithmetic, the net's normal at
+    it) gives its fan ("inputs"), or does once the members at the cut (a
+    score within ``WRAP_TOL`` of the wrap, 3 or -1) go to the other end of
+    the order ("wrap").  Returns ({reason: count}, [each fan explained by
+    neither: its ids and scores])."""
+    P = torch.as_tensor(np.asarray(ref_vertices), device=v.device)
+    starts = (torch.cumsum(c, 0) - c).tolist()
+    members = [v[starts[k]:starts[k] + int(c[k])] for k in bad.tolist()]
+    means = torch.stack([
+        torch.round(P[m] * PFIX).to(torch.int64).sum(0).to(torch.float32)
+        / (m.numel() * PFIX) for m in members])
+    why, other = {"inputs": 0, "wrap": 0}, []
+
+    def gives(m, score):
+        return bool(np.isin(_row_keys(_fan_rows(m, score), nv), known).all())
+
+    for m, mean, nrm in zip(members, means, net.normal(means)):
+        first = torch.zeros(m.numel(), dtype=torch.int64, device=v.device)
+        score = dv._fan_scores(P[m], mean[None], nrm[None], first)
+        top, low = score >= 3.0 - WRAP_TOL, score <= -1.0 + WRAP_TOL
+        if gives(m, score):
+            why["inputs"] += 1
+        elif ((top.any() and gives(m, torch.where(top, score - 4.0, score)))
+              or (low.any() and gives(m, torch.where(low, score + 4.0,
+                                                     score)))):
+            why["wrap"] += 1
+        else:
+            other.append({"ids": m.tolist(), "scores": score.tolist()})
+    return why, other
+
+
+def golden_ties(dv, net, fill, tris, ref, ref_vertices, steps=2.0):
+    """K6's fans against another engine's triangles on its own vertices
+    (``ref`` and ``ref_vertices``, index for index K6's; rows in any order,
+    each row's vertices in any order: the JAX package's device faces of
+    ``scripts/device_faces_golden.py``).  ``fill``: the recorded fill call;
+    ``tris``: K6's triangles.  A fan differs where one of its rows is not
+    among ``ref``'s; it is a rotation where the same polygon started at
+    another of its vertices has every row among them; it is explained
+    where K6's score, run on the other engine's vertices (the fixed-point
+    mean of the region's members there, the net's normal at that mean),
+    gives the other engine's fan, or does once its members at the cut go
+    to the other end (``_explain``): the two differ by their inputs, not
+    by the score.  ``near``: the rotations whose members that went from one
+    end of the order to the other lie within ``steps`` fixed-point steps of
+    K6's cut (the plane through K6's mean spanned by the first member's
+    offset and K6's normal, float64), a diagnostic: the other engine's
+    vertices lie up to 10 steps from K6's; "cut_steps" the largest such
+    distance.  Returns {"fans", "differ", "rotations", "explained",
+    "explained_by", "unexplained", "near", "cut_steps", "k6_rows"}."""
+    r, pos, c, m32, nrm, svid, Vf = fan_inputs(dv, fill)
+    n = c.numel()
+    v = svid[pos].long()
+    first = (torch.cumsum(c, 0) - c)[r]
+    s32 = dv._fan_scores(Vf[v], m32[r], nrm[r], first)
+    r32, v32, t32 = _fans(r, v, s32, n)
+    u = Vf[v].double() - m32[r].double()
+    hn = nrm[r].double()
+    cut = ((torch.linalg.cross(u[first], u, dim=-1) * hn).sum(-1).abs()
+           / torch.linalg.vector_norm(torch.linalg.cross(u[first], hn, dim=-1),
+                                      dim=-1))
+    nv = Vf.shape[0]
+    known = np.unique(_row_keys(np.asarray(ref), nv))
+    t = t32.cpu().numpy()
+    missing = ~np.isin(_row_keys(t, nv), known)
+    # each triangle's region: the fans' triangles are in region order
+    d = torch.bincount(r32, minlength=n).cpu().numpy()
+    tri_region = np.repeat(np.arange(n), np.maximum(d - 2, 0))
+    bad = np.unique(tri_region[missing])
+    out = {"fans": n, "differ": int(bad.size), "rotations": 0,
+           "explained": 0, "explained_by": {}, "unexplained": [], "near": 0,
+           "cut_steps": 0.0, "k6_rows": torch.equal(t32, tris)}
+    if bad.size:
+        out["explained_by"], out["unexplained"] = _explain(
+            dv, net, v, c, bad, ref_vertices, known, nv)
+        out["explained"] = sum(out["explained_by"].values())
+    r32, v32, r, v, cut = (x.cpu().numpy() for x in (r32, v32, r, v, cut))
+    start = np.concatenate([[0], np.cumsum(d)])
+    for k in bad.tolist():
+        a = list(v32[start[k]:start[k + 1]])
+        m = len(a)
+        for at in range(1, m):
+            b = a[at:] + a[:at]
+            rows = [(b[0], b[i + 1], b[i + 2]) for i in range(m - 2)]
+            if np.isin(_row_keys(rows, nv), known).all():
+                break
+        else:
+            continue
+        out["rotations"] += 1
+        moved = set(a[:at] if at <= m - at else a[at:])
         mine = r == k
         far = float(cut[mine][np.isin(v[mine], list(moved))].max()) / STEP
         out["cut_steps"] = max(out["cut_steps"], far)

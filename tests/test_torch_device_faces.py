@@ -25,8 +25,14 @@ package and against the port's host faces.
   the host engine's ``regions_to_vertices``.
 - Planted cases: duplicate regions (an A, B, A signature interleaving), a
   repeated vertex id, regions of 1, 2 and 100 members, exact score ties,
-  cell offsets -1, 0 and M - 1.
+  cell offsets -1, 0 and M - 1; the calls the emulated and the card's
+  builds are held to, in both designs.
+- ``faces_cases.golden_ties``, which holds sphere-large's faces on the card
+  to JAX's device faces, on ``trained_net``'s, and the golden file's
+  counts (``tests/golden/sphere_large_device_faces.npz``).
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -43,6 +49,7 @@ from tropical_torch.extract import stats as tstats
 from tropical_torch.extract.faces import extract_faces, extract_skeleton
 
 EPS = 1e-4
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -156,10 +163,26 @@ def test_device_fans_differ_from_host_fans_only_at_the_cut(runs, tnet):
         tdv, lambda: eng.faces(V, OUT, E, SB, ZB))
     Vh, Eh, vidx = extract_skeleton(V, E.long(), OUT, tnet, EPS)
     _, th = extract_faces(Vh, Eh, tnet, OUT[vidx], EPS)
-    ties = cases.fan_ties(tdv, tnet, calls[-1][1], tris, th)
+    ties = cases.fan_ties(tdv, tnet, calls[-1], tris, th)
     assert ties["host_rows"] and ties["k6_rows"], ties
     assert ties["differ"] == ties["rotations"] == ties["near"], ties
     assert ties["mean_steps"] <= 1.0, ties
+
+
+def test_device_fans_differ_from_jax_device_fans_only_at_the_cut(runs, tnet):
+    """``faces_cases.golden_ties``, the check phase 11d makes against the
+    JAX device faces of sphere-large, on the same loop output: each fan
+    with a row that JAX's device faces lack is its polygon started at
+    another vertex, and K6's score on JAX's vertices gives JAX's fan."""
+    force, ((_, v1, t1), _), _, (V, OUT, E, SB, ZB) = runs
+    eng = tdv.Engine(tnet, force=force)
+    (_, _, tris), calls = cases.record(
+        tdv, lambda: eng.faces(V, OUT, E, SB, ZB))
+    ties = cases.golden_ties(tdv, tnet, calls[-1], tris, np.asarray(t1),
+                             np.asarray(v1))
+    assert ties["k6_rows"], ties
+    assert ties["differ"] == ties["rotations"] == ties["explained"], ties
+    print(ties)
 
 
 def test_final_keep_matches_jax(trained_net):
@@ -204,13 +227,10 @@ def _keys_run(marks):
     V, SB, ZB, ends = cases.face_keys_case(tdv, marks, "cpu", 1.2, EPS)
     lut, lut_k = tdv._lut(marks), tdv._lut_k(marks.numpy())
     fc = torch.zeros(tdv.FC, dtype=torch.int64)
-    kz, rows = tdv.face_keys_count(V, SB, ZB, ends, marks, lut, lut_k, EPS,
-                                   1.2, fc)
+    rows, rk, agg = tdv.face_keys_count(V, SB, ZB, ends, marks, lut, lut_k,
+                                        EPS, 1.2, fc)
     n_used, n_rep = int(fc[tdv.FC_USED]), int(fc[tdv.FC_REP])
-    vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
-    kzs, order = torch.sort(kz, stable=True)
-    keys, rvid, Vf = tdv.face_keys_fill(V, rows, kzs, order, vcum, fc,
-                                        n_used, n_rep)
+    keys, rvid, Vf = tdv.face_keys_fill(V, rows, rk, agg, fc, n_used, n_rep)
     used = torch.nonzero(ends[1])[:, 0]
     assert torch.equal(Vf, V[used])
     assert int(fc[tdv.FC_HIST:].sum()) == n_used
@@ -299,13 +319,16 @@ def _chain(device="cpu", normal=(0.0, 0.0, 1.0)):
     sig, rcnt, mean, svid = tdv.face_regions_runs(skey, perm, rvid, Vf)
     ssig, rord = torch.sort(sig, stable=True)
     keep = tdv.face_regions_dups(ssig, rord, rcnt, svid)
-    kcum = torch.cumsum(keep, 0, dtype=torch.int64)
     fc = torch.zeros(tdv.FC, dtype=torch.int64)
-    ntri, _ = tdv.face_fans_count(rord, rcnt, svid, mean, keep, kcum, fc)
+    n = keep.shape[0]
+    kl, mk = tdv.face_fans_count(rord, rcnt, svid, mean, keep, fc,
+                                 torch.zeros((n, 4), dtype=torch.int32),
+                                 torch.zeros((n, 3)))
     n_kept, n_tri = int(fc[tdv.FC_KEPT]), int(fc[tdv.FC_TRI])
     nrm = torch.tensor([normal] * n_kept)
-    tris = tdv.face_fans_fill(rord, rcnt, svid, mean, keep, kcum, ntri,
-                              torch.cumsum(ntri, 0), nrm, Vf, n_tri)
+    tris = tdv.face_fans_fill(kl, svid, mk, nrm, Vf, n_kept, n_tri)
+    ntri = torch.zeros(n, dtype=torch.int64)
+    ntri[torch.nonzero(keep)[:, 0]] = kl[:n_kept, 3].long()
     real = ssig != tdv.SIG_NONE
     regions = [svid[int(s):int(s) + int(rcnt[s])].tolist()
                for s in rord[real]]
@@ -346,11 +369,61 @@ def test_planted_regions_and_fans():
 
 
 def test_planted_calls_run_end_to_end():
-    """Every stage of ``faces_cases.planted_calls`` (the chain the emulated
-    and the card's builds are held to) has work: kept vertices and edges,
-    replicas of 7 zero columns and more, every region case, triangles."""
-    calls = cases.planted_calls(tdv, "cpu")
-    assert [c[0] for c in calls] == list(cases.K6_STAGES)
-    fill = calls[2][1]
-    assert int(fill[2][: fill[6]].max()) >= 7 and fill[7] > 1000
-    assert calls[-1][1][-1] == 1 + 1 + 1 + 98 + 4 + 2
+    """Every stage of ``faces_cases.planted_calls`` (the calls the emulated
+    and the card's builds are held to) has work, in both designs: kept
+    vertices and edges, replicas of 7 zero columns and more, every region
+    case, triangles; five tiles of vertices with every zero count 0 to 35
+    used; three tiles through the fill; five tiles of region slots with
+    regions past the shared-memory path (8 members) kept; one kept region;
+    none."""
+    for first, stages in ((False, cases.K6_STAGES),
+                          (True, cases.K6_FIRST_STAGES)):
+        calls = cases.planted_calls(tdv, "cpu", first=first)
+        assert [c[0] for c in calls[:7]] == list(stages)
+        fc = torch.zeros(tdv.FC, dtype=torch.int64)
+        rows = tdv.face_keys_count(*calls[1][1][:-1], fc)[0]
+        kz = tdv._popc(rows[:, 2]) + tdv._popc(rows[:, 3])
+        used = calls[1][1][3][1] > 0
+        assert int(kz[used].max()) >= 7 and int(fc[tdv.FC_REP]) > 1000
+        assert calls[6][1][-1] == 1 + 1 + 1 + 98 + 4 + 2
+        name, args, _ = calls[7]
+        assert name == stages[1] and args[0].shape[0] > 4 * 1024
+        hist = torch.zeros(tdv.FC, dtype=torch.int64)
+        tdv.face_keys_count(*args[:-1], hist)
+        assert bool((hist[tdv.FC_HIST:] > 0).all())
+        assert [c[0] for c in calls[8:10]] == [stages[1], stages[2]]
+        assert calls[8][1][0].shape[0] > 2 * 1024
+        assert [c[0] for c in calls[10:]] == [stages[5], stages[6],
+                                              stages[5], stages[6], stages[5]]
+        keep = calls[10][1][4]
+        assert keep.shape[0] > 4 * 1024
+        counts = calls[10][1][1][calls[10][1][0][keep > 0]]
+        assert int(counts.max()) > 8 and int((counts <= 8).sum()) > 100
+        assert int(calls[12][1][4].sum()) == 1
+        assert int(calls[14][1][4].sum()) == 0
+
+
+def test_sphere_large_golden_counts():
+    """``tests/golden/sphere_large_device_faces.npz`` (the JAX package's
+    device faces of sphere-large, ``scripts/device_faces_golden.py``):
+    its funnel and triangle count are the JAX CLI's
+    (``sphere_flat_presets.json``), every index names one of its vertices,
+    and its host-against-device rows give its share."""
+    import json
+
+    g = np.load(ROOT / "tests/golden/sphere_large_device_faces.npz")
+    want = json.load(open(ROOT / "tests/golden/sphere_flat_presets.json"))[
+        "sphere_large_flat"]
+    funnel = [want[k] for k in ("pre_v", "pre_e", "post_v", "post_e")]
+    assert g["funnel"].tolist() == funnel + [want["n_tris"]]
+    assert g["triangles"].dtype == np.int32
+    assert g["vertices"].dtype == np.float32
+    assert g["triangles"].shape == (want["n_tris"], 3)
+    assert g["vertices"].shape == (want["post_v"], 3)
+    t = g["triangles"]
+    assert 0 <= int(t.min()) and int(t.max()) < want["post_v"]
+    assert bool((np.diff(t, axis=1) >= 0).all())
+    rows = np.unique(t, axis=0).shape[0]
+    assert g["host_only"].shape == g["device_only"].shape
+    assert float(g["jax_share"]) == g["device_only"].shape[0] / rows
+    assert 0.005 < float(g["jax_share"]) < 0.006

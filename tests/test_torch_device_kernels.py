@@ -27,14 +27,16 @@
   each build records; ``compact_rows`` at widths 1, 2 and 33 with no rows
   kept, some and all, and its refusal of an outputs' pool of 2^31 words.
 - Stage edge cases: the max-pool with a NaN, empty compactions.
-- K6 (the design's build) on the 11-mark net's complex after the final
-  insertion: every stage
-  call of ``Engine.faces`` replayed by the emulated kernels and held
-  bitwise to its plain version, the whole stage's result equal, two
-  launches of each of the four kernels; and every stage on the planted
-  cases of ``tests/faces_cases.py`` (duplicate regions in an A, B, A
-  signature run, repeated ids, 1, 2 and 100 members, exact score ties,
-  cell offsets -1, 0 and M - 1, kz up to 9).
+- K6 on the 11-mark net's complex after the final insertion, in the
+  design and in its first design (-DFACES_FIRST, built into the first
+  designs' library): every stage call of the build's ``Engine.faces``
+  held bitwise to its plain version, the whole stage's result the plain
+  engine's, two launches of each of the four kernels; and every stage on
+  the planted cases of ``tests/faces_cases.py`` (duplicate regions in an
+  A, B, A signature run, repeated ids, 1, 2, 8, 9, 12 and 100 members,
+  exact score ties, cell offsets -1, 0 and M - 1, five tiles of vertices
+  with every zero count 0 to 35, five tiles of region slots, one kept
+  region and none).
 """
 
 import ctypes
@@ -55,7 +57,9 @@ from tropical_torch.ops import cuda_build, launches
 ROOT = Path(__file__).resolve().parents[1]
 # the builds held here: the designs and the first designs
 LATTICE_BUILDS = {"design": (), "first": cuda_build.LATTICE_FIRST[1]}
-ENGINE_BUILDS = {"design": (), "first": cuda_build.DEVICE_ENGINE_FIRST[1]}
+# (K6's first design, -DFACES_FIRST, rides in the first designs' build)
+ENGINE_BUILDS = {"design": (), "first": cuda_build.DEVICE_ENGINE_FIRST[1]
+                 + cuda_build.FACES_FIRST[1]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -475,24 +479,37 @@ def test_emulated_compact_rows_refuses_a_pool_past_int32(engine_kernels):
     assert launches.LAUNCHES["connect_step"] == 0
 
 
-def test_emulated_faces_are_bitwise_plain(engine_kernels, net11):
+@pytest.mark.parametrize("build", ["design", "first"])
+def test_emulated_faces_are_bitwise_plain(engine_libs, net11, build):
+    """K6 on the 11-mark net's complex: the build's engine (the design's
+    stages, or the first design's) records its stage calls, each held
+    bitwise to its plain version; the stage's result equals the plain
+    engine's; each of K6's kernels launches twice."""
+    kern = engine_libs[build]
     eng = dv.Engine(net11)
     sk = eng.skeleton("dist")
     args = eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
-    want, calls = faces_cases.record(dv, lambda: eng.faces(*args))
-    assert [c[0] for c in calls] == list(faces_cases.K6_STAGES)
+    want = eng.faces(*args)
     assert want[2].shape[0] > 500
-    faces_cases.held(dv, calls, engine_kernels)
     launches.reset()
-    got = dv.Engine(net11, kern=engine_kernels).faces(*args)
+    got, calls = faces_cases.record(
+        dv, lambda: dv.Engine(net11, kern=kern).faces(*args))
+    stages = (faces_cases.K6_STAGES if build == "design"
+              else faces_cases.K6_FIRST_STAGES)
+    assert [c[0] for c in calls] == list(stages)
     assert got[0] == want[0]
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert {k: launches.LAUNCHES[k] for k in (
         "final_keep", "face_keys", "face_regions", "face_fans")} == {
         "final_keep": 2, "face_keys": 2, "face_regions": 2, "face_fans": 2}
+    assert faces_cases.held(dv, calls, kern) == len(stages)
 
 
-def test_emulated_faces_planted_cases(engine_kernels):
-    calls = faces_cases.planted_calls(dv, "cpu")
-    assert faces_cases.held(dv, calls, engine_kernels) == len(
-        faces_cases.K6_STAGES)
+@pytest.mark.parametrize("build", ["design", "first"])
+def test_emulated_faces_planted_cases(engine_libs, build):
+    """Every planted K6 call of the build's stages (``faces_cases.
+    planted_calls``: five tiles with every zero count, regions past the
+    shared-memory path, one kept region and none) bitwise its plain
+    version."""
+    calls = faces_cases.planted_calls(dv, "cpu", first=build == "first")
+    assert faces_cases.held(dv, calls, engine_libs[build]) == len(calls)

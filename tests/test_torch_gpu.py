@@ -795,20 +795,29 @@ def test_device_engine_funnel_on_cuda():
 
 
 @pytest.mark.gpu
-def test_faces_kernels_match_plain_on_cuda():
-    """K6 on the card: every stage call of the faces at sphere-small flat,
-    and every planted one (tests/faces_cases.py), bitwise its plain
-    version."""
+@pytest.mark.parametrize("build", ["design", "first"])
+def test_faces_kernels_match_plain_on_cuda(build):
+    """K6 on the card, in the design and in the first design of face_keys
+    and face_fans (``cuda_build.FACES_FIRST``): every stage call of the
+    build's faces at sphere-small flat, and every planted one
+    (tests/faces_cases.py), bitwise its plain version."""
     _need_cuda()
     from tropical_torch.extract import device as dv
+    from tropical_torch.ops import cuda_build
 
-    eng = dv.Engine(_sphere_net("small"))
+    kern, stages = None, faces_cases.K6_STAGES
+    if build == "first":
+        kern = dv.Kernels(cuda_build.load(cuda_build.FACES_FIRST),
+                          torch.device("cuda", 0))
+        stages = faces_cases.K6_FIRST_STAGES
+    eng = dv.Engine(_sphere_net("small"), kern=kern)
     sk = eng.skeleton("dist")
     args = eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
     _, calls = faces_cases.record(dv, lambda: eng.faces(*args))
-    assert faces_cases.held(dv, calls, None) == len(faces_cases.K6_STAGES)
-    planted = faces_cases.planted_calls(dv, "cuda")
-    assert faces_cases.held(dv, planted, None) == len(faces_cases.K6_STAGES)
+    assert [c[0] for c in calls] == list(stages)
+    assert faces_cases.held(dv, calls, kern) == len(stages)
+    planted = faces_cases.planted_calls(dv, "cuda", first=kern is not None)
+    assert faces_cases.held(dv, planted, kern) == len(planted)
 
 
 @pytest.mark.gpu

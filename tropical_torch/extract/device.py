@@ -359,9 +359,10 @@ class Kernels:
     def __init__(self, lib: ctypes.CDLL, device: torch.device):
         self.lib = lib
         self.device = device
-        # a build of K3's or K4's first design takes its own stages
+        # a build of K3's, K4's or K6's first design takes its own stages
         self.first_skeleton = bool(lib.skeleton_first_design())
         self.first_split = bool(lib.split_first_design())
+        self.first_faces = bool(lib.faces_first_design())
 
     def __call__(self, kernel: str, name: str, n: int, *args) -> None:
         if n <= 0:
@@ -1347,6 +1348,7 @@ FC_HIST = 8
 KZ_MAX = D + R_COLS - 1  # the grid columns and the hidden neurons'
 FC = FC_HIST + KZ_MAX + 1
 KZ_NONE = 64             # an unused vertex's zero count: it sorts last
+KEYS_TILE = 1024         # face_keys' tile of vertices (faces.cu kTile)
 SIG_NONE = 2 ** 63 - 1   # the signature of a replica that starts no region
 PFIX = 2.0 ** 22         # the means' fixed point (the JAX engine's, :1614)
 # a region key's grid fields (cell offset + 2, 10 bits each, axis 0 highest)
@@ -1411,6 +1413,13 @@ def _replica_rows(V, SB, ZB, marks, lut, lut_k: int, eps: float,
     return rows, kz.to(torch.int32)
 
 
+def _class_order(kz, used):
+    """The used vertices in (zero count, vertex) order: the stable sort of
+    the zero counts, the unused last."""
+    return torch.sort(torch.where(used, kz, KZ_NONE),
+                      stable=True).indices[:int(used.sum())]
+
+
 def face_keys_count_plain(V, SB, ZB, ends, marks, lut, lut_k: int, eps: float,
                           scale: float, fc):
     rows, kz = _replica_rows(V, SB, ZB, marks, lut, lut_k, eps, scale)
@@ -1420,28 +1429,50 @@ def face_keys_count_plain(V, SB, ZB, ends, marks, lut, lut_k: int, eps: float,
     ku = kz[used].long()
     fc[FC_REP] += (1 << ku).sum()
     fc[FC_HIST:] += torch.bincount(ku, minlength=KZ_MAX + 1)
-    return (torch.where(used, kz, KZ_NONE),
-            torch.where(used[:, None], rows, 0))
+    # ranks in the tile: among the used, and among the used of a zero count
+    n = V.shape[0]
+    tile = torch.arange(n, device=V.device) // KEYS_TILE
+    cls = torch.where(used, kz.long(), KZ_MAX + 1)
+    o = torch.sort(tile * (KZ_MAX + 2) + cls, stable=True).indices
+    group = (tile * (KZ_MAX + 2) + cls)[o]
+    start = torch.ones(n, dtype=torch.bool, device=V.device)
+    start[1:] = group[1:] != group[:-1]
+    pos = torch.arange(n, device=V.device)
+    rank = torch.empty(n, dtype=torch.int64, device=V.device)
+    rank[o] = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    ut = torch.zeros(n, dtype=torch.int64, device=V.device)
+    ut.index_add_(0, tile, used.long())
+    local = torch.cumsum(used.long(), 0) - 1
+    local -= (torch.cumsum(ut, 0) - ut)[tile]
+    rk = torch.stack([torch.where(used, local, -1),
+                      torch.where(used, rank, -1)], 1).to(torch.int32)
+    agg = torch.zeros((-(-n // KEYS_TILE), KZ_MAX + 1), dtype=torch.int64,
+                      device=V.device)
+    agg.index_put_((tile[used], ku), torch.ones_like(ku), accumulate=True)
+    return (torch.where(used[:, None], rows, 0), rk, agg.to(torch.int32))
 
 
 def face_keys_count(V, SB, ZB, ends, marks, lut, lut_k: int, eps: float,
                     scale: float, fc, kern: Kernels | None = None):
-    """A thread a vertex: for each used vertex (``ends[1]``), its region
-    (``_grid_region_lut`` on the unit-cube point, the hidden neurons'
-    eps-signs from the words, the final sdf column excluded) as the
-    all-minus key with its zero columns ([nV, 4] int32, 0 for an unused
-    vertex), and its zero count kz (``KZ_NONE`` for an unused one).
-    Counts the vertices of an edge, the used vertices, their 2^kz
-    replicas and the used vertices by kz into ``fc``."""
+    """Tiles of ``KEYS_TILE`` vertices, a thread a vertex: for each used
+    vertex (``ends[1]``), its region (``_grid_region_lut`` on the unit-cube
+    point, the hidden neurons' eps-signs from the words, the final sdf
+    column excluded) as the all-minus key with its zero columns ([nV, 4]
+    int32, 0 for an unused vertex); its rank in its tile among the used
+    and among the used of its zero count kz ([nV, 2] int32, -1 for an
+    unused one), by ballots; each tile's used vertices by kz ([tiles,
+    KZ_MAX + 1] int32).  Counts the vertices of an edge, the used vertices,
+    their 2^kz replicas and the used vertices by kz into ``fc``."""
     run = _run(kern, V.device)
     if run is None:
         return face_keys_count_plain(V, SB, ZB, ends, marks, lut, lut_k, eps,
                                      scale, fc)
-    n = V.shape[0]
-    kz, rows = _i32(n, device=V.device), _i32(n, 4, device=V.device)
+    n, dev = V.shape[0], V.device
+    rows, rk = _i32(n, 4, device=dev), _i32(n, 2, device=dev)
+    agg = _i32(-(-n // KEYS_TILE), KZ_MAX + 1, device=dev)
     run("face_keys", "face_keys_count", n, V, SB, ZB, ends, n, marks,
-        marks.shape[0], lut, lut_k, eps, scale, kz, rows, fc)
-    return kz, rows
+        marks.shape[0], lut, lut_k, eps, scale, rows, rk, agg, fc)
+    return rows, rk, agg
 
 
 def _zero_deltas(rows):
@@ -1459,10 +1490,11 @@ def _zero_deltas(rows):
     return out[:, :KZ_MAX]
 
 
-def face_keys_fill_plain(V, rows, kzs, order, vcum, n_used: int, n_rep: int):
-    o = order[:n_used].long()
-    k = kzs[:n_used].long()
-    vid = (vcum[o] - 1).long()
+def _replica_keys(V, rows, o, k, vid, n_rep: int):
+    """The replicas of the used vertices ``o`` in (kz, vertex) order (``k``
+    their zero counts, ``vid`` their ids): (keys, ids, the used rows of V
+    by id)."""
+    n_used = o.numel()
     Vf = torch.empty((n_used, 3), dtype=V.dtype, device=V.device)
     Vf[vid] = V[o]
     cnt = 1 << k
@@ -1478,25 +1510,87 @@ def face_keys_fill_plain(V, rows, kzs, order, vcum, n_used: int, n_rep: int):
     return keys, vid[rv].to(torch.int32), Vf
 
 
-def face_keys_fill(V, rows, kzs, order, vcum, fc, n_used: int, n_rep: int,
+def face_keys_fill_plain(V, rows, rk, agg, n_used: int, n_rep: int):
+    used = rk[:, 0] >= 0
+    kz = _popc(rows[:, 2]) + _popc(rows[:, 3])
+    o = _class_order(kz, used)
+    vid = torch.cumsum(used, 0) - 1
+    return _replica_keys(V, rows, o, kz[o].long(), vid[o], n_rep)
+
+
+def face_keys_fill(V, rows, rk, agg, fc, n_used: int, n_rep: int,
                    kern: Kernels | None = None):
-    """A thread a used vertex, in (kz, vertex) order (``kzs``, ``order``:
-    the stable sort of ``face_keys_count``'s kz): its 2^kz region replicas
-    (keys [n_rep] int64: a zero column's bit r of the replica's rank takes
-    the column's + side, the replica of a grid column's - side the cell
-    below), each with the vertex's id among the used ones (``vcum``: their
-    flags' inclusive prefix sum) [n_rep] int32, at the offset the zero
-    counts' histogram in ``fc`` gives (the exclusive prefix sum of 2^kz
-    in that order); and the used vertices' rows of ``V`` [n_used, 3]."""
+    """``face_keys_count``'s tiles, a thread a vertex: the tiles before's
+    used vertices by zero count (``agg``'s earlier rows summed) make a used
+    vertex's tile ranks (``rk``) its id among all the used and its rank
+    among the used of its zero count kz; its 2^kz region replicas (keys
+    [n_rep] int64: a zero column's bit r of the replica's rank takes the
+    column's + side, the replica of a grid column's - side the cell
+    below), each with the vertex's id [n_rep] int32, at its kz's slots
+    (the histogram in ``fc``) and its rank there: the replicas in (kz,
+    vertex) order, a warp's of one kz written a slot a lane; and the used
+    vertices' rows of ``V`` [n_used, 3]."""
     run = _run(kern, V.device)
     if run is None:
-        return face_keys_fill_plain(V, rows, kzs, order, vcum, n_used, n_rep)
+        return face_keys_fill_plain(V, rows, rk, agg, n_used, n_rep)
+    dev, n = V.device, V.shape[0]
+    keys = torch.empty(n_rep, dtype=torch.int64, device=dev)
+    rvid = _i32(n_rep, device=dev)
+    Vf = torch.empty((n_used, 3), dtype=V.dtype, device=dev)
+    run("face_keys", "face_keys_fill", n, V, rows, rk, agg, fc, n, keys, rvid,
+        Vf)
+    return keys, rvid, Vf
+
+
+def face_keys_count_first_plain(V, SB, ZB, ends, marks, lut, lut_k: int,
+                                eps: float, scale: float, fc):
+    rows, rk, _ = face_keys_count_plain(V, SB, ZB, ends, marks, lut, lut_k,
+                                        eps, scale, fc)
+    used = rk[:, 0] >= 0
+    kz = _popc(rows[:, 2]) + _popc(rows[:, 3])
+    return torch.where(used, kz, KZ_NONE).to(torch.int32), rows
+
+
+def face_keys_count_first(V, SB, ZB, ends, marks, lut, lut_k: int,
+                          eps: float, scale: float, fc,
+                          kern: Kernels | None = None):
+    """The first design's count (``-DFACES_FIRST``), a thread a vertex:
+    the key rows as ``face_keys_count``'s and the zero counts kz (int32
+    [nV], ``KZ_NONE`` for an unused vertex), which the caller sorts."""
+    run = _run(kern, V.device)
+    if run is None:
+        return face_keys_count_first_plain(V, SB, ZB, ends, marks, lut,
+                                           lut_k, eps, scale, fc)
+    n = V.shape[0]
+    kz, rows = _i32(n, device=V.device), _i32(n, 4, device=V.device)
+    run("face_keys", "face_keys_count_first", n, V, SB, ZB, ends, n, marks,
+        marks.shape[0], lut, lut_k, eps, scale, kz, rows, fc)
+    return kz, rows
+
+
+def face_keys_fill_first_plain(V, rows, kzs, order, vcum, n_used: int,
+                               n_rep: int):
+    o = order[:n_used].long()
+    return _replica_keys(V, rows, o, kzs[:n_used].long(),
+                         (vcum[o] - 1).long(), n_rep)
+
+
+def face_keys_fill_first(V, rows, kzs, order, vcum, fc, n_used: int,
+                         n_rep: int, kern: Kernels | None = None):
+    """The first design's fill, a thread a used vertex in (kz, vertex)
+    order (``kzs``, ``order``: the stable sort of the zero counts; ``vcum``
+    the used flags' inclusive prefix sum), its replicas written one after
+    another: ``face_keys_fill``'s outputs."""
+    run = _run(kern, V.device)
+    if run is None:
+        return face_keys_fill_first_plain(V, rows, kzs, order, vcum, n_used,
+                                          n_rep)
     dev = V.device
     keys = torch.empty(n_rep, dtype=torch.int64, device=dev)
     rvid = _i32(n_rep, device=dev)
     Vf = torch.empty((n_used, 3), dtype=V.dtype, device=dev)
-    run("face_keys", "face_keys_fill", n_used, V, rows, kzs, order, vcum, fc,
-        n_used, keys, rvid, Vf)
+    run("face_keys", "face_keys_fill_first", n_used, V, rows, kzs, order,
+        vcum, fc, n_used, keys, rvid, Vf)
     return keys, rvid, Vf
 
 
@@ -1590,10 +1684,25 @@ def _region_members(rord, rcnt, keep):
     j = torch.nonzero(keep)[:, 0]
     s = rord[j].long()
     c = rcnt[s].long()
-    r = torch.repeat_interleave(torch.arange(j.numel(), device=keep.device), c)
-    k = torch.arange(r.numel(), device=keep.device) - (torch.cumsum(c, 0)
-                                                       - c)[r]
+    return _members(s, c)
+
+
+def _members(s, c):
+    """Each member's region and position of the regions starting at ``s``
+    in the sorted replicas with ``c`` members: (region [m], position [m],
+    c)."""
+    r = torch.repeat_interleave(torch.arange(s.numel(), device=s.device), c)
+    k = torch.arange(r.numel(), device=s.device) - (torch.cumsum(c, 0)
+                                                    - c)[r]
     return r, s[r] + k, c
+
+
+def kept_members(kl, n_kept: int):
+    """The kept regions of ``face_fans_count``'s list ``kl``: (each
+    member's region rank [m], position in the sorted replicas [m], the
+    regions' counts [n_kept])."""
+    g = kl[:n_kept].long()
+    return _members(g[:, 0], g[:, 1])
 
 
 def _first_in_region(r, v, n: int):
@@ -1609,37 +1718,45 @@ def _first_in_region(r, v, n: int):
     return first
 
 
-def face_fans_count_plain(rord, rcnt, svid, mean, keep, kcum, fc):
-    n = keep.shape[0]
+def _fan_counts(rord, rcnt, svid, keep):
+    """The kept regions' slots, starts, counts and triangles (their
+    distinct members less 2)."""
     r, pos, c = _region_members(rord, rcnt, keep)
-    v = svid[pos]
-    d = torch.bincount(r[_first_in_region(r, v, n)], minlength=c.numel())
-    ntri = torch.zeros(n, dtype=torch.int64, device=keep.device)
+    d = torch.bincount(r[_first_in_region(r, svid[pos], keep.shape[0])],
+                       minlength=c.numel())
     j = torch.nonzero(keep)[:, 0]
-    ntri[j] = (d - 2).clamp(min=0)
-    mk = torch.zeros((n, 3), dtype=torch.float32, device=keep.device)
-    mk[kcum[j] - 1] = mean[rord[j]]
-    fc[FC_KEPT] += j.numel()
-    fc[FC_TRI] += ntri.sum()
-    return ntri, mk
+    return j, rord[j], c, (d - 2).clamp(min=0)
 
 
-def face_fans_count(rord, rcnt, svid, mean, keep, kcum, fc,
+def face_fans_count_plain(rord, rcnt, svid, mean, keep, fc, kl, mk):
+    _, s, c, nt = _fan_counts(rord, rcnt, svid, keep)
+    m = s.numel()
+    kl[:m] = torch.stack([s, c, torch.cumsum(nt, 0) - nt, nt],
+                         1).to(torch.int32)
+    mk[:m] = mean[s]
+    fc[FC_KEPT] += m
+    fc[FC_TRI] += nt.sum()
+    return kl, mk
+
+
+def face_fans_count(rord, rcnt, svid, mean, keep, fc, kl, mk,
                     kern: Kernels | None = None):
-    """A thread a kept region slot (``kcum``: the keep flags' inclusive
-    prefix sum): its fan's triangles, its distinct member ids less 2
-    (int64 [n], 0 for a slot not kept), and its mean at its rank among the
-    kept regions (``mk`` [n, 3], zeros past them), for the normals.  Counts
-    the kept regions and the triangles into ``fc``."""
+    """Tiles of 1,024 region slots of the signature-sorted order: each
+    kept slot's region (``rord[j]``, its start in the sorted replicas;
+    ``rcnt`` its count) ranked among the kept, its triangles (its distinct
+    member ids less 2) and their offset among all the triangles, by a
+    block scan and a decoupled look-back of both counts; written in rank
+    order into ``kl`` ([n, 4] int32: start, count, triangle offset,
+    triangles) and ``mk`` ([n, 3]: its mean, for the normals), their rows
+    past the kept ones left as they are.  Counts the kept regions and the
+    triangles into ``fc``.  Returns (kl, mk)."""
     run = _run(kern, keep.device)
     if run is None:
-        return face_fans_count_plain(rord, rcnt, svid, mean, keep, kcum, fc)
-    n, dev = keep.shape[0], keep.device
-    ntri = torch.empty(n, dtype=torch.int64, device=dev)
-    mk = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    run("face_fans", "face_fans_count", n, rord, rcnt, svid, mean, keep, kcum,
-        n, fc, ntri, mk)
-    return ntri, mk
+        return face_fans_count_plain(rord, rcnt, svid, mean, keep, fc, kl, mk)
+    n = keep.shape[0]
+    run("face_fans", "face_fans_count", n, rord, rcnt, svid, mean, keep, n,
+        fc, kl, mk)
+    return kl, mk
 
 
 def _fan_scores(P, Mn, Nn, first):
@@ -1660,13 +1777,13 @@ def _fan_scores(P, Mn, Nn, first):
                                                               0.0)
 
 
-def face_fans_fill_plain(rord, rcnt, svid, mean, keep, nrm, Vf, n_tri: int):
-    n = keep.shape[0]
-    r, pos, c = _region_members(rord, rcnt, keep)
+def _fans(r, pos, c, means, nrm, svid, Vf, n_tri: int):
+    """The kept regions' fans (members ``r``, ``pos``; counts ``c``; each
+    region's mean and normal): [n_tri, 3] int64."""
     v = svid[pos]
-    j = torch.nonzero(keep)[:, 0]
+    dev, n = v.device, svid.shape[0]
     first = (torch.cumsum(c, 0) - c)[r]
-    score = _fan_scores(Vf[v.long()], mean[rord[j]][r], nrm[r], first)
+    score = _fan_scores(Vf[v.long()], means[r], nrm[r], first)
     # by region, then by descending score, ties in member order
     o = torch.sort(-score, stable=True).indices
     o = o[torch.sort(r[o], stable=True).indices]
@@ -1675,35 +1792,95 @@ def face_fans_fill_plain(rord, rcnt, svid, mean, keep, nrm, Vf, n_tri: int):
     r, v = r[keepm], v[keepm].to(torch.int64)
     d = torch.bincount(r, minlength=c.numel())
     nt = (d - 2).clamp(min=0)
-    t = torch.repeat_interleave(torch.arange(c.numel(), device=keep.device),
-                                nt, output_size=n_tri)
+    t = torch.repeat_interleave(torch.arange(c.numel(), device=dev), nt,
+                                output_size=n_tri)
     b = (torch.cumsum(d, 0) - d)[t]
-    rank = torch.arange(n_tri, device=keep.device) - (torch.cumsum(nt, 0)
-                                                      - nt)[t]
+    rank = torch.arange(n_tri, device=dev) - (torch.cumsum(nt, 0) - nt)[t]
     # the fan (v0, v_t+1, v_t+2) with its winding reversed (faces.py)
     return torch.stack([v[b + rank + 2], v[b + rank + 1], v[b]], 1)
 
 
-def face_fans_fill(rord, rcnt, svid, mean, keep, kcum, ntri, tcum, nrm, Vf,
-                   n_tri: int, kern: Kernels | None = None):
-    """A thread a kept region slot: its members' angular scores around its
-    normal (``nrm`` [kept, 3], at the region's rank ``kcum - 1``), a
-    stable sort by descending score in the region's own segment of
-    scratch memory (ties keep the (kz, id) member order), the repeated ids
-    dropped (the first in angle order kept), and its fan written at its
-    slot of ``tcum`` (``ntri``'s inclusive prefix sum): [n_tri, 3] int64,
-    each (v_t+2, v_t+1, v0), the winding reversed so the normals point
-    out."""
+def face_fans_fill_plain(kl, svid, mk, nrm, Vf, n_kept: int, n_tri: int):
+    r, pos, c = kept_members(kl, n_kept)
+    return _fans(r, pos, c, mk[:n_kept], nrm, svid, Vf, n_tri)
+
+
+def face_fans_fill(kl, svid, mk, nrm, Vf, n_kept: int, n_tri: int,
+                   kern: Kernels | None = None):
+    """A thread a kept region (``face_fans_count``'s ``kl`` and ``mk``;
+    ``nrm`` [n_kept, 3] its normal): its members' angular scores around
+    its normal, a stable sort by descending score (ties keep the (kz, id)
+    member order) and the repeated ids dropped (the first in angle order
+    kept), in shared memory up to 8 members, else in the region's own
+    segment of scratch memory; the block's fans written as one run of
+    rows: [n_tri, 3] int64, each (v_t+2, v_t+1, v0), the winding reversed
+    so the normals point out."""
+    run = _run(kern, svid.device)
+    if run is None:
+        return face_fans_fill_plain(kl, svid, mk, nrm, Vf, n_kept, n_tri)
+    n, dev = svid.shape[0], svid.device
+    tris = torch.empty((n_tri, 3), dtype=torch.int64, device=dev)
+    score = torch.empty(n, dtype=torch.float32, device=dev)
+    ids = _i32(n, device=dev)
+    run("face_fans", "face_fans_fill", n_kept, kl, svid, mk, nrm, Vf, n_kept,
+        score, ids, tris)
+    return tris
+
+
+def face_fans_count_first_plain(rord, rcnt, svid, mean, keep, kcum, fc):
+    n = keep.shape[0]
+    j, s, _, nt = _fan_counts(rord, rcnt, svid, keep)
+    ntri = torch.zeros(n, dtype=torch.int64, device=keep.device)
+    ntri[j] = nt
+    mk = torch.zeros((n, 3), dtype=torch.float32, device=keep.device)
+    mk[kcum[j] - 1] = mean[s]
+    fc[FC_KEPT] += j.numel()
+    fc[FC_TRI] += ntri.sum()
+    return ntri, mk
+
+
+def face_fans_count_first(rord, rcnt, svid, mean, keep, kcum, fc,
+                          kern: Kernels | None = None):
+    """The first design's count (``-DFACES_FIRST``), a thread a region slot
+    (``kcum``: the keep flags' inclusive prefix sum): its triangles (int64
+    [n], 0 for a slot not kept) and its mean at its rank among the kept
+    (``mk`` [n, 3], zeros past them).  Counts the kept regions and the
+    triangles into ``fc``."""
     run = _run(kern, keep.device)
     if run is None:
-        return face_fans_fill_plain(rord, rcnt, svid, mean, keep, nrm, Vf,
-                                    n_tri)
+        return face_fans_count_first_plain(rord, rcnt, svid, mean, keep, kcum,
+                                           fc)
+    n, dev = keep.shape[0], keep.device
+    ntri = torch.empty(n, dtype=torch.int64, device=dev)
+    mk = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    run("face_fans", "face_fans_count_first", n, rord, rcnt, svid, mean, keep,
+        kcum, n, fc, ntri, mk)
+    return ntri, mk
+
+
+def face_fans_fill_first_plain(rord, rcnt, svid, mean, keep, nrm, Vf,
+                               n_tri: int):
+    r, pos, c = _region_members(rord, rcnt, keep)
+    j = torch.nonzero(keep)[:, 0]
+    return _fans(r, pos, c, mean[rord[j]], nrm, svid, Vf, n_tri)
+
+
+def face_fans_fill_first(rord, rcnt, svid, mean, keep, kcum, ntri, tcum, nrm,
+                         Vf, n_tri: int, kern: Kernels | None = None):
+    """The first design's fill, a thread a region slot: a kept region's fan
+    sorted in its segment of scratch memory, written at its slot of
+    ``tcum`` (``ntri``'s inclusive prefix sum): ``face_fans_fill``'s
+    triangles."""
+    run = _run(kern, keep.device)
+    if run is None:
+        return face_fans_fill_first_plain(rord, rcnt, svid, mean, keep, nrm,
+                                          Vf, n_tri)
     n, dev = keep.shape[0], keep.device
     tris = torch.empty((n_tri, 3), dtype=torch.int64, device=dev)
     score = torch.empty(n, dtype=torch.float32, device=dev)
     order = _i32(n, device=dev)
-    run("face_fans", "face_fans_fill", n, rord, rcnt, svid, mean, keep, kcum,
-        ntri, tcum, nrm, Vf, n, score, order, tris)
+    run("face_fans", "face_fans_fill_first", n, rord, rcnt, svid, mean, keep,
+        kcum, ntri, tcum, nrm, Vf, n, score, order, tris)
     return tris
 
 
@@ -2060,31 +2237,55 @@ class Engine:
         E = E.to(torch.int32).contiguous()
         fc = torch.zeros(FC, dtype=torch.int64, device=dev)
         _, ends = final_keep(V, OUT, E, eps, scale, fc, kern=k)
-        kz, rows = face_keys_count(V, SB, ZB, ends, self.marks, self.lut,
-                                   self.lut_k, eps, scale, fc, kern=k)
+        # K6's first design (-DFACES_FIRST) takes torch.cumsum and
+        # torch.sort between its kernels
+        first = isinstance(k, Kernels) and k.first_faces
+        if first:
+            kz, rows = face_keys_count_first(V, SB, ZB, ends, self.marks,
+                                             self.lut, self.lut_k, eps, scale,
+                                             fc, kern=k)
+        else:
+            rows, rk, agg = face_keys_count(V, SB, ZB, ends, self.marks,
+                                            self.lut, self.lut_k, eps, scale,
+                                            fc, kern=k)
         n_keepv, pre_v, pre_e, n_ekeep, n_used, n_rep = (
             int(x) for x in self.read(fc[:FC_KEPT]))
         no_tris = torch.empty((0, 3), dtype=torch.int64, device=dev)
         if n_keepv < 3 or n_used == 0:  # extract_skeleton's empty result
             return (pre_v, pre_e, 0, 0), V[:0], no_tris
         funnel = (pre_v, pre_e, n_used, n_ekeep)
-        vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
-        kzs, order = torch.sort(kz, stable=True)
-        keys, rvid, Vf = face_keys_fill(V, rows, kzs, order, vcum, fc, n_used,
-                                        n_rep, kern=k)
+        if first:
+            vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
+            kzs, order = torch.sort(kz, stable=True)
+            keys, rvid, Vf = face_keys_fill_first(V, rows, kzs, order, vcum,
+                                                  fc, n_used, n_rep, kern=k)
+        else:
+            keys, rvid, Vf = face_keys_fill(V, rows, rk, agg, fc, n_used,
+                                            n_rep, kern=k)
         skey, perm = torch.sort(keys, stable=True)
         sig, rcnt, mean, svid = face_regions_runs(skey, perm, rvid, Vf, kern=k)
         ssig, rord = torch.sort(sig, stable=True)
         keep = face_regions_dups(ssig, rord, rcnt, svid, kern=k)
-        kcum = torch.cumsum(keep, 0, dtype=torch.int64)
-        ntri, mk = face_fans_count(rord, rcnt, svid, mean, keep, kcum, fc,
-                                   kern=k)
+        n = keep.shape[0]
+        if first:
+            kcum = torch.cumsum(keep, 0, dtype=torch.int64)
+            ntri, mk = face_fans_count_first(rord, rcnt, svid, mean, keep,
+                                             kcum, fc, kern=k)
+        else:
+            kl, mk = face_fans_count(
+                rord, rcnt, svid, mean, keep, fc, _i32(n, 4, device=dev),
+                torch.empty((n, 3), dtype=torch.float32, device=dev), kern=k)
         n_kept, n_tri = (int(x) for x in self.read(fc[FC_KEPT:FC_HIST]))
         if n_kept == 0:
             return funnel, Vf, no_tris
         nrm = self.net.normal(mk[:n_kept])
-        tris = face_fans_fill(rord, rcnt, svid, mean, keep, kcum, ntri,
-                              torch.cumsum(ntri, 0), nrm, Vf, n_tri, kern=k)
+        if first:
+            tris = face_fans_fill_first(rord, rcnt, svid, mean, keep, kcum,
+                                        ntri, torch.cumsum(ntri, 0), nrm, Vf,
+                                        n_tri, kern=k)
+        else:
+            tris = face_fans_fill(kl, svid, mk, nrm, Vf, n_kept, n_tri,
+                                  kern=k)
         return funnel, Vf, tris
 
 

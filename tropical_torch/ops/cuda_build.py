@@ -47,6 +47,10 @@ LATTICE_FIRST = ("lattice_encode", ("LATTICE_LEVEL_LAUNCH",))
 # filter a thread a row, K4's finish with a second override test), beside
 # the design's K3-K5
 CURVED_FIRST = ("device_engine", ("CURVED_FIRST",))
+# K6's first design of face_keys and face_fans (a thread an item, the
+# caller's torch.cumsum and torch.sort of the zero counts between them),
+# beside the design's K3-K5
+FACES_FIRST = ("device_engine", ("FACES_FIRST",))
 DEVICE_ENGINE_FIRST = ("device_engine", ("CONNECT_SEARCHES",
                                          "COMPACT_ROW_THREAD",
                                          "SKELETON_CUMSUM",

@@ -36,8 +36,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    committed mesh and the kernel launch counts (the encode's forward on
    every net evaluation, its backward for the faces' normals, in x alone:
    no backward of the flat or the curved run scatters a table gradient;
-   the device engine's kernels on the extraction, K6's two of each of its
-   four; on every path, a BVH build and one ``bvh_ray`` trace a traced
+   the device engine's kernels on the extraction, K6's ``K6_LAUNCHES``;
+   on every path, a BVH build and one ``bvh_ray`` trace a traced
    mesh);
 4b. both engines in one call, on sphere-small flat and on sphere-medium
    curved: the device engine and the host engine (``engine="host"``, held
@@ -60,7 +60,8 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    the launch counts (no ``trilinear_roots`` launch: its solve runs inside
    ``curved_roots``; K4c's by busy insertions, insertions with curved rows
    and with rescued rows, none of ``curved_select``, K4's two a busy
-   insertion, K6's two of each, the encode's by forwards), the reads of
+   insertion, K6's as on the flat path, the encode's by forwards), the
+   reads of
    each curved busy insertion and finite CD/AD;
 6. each kernel at the largest shape its main path gave it: ``min_dist``
    timed; ``trilinear_roots`` held bitwise to its plain version on every
@@ -185,15 +186,17 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    them);
 11d. K6 (``final_keep``, ``face_keys``, ``face_regions``, ``face_fans``,
    ``csrc/faces.cu``) at sphere-small flat, sphere-medium curved and
-   sphere-large flat, in the design and in the first design of face_keys
-   and face_fans (``cuda_build.FACES_FIRST``): every stage call of
+   sphere-large flat, in the design and in the first design of all four
+   (``cuda_build.FACES_FIRST``): every stage call of
    ``Engine.faces``, recorded from a run of each build's engine, bitwise
    its plain version, also after three replays of a CUDA graph of one
    call, and the planted calls of ``tests/faces_cases.py`` in both builds
-   (duplicate regions in an A, B, A signature run, repeated ids, 1, 2, 8,
-   9, 12 and 100 members, exact score ties, cell offsets -1, 0 and M - 1,
-   five tiles of vertices with every zero count, five tiles of region
-   slots, one kept region and none); the two builds' faces bitwise equal;
+   (final_keep without edges, duplicate regions in an A, B, A signature
+   run, repeated ids, 1, 2, 8, 9, 12 and 100 members, exact score ties,
+   cell offsets -1, 0 and M - 1, five tiles of vertices with every zero
+   count, the regions of 24 tiles of vertices with colliding hashes and
+   buckets past the shared path, one replica, five tiles of region slots,
+   one kept region and none); the two builds' faces bitwise equal;
    at sphere-large both against the JAX package's device faces
    (``LARGE_DEVICE_FACES``, the first design first): the vertices within
    1e-5 index for index, the fan contract at 0.5 % or JAX's own host
@@ -208,14 +211,15 @@ Run from the root of a checkout.  Phases, each fatal on failure:
    crossed the angular sort's cut within two fixed-point steps of it
    (``faces_cases.fan_ties``); each kernel's device time (CUDA graphs, its
    calls summed) beside its bound (``k6_bytes`` at 3.35 TB/s), a graph
-   node's floor and its plain version's time, face_keys' and face_fans'
-   beside their first designs', ``face_keys``' vertex gather beside
+   node's floor and its plain version's time, each beside its first
+   design's (face_regions' with the first design's two stable
+   ``torch.sort`` calls), ``face_keys``' vertex gather beside
    ``index_select`` on the same rows; the faces stage's span (CUDA
    events), launches and device time by kernel (torch.profiler) in each
    build;
 12. sphere-medium and sphere-large, flat, at full width from the committed
    checkpoints: the funnel within 0.5 % of the JAX CLI's (K6's launches,
-   two of each kernel), the same final
+   ``K6_LAUNCHES`` each extraction), the same final
    vertex set from the dist and sign skeletons, the loop bitwise the host
    engine's from the device skeleton, the skeleton / loop / faces split;
    and sphere-medium's curved loop from the device skeleton bitwise the
@@ -281,15 +285,17 @@ FLAT_PRESETS = "tests/golden/sphere_flat_presets.json"
 MAIN_LAUNCHES = {"min_dist": 16, "trilinear_roots": 0, "lattice_encode": 1,
                  "skeleton_mark": 6, "split_step": 13, "connect_step": 52,
                  "curved_select": 0, "curved_roots": 0, "curved_resolve": 0,
-                 "curved_filter": 0, "final_keep": 2, "face_keys": 2,
-                 "face_regions": 2, "face_fans": 2}
+                 "curved_filter": 0, "final_keep": 1, "face_keys": 2,
+                 "face_regions": 3, "face_fans": 2}
 # K6, the final filter and the faces (csrc/faces.cu), and the lines of the
-# JAX engine each replaces (make_extract_fn._run); each launches twice an
-# extraction on every path: final_keep a vertex pass and an edge pass,
-# face_keys its count and its fill, face_regions the runs and the
-# duplicates, face_fans its count and its fill
+# JAX engine each replaces (make_extract_fn._run); their launches an
+# extraction on every path: final_keep one (the vertices' blocks and the
+# edges'), face_keys its count and its fill, face_regions its hash table's
+# inserts, its ranks by first member and its members, face_fans its count
+# and its fill
 K6 = ("final_keep", "face_keys", "face_regions", "face_fans")
-K6_LAUNCHES = 2
+K6_LAUNCHES = {"final_keep": 1, "face_keys": 2, "face_regions": 3,
+               "face_fans": 2}
 # phase 11d's runs: (sphere preset, flat, the records' key suffix, the
 # share of the fan contract against the host faces: 0.53 % of sphere-large's
 # rows differed on an H100, its complex finer, each a fan started at another
@@ -302,23 +308,18 @@ K6_REPLACES = {"final_keep": "tropical/extract/device.py:1444",
                "face_regions": "tropical/extract/device.py:1562",
                "face_fans": "tropical/extract/device.py:1681"}
 # the stage functions of tropical_torch/extract/device.py and their kernels:
-# the design's, then the first design's of face_keys and face_fans
-# (cuda_build.FACES_FIRST: a thread an item, the caller's torch.cumsum and
-# torch.sort of the zero counts between them)
+# the design's, then the first design's (cuda_build.FACES_FIRST: a thread an
+# item, the caller's torch.cumsum calls and torch.sort calls between them)
 K6_STAGES = {"final_keep": "final_keep", "face_keys_count": "face_keys",
-             "face_keys_fill": "face_keys",
-             "face_regions_runs": "face_regions",
-             "face_regions_dups": "face_regions",
+             "face_keys_fill": "face_keys", "face_regions": "face_regions",
              "face_fans_count": "face_fans", "face_fans_fill": "face_fans"}
 K6_FIRST_STAGES = {"final_keep": "final_keep",
                    "face_keys_count_first": "face_keys",
                    "face_keys_fill_first": "face_keys",
-                   "face_regions_runs": "face_regions",
-                   "face_regions_dups": "face_regions",
+                   "face_regions_runs_first": "face_regions",
+                   "face_regions_dups_first": "face_regions",
                    "face_fans_count_first": "face_fans",
                    "face_fans_fill_first": "face_fans"}
-# K6's redesigned kernels, timed beside their first designs
-K6_REDESIGNED = ("face_keys", "face_fans")
 # the JAX package's device faces of sphere-large (its fused program's
 # triangles, each row sorted, and vertices; the rows in which its host
 # faces differ; scripts/device_faces_golden.py), and the bounds phase 11d
@@ -364,8 +365,8 @@ CURVED_ROW_BYTES = 4 + 4 + 24 + 96
 # curved_roots and curved_gd (K4c's first design: curved_pick, K7,
 # curved_points, curved_gd and curved_mix) and reads the count words once
 # after the strict filter; the faces (K6) read the count vector twice
-ENGINE_COUNTS = {"small flat": (10, 8, 400, 8),
-                 "medium curved": (15, 13, 405, 13)}
+ENGINE_COUNTS = {"small flat": (10, 8, 378, 8),
+                 "medium curved": (15, 13, 383, 13)}
 # stage 3b of the JAX engine's busy insertion and its strict filter;
 # curved_roots also replaces K7's launch (tropical/core/trilinear.py:91)
 # and the roots' points (:612)
@@ -1968,8 +1969,7 @@ def curved_path_phase():
         want_k4c[k] += v * rescues
     conn = sum(c > 0 for i, _, _, c in last.busy if i < dv.R_COLS - 1)
     want_k4c.update(split_step=K4_PER_CURVED_BUSY * busy + 1 + conn,
-                    lattice_encode=1, skeleton_mark=6,
-                    **{k: K6_LAUNCHES for k in K6})
+                    lattice_encode=1, skeleton_mark=6, **K6_LAUNCHES)
     for k, want_n in want_k4c.items():
         check(launches[k] == want_n, f"{k}: {launches[k]} launches on the "
               f"curved path, want {want_n} ({busy} busy insertions, {steps} "
@@ -3979,12 +3979,15 @@ def k6_bytes(name, a):
     used vertex's key row, point read and point written, a replica's key
     and id, the tiles' class counts once and the histogram (the first
     design: a used vertex's order, zero count and id instead of every
-    vertex's ranks); the region stages a replica's key,
-    permutation entry and id (``runs``: every used point, a replica's
-    signature, count, mean and id written; ``dups``: a slot's signature and
-    keep flag, a region's start and count, the members of a run of two or
-    more); the fans a slot's keep flag, a kept region's start and count,
-    its members' ids, its mean and (``count``) its row of the compact list
+    vertex's ranks); ``face_regions`` a replica's key and id read and each
+    used point once, a signature slot's start, count, mean, member id and
+    keep flag written once (not the hash table's traffic); the first
+    design's region stages a replica's key, permutation entry and id
+    (``runs``: every used point, a replica's signature, count, mean and id
+    written; ``dups``: a slot's signature and keep flag, a region's start
+    and count, the members of a run of two or more); the fans a slot's
+    keep flag, a kept region's start and count, its members' ids, its mean
+    and (``count``) its row of the compact list
     and its mean written, a tile's status word (the first design: a slot's
     rank and triangles, a kept region's mean written); ``fill`` (the
     design) a kept region's row of the list, mean and normal, its members'
@@ -4006,10 +4009,12 @@ def k6_bytes(name, a):
                 + _nb(a[3]) + 8 * (dv.KZ_MAX + 1))
     if name == "face_keys_fill_first":
         return a[6] * (8 + 4 + 4 + 16 + 12 + 12) + a[7] * 12
-    if name == "face_regions_runs":
+    if name == "face_regions":
+        return a[0].shape[0] * (8 + 4 + 8 + 4 + 12 + 4 + 4) + _nb(a[2])
+    if name == "face_regions_runs_first":
         n = a[0].shape[0]
         return n * (8 + 8 + 4 + 8 + 4 + 12 + 4) + _nb(a[3])
-    if name == "face_regions_dups":
+    if name == "face_regions_dups_first":
         ssig = a[0]
         real = ssig != dv.SIG_NONE
         runs = torch.zeros_like(real)
@@ -4069,8 +4074,8 @@ def faces_profile(eng, args):
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-    k6 = ("keep_vertices", "keep_edges", "face_keys", "face_regions",
-          "face_fans")
+    k6 = ("keep_vertices", "keep_edges", "final_keep", "face_keys",
+          "face_regions", "face_fans")
     group = lambda words: sum(v for n, v in by.items()
                               if any(w in n.lower() for w in words))
     top = sorted(by.items(), key=lambda kv: -kv[1])[:12]
@@ -4159,12 +4164,13 @@ def golden_check(dv, net, label, fill, Vf, tris):
 
 def faces_phase(records, flat_launches, curved_launches):
     """K6 on the card at sphere-small flat, sphere-medium curved and
-    sphere-large flat, in the design and in the first design of face_keys
-    and face_fans (``cuda_build.FACES_FIRST``): every stage call of
-    ``Engine.faces`` recorded from a run of each build's engine, and the
-    planted calls of ``tests/faces_cases.py``, each bitwise its plain
-    version (also after graph replays), timed beside its bound, a graph
-    node's floor and the plain version; the two builds' results bitwise
+    sphere-large flat, in the design and in the first design
+    (``cuda_build.FACES_FIRST``): every stage call of ``Engine.faces``
+    recorded from a run of each build's engine, and the planted calls of
+    ``tests/faces_cases.py``, each bitwise its plain version (also after
+    graph replays), timed beside its bound, a graph node's floor and the
+    plain version (the first design's face_regions with its two sorts);
+    the two builds' results bitwise
     equal; the stage's result against the host faces on the same loop
     output, and at sphere-large against the JAX package's device faces
     (``golden_check``, the first design first); the stage's span, launches
@@ -4242,8 +4248,7 @@ def faces_phase(records, flat_launches, curved_launches):
                    "first_ms": 0.0, "first_bound_ms": 0.0, "first_calls": 0}
                for k in K6}
         timed = [(c, None, "") for c in calls] + [
-            (c, first, "first_") for c in calls1
-            if K6_FIRST_STAGES[c[0]] in K6_REDESIGNED]
+            (c, first, "first_") for c in calls1]
         for (name, a, kw), kern, pre in timed:
             r = k6_call(dv, name, a, kw, reps, kern=kern)
             rec = per[K6_FIRST_STAGES.get(name) or K6_STAGES[name]]
@@ -4256,6 +4261,19 @@ def faces_phase(records, flat_launches, curved_launches):
                   f"({share(r['bound_ms'], r['ms'])} of its bound "
                   f"{r['bound_ms']:.7f} ms, {r['ms'] / floor_ms:.1f} graph "
                   f"nodes' floor), plain {r['plain_ms']:.3f} ms")
+        # the first design's face_regions with its two stable sorts: of the
+        # replicas' keys (the design's face_regions input, bitwise the first
+        # design's fill output) and of the runs' signatures
+        keys = next(c for c in calls if c[0] == "face_regions")[1][0]
+        runs = next(c for c in calls1 if c[0] == "face_regions_runs_first")
+        sig = dv.face_regions_runs_first(*runs[1], kern=first)[0]
+        sort_ms = [graph_ms(lambda: torch.sort(t, stable=True), reps=reps)
+                   for t in (keys, sig)]
+        per["face_regions"]["first_ms"] += sum(sort_ms)
+        print(f"{size}: the first design's two stable torch.sort calls "
+              f"(keys, signatures; {keys.numel()} int64 each): "
+              f"{sort_ms[0]:.5f} + {sort_ms[1]:.5f} ms, in face_regions' "
+              f"first design's time")
         # face_keys' gather of the used vertices beside index_select
         fill = next(c for c in calls if c[0] == "face_keys_fill")[1]
         used = torch.nonzero(next(c for c in calls if c[0] ==
@@ -4290,13 +4308,14 @@ def faces_phase(records, flat_launches, curved_launches):
             rec.update({f"ms{tag}": r["ms"], f"plain_ms{tag}": r["plain_ms"],
                         f"bound_ms{tag}": r["bound_ms"],
                         f"calls_timed{tag}": r["calls"]})
-            first_note = ""
-            if k in K6_REDESIGNED:
-                rec.update({f"first_ms{tag}": r["first_ms"],
-                            f"first_bound_ms{tag}": r["first_bound_ms"]})
-                first_note = (f", the first design {r['first_ms']:.5f} ms "
-                              f"({share(r['first_bound_ms'], r['first_ms'])}"
-                              f" of its bound)")
+            rec.update({f"first_ms{tag}": r["first_ms"],
+                        f"first_bound_ms{tag}": r["first_bound_ms"]})
+            first_note = (f", the first design {r['first_ms']:.5f} ms "
+                          f"({share(r['first_bound_ms'], r['first_ms'])}"
+                          f" of its bound)")
+            if k == "face_regions":
+                rec[f"first_sort_ms{tag}"] = sum(sort_ms)
+                first_note += " with its two sorts"
             if k == "face_keys":
                 rec[f"gather_library_ms{tag}"] = gather_ms
             if k == "face_fans":
@@ -4477,7 +4496,7 @@ def presets_phase():
               f"busy {dv.LAST.busy}; reads {dv.LAST.reads}")
         check(worst <= 0.005, f"{size}: funnel {got} off the JAX CLI's {want}")
         k6 = {k: launches.LAUNCHES[k] for k in K6}
-        check(k6 == {k: 2 * K6_LAUNCHES for k in K6},
+        check(k6 == {k: 2 * v for k, v in K6_LAUNCHES.items()},
               f"{size}: K6 launched {k6} in two extractions")
         if size == "medium":  # small's and large's: phase 11
             fires = override_fires(net)

@@ -9,8 +9,9 @@
 // after another, so a __shared__ array is a function-static one, which each
 // block's kernel sets before it reads it, as on the card.  Float arithmetic
 // is IEEE single precision rounded to nearest (built with -ffp-contract=off),
-// as __fmul_rn and __fadd_rn are.  The integer atomics, __threadfence and
-// __ldcg that the BVH's kernels (and its instrumented build's counters) use
+// as __fmul_rn and __fadd_rn are.  The integer atomics (add, min, exchange,
+// the 64-bit compare-and-swap), __threadfence and __ldcg that the BVH's and
+// the faces' kernels (and the BVH's instrumented build's counters) use
 // are std::atomic_ref operations and sequentially consistent fences, and
 // cuda::atomic_ref (<cuda/atomic>) is std::atomic_ref whatever its scope; a
 // __device__ variable is a host one, which cudaMemcpyToSymbol and
@@ -103,6 +104,19 @@ inline unsigned atomicMin(unsigned* p, unsigned v) {
 }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return std::atomic_ref<unsigned long long>(*p).fetch_add(v);
+}
+inline int atomicMin(int* p, int v) {
+  std::atomic_ref<int> a(*p);
+  int old = a.load();
+  while (v < old && !a.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline int atomicExch(int* p, int v) { return std::atomic_ref<int>(*p).exchange(v); }
+inline unsigned long long atomicCAS(unsigned long long* p, unsigned long long cmp,
+                                    unsigned long long v) {
+  std::atomic_ref<unsigned long long>(*p).compare_exchange_strong(cmp, v);
+  return cmp;
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 template <typename T>
@@ -315,7 +329,9 @@ inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
 
 // kernel<<<grid, block, shared, stream>>>(args) becomes
 // EmuLaunch(grid, block, shared, stream).run(kernel, args): the blocks in
-// turn, a block's lanes as fibers.
+// turn, a block's lanes as fibers, each round in lane order, or from the
+// last lane down where the environment sets CUDA_EMULATION_LANES=reverse
+// (a kernel's result must not depend on the order its atomics come in).
 struct EmuLaunch {
   unsigned grid, block;
   EmuLaunch(long long g, int b, int = 0, cudaStream_t = nullptr)
@@ -375,6 +391,8 @@ struct EmuLaunch {
     };
     emu_run.args = &call;
     if (emu_run.fibers.size() < block) emu_run.fibers.resize(block);
+    const char* order = std::getenv("CUDA_EMULATION_LANES");
+    const bool reverse = order != nullptr && std::strcmp(order, "reverse") == 0;
     std::vector<EmuWarp> warps((block + 31) / 32);
     for (unsigned bx = 0; bx < grid; ++bx) {
       EmuBlock blk;
@@ -385,7 +403,8 @@ struct EmuLaunch {
       // each lane that can run, in turn, until all have returned
       for (unsigned live = block; live > 0;) {
         bool ran = false;
-        for (unsigned t = 0; t < block; ++t) {
+        for (unsigned i = 0; i < block; ++i) {
+          const unsigned t = reverse ? block - 1 - i : i;
           const EmuFiber& f = emu_run.fibers[t];
           if (f.done || (f.wait != nullptr && f.wait->phase == f.phase))
             continue;

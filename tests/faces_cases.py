@@ -8,11 +8,10 @@ import torch
 # the stage functions of tropical_torch/extract/device.py, in call order:
 # the design's, and the first design's (-DFACES_FIRST)
 K6_STAGES = ("final_keep", "face_keys_count", "face_keys_fill",
-             "face_regions_runs", "face_regions_dups", "face_fans_count",
-             "face_fans_fill")
+             "face_regions", "face_fans_count", "face_fans_fill")
 K6_FIRST_STAGES = ("final_keep", "face_keys_count_first",
-                   "face_keys_fill_first", "face_regions_runs",
-                   "face_regions_dups", "face_fans_count_first",
+                   "face_keys_fill_first", "face_regions_runs_first",
+                   "face_regions_dups_first", "face_fans_count_first",
                    "face_fans_fill_first")
 
 
@@ -64,13 +63,14 @@ def held(dv, calls, kern):
     return len(calls)
 
 
-def final_keep_case(device, scale=1.2, eps=1e-4, seed=0):
-    """(V, OUT, E): vertices on the cube's faces (unit coordinate 0 and 1
-    exactly) and just outside, last columns at +-eps exactly and inside,
-    a NaN output; edges with both ends kept, one, none; a vertex of no
-    edge."""
+def final_keep_case(device, scale=1.2, eps=1e-4, seed=0, n=300, m=700,
+                    ordered=False):
+    """(V, OUT, E): ``n`` vertices on the cube's faces (unit coordinate 0
+    and 1 exactly) and just outside, last columns at +-eps exactly and
+    inside, a NaN output; ``m`` edges with both ends kept, one, none (by
+    their first end, ``ordered``, as the engine hands them over); a vertex
+    of no edge."""
     rng = np.random.default_rng(seed)
-    n = 300
     V = rng.uniform(-scale, scale, (n, 3)).astype(np.float32)
     V[:20, 0] = -scale                       # unit 0: kept
     V[20:40, 1] = scale                      # unit 1: kept
@@ -81,7 +81,9 @@ def final_keep_case(device, scale=1.2, eps=1e-4, seed=0):
     OUT[60:70, -1] = np.float32(eps)
     OUT[70:80, -1] = -np.float32(eps)
     OUT[80, -1] = np.nan
-    E = rng.integers(0, n - 1, (700, 2)).astype(np.int32)  # n - 1: no edge
+    E = rng.integers(0, n - 1, (m, 2)).astype(np.int32)  # n - 1: no edge
+    if ordered:
+        E = E[np.lexsort(E.T[::-1])]
     t = lambda a: torch.from_numpy(a).to(device)
     return t(V), t(OUT), t(E)
 
@@ -129,11 +131,8 @@ REGIONS = ([0, 1, 2], [0, 1, 3], [0, 1, 2], [4, 5, 5, 6], [7], [8, 9],
            [116, 117, 118, 116, 119])
 
 
-def regions_case(device, seed=2):
-    """(skey, perm, rvid, Vf): ``REGIONS`` as key-sorted replicas (keys
-    ascending by region, ``perm`` a seeded permutation of their order and
-    ``rvid`` the ids in that order) and the points they index."""
-    rng = np.random.default_rng(seed)
+def _region_points(rng):
+    """The 120 points ``REGIONS`` index."""
     pts = rng.uniform(-1, 1, (120, 3)).astype(np.float32)
     ang = np.linspace(0, 2 * np.pi, 100, endpoint=False)
     pts[10:110] = np.stack([0.5 * np.cos(ang), 0.5 * np.sin(ang),
@@ -142,6 +141,16 @@ def regions_case(device, seed=2):
                     [0.25, 0, 0], [1, 0, 0]]    # 115 on 110; 114 on its ray
     pts[116:120] = [[0, 0, 0.5], [0.5, 0, 0.5], [0.5, 0.5, 0.5],
                     [0, 0.5, 0.5]]
+    return pts
+
+
+def regions_case(device, seed=2):
+    """(skey, perm, rvid, Vf): ``REGIONS`` as key-sorted replicas (keys
+    ascending by region, ``perm`` a seeded permutation of their order and
+    ``rvid`` the ids in that order) and the points they index: the first
+    design's region inputs."""
+    rng = np.random.default_rng(seed)
+    pts = _region_points(rng)
     keys, ids = [], []
     for r, members in enumerate(REGIONS):
         keys += [1000 * (r + 1)] * len(members)
@@ -153,6 +162,99 @@ def regions_case(device, seed=2):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return (t(np.asarray(keys, np.int64)), t(perm.astype(np.int64)), t(rvid),
             t(pts))
+
+
+def _replicas(runs, Vf, device):
+    """(keys, rvid, Vf) of ``face_regions``: ``runs`` each used vertex's
+    replica keys, vertex by vertex in replica order (each vertex's replicas
+    one run, as ``face_keys_fill`` writes them)."""
+    keys = np.asarray([k for _, ks in runs for k in ks], np.int64)
+    rvid = np.asarray([v for v, ks in runs for _ in ks], np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(keys), t(rvid), t(Vf)
+
+
+def regions_keys_case(device, seed=2):
+    """``REGIONS`` as ``face_regions``' inputs: (keys, rvid, Vf), each
+    vertex's replicas one run in id order, a replica a region it is in
+    (key 1000 (r + 1) for region r), so each region's members are in id
+    order (116's two replicas together: [116, 116, 117, 118, 119])."""
+    pts = _region_points(np.random.default_rng(seed))
+    runs = [(v, [1000 * (r + 1) for r, m in enumerate(REGIONS) for u in m
+                 if u == v]) for v in range(120)]
+    return _replicas(runs, pts, device)
+
+
+# face_regions' hash (tropical_torch/csrc/faces.cu kHashMul): the high bits
+# of the key times 2^64 over the golden ratio
+HASH_MUL = 0x9E3779B97F4A7C15
+
+
+def region_slot(keys, n):
+    """``face_regions``' hash of each key (numpy int64) in the table for
+    ``n`` replicas (``Kernels.region_table``'s size): (slots, the table's
+    size)."""
+    bits = max(10, (2 * n - 1).bit_length())
+    k = np.asarray(keys, np.int64).view(np.uint64)
+    return (k * np.uint64(HASH_MUL)) >> np.uint64(64 - bits), 1 << bits
+
+
+def colliding_keys(n, slot, count, rng):
+    """``count`` distinct keys below 2^62 whose hash in the table for ``n``
+    replicas is ``slot`` (a slot near the table's end: their probes wrap)."""
+    out = []
+    while len(out) < count:
+        cand = rng.integers(0, 2 ** 62, 1 << 20, dtype=np.int64)
+        hit, _ = region_slot(cand, n)
+        out += [int(k) for k in cand[hit == slot] if int(k) not in out]
+    return out[:count]
+
+
+def buckets_case(device, n_used=1500, seed=7):
+    """``face_regions``' inputs over 24 tiles of 64 vertices (a look-back
+    past one round of 32 tiles): (keys, rvid, Vf).  Each vertex has 2^kz
+    replicas (kz 0 to 3, and 4 for six
+    vertices), the runs in (kz, id) order as ``face_keys_fill`` writes them;
+    its keys drawn from a pool of about a quarter of the replicas' count
+    (regions of a few members, buckets with tie runs of differing members,
+    repeated ids), a fifth of the pool's keys hashing to one slot and a
+    tenth to the table's last slot (long probes, wrapped); triples of
+    vertices sharing two keys (duplicate regions); three kz-4 vertices that
+    share 12 keys no other vertex has (a bucket of at least 12 regions,
+    past kBucket's 8, a tie run of 12 alike: 11 duplicates) and one with 16
+    keys of its own (16 regions of one member); two regions of the same 10
+    vertices (past the registers' 8 members: a duplicate) and one of 12
+    (past a table slot's 11)."""
+    rng = np.random.default_rng(seed)
+    kz = rng.choice(4, n_used, p=[0.1, 0.2, 0.4, 0.3])
+    big = np.sort(rng.choice(n_used, 6, replace=False))
+    kz[big] = 4
+    n = int((1 << kz).sum())
+    pool = rng.integers(0, 2 ** 62, n // 4, dtype=np.int64)
+    m = len(pool)
+    _, size = region_slot([0], n)
+    pool[: m // 5] = colliding_keys(n, 7, m // 5, rng)
+    pool[m // 5: m // 5 + m // 10] = colliding_keys(n, size - 1, m // 10,
+                                                    rng)
+    keys = {v: list(rng.choice(pool, 1 << kz[v])) for v in range(n_used)}
+    two = [v for v in range(n_used) if kz[v] in (1, 2, 3)]
+    for t in range(20):                      # duplicate regions
+        tri = rng.choice(two, 3, replace=False)
+        ka, kb = 2 ** 62 + 2 * t, 2 ** 62 + 2 * t + 1
+        for v in tri:
+            keys[v][0], keys[v][1] = ka, kb
+    shared = list(2 ** 62 + 1000 + np.arange(12))
+    for v in big[:3]:
+        keys[v][:12] = shared
+    keys[big[3]] = list(2 ** 62 + 2000 + np.arange(16))
+    four = [v for v in range(n_used) if kz[v] in (2, 3)]
+    for v in rng.choice(four, 10, replace=False):  # 10 members, twice
+        keys[v][-2:] = [2 ** 62 + 3000, 2 ** 62 + 3001]
+    for v in rng.choice(four, 12, replace=False):  # 12: past the slot's 11
+        keys[v][-3] = 2 ** 62 + 3002
+    order = np.argsort(kz, kind="stable")
+    Vf = rng.uniform(-1, 1, (n_used, 3)).astype(np.float32)
+    return _replicas([(int(v), keys[v]) for v in order], Vf, device)
 
 
 def classes_case(dv, device, n=4500, top=None, seed=4):
@@ -214,9 +316,13 @@ def planted_calls(dv, device, first=False, eps=1e-4, scale=1.2):
     """The planted calls of every K6 stage of the design (``first``: of the
     first design), each stage's inputs from the plain versions' outputs of
     the stage before: [(name, args, kw)].  The chain of ``K6_STAGES`` (or
-    ``K6_FIRST_STAGES``) first, in order; then face_keys_count on
-    ``classes_case`` (five tiles, every zero count), face_keys_count and
-    face_keys_fill on three tiles of zero counts up to 4, face_fans_count and
+    ``K6_FIRST_STAGES``) first, in order (the regions on ``REGIONS``); then
+    final_keep without edges and on five tiles of vertices and nine of
+    edges (by their first end); face_keys_count on ``classes_case`` (five
+    tiles, every zero count); face_keys_count, face_keys_fill and the
+    regions on three tiles of zero counts up to 4; the regions on
+    ``buckets_case`` (24 tiles of vertices, colliding hashes, buckets past
+    the shared path, duplicates) and on one replica; face_fans_count and
     face_fans_fill on ``fans_case`` (five tiles, regions past the shared
     path), with one region kept and with none (no fill: the engine reads
     no kept region and stops)."""
@@ -229,7 +335,20 @@ def planted_calls(dv, device, first=False, eps=1e-4, scale=1.2):
                              for a in args], {}))
         return getattr(dv, name)(*args, kern=P)
 
-    def keys_chain(V, SB, ZB, ends, marks, fill=True):
+    def regions(keys, rvid, Vf, perm=None):
+        """The regions stage(s) on replicas (``perm``: the first design's
+        case, already key-sorted): (rord, rcnt, mean, svid, keep)."""
+        if not first:
+            return call("face_regions", keys, rvid, Vf)
+        skey, perm = (keys, perm) if perm is not None else torch.sort(
+            keys, stable=True)
+        sig, rcnt, mean, svid = call("face_regions_runs_first", skey, perm,
+                                     rvid, Vf)
+        ssig, rord = torch.sort(sig, stable=True)
+        return rord, rcnt, mean, svid, call("face_regions_dups_first", ssig,
+                                            rord, rcnt, svid)
+
+    def keys_chain(V, SB, ZB, ends, marks, fill=True, then=False):
         lut, lut_k = dv._lut(marks), dv._lut_k(marks.cpu().numpy())
         fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
         out = call("face_keys_count" + sfx, V, SB, ZB, ends, marks, lut,
@@ -241,10 +360,12 @@ def planted_calls(dv, device, first=False, eps=1e-4, scale=1.2):
             kz, rows = out
             vcum = torch.cumsum(ends[1], 0, dtype=torch.int32)
             kzs, order = torch.sort(kz, stable=True)
-            call("face_keys_fill_first", V, rows, kzs, order, vcum, fc,
-                 n_used, n_rep)
+            rep = call("face_keys_fill_first", V, rows, kzs, order, vcum, fc,
+                       n_used, n_rep)
         else:
-            call("face_keys_fill", V, *out, fc, n_used, n_rep)
+            rep = call("face_keys_fill", V, *out, fc, n_used, n_rep)
+        if then:
+            regions(*rep)
 
     def fans_chain(rord, rcnt, svid, mean, keep, Vf, nrm=None):
         fc = torch.zeros(dv.FC, dtype=torch.int64, device=device)
@@ -277,17 +398,27 @@ def planted_calls(dv, device, first=False, eps=1e-4, scale=1.2):
     marks = torch.from_numpy(np.linspace(0, 1, 21).astype(np.float32)).to(
         device)
     keys_chain(*face_keys_case(dv, marks, device, scale, eps), marks)
-    skey, perm, rvid, Vf = regions_case(device)
-    sig, rcnt, mean, svid = call("face_regions_runs", skey, perm, rvid, Vf)
-    ssig, rord = torch.sort(sig, stable=True)
-    keep = call("face_regions_dups", ssig, rord, rcnt, svid)
+    if first:
+        skey, perm, rvid, Vf = regions_case(device)
+        rord, rcnt, mean, svid, keep = regions(skey, rvid, Vf, perm)
+    else:
+        _, rvid, Vf = case = regions_keys_case(device)
+        rord, rcnt, mean, svid, keep = regions(*case)
     g = torch.Generator().manual_seed(3)
     nrm = torch.nn.functional.normalize(
         torch.randn(int(keep.sum()), 3, generator=g), dim=1)
     nrm[0] = torch.tensor([0.0, 0.0, 1.0])
     fans_chain(rord, rcnt, svid, mean, keep, Vf, nrm.to(device))
+    call("final_keep", V, OUT, E[:0], eps, scale,
+         torch.zeros(dv.FC, dtype=torch.int64, device=device))
+    call("final_keep", *final_keep_case(device, scale, eps, 3, 5000, 9000,
+                                        True), eps, scale,
+         torch.zeros(dv.FC, dtype=torch.int64, device=device))
     keys_chain(*classes_case(dv, device), marks, fill=False)
-    keys_chain(*classes_case(dv, device, 3000, 4, seed=6), marks)
+    keys_chain(*classes_case(dv, device, 3000, 4, seed=6), marks, then=True)
+    regions(*buckets_case(device))
+    one = regions_keys_case(device)
+    regions(one[0][:1], one[1][:1], one[2][:1])
     case = fans_case(device)
     fans_chain(*case)
     rord, rcnt, svid, mean, keep, Vf = case

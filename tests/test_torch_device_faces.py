@@ -312,24 +312,41 @@ def test_face_keys_are_the_host_regions():
     assert groups(keys, rows) == groups(r_idx, used[org])
 
 
-def _chain(device="cpu", normal=(0.0, 0.0, 1.0)):
-    """The planted regions through the region and fan stages' plain
-    versions: (keep flags by slot, the slots' regions, the triangles)."""
-    skey, perm, rvid, Vf = cases.regions_case(device)
-    sig, rcnt, mean, svid = tdv.face_regions_runs(skey, perm, rvid, Vf)
-    ssig, rord = torch.sort(sig, stable=True)
-    keep = tdv.face_regions_dups(ssig, rord, rcnt, svid)
+def _chain(device="cpu", normal=(0.0, 0.0, 1.0), case=None, first=False):
+    """The planted regions (``case``: ``face_regions``' inputs, by default
+    ``REGIONS``) through the region and fan stages' plain versions, the
+    design's (``first``: the first design's, with its sorts and sums):
+    (keep flags by signature slot, the slots' regions, the triangles, the
+    slots' triangle counts, the points)."""
+    keys, rvid, Vf = case or cases.regions_keys_case(device)
     fc = torch.zeros(tdv.FC, dtype=torch.int64)
-    n = keep.shape[0]
-    kl, mk = tdv.face_fans_count(rord, rcnt, svid, mean, keep, fc,
-                                 torch.zeros((n, 4), dtype=torch.int32),
-                                 torch.zeros((n, 3)))
+    n = keys.shape[0]
+    if first:
+        skey, perm = torch.sort(keys, stable=True)
+        sig, rcnt, mean, svid = tdv.face_regions_runs_first(skey, perm, rvid,
+                                                            Vf)
+        ssig, rord = torch.sort(sig, stable=True)
+        keep = tdv.face_regions_dups_first(ssig, rord, rcnt, svid)
+        kcum = torch.cumsum(keep, 0)
+        ntri, _ = tdv.face_fans_count_first(rord, rcnt, svid, mean, keep,
+                                            kcum, fc)
+        real = ssig != tdv.SIG_NONE
+    else:
+        rord, rcnt, mean, svid, keep = tdv.face_regions(keys, rvid, Vf)
+        kl, mk = tdv.face_fans_count(rord, rcnt, svid, mean, keep, fc,
+                                     torch.zeros((n, 4), dtype=torch.int32),
+                                     torch.zeros((n, 3)))
+        real = rord >= 0
     n_kept, n_tri = int(fc[tdv.FC_KEPT]), int(fc[tdv.FC_TRI])
-    nrm = torch.tensor([normal] * n_kept)
-    tris = tdv.face_fans_fill(kl, svid, mk, nrm, Vf, n_kept, n_tri)
-    ntri = torch.zeros(n, dtype=torch.int64)
-    ntri[torch.nonzero(keep)[:, 0]] = kl[:n_kept, 3].long()
-    real = ssig != tdv.SIG_NONE
+    nrm = torch.tensor([normal] * n_kept).reshape(n_kept, 3)
+    if first:
+        tris = tdv.face_fans_fill_first(rord, rcnt, svid, mean, keep, kcum,
+                                        ntri, torch.cumsum(ntri, 0), nrm, Vf,
+                                        n_tri)
+    else:
+        tris = tdv.face_fans_fill(kl, svid, mk, nrm, Vf, n_kept, n_tri)
+        ntri = torch.zeros(n, dtype=torch.int64)
+        ntri[torch.nonzero(keep)[:, 0]] = kl[:n_kept, 3].long()
     regions = [svid[int(s):int(s) + int(rcnt[s])].tolist()
                for s in rord[real]]
     return keep[real].tolist(), regions, tris, ntri[real].tolist(), Vf
@@ -363,7 +380,7 @@ def test_planted_regions_and_fans():
     # the means are the fixed-point ones: integer sums, one division
     pts = Vf[torch.tensor(R[7])]
     fix = torch.round(pts * 2.0 ** 22).to(torch.int64).sum(0)
-    _, rcnt, mean, _ = tdv.face_regions_runs(*cases.regions_case("cpu"))
+    _, rcnt, mean, _, _ = tdv.face_regions(*cases.regions_keys_case("cpu"))
     s = int(torch.nonzero(rcnt == 6)[0, 0])
     assert torch.equal(mean[s], fix.to(torch.float32) / (6 * 2.0 ** 22))
 
@@ -371,36 +388,86 @@ def test_planted_regions_and_fans():
 def test_planted_calls_run_end_to_end():
     """Every stage of ``faces_cases.planted_calls`` (the calls the emulated
     and the card's builds are held to) has work, in both designs: kept
-    vertices and edges, replicas of 7 zero columns and more, every region
-    case, triangles; five tiles of vertices with every zero count 0 to 35
-    used; three tiles through the fill; five tiles of region slots with
-    regions past the shared-memory path (8 members) kept; one kept region;
-    none."""
+    vertices and edges, none, and five tiles of vertices and nine of edges
+    ordered by their first end; replicas of 7 zero columns and more,
+    every region case, triangles; five tiles of vertices with every zero
+    count 0 to 35 used; three tiles through the fill and the regions; 24
+    tiles of regions' vertices with hashes colliding in one slot and in
+    the table's last, a bucket past the shared path (8 regions) and
+    duplicates; one replica; five tiles of region slots with regions past
+    the shared-memory path (8 members) kept; one kept region; none."""
     for first, stages in ((False, cases.K6_STAGES),
                           (True, cases.K6_FIRST_STAGES)):
         calls = cases.planted_calls(tdv, "cpu", first=first)
-        assert [c[0] for c in calls[:7]] == list(stages)
+        names = [c[0] for c in calls]
+        chain, g = len(stages), 2 if first else 1
+        assert names[:chain] == list(stages)
         fc = torch.zeros(tdv.FC, dtype=torch.int64)
         rows = tdv.face_keys_count(*calls[1][1][:-1], fc)[0]
         kz = tdv._popc(rows[:, 2]) + tdv._popc(rows[:, 3])
         used = calls[1][1][3][1] > 0
         assert int(kz[used].max()) >= 7 and int(fc[tdv.FC_REP]) > 1000
-        assert calls[6][1][-1] == 1 + 1 + 1 + 98 + 4 + 2
-        name, args, _ = calls[7]
+        assert calls[chain - 1][1][-1] == 1 + 1 + 1 + 98 + 4 + 2
+        assert names[chain] == "final_keep" and calls[chain][1][2].numel() == 0
+        name, (V, _, E, *_), _ = calls[chain + 1]
+        assert name == "final_keep" and V.shape[0] > 4 * 1024
+        assert E.shape[0] > 8 * 1024 and bool((E[1:, 0] >= E[:-1, 0]).all())
+        name, args, _ = calls[chain + 2]
         assert name == stages[1] and args[0].shape[0] > 4 * 1024
         hist = torch.zeros(tdv.FC, dtype=torch.int64)
         tdv.face_keys_count(*args[:-1], hist)
         assert bool((hist[tdv.FC_HIST:] > 0).all())
-        assert [c[0] for c in calls[8:10]] == [stages[1], stages[2]]
-        assert calls[8][1][0].shape[0] > 2 * 1024
-        assert [c[0] for c in calls[10:]] == [stages[5], stages[6],
-                                              stages[5], stages[6], stages[5]]
-        keep = calls[10][1][4]
+        assert names[chain + 3:chain + 5] == [stages[1], stages[2]]
+        assert calls[chain + 3][1][0].shape[0] > 2 * 1024
+        at = chain + 5
+        assert names[at:at + 3 * g] == list(stages[3:3 + g]) * 3
+        keys, rvid, Vf = cases.buckets_case("cpu")
+        assert Vf.shape[0] > 23 * 64
+        slot, size = cases.region_slot(keys.numpy(), keys.shape[0])
+        hits = np.bincount(slot.astype(np.int64), minlength=size)
+        assert hits.max() > 300 and hits[-1] > 150
+        rord, rcnt, _, svid, keep = tdv.face_regions(keys, rvid, Vf)
+        real = rord >= 0
+        first_of = svid[rord[real]]
+        assert int(torch.bincount(first_of).max()) > 8
+        c = rcnt[rord[real]]
+        assert int(((c >= 3) & (keep[real] == 0)).sum()) >= 11 + 15
+        assert calls[at + 2 * g][1][0].shape[0] == 1
+        at += 3 * g
+        assert names[at:] == [stages[-2], stages[-1], stages[-2],
+                              stages[-1], stages[-2]]
+        keep = calls[at][1][4]
         assert keep.shape[0] > 4 * 1024
-        counts = calls[10][1][1][calls[10][1][0][keep > 0]]
+        counts = calls[at][1][1][calls[at][1][0][keep > 0]]
         assert int(counts.max()) > 8 and int((counts <= 8).sum()) > 100
-        assert int(calls[12][1][4].sum()) == 1
-        assert int(calls[14][1][4].sum()) == 0
+        assert int(calls[at + 2][1][4].sum()) == 1
+        assert int(calls[at + 4][1][4].sum()) == 0
+
+
+def _same_order(rep):
+    """``face_regions`` and the first design's two sorts with its runs and
+    duplicates on the replicas ``rep``: the same regions in the same order,
+    the same kept flags and, through each design's fans, the same
+    triangles."""
+    keep, regions, tris, ntri, _ = _chain(case=rep)
+    keep1, regions1, tris1, ntri1, _ = _chain(case=rep, first=True)
+    assert regions == regions1 and keep == keep1 and ntri == ntri1
+    assert torch.equal(tris, tris1) and sum(keep) > 0
+
+
+@pytest.mark.parametrize("case", ["planted", "buckets"])
+def test_face_regions_is_the_two_sorts_order(case):
+    """The design's ``face_regions`` (no sort) in the first design's order
+    (``_same_order``) on ``REGIONS`` and on ``buckets_case``."""
+    _same_order(cases.regions_keys_case("cpu") if case == "planted"
+                else cases.buckets_case("cpu"))
+
+
+def test_face_regions_on_the_complex_is_the_two_sorts_order(runs, tnet):
+    """``_same_order`` on the replicas of the trained net's complex (flat
+    and curved), as ``Engine.faces`` hands them to ``face_regions``."""
+    _, calls = cases.record(tdv, lambda: tdv.Engine(tnet).faces(*runs[3]))
+    _same_order(next(a for n, a, _ in calls if n == "face_regions"))
 
 
 def test_sphere_large_golden_counts():

@@ -31,12 +31,14 @@
   design and in its first design (-DFACES_FIRST, built into the first
   designs' library): every stage call of the build's ``Engine.faces``
   held bitwise to its plain version, the whole stage's result the plain
-  engine's, two launches of each of the four kernels; and every stage on
-  the planted cases of ``tests/faces_cases.py`` (duplicate regions in an
-  A, B, A signature run, repeated ids, 1, 2, 8, 9, 12 and 100 members,
-  exact score ties, cell offsets -1, 0 and M - 1, five tiles of vertices
-  with every zero count 0 to 35, five tiles of region slots, one kept
-  region and none).
+  engine's, each kernel's launches as its build's stages give them; and
+  every stage on the planted cases of ``tests/faces_cases.py`` (duplicate
+  regions in an A, B, A signature run, repeated ids, 1, 2, 8, 9, 12 and
+  100 members, exact score ties, cell offsets -1, 0 and M - 1, five tiles
+  of vertices with every zero count 0 to 35, the regions of 24 tiles of
+  vertices with colliding hashes and buckets past the shared path, one
+  replica, five tiles of region slots, one kept region and none); the
+  regions also with each block's lanes run in reverse.
 """
 
 import ctypes
@@ -484,7 +486,9 @@ def test_emulated_faces_are_bitwise_plain(engine_libs, net11, build):
     """K6 on the 11-mark net's complex: the build's engine (the design's
     stages, or the first design's) records its stage calls, each held
     bitwise to its plain version; the stage's result equals the plain
-    engine's; each of K6's kernels launches twice."""
+    engine's; K6's kernels launch as many times as the build's stages
+    say: final_keep once and face_regions three times in the design (twice
+    each in the first design), face_keys and face_fans twice."""
     kern = engine_libs[build]
     eng = dv.Engine(net11)
     sk = eng.skeleton("dist")
@@ -501,15 +505,36 @@ def test_emulated_faces_are_bitwise_plain(engine_libs, net11, build):
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
     assert {k: launches.LAUNCHES[k] for k in (
         "final_keep", "face_keys", "face_regions", "face_fans")} == {
-        "final_keep": 2, "face_keys": 2, "face_regions": 2, "face_fans": 2}
+        "final_keep": 1 if build == "design" else 2, "face_keys": 2,
+        "face_regions": 3 if build == "design" else 2, "face_fans": 2}
     assert faces_cases.held(dv, calls, kern) == len(stages)
 
 
 @pytest.mark.parametrize("build", ["design", "first"])
 def test_emulated_faces_planted_cases(engine_libs, build):
     """Every planted K6 call of the build's stages (``faces_cases.
-    planted_calls``: five tiles with every zero count, regions past the
-    shared-memory path, one kept region and none) bitwise its plain
-    version."""
+    planted_calls``: final_keep with and without edges, five tiles with
+    every zero count, the regions of three tiles of vertices through the
+    keys and of 24 tiles with colliding hashes, buckets past the shared
+    path and duplicates, one replica, fans past the shared-memory path,
+    one kept region and none) bitwise its plain version."""
     calls = faces_cases.planted_calls(dv, "cpu", first=build == "first")
     assert faces_cases.held(dv, calls, engine_libs[build]) == len(calls)
+
+
+def test_emulated_regions_in_reversed_lane_order(engine_libs, net11,
+                                                 monkeypatch):
+    """The design's face_regions with each block's lanes run from the last
+    down (``CUDA_EMULATION_LANES=reverse``), so that a region's replicas
+    reach its table slot out of replica order: the planted calls and the
+    11-mark net's call bitwise the plain version."""
+    kern = engine_libs["design"]
+    eng = dv.Engine(net11)
+    sk = eng.skeleton("dist")
+    args = eng.loop(*eng.pools(sk[0], sk[1], sk[5], sk[2:5]))
+    _, calls = faces_cases.record(dv, lambda: eng.faces(*args))
+    calls += faces_cases.planted_calls(dv, "cpu")
+    calls = [c for c in calls if c[0] == "face_regions"]
+    monkeypatch.setenv("CUDA_EMULATION_LANES", "reverse")
+    assert faces_cases.held(dv, calls, kern) == len(calls) == 5
+

@@ -789,7 +789,9 @@ def test_device_engine_funnel_on_cuda():
     for k in ("lattice_encode", "skeleton_mark", "split_step",
               "connect_step"):
         assert LAUNCHES[k] > before[k], k
-    for k in ("final_keep", "face_keys", "face_regions", "face_fans"):
+    assert LAUNCHES["final_keep"] == before["final_keep"] + 1
+    assert LAUNCHES["face_regions"] == before["face_regions"] + 3
+    for k in ("face_keys", "face_fans"):
         assert LAUNCHES[k] == before[k] + 2, k
     assert dv.LAST.reads == len(dv.LAST.busy) + 4
 
@@ -797,8 +799,8 @@ def test_device_engine_funnel_on_cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("build", ["design", "first"])
 def test_faces_kernels_match_plain_on_cuda(build):
-    """K6 on the card, in the design and in the first design of face_keys
-    and face_fans (``cuda_build.FACES_FIRST``): every stage call of the
+    """K6 on the card, in the design and in the first design
+    (``cuda_build.FACES_FIRST``): every stage call of the
     build's faces at sphere-small flat, and every planted one
     (tests/faces_cases.py), bitwise its plain version."""
     _need_cuda()

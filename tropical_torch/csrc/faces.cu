@@ -9,18 +9,17 @@
 // keys, their fixed-point means, the duplicate regions, the angular sort
 // of each polygon around the sdf normal at its mean, the duplicate ids,
 // the fan triangles).  The caller (tropical_torch/extract/device.py
-// Engine.faces) sorts between the kernels with torch.sort (the replicas by
-// key, the regions by signature) and takes the normals from the net's
-// encode kernels.  device_engine.cu includes this file, so that K3-K6 are
-// one library; its names live in namespace faces, its launch functions are
-// extern "C".  Each launch function takes device pointers, long long
-// integers and float scalars in its declared order, then the stream, and
-// returns the count of kernels it launched, or minus a CUDA error.  Each has
-// its plain PyTorch version in that module, which it equals bit for bit:
-// the integer work exactly, each float operation rounded on its own
-// (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, sqrtf) in the plain
-// version's order, the means from integer sums (2^-22 fixed point) and one
-// division, so that no sum depends on an order of threads.
+// Engine.faces) takes the normals from the net's encode kernels.
+// device_engine.cu includes this file, so that K3-K6 are one library; its
+// names live in namespace faces, its launch functions are extern "C".  Each
+// launch function takes device pointers, long long integers and float
+// scalars in its declared order, then the stream, and returns the count of
+// kernels it launched, or minus a CUDA error.  Each has its plain PyTorch
+// version in that module, which it equals bit for bit: the integer work
+// exactly, each float operation rounded on its own (__fmul_rn, __fadd_rn,
+// __fsub_rn, __fdiv_rn, sqrtf) in the plain version's order, the means from
+// integer sums (2^-22 fixed point) and one division, so that no sum depends
+// on an order of threads.
 //
 // Counts go to one int64 vector (device.py FC_*); the host reads it twice:
 // after final_keep and face_keys_count (the funnel and the replicas) and
@@ -28,14 +27,14 @@
 //
 // Bound: bytes (a few integer and float operations an item): a vertex's
 // row read and flags written, an edge's ends, a replica's key and id, a
-// region's members read a few times.  final_keep and face_regions are
-// first designs, a thread an item: a vertex and an edge (final_keep), a
-// replica that starts a run of equal keys (face_regions_runs), a region
-// slot (face_regions_dups).
+// region's members read a few times.
 //
-// face_keys and face_fans, the design: each ranks its items in the kernels,
-// so that the stage takes no torch.sort of the zero counts and no
-// torch.cumsum, two launches each:
+// The design: each kernel ranks its items itself, so that the stage takes
+// no torch.sort and no torch.cumsum between its kernels.
+// - final_keep, one launch: a block of vertices or of edges, a thread an
+//   item; a vertex's keep flag, and an edge's ends flags from its two ends'
+//   keep tests made again in its own thread (a few loads more an edge, and
+//   no block waits on another).
 // - face_keys_count: a tile of kTile = 1,024 vertices, a thread a vertex:
 //   each used vertex's key row, and its rank in the tile among the used
 //   and among the used of its zero count (a ballot a class present in the
@@ -48,6 +47,28 @@
 //   by zero count; a warp's used vertices of one class have consecutive
 //   ranks, so their replicas are one run of slots (the classes' runs from
 //   the histogram), which the warp's lanes write a slot a lane.
+// - face_regions, three launches, the order of the two stable sorts (the
+//   replicas by key, the regions by signature: first member, then count,
+//   ties in key order) without a sort.  face_regions_insert, a thread a
+//   replica: its key into a hash table (open addressing, linear probing, a
+//   power of two of at least twice the replicas' slots; a 64-bit
+//   compare-and-swap claims a slot), the slot's first replica (an atomic
+//   min) and count (an atomic add), its first 11 replicas in the order
+//   they came, the rest on a list (an atomic exchange of its head).
+//   face_regions_rank, a tile of 64 used vertices, a thread a vertex (its
+//   replicas are one run of face_keys_fill's order): the regions whose
+//   first replica is one of its own, ordered by (count, key) in shared
+//   memory up to kBucket of them, else in global scratch; the tile's
+//   regions and members ranked by a scan and a decoupled look-back across
+//   tiles, so that a region's slot is its rank in signature order and its
+//   members' range follows the ranks; its replicas copied into that range
+//   and its table slot cleared.  face_regions_members, a thread a region:
+//   its replicas sorted in registers, written as ids in its range with the
+//   count and the mean at its start; a duplicate where an earlier region
+//   of its tie run (the same first member and count) has its members,
+//   worked out again from that region's replicas.  The table lives across
+//   calls (device.Kernels.region_table): empty when handed out and left
+//   empty, as face_fans_count's look-back state below is.
 // - face_fans_count: a tile of kTile region slots, a thread a slot, ranks
 //   its kept regions and their triangles' offsets (a scan of both counts
 //   packed in 64 bits in the tile, a decoupled look-back on one status word
@@ -55,24 +76,30 @@
 //   as a compact list (start, count, triangle offset, triangles) and their
 //   means, in rank order.
 // - face_fans_fill: a thread a kept region; a region of at most kFanSmall
-//   members (the presets' have 3 to 6) is scored, sorted and cleared of
+//   members (the presets' have 3 to 8) is scored, sorted and cleared of
 //   repeated ids in shared memory, a larger one in its own segment of
 //   global scratch (no cap on a region's size); the block's triangles are
 //   one run of rows, which its threads then write an integer a thread.
-// face_fans_count's look-back state (status words, the tile counter, the
-// done ticket) is device variables, zero when the library loads, which the
-// last block of every launch returns to zero: no memset, and graph replays
-// of a recorded call stay valid.  Launches of one library are
-// stream-ordered.
+// The look-back state (status words, the tile counter, the done ticket) is
+// device variables, zero when the library loads,
+// which the last block of every launch returns to zero: no memset, and
+// graph replays of a recorded call stay valid.  Launches of one library
+// are stream-ordered.
 // The first design (-DFACES_FIRST, cuda_build.FACES_FIRST), a thread an
-// item: face_keys_count a vertex, the caller's torch.cumsum of the used
-// flags and stable torch.sort of the zero counts, face_keys_fill a used
-// vertex in that order writing its 2^kz replicas; the caller's torch.cumsum
-// of the kept flags, face_fans_count a region slot, the caller's
-// torch.cumsum of the triangles, face_fans_fill a region slot, its
-// insertion sort in its segment of global scratch.  Its launch functions
-// are named *_first_launch; faces_first_design() says which build this is.
+// item: final_keep a vertex pass, then an edge pass reading the keep
+// flags; face_keys_count a vertex, the caller's torch.cumsum of the
+// used flags and stable torch.sort of the zero counts, face_keys_fill a
+// used vertex in that order writing its 2^kz replicas; the caller's stable
+// torch.sort of the keys, face_regions_runs a replica that starts a run of
+// equal keys, the caller's stable torch.sort of the signatures,
+// face_regions_dups a signature-sorted slot; the caller's torch.cumsum of
+// the kept flags, face_fans_count a region slot, the caller's torch.cumsum
+// of the triangles, face_fans_fill a region slot, its insertion sort in its
+// segment of global scratch.  Its launch functions are named
+// *_first_launch but final_keep's; faces_first_design() says which build
+// this is.
 
+#include <climits>
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 
@@ -126,7 +153,22 @@ __device__ __forceinline__ void block_sum(ull v, ull* dst) {
   __syncthreads();  // part is the next call's
 }
 
-// --- final_keep ----------------------------------------------------------------
+// a vertex passes the final filter: |sdf| < eps, inside the unit cube
+// (its loads independent of one another)
+__device__ __forceinline__ bool kept(const float* __restrict__ V,
+                                     const float* __restrict__ OUT, ll v,
+                                     float eps, float scale) {
+  bool k = fabsf(OUT[R * v + R - 1]) < eps;
+  for (int d = 0; d < 3; ++d) {
+    const float xu = grid_region::unit(V[3 * v + d], scale);
+    k &= !(xu > 1.0f) & !(xu < 0.0f);
+  }
+  return k;
+}
+
+#ifdef FACES_FIRST
+
+// --- final_keep, the first design ---------------------------------------------
 
 __global__ void __launch_bounds__(kThreads) keep_vertices_kernel(
     const float* __restrict__ V, const float* __restrict__ OUT, ll n,
@@ -134,18 +176,15 @@ __global__ void __launch_bounds__(kThreads) keep_vertices_kernel(
   const ll v = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
   bool k = false;
   if (v < n) {
-    k = fabsf(OUT[R * v + R - 1]) < eps;
-    for (int d = 0; d < 3; ++d) {
-      const float xu = grid_region::unit(V[3 * v + d], scale);
-      k = k && !(xu > 1.0f) && !(xu < 0.0f);
-    }
+    k = kept(V, OUT, v, eps, scale);
     keep[v] = k;
   }
   block_sum(k, fc + FC_KEEPV);
 }
 
-// ends: [2, nV], row 0 the ends of an edge, row 1 those of a kept edge
-// (set to 1 by every edge that has them: the stores race, with one value)
+// ends: [2, nV], zeroed by the caller, row 0 the ends of an edge, row 1
+// those of a kept edge (set to 1 by every edge that has them: the stores
+// race, with one value)
 __global__ void __launch_bounds__(kThreads) keep_edges_kernel(
     const int* __restrict__ E, ll n, const int* __restrict__ keep, ll nV,
     int* ends, ull* fc) {
@@ -164,6 +203,8 @@ __global__ void __launch_bounds__(kThreads) keep_edges_kernel(
   block_sum(e < n, fc + FC_LIVE);
   block_sum(ek, fc + FC_EKEEP);
 }
+
+#endif  // FACES_FIRST
 
 // --- face_keys and face_fans: shared pieces ----------------------------------
 
@@ -395,9 +436,10 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 // items, a thread an item
 constexpr int kTile = 1024;
 constexpr int kTileWarps = kTile / 32;
-// face_fans_count's look-back: a tile's status word, its flag (top two
-// bits) over its counts, the kept regions (bits 0-30) and their triangles
-// (31-61); 0 before the tile publishes
+// the look-backs (face_fans_count, face_regions_rank): a tile's status
+// word, its flag (top two bits) over its two counts, the first (kept
+// regions; regions) in bits 0-30, the second (triangles; members) in
+// 31-61; 0 before the tile publishes
 constexpr int kMaxTiles = 1 << 16;
 constexpr ull kAggregate = 1ull << 62;
 constexpr ull kInclusive = 2ull << 62;
@@ -413,6 +455,17 @@ constexpr int kParts = kTile / kClasses;
 // face_fans_fill: a region of at most kFanSmall members sorts in shared
 // memory
 constexpr int kFanSmall = 8;
+// face_regions: a vertex's bucket of at most kBucket regions sorts in
+// shared memory; the hash table's empty key (no region key is), and the
+// multiplier of its hash (2^64 over the golden ratio)
+constexpr int kBucket = 8;
+// face_regions_rank: a tile of kRankTile vertices, a thread a vertex
+constexpr int kRankTile = 64;
+// face_regions_members: a region of at most kMembers members sorts in
+// registers
+constexpr int kMembers = 8;
+constexpr ll kEmptyKey = LLONG_MIN;
+constexpr ull kHashMul = 0x9E3779B97F4A7C15ull;
 
 __device__ __forceinline__ ull status_load(int t) {
   return cuda::atomic_ref<ull, cuda::thread_scope_device>(g_status[t])
@@ -433,8 +486,8 @@ __device__ __forceinline__ int take_tile() {
   return tile_s;
 }
 
-// lane 0 of warp 0, once the tile's look-back and statuses are done: true
-// in the last block to get here, which then returns the state to zero
+// one thread of the block, once the block's waits and statuses are done:
+// true in the last block to get here, which then returns the state to zero
 // (reset_state)
 __device__ __forceinline__ bool take_done() {
   __threadfence();
@@ -451,11 +504,13 @@ __device__ __forceinline__ void reset_state() {
   }
 }
 
-// the exclusive sum of x over the tile's threads in order; *total the
-// tile's sum.  Every thread calls it, once a launch.
+// the exclusive sum of x over the tile's kBlock threads in order; *total
+// the tile's sum.  Every thread calls it, once a launch.
+template <int kBlock>
 __device__ __forceinline__ ull tile_exclusive(ull x, ull* total) {
-  static_assert(kTileWarps == 32, "warp 0 scans a lane a warp");
-  __shared__ ull part[kTileWarps + 1];
+  constexpr int kWarps = kBlock / 32;
+  static_assert(kWarps <= 32, "warp 0 scans a lane a warp");
+  __shared__ ull part[kWarps + 1];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   ull inc = x;
   for (int d = 1; d < 32; d <<= 1) {
@@ -465,18 +520,97 @@ __device__ __forceinline__ ull tile_exclusive(ull x, ull* total) {
   if (lane == 31) part[warp] = inc;
   __syncthreads();
   if (warp == 0) {  // the warps' sums scanned
-    const ull w = part[lane];
+    const ull w = lane < kWarps ? part[lane] : 0ull;
     ull wi = w;
     for (int d = 1; d < 32; d <<= 1) {
       const ull y = __shfl_sync(kFull, wi, max(lane - d, 0));
       if (lane >= d) wi += y;
     }
-    part[lane] = wi - w;
-    if (lane == 31) part[kTileWarps] = wi;
+    if (lane < kWarps) part[lane] = wi - w;
+    if (lane == 31) part[kWarps] = wi;
   }
   __syncthreads();
-  *total = part[kTileWarps];
+  *total = part[kWarps];
   return part[warp] + inc - x;
+}
+
+// warp 0 of tile t > 0: the packed counts of the tiles before it, from
+// their status words, 32 a round (lane l reads tile t - 1 - l - 32 round):
+// each word waited for, then the counts summed up to the nearest inclusive
+// prefix (the lowest such lane)
+__device__ __forceinline__ ull look_back(int t, int lane) {
+  ull before = 0;
+  for (int j = t - 1;; j -= 32) {
+    const int p = j - lane;
+    ull st = p >= 0 ? status_load(p) : kInclusive;
+    while (__ballot_sync(kFull, (st & kFlags) == 0ull))
+      if ((st & kFlags) == 0ull) st = status_load(p);
+    const unsigned inc = __ballot_sync(kFull, (st & kFlags) == kInclusive);
+    const int stop = inc ? __ffs(static_cast<int>(inc)) - 1 : 31;
+    ull v = lane <= stop ? st & ~kFlags : 0ull;
+    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+    before += v;
+    if (inc) return before;
+  }
+}
+
+// every thread of tile t (run: its packed counts): the packed counts of
+// the tiles before it, by warp 0 (publishes the tile's counts, looks back,
+// publishes its inclusive counts); *last true in the last block done
+__device__ __forceinline__ ull tiles_before(int t, ull run, bool* last) {
+  __shared__ ull before_s;
+  __shared__ int last_s;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < 32) {
+    if (lane == 0) status_store(t, (t ? kAggregate : kInclusive) | run);
+    const ull before = t ? look_back(t, lane) : 0ull;
+    if (lane == 0) {
+      if (t) status_store(t, kInclusive | (before + run));
+      before_s = before;
+      last_s = take_done();
+    }
+  }
+  __syncthreads();
+  *last = last_s;
+  return before_s;
+}
+
+// --- final_keep --------------------------------------------------------------
+
+// blocks 0..vtiles-1 a vertex a thread (its keep flag, the kept counted),
+// the rest an edge a thread, each end's keep test made again in the edge's
+// thread (no block waits on another): ends [2, nV], cleared by the caller,
+// row 0 the ends of an edge, row 1 those of a kept edge (set to 1 by every
+// edge that has them: the stores race, with one value); the edges and the
+// kept edges counted
+__global__ void __launch_bounds__(kThreads) final_keep_kernel(
+    const float* __restrict__ V, const float* __restrict__ OUT, ll nV,
+    const int* __restrict__ E, ll nE, int vtiles, float eps, float scale,
+    int* keep, int* ends, ull* fc) {
+  if (static_cast<int>(blockIdx.x) < vtiles) {
+    const ll v = static_cast<ll>(blockIdx.x) * kThreads + threadIdx.x;
+    bool k = false;
+    if (v < nV) {
+      k = kept(V, OUT, v, eps, scale);
+      keep[v] = k;
+    }
+    block_sum(k, fc + FC_KEEPV);
+    return;
+  }
+  const ll e = static_cast<ll>(blockIdx.x - vtiles) * kThreads + threadIdx.x;
+  bool ek = false;
+  if (e < nE) {
+    const int a = E[2 * e], b = E[2 * e + 1];
+    ends[a] = 1;
+    ends[b] = 1;
+    ek = kept(V, OUT, a, eps, scale) & kept(V, OUT, b, eps, scale);
+    if (ek) {
+      ends[nV + a] = 1;
+      ends[nV + b] = 1;
+    }
+  }
+  block_sum(e < nE, fc + FC_LIVE);
+  block_sum(ek, fc + FC_EKEEP);
 }
 
 // the lane of the e-th (from 0) set bit of m
@@ -665,43 +799,18 @@ __global__ void __launch_bounds__(kTile) face_keys_fill_kernel(
 
 // --- face_fans ---------------------------------------------------------------
 
-// warp 0 of tile t > 0: the packed counts of the tiles before it, from
-// their status words, 32 a round (lane l reads tile t - 1 - l - 32 round):
-// each word waited for, then the counts summed up to the nearest inclusive
-// prefix (the lowest such lane)
-__device__ __forceinline__ ull look_back(int t, int lane) {
-  ull before = 0;
-  for (int j = t - 1;; j -= 32) {
-    const int p = j - lane;
-    ull st = p >= 0 ? status_load(p) : kInclusive;
-    while (__ballot_sync(kFull, (st & kFlags) == 0ull))
-      if ((st & kFlags) == 0ull) st = status_load(p);
-    const unsigned inc = __ballot_sync(kFull, (st & kFlags) == kInclusive);
-    const int stop = inc ? __ffs(static_cast<int>(inc)) - 1 : 31;
-    ull v = lane <= stop ? st & ~kFlags : 0ull;
-    for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
-    before += v;
-    if (inc) return before;
-  }
-}
-
 // a tile of kTile region slots, a thread a slot: each kept slot's region
-// (rord[j]: its start in the sorted replicas, rcnt its count) ranked among
-// the kept, its distinct members less 2 (its triangles) and their offset
-// among all the triangles, by a scan of both counts packed in 64 bits in
-// the tile and a decoupled look-back across tiles (the tile's id from a
-// counter; warp 0 publishes the tile's counts, looks back and publishes its
-// inclusive counts); the kept regions' (start, count, triangle offset,
-// triangles) at their ranks (kl [n, 4]) and their means (mk [n, 3]), rows
-// past the kept ones left as they were.  The last tile adds the kept
-// regions and the triangles to fc.
+// (rord[j]: its members' start in svid, rcnt its count) ranked among the
+// kept, its distinct members less 2 (its triangles) and their offset among
+// all the triangles, by a scan of both counts packed in 64 bits in the tile
+// and a decoupled look-back across tiles (tiles_before); the kept regions'
+// (start, count, triangle offset, triangles) at their ranks (kl [n, 4]) and
+// their means (mk [n, 3]), rows past the kept ones left as they were.  The
+// last tile adds the kept regions and the triangles to fc.
 __global__ void __launch_bounds__(kTile) face_fans_count_kernel(
     const ll* __restrict__ rord, const int* __restrict__ rcnt,
     const int* __restrict__ svid, const float* __restrict__ mean,
     const int* __restrict__ keep, ll n, ull* fc, int4* kl, float* mk) {
-  __shared__ ull before_s;
-  __shared__ int last_s;
-  const int lane = threadIdx.x & 31;
   const int tile = take_tile();
   const ll j = static_cast<ll>(tile) * kTile + threadIdx.x;
   const ll s = j < n && keep[j] ? rord[j] : -1;
@@ -715,32 +824,23 @@ __global__ void __launch_bounds__(kTile) face_fans_count_kernel(
   }
   const int nt = distinct > 2 ? distinct - 2 : 0;
   ull run;  // the tile's counts
-  const ull off = tile_exclusive(
+  const ull off = tile_exclusive<kTile>(
       static_cast<ull>(s >= 0) | (static_cast<ull>(nt) << kTriShift), &run);
-  if (threadIdx.x < 32) {
-    if (lane == 0)
-      status_store(tile, (tile ? kAggregate : kInclusive) | run);
-    const ull before = tile ? look_back(tile, lane) : 0ull;
-    if (lane == 0) {
-      if (tile) status_store(tile, kInclusive | (before + run));
-      before_s = before;
-      if (tile == static_cast<int>(gridDim.x) - 1) {  // the totals
-        const ull tot = before + run;
-        if (tot & kKeptMask) atomicAdd(fc + FC_KEPT, tot & kKeptMask);
-        if (tot >> kTriShift) atomicAdd(fc + FC_TRI, tot >> kTriShift);
-      }
-      last_s = take_done();
-    }
+  bool last;
+  const ull before = tiles_before(tile, run, &last);
+  if (threadIdx.x == 0 && tile == static_cast<int>(gridDim.x) - 1) {
+    const ull tot = before + run;  // the totals
+    if (tot & kKeptMask) atomicAdd(fc + FC_KEPT, tot & kKeptMask);
+    if (tot >> kTriShift) atomicAdd(fc + FC_TRI, tot >> kTriShift);
   }
-  __syncthreads();
   if (s >= 0) {
-    const ull o = before_s + off;
+    const ull o = before + off;
     const ll r = static_cast<ll>(o & kKeptMask);
     kl[r] = make_int4(static_cast<int>(s), c,
                       static_cast<int>(o >> kTriShift), nt);
     for (int d = 0; d < 3; ++d) mk[3 * r + d] = mean[3 * s + d];
   }
-  if (last_s) reset_state();
+  if (last) reset_state();
 }
 
 // a thread a kept region (kl's row r, its mean mk and normal nrm at r): its
@@ -792,7 +892,9 @@ __global__ void __launch_bounds__(kThreads) face_fans_fill_kernel(
 
 #endif  // FACES_FIRST
 
-// --- face_regions ------------------------------------------------------------------
+#ifdef FACES_FIRST
+
+// --- face_regions, the first design -----------------------------------------
 
 // thread i: replica i of the key-sorted order (perm: the sort's permutation)
 // writes its member id; the one that starts a run of equal keys (a region)
@@ -854,13 +956,276 @@ __global__ void __launch_bounds__(kThreads) face_regions_dups_kernel(
   keep[j] = c >= 3 && !dup;
 }
 
+#else  // the design
+
+// --- face_regions ------------------------------------------------------------
+
+// a hash table slot, two 32-byte sectors: its key (kEmptyKey where
+// empty), its first replica (INT_MAX where empty), its count, the head of
+// its list of replicas past the first kInline (-1 where none), its first
+// kInline replicas in the order they came
+constexpr int kInline = 11;
+struct Slot {
+  ll key;
+  int first;
+  int count;
+  int head;
+  int m[kInline];
+};
+static_assert(sizeof(Slot) == 64, "a slot two sectors");
+
+// a region of a bucket: its key, member count and table slot; ordered by
+// (count, key), the signature order of one first member
+struct Region {
+  ll key;
+  int c;
+  int slot;
+};
+
+__device__ __forceinline__ bool region_before(const Region& a,
+                                              const Region& b) {
+  return a.c < b.c || (a.c == b.c && a.key < b.key);
+}
+
+// thread i: replica i's key into the table of 2^bits slots, probing from
+// its hash (a 64-bit compare-and-swap claims an empty one); the slot's
+// first replica (atomic min) and count, the replica in the slot's inline
+// list at the count's old value, or past kInline on its list (next[i] the
+// replica pushed before it, -1 at the end); its slot (rslot); a replica
+// that starts its vertex's run, the run's start (vstart [n_used]); its
+// signature slot's rord and keep set to -1 and 0, which the regions' slots
+// overwrite
+__global__ void __launch_bounds__(kThreads) face_regions_insert_kernel(
+    const ll* __restrict__ keys, const int* __restrict__ rvid, ll n, int bits,
+    Slot* __restrict__ table, int* __restrict__ rslot, int* __restrict__ next,
+    int* __restrict__ vstart, ll* __restrict__ rord, int* __restrict__ keep) {
+  const ll i = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const ull key = static_cast<ull>(keys[i]);
+  const ull empty = static_cast<ull>(kEmptyKey);
+  const ull mask = (1ull << bits) - 1ull;
+  ull h = (key * kHashMul) >> (64 - bits);
+  for (;; h = (h + 1ull) & mask) {
+    ull* slot = reinterpret_cast<ull*>(&table[h].key);
+    ull cur = cuda::atomic_ref<ull, cuda::thread_scope_device>(*slot).load(
+        cuda::std::memory_order_relaxed);
+    if (cur == empty) cur = atomicCAS(slot, empty, key);
+    if (cur == empty || cur == key) break;
+  }
+  Slot& sl = table[h];
+  atomicMin(&sl.first, static_cast<int>(i));
+  const int pos = atomicAdd(&sl.count, 1);
+  if (pos < kInline)
+    sl.m[pos] = static_cast<int>(i);
+  else
+    next[i] = atomicExch(&sl.head, static_cast<int>(i));
+  rslot[i] = static_cast<int>(h);
+  const int w = rvid[i];
+  if (i == 0 || rvid[i - 1] != w) vstart[w] = static_cast<int>(i);
+  rord[i] = -1;
+  keep[i] = 0;
+}
+
+// a tile of kRankTile used vertices, a thread a vertex v (its replicas the
+// run from vstart[v]): the regions whose first replica is in its run (its
+// bucket), in (count, key) order, in shared memory up to kBucket of them,
+// else in big at the run's start; the bucket's regions and members ranked
+// by a scan and a decoupled look-back across tiles (tiles_before), so that
+// region r of the bucket takes signature slot j (its rank) and the members'
+// range from s (the members of every region before it): rord[j] = s,
+// rcnt[s] its count, rsig[j] its signature (v << 32 | count), mem[s..] its
+// replicas in the order they came; its table slot cleared (a thread that
+// reads a cleared slot's first replica reads INT_MAX, no replica's)
+__global__ void __launch_bounds__(kRankTile) face_regions_rank_kernel(
+    const int* __restrict__ rvid, ll n, ll n_used, Slot* __restrict__ table,
+    const int* __restrict__ rslot, const int* __restrict__ next,
+    const int* __restrict__ vstart, Region* __restrict__ big,
+    ll* __restrict__ rord, int* __restrict__ rcnt, ll* __restrict__ rsig,
+    int* __restrict__ mem) {
+  __shared__ Region reg_s[kBucket * kRankTile];
+  const int tile = take_tile();
+  const ll v = static_cast<ll>(tile) * kRankTile + threadIdx.x;
+  ll i0 = 0;
+  int L = 0;
+  if (v < n_used) {  // the run's length, kBucket replicas' ids at a time
+    i0 = vstart[v];
+    for (int k = kBucket; k == kBucket;) {
+      int w[kBucket];
+#pragma unroll
+      for (int q = 0; q < kBucket; ++q)
+        w[q] = i0 + L + q < n ? rvid[i0 + L + q] : -1;
+      k = 0;
+#pragma unroll
+      for (int q = 0; q < kBucket; ++q) k += (k == q) & (w[q] == v);
+      L += k;
+    }
+  }
+  const bool small = L <= kBucket;
+  Region* b = small ? reg_s + threadIdx.x : big + i0;
+  const int st = small ? kRankTile : 1;
+  int N = 0;
+  ll C = 0;
+  for (int q0 = 0; q0 < L; q0 += kBucket) {  // kBucket replicas at a time
+    int h[kBucket], f[kBucket];
+#pragma unroll
+    for (int q = 0; q < kBucket; ++q)
+      h[q] = q0 + q < L ? rslot[i0 + q0 + q] : -1;
+#pragma unroll
+    for (int q = 0; q < kBucket; ++q)
+      f[q] = h[q] >= 0 ? table[h[q]].first : -1;
+#pragma unroll
+    for (int q = 0; q < kBucket; ++q) {
+      if (h[q] < 0 || f[q] != i0 + q0 + q) continue;  // not its region's first
+      const Region e{table[h[q]].key, table[h[q]].count, h[q]};
+      int p = N;
+      for (; p > 0 && region_before(e, b[(p - 1) * st]); --p)
+        b[p * st] = b[(p - 1) * st];
+      b[p * st] = e;
+      ++N;
+      C += e.c;
+    }
+  }
+  ull run;  // the tile's regions and members
+  const ull off = tile_exclusive<kRankTile>(
+      static_cast<ull>(N) | (static_cast<ull>(C) << kTriShift), &run);
+  bool last;
+  const ull o = tiles_before(tile, run, &last) + off;
+  ll j = static_cast<ll>(o & kKeptMask), s = static_cast<ll>(o >> kTriShift);
+  for (int r = 0; r < N; ++r, ++j) {
+    const Region e = b[r * st];
+    Slot& sl = table[e.slot];
+    rord[j] = s;
+    rcnt[s] = e.c;
+    rsig[j] = (v << 32) | e.c;
+    int m[kInline];
+#pragma unroll
+    for (int k = 0; k < kInline; ++k) m[k] = k < e.c ? sl.m[k] : 0;
+#pragma unroll
+    for (int k = 0; k < kInline; ++k)
+      if (k < e.c) mem[s + k] = m[k];
+    for (int i = sl.head, k = kInline; i >= 0; i = next[i], ++k)
+      mem[s + k] = i;
+    sl.key = kEmptyKey;
+    sl.first = INT_MAX;
+    sl.count = 0;
+    sl.head = -1;
+    s += e.c;
+  }
+  if (last) reset_state();
+}
+
+// a region's c members (their replicas at mem[0..c)) as ids in replica
+// order: up to kMembers in w (registers: the replicas sorted by a network
+// of compare-exchanges, then each replaced by its id), else in g[0..c)
+// (global: an insertion sort, then the ids in place)
+__device__ __forceinline__ void member_ids(const int* __restrict__ mem, int c,
+                                           const int* __restrict__ rvid,
+                                           int (&w)[kMembers], int* g) {
+  if (c <= kMembers) {
+#pragma unroll
+    for (int k = 0; k < kMembers; ++k) w[k] = k < c ? mem[k] : INT_MAX;
+#pragma unroll
+    for (int k = 1; k < kMembers; ++k)
+#pragma unroll
+      for (int q = k; q > 0; --q) {
+        const int lo = min(w[q - 1], w[q]), hi = max(w[q - 1], w[q]);
+        w[q - 1] = lo;
+        w[q] = hi;
+      }
+#pragma unroll
+    for (int k = 0; k < kMembers; ++k) w[k] = k < c ? rvid[w[k]] : -1;
+    return;
+  }
+  for (int k = 0; k < c; ++k) {
+    const int i = mem[k];
+    int p = k;
+    for (; p > 0 && g[p - 1] > i; --p) g[p] = g[p - 1];
+    g[p] = i;
+  }
+  for (int k = 0; k < c; ++k) g[k] = rvid[g[k]];
+}
+
+// thread j, signature slot j < the regions (rord[j] >= 0): its region's
+// members (member_ids, in registers up to kMembers, else in svid) written
+// as ids at s = rord[j], its count and mean (fixed-point sums, one
+// division) at s and zeros past it; kept unless it has fewer than 3
+// members or an earlier slot of its run of equal signatures (rsig; their
+// ranges just before s, c members each) has its member ids (worked out
+// again from that region's replicas, in registers, or in tmp at s past
+// kMembers)
+__global__ void __launch_bounds__(kThreads) face_regions_members_kernel(
+    const int* __restrict__ rvid, const float* __restrict__ Vf, ll n,
+    const int* __restrict__ mem, const ll* __restrict__ rsig,
+    const ll* __restrict__ rord, int* __restrict__ rcnt,
+    float* __restrict__ mean, int* __restrict__ svid, int* __restrict__ tmp,
+    int* __restrict__ keep) {
+  const ll j = static_cast<ll>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n) return;
+  const ll s = rord[j];
+  if (s < 0) return;
+  const int c = rcnt[s];
+  const ll g = rsig[j];
+  const ll gp = j > 0 ? rsig[j - 1] : -1;
+  const bool small = c <= kMembers;
+  int w[kMembers], o[kMembers];
+  member_ids(mem + s, c, rvid, w, svid + s);
+  ll sum[3] = {0, 0, 0};
+  if (small) {
+#pragma unroll
+    for (int k = 0; k < kMembers; ++k)
+      if (k < c)
+        for (int d = 0; d < 3; ++d)
+          sum[d] +=
+              llrintf(__fmul_rn(Vf[3 * static_cast<ll>(w[k]) + d], kFix));
+#pragma unroll
+    for (int k = 0; k < kMembers; ++k)
+      if (k < c) svid[s + k] = w[k];
+  } else {
+    for (int k = 0; k < c; ++k)
+      for (int d = 0; d < 3; ++d)
+        sum[d] += llrintf(
+            __fmul_rn(Vf[3 * static_cast<ll>(svid[s + k]) + d], kFix));
+  }
+  const float den = __fmul_rn(static_cast<float>(c), kFix);
+  for (int d = 0; d < 3; ++d)
+    mean[3 * s + d] = __fdiv_rn(static_cast<float>(sum[d]), den);
+  for (int k = 1; k < c; ++k) {
+    rcnt[s + k] = 0;
+    for (int d = 0; d < 3; ++d) mean[3 * (s + k) + d] = 0.0f;
+  }
+  bool dup = false;
+  for (ll q = j - 1; gp == g && q >= 0 && !dup && rsig[q] == g; --q) {
+    const ll t = s - (j - q) * c;
+    member_ids(mem + t, c, rvid, o, tmp + s);
+    bool same = true;
+    if (small) {
+#pragma unroll
+      for (int k = 1; k < kMembers; ++k) same &= k >= c || w[k] == o[k];
+    } else {
+      for (int k = 1; k < c && same; ++k) same = svid[s + k] == tmp[s + k];
+    }
+    dup = same;
+  }
+  keep[j] = c >= 3 && !dup;
+}
+
+#endif  // FACES_FIRST
+
 }  // namespace
 
 // --- launch functions (tropical_torch/extract/device.py's stage order) --------
 
 extern "C" {
 
-// the vertex pass, then the edge pass (none without edges)
+// 1 in a build of the first design (-DFACES_FIRST), whose launch functions
+// are named *_first_launch (but final_keep's) and whose stage takes the
+// caller's prefix sums and sorts; else 0
+int faces_first_design() { return kFacesFirst ? 1 : 0; }
+
+#ifdef FACES_FIRST
+
+// the vertex pass, then the edge pass (none without edges); the caller
+// clears ends
 int final_keep_launch(const float* V, const float* OUT, ll nV, const int* E,
                       ll nE, float eps, float scale, int* keep, int* ends,
                       ull* fc, cudaStream_t stream) {
@@ -878,26 +1243,67 @@ int final_keep_launch(const float* V, const float* OUT, ll nV, const int* E,
   return done(launched);
 }
 
-int face_regions_runs_launch(const ll* skey, const ll* perm, const int* rvid,
-                             const float* Vf, ll n, ll* sig, int* rcnt,
-                             float* mean, int* svid, cudaStream_t stream) {
+int face_regions_runs_first_launch(const ll* skey, const ll* perm,
+                                   const int* rvid, const float* Vf, ll n,
+                                   ll* sig, int* rcnt, float* mean, int* svid,
+                                   cudaStream_t stream) {
   face_regions_runs_kernel<<<blocks(n), kThreads, 0, stream>>>(
       skey, perm, rvid, Vf, n, sig, rcnt, mean, svid);
   return done();
 }
 
-int face_regions_dups_launch(const ll* ssig, const ll* rord, const int* rcnt,
-                             const int* svid, ll n, int* keep,
-                             cudaStream_t stream) {
+int face_regions_dups_first_launch(const ll* ssig, const ll* rord,
+                                   const int* rcnt, const int* svid, ll n,
+                                   int* keep, cudaStream_t stream) {
   face_regions_dups_kernel<<<blocks(n), kThreads, 0, stream>>>(
       ssig, rord, rcnt, svid, n, keep);
   return done();
 }
 
-// 1 in a build of the first design (-DFACES_FIRST), whose launch functions
-// are named *_first_launch and whose stage takes the caller's prefix sums
-// and sort; else 0
-int faces_first_design() { return kFacesFirst ? 1 : 0; }
+#else
+
+// one launch: the vertices' blocks, then the edges'; the caller clears
+// ends
+int final_keep_launch(const float* V, const float* OUT, ll nV, const int* E,
+                      ll nE, float eps, float scale, int* keep, int* ends,
+                      ull* fc, cudaStream_t stream) {
+  const ll vtiles = (nV + kThreads - 1) / kThreads;
+  const ll tiles = vtiles + (nE + kThreads - 1) / kThreads;
+  if (tiles == 0) return done(0);
+  if (tiles > INT_MAX) return -static_cast<int>(cudaErrorInvalidValue);
+  final_keep_kernel<<<static_cast<int>(tiles), kThreads, 0, stream>>>(
+      V, OUT, nV, E, nE, static_cast<int>(vtiles), eps, scale, keep, ends, fc);
+  return done();
+}
+
+// face_regions_insert a thread a replica, face_regions_rank a tile of
+// kRankTile used vertices a block (at most kMaxTiles), face_regions_members
+// a thread a signature slot; the table of 2^bits slots (at least 2 n),
+// empty, is left empty.  -cudaErrorInvalidValue for a table too small or
+// no used vertex.
+int face_regions_launch(const ll* keys, const int* rvid, const float* Vf,
+                        ll n, ll n_used, ll bits, void* table, int* rslot,
+                        int* next, int* vstart, void* big, ll* rsig, int* mem,
+                        int* tmp, ll* rord, int* rcnt, float* mean, int* svid,
+                        int* keep, cudaStream_t stream) {
+  const ll tiles = (n_used + kRankTile - 1) / kRankTile;
+  if (n_used <= 0 || tiles > kMaxTiles || bits < 1 || bits > 30 ||
+      (1LL << bits) < 2 * n)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  Slot* slots = static_cast<Slot*>(table);
+  face_regions_insert_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      keys, rvid, n, static_cast<int>(bits), slots, rslot, next, vstart, rord,
+      keep);
+  face_regions_rank_kernel<<<static_cast<int>(tiles), kRankTile, 0,
+                             stream>>>(
+      rvid, n, n_used, slots, rslot, next, vstart, static_cast<Region*>(big),
+      rord, rcnt, rsig, mem);
+  face_regions_members_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      rvid, Vf, n, mem, rsig, rord, rcnt, mean, svid, tmp, keep);
+  return done(3);
+}
+
+#endif  // FACES_FIRST
 
 #ifdef FACES_FIRST
 

@@ -101,13 +101,14 @@ tensor takes the plain version, a CUDA tensor the kernel.
   ``census_edges`` / ``census_vertices`` (the prune's survivors and the
   per-plane histograms) and ``compact_rows`` / ``compact_edges`` (the
   prune's compaction);
-- K6 (``csrc/faces.cu``): ``final_keep`` (the keep flags, a vertex pass
-  and an edge pass), ``face_keys`` (``face_keys_count``: each used
-  vertex's all-minus key, its zero columns and zero count;
-  ``face_keys_fill``: its replicas), ``face_regions`` (``_runs``: each
-  region's signature, count and mean; ``_dups``: the kept regions),
-  ``face_fans`` (``_count``: the triangles of each kept region; ``_fill``:
-  the angular sort and the fan).
+- K6 (``csrc/faces.cu``): ``final_keep`` (the keep flags and the ends of
+  the edges and kept edges, one launch), ``face_keys``
+  (``face_keys_count``: each used vertex's all-minus key, its zero columns
+  and zero count; ``face_keys_fill``: its replicas), ``face_regions`` (the
+  replicas grouped by key in a hash table, the regions ranked in
+  signature order by their first member's vertex: their members, counts,
+  means and kept flags), ``face_fans`` (``_count``: the triangles of each
+  kept region; ``_fill``: the angular sort and the fan).
 
 K2 (the lattice encode) is ``core/hashgrid.lattice_encode``.
 """
@@ -363,6 +364,23 @@ class Kernels:
         self.first_skeleton = bool(lib.skeleton_first_design())
         self.first_split = bool(lib.split_first_design())
         self.first_faces = bool(lib.faces_first_design())
+        self._table = None
+
+    def region_table(self, n: int):
+        """``face_regions``' hash table for ``n`` replicas: ([S, 8] int64,
+        a 64-byte slot a row: its key, ``EMPTY_KEY`` where empty; as int32
+        its first replica (INT_MAX where empty), its count (0), its
+        overflow list's head (-1) and its first 11 replicas), log2 S), S
+        the least power of two of at least 2 n and 1,024.  Empty when
+        handed out: every launch clears the slots it filled.  Kept across
+        calls, grown as needed."""
+        bits = max(10, (2 * n - 1).bit_length())
+        size = 1 << bits
+        if self._table is None or self._table.shape[0] < size:
+            empty = torch.tensor([EMPTY_KEY, 2 ** 31 - 1, 2 ** 32 - 1] +
+                                 [0] * 5, dtype=torch.int64)
+            self._table = empty.to(self.device).repeat(size, 1)
+        return self._table[:size], bits
 
     def __call__(self, kernel: str, name: str, n: int, *args) -> None:
         if n <= 0:
@@ -1356,6 +1374,10 @@ PFIX = 2.0 ** 22         # the means' fixed point (the JAX engine's, :1614)
 KEY_SHIFT = (52, 42, 32)
 
 
+# face_regions' hash table: an empty slot's key (no region key is)
+EMPTY_KEY = -2 ** 63
+
+
 def final_keep_plain(V, OUT, E, eps: float, scale: float, fc):
     keep = OUT[:, -1].abs() < eps
     xu = (V + scale) / (scale * 2)
@@ -1379,8 +1401,10 @@ def final_keep(V, OUT, E, eps: float, scale: float, fc,
     int32, a vertex with |OUT[:, -1]| < eps inside the unit cube; ends
     [2, nV] int32, row 0 the ends of an edge, row 1 the ends of a kept
     edge, both ends kept).  Counts the kept vertices, the edges and the
-    kept edges into ``fc``.  Two launches: a thread a vertex, then a
-    thread an edge."""
+    kept edges into ``fc``.  One launch, a thread a vertex or an edge, an
+    edge's thread testing its two ends itself (the first design,
+    ``-DFACES_FIRST``: a vertex pass, then an edge pass reading its
+    flags)."""
     run = _run(kern, V.device)
     if run is None:
         return final_keep_plain(V, OUT, E, eps, scale, fc)
@@ -1594,7 +1618,7 @@ def face_keys_fill_first(V, rows, kzs, order, vcum, fc, n_used: int,
     return keys, rvid, Vf
 
 
-def face_regions_runs_plain(skey, perm, rvid, Vf):
+def face_regions_runs_first_plain(skey, perm, rvid, Vf):
     n = skey.shape[0]
     dev = skey.device
     svid = rvid[perm]
@@ -1614,9 +1638,11 @@ def face_regions_runs_plain(skey, perm, rvid, Vf):
     return sig, rcnt, mean, svid
 
 
-def face_regions_runs(skey, perm, rvid, Vf, kern: Kernels | None = None):
-    """A thread a replica of the key-sorted replicas (``skey``; ``perm``
-    the sort's permutation of ``face_keys_fill``'s order): the one that
+def face_regions_runs_first(skey, perm, rvid, Vf,
+                            kern: Kernels | None = None):
+    """The first design's runs (``-DFACES_FIRST``), a thread a replica of
+    the key-sorted replicas (``skey``; ``perm`` the sort's permutation of
+    ``face_keys_fill``'s order): the one that
     starts a run of equal keys, a region, writes at its position the
     region's signature (its first member's id << 32 | its member count;
     ``SIG_NONE`` elsewhere) [n] int64, its count [n] int32 (0 elsewhere)
@@ -1625,17 +1651,17 @@ def face_regions_runs(skey, perm, rvid, Vf, kern: Kernels | None = None):
     id in sorted order, ``svid`` [n] int32."""
     run = _run(kern, skey.device)
     if run is None:
-        return face_regions_runs_plain(skey, perm, rvid, Vf)
+        return face_regions_runs_first_plain(skey, perm, rvid, Vf)
     n, dev = skey.shape[0], skey.device
     sig = torch.empty(n, dtype=torch.int64, device=dev)
     rcnt, svid = _i32(n, device=dev), _i32(n, device=dev)
     mean = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    run("face_regions", "face_regions_runs", n, skey, perm, rvid, Vf, n, sig,
-        rcnt, mean, svid)
+    run("face_regions", "face_regions_runs_first", n, skey, perm, rvid, Vf,
+        n, sig, rcnt, mean, svid)
     return sig, rcnt, mean, svid
 
 
-def face_regions_dups_plain(ssig, rord, rcnt, svid):
+def face_regions_dups_first_plain(ssig, rord, rcnt, svid):
     n = ssig.shape[0]
     dev = ssig.device
     real = ssig != SIG_NONE
@@ -1662,20 +1688,82 @@ def face_regions_dups_plain(ssig, rord, rcnt, svid):
     return (real & (c >= 3) & ~dup).to(torch.int32)
 
 
-def face_regions_dups(ssig, rord, rcnt, svid, kern: Kernels | None = None):
-    """A thread a region slot of the signature-sorted order (``ssig``,
+def face_regions_dups_first(ssig, rord, rcnt, svid,
+                            kern: Kernels | None = None):
+    """The first design's duplicates (``-DFACES_FIRST``), a thread a region
+    slot of the signature-sorted order (``ssig``,
     ``rord`` the sort's permutation of the replica positions): the region
     is kept (1, int32 [n]) if it has 3 members or more and is no duplicate:
     no earlier region of its run of equal signatures has its member list,
     compared member by member with every one of them."""
     run = _run(kern, ssig.device)
     if run is None:
-        return face_regions_dups_plain(ssig, rord, rcnt, svid)
+        return face_regions_dups_first_plain(ssig, rord, rcnt, svid)
     n = ssig.shape[0]
     keep = _i32(n, device=ssig.device)
-    run("face_regions", "face_regions_dups", n, ssig, rord, rcnt, svid, n,
-        keep)
+    run("face_regions", "face_regions_dups_first", n, ssig, rord, rcnt, svid,
+        n, keep)
     return keep
+
+
+def face_regions_plain(keys, rvid, Vf):
+    skey, perm = torch.sort(keys, stable=True)
+    sig, rcnt0, mean0, svid0 = face_regions_runs_first_plain(skey, perm,
+                                                             rvid, Vf)
+    ssig, o = torch.sort(sig, stable=True)
+    n, dev = keys.shape[0], keys.device
+    m = int((ssig != SIG_NONE).sum())
+    # the regions in signature order, their members end to end
+    old = o[:m]
+    c = rcnt0[old].long()
+    start = torch.cumsum(c, 0) - c
+    r, pos, _ = _members(start, c)
+    svid = torch.empty_like(svid0)
+    svid[pos] = svid0[old[r] + pos - start[r]]
+    rcnt = _zeros32(n, device=dev)
+    rcnt[start] = c.to(torch.int32)
+    mean = torch.zeros_like(mean0)
+    mean[start] = mean0[old]
+    rord = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    rord[:m] = start
+    keep = face_regions_dups_first_plain(ssig, rord.clamp(min=0), rcnt, svid)
+    return rord, rcnt, mean, svid, keep
+
+
+def face_regions(keys, rvid, Vf, kern: Kernels | None = None):
+    """The regions of ``face_keys_fill``'s replicas (``keys``, the member
+    ids ``rvid``, every used vertex's replicas one run; ``Vf`` the used
+    points), in the order of a stable sort of the keys and then of the
+    regions' signatures (first member, then count; ties in key order),
+    without a sort: the replicas grouped in a hash table (``Kernels.
+    region_table``), a thread a used vertex ranking the regions whose first
+    member it is (by count, then key) across tiles of 64 vertices by a
+    decoupled look-back, then a thread a region writing its members.
+    Returns, over the n replica slots, (rord [n]
+    int64: region j's members' start in ``svid``, -1 past the regions;
+    rcnt [n] int32: a region's member count at its start, 0 elsewhere;
+    mean [n, 3]: its members' mean in 2^-22 fixed point (integer sums, one
+    f32 division) at its start, 0 elsewhere; svid [n] int32: the regions'
+    members in signature order, each region's in replica order; keep [n]
+    int32: region j has 3 members or more and no earlier region of its run
+    of equal signatures has its members, 0 past the regions).  Three
+    launches."""
+    run = _run(kern, keys.device)
+    if run is None:
+        return face_regions_plain(keys, rvid, Vf)
+    n, n_used, dev = keys.shape[0], Vf.shape[0], keys.device
+    table, bits = run.region_table(n)
+    rord = torch.empty(n, dtype=torch.int64, device=dev)
+    rcnt, svid, keep = (_i32(n, device=dev) for _ in range(3))
+    mean = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    rslot, nxt, mem, tmp = (_i32(n, device=dev) for _ in range(4))
+    vstart = _i32(n_used, device=dev)
+    big = torch.empty((n, 2), dtype=torch.int64, device=dev)  # [n] Region
+    rsig = torch.empty(n, dtype=torch.int64, device=dev)
+    run("face_regions", "face_regions", n, keys, rvid, Vf, n, n_used, bits,
+        table, rslot, nxt, vstart, big, rsig, mem, tmp, rord, rcnt, mean,
+        svid, keep)
+    return rord, rcnt, mean, svid, keep
 
 
 def _region_members(rord, rcnt, keep):
@@ -2238,7 +2326,7 @@ class Engine:
         fc = torch.zeros(FC, dtype=torch.int64, device=dev)
         _, ends = final_keep(V, OUT, E, eps, scale, fc, kern=k)
         # K6's first design (-DFACES_FIRST) takes torch.cumsum and
-        # torch.sort between its kernels
+        # torch.sort between its kernels; the design none
         first = isinstance(k, Kernels) and k.first_faces
         if first:
             kz, rows = face_keys_count_first(V, SB, ZB, ends, self.marks,
@@ -2259,13 +2347,16 @@ class Engine:
             kzs, order = torch.sort(kz, stable=True)
             keys, rvid, Vf = face_keys_fill_first(V, rows, kzs, order, vcum,
                                                   fc, n_used, n_rep, kern=k)
+            skey, perm = torch.sort(keys, stable=True)
+            sig, rcnt, mean, svid = face_regions_runs_first(skey, perm, rvid,
+                                                            Vf, kern=k)
+            ssig, rord = torch.sort(sig, stable=True)
+            keep = face_regions_dups_first(ssig, rord, rcnt, svid, kern=k)
         else:
             keys, rvid, Vf = face_keys_fill(V, rows, rk, agg, fc, n_used,
                                             n_rep, kern=k)
-        skey, perm = torch.sort(keys, stable=True)
-        sig, rcnt, mean, svid = face_regions_runs(skey, perm, rvid, Vf, kern=k)
-        ssig, rord = torch.sort(sig, stable=True)
-        keep = face_regions_dups(ssig, rord, rcnt, svid, kern=k)
+            rord, rcnt, mean, svid, keep = face_regions(keys, rvid, Vf,
+                                                        kern=k)
         n = keep.shape[0]
         if first:
             kcum = torch.cumsum(keep, 0, dtype=torch.int64)
